@@ -1,0 +1,435 @@
+"""The declarative experiment description (twin of repro.api.specs).
+
+The spec tree and its JSON layout are the JAX package's, field for field, so
+a spec file written by `repro` loads here (`spec_from_dict`, strict on
+unknown keys).  Validation runs in two steps: the JAX package's own checks
+(unknown registry entries, out-of-range knobs -> SpecError), then this
+slice's limits: every field whose feature is not ported yet raises
+NotPortedError naming the ROADMAP item it waits for — never silently
+ignored.  BackendSpec's Monte-Carlo knobs (trial_devices, compute_dtype,
+donate) are read by batch_fit only, in the JAX package as here.
+
+`FaultSpec` and `ObsSpec` are copies of the JAX package's spec dataclasses
+(fields, `is_inert` / `enabled`, validation): the port has no fault or
+observability layer yet, so a non-inert FaultSpec (ROADMAP A12) or an
+enabled ObsSpec (A13) is rejected.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.agents import FAMILIES
+from repro_torch.agents import NOT_PORTED as FAMILIES_NOT_PORTED
+from repro_torch.core.icoa import ICOAConfig, NotPortedError
+from repro_torch.data import sources as data_sources
+from repro_torch.data.partition import NOT_PORTED as PARTITIONS_NOT_PORTED
+from repro_torch.data.partition import PARTITIONS, make_groups, validate_partition
+from repro_torch.data.sources import NOT_PORTED as SOURCES_NOT_PORTED
+from repro_torch.data.sources import SOURCES
+from repro_torch.transport import default_transport
+
+__all__ = [
+    "DataSpec", "AgentSpec", "SolverSpec", "BackendSpec", "TransportSpec",
+    "FaultSpec", "ObsSpec", "ExperimentSpec", "Dataset", "SpecError",
+    "NotPortedError", "spec_to_dict", "spec_from_dict",
+]
+
+_SOLVERS = ("icoa", "averaging", "residual_refitting")
+_BACKENDS = ("local", "shard_map")
+_CHECKS = ("off", "raise")
+_COMPUTE_DTYPES = ("bfloat16", "float32", "float64")
+_TOPOLOGIES = ("full", "random_graph", "ring", "star")
+_CODECS = ("exact_bf16", "exact_f32", "exact_f64", "int8_affine", "topk_sparse")
+_POLICIES = ("greedy_eta", "truncate")
+_TAPS = ("accepts", "budget_rejects", "codec_error", "eta", "fault_retries", "s")
+
+
+class SpecError(ValueError):
+    """A spec field refers to an unknown registry entry or is inconsistent."""
+
+
+class SpecNotPortedError(SpecError, NotPortedError):
+    """A valid spec field whose feature this port does not implement yet."""
+
+
+class Dataset(NamedTuple):
+    """Materialised data, already partitioned into per-agent column stacks."""
+
+    xcols: torch.Tensor        # (D, N_train, C) agent column views
+    y: torch.Tensor            # (N_train,)
+    xcols_test: torch.Tensor   # (D, N_test, C)
+    y_test: torch.Tensor       # (N_test,)
+    groups: List[List[int]]    # attribute partition (agent i -> column indices)
+
+
+def _not_ported(what: str, item: str) -> SpecNotPortedError:
+    return SpecNotPortedError(f"{what} is not ported to repro_torch yet: it "
+                              f"waits for ROADMAP {item}")
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSpec:
+    source: str = "friedman1"
+    n_train: int = 2000
+    n_test: int = 2000
+    noise: float = 0.0
+    seed: int = 0
+    n_attrs: Optional[int] = None
+    source_options: Tuple[Tuple[str, Any], ...] = ()
+    partition: str = "one_per_agent"
+    n_agents: Optional[int] = None
+    partition_options: Tuple[Tuple[str, Any], ...] = ()
+
+    def _source(self):
+        if self.source in SOURCES_NOT_PORTED:
+            raise _not_ported(f"data source {self.source!r}",
+                              SOURCES_NOT_PORTED[self.source])
+        src = SOURCES.get(self.source)
+        if src is None:
+            raise SpecError(f"unknown data source {self.source!r}; "
+                            f"registered: {sorted(SOURCES)}")
+        return src
+
+    @property
+    def resolved_n_attrs(self) -> int:
+        try:
+            return self._source().resolve_n_attrs(self.n_attrs)
+        except SpecError:
+            raise
+        except ValueError as e:
+            raise SpecError(str(e)) from None
+
+    @property
+    def resolved_n_agents(self) -> int:
+        return self.resolved_n_attrs if self.n_agents is None else self.n_agents
+
+    def validate(self) -> None:
+        src = self._source()
+        if self.partition in PARTITIONS_NOT_PORTED:
+            raise _not_ported(f"partition {self.partition!r}",
+                              PARTITIONS_NOT_PORTED[self.partition])
+        if self.partition not in PARTITIONS:
+            raise SpecError(f"unknown partition {self.partition!r}; "
+                            f"registered: {sorted(PARTITIONS)}")
+        for label, opts, known in (
+                ("source", self.source_options, src.options),
+                ("partition", self.partition_options,
+                 PARTITIONS[self.partition].options)):
+            for name, _ in opts:
+                if name not in known:
+                    raise SpecError(f"{label} {getattr(self, label)!r} has no "
+                                    f"option {name!r}; valid: {sorted(known)}")
+        if self.n_train < 2 or self.n_test < 1:
+            raise SpecError("need n_train >= 2 and n_test >= 1")
+        try:
+            validate_partition(self.groups, self.resolved_n_attrs)
+        except ValueError as e:
+            raise SpecError(str(e)) from None
+
+    @property
+    def groups(self) -> List[List[int]]:
+        try:
+            return make_groups(self.partition, self.resolved_n_attrs,
+                               self.resolved_n_agents,
+                               options=self.partition_options)
+        except SpecError:
+            raise
+        except (TypeError, ValueError) as e:
+            raise SpecError(f"partition {self.partition!r}: {e}") from None
+
+    def build(self, device="cpu") -> Dataset:
+        """Generate (on the CPU, from `seed`), standardise, partition, and
+        move to `device`."""
+        self.validate()
+        xtr, ytr, xte, yte = data_sources.make_dataset(
+            self.source, n_train=self.n_train, n_test=self.n_test,
+            seed=self.seed, noise=self.noise, n_attrs=self.n_attrs,
+            options=self.source_options)
+        groups = self.groups
+        xcols = torch.stack([xtr[:, g] for g in groups])
+        xcols_test = torch.stack([xte[:, g] for g in groups])
+        return Dataset(xcols.to(device), ytr.to(device), xcols_test.to(device),
+                       yte.to(device), groups)
+
+
+@dataclasses.dataclass(frozen=True)
+class AgentSpec:
+    family: str = "polynomial"
+    options: Tuple[Tuple[str, Any], ...] = ()
+
+    def validate(self) -> None:
+        if self.family in FAMILIES_NOT_PORTED:
+            raise _not_ported(f"agent family {self.family!r}",
+                              FAMILIES_NOT_PORTED[self.family])
+        if self.family not in FAMILIES:
+            raise SpecError(f"unknown agent family {self.family!r}; "
+                            f"registered: {sorted(FAMILIES)}")
+        fields = {f.name for f in dataclasses.fields(FAMILIES[self.family])} - {"n_cols"}
+        for name, _ in self.options:
+            if name not in fields:
+                raise SpecError(f"family {self.family!r} has no option "
+                                f"{name!r}; valid: {sorted(fields)}")
+
+    def resolve(self, n_cols: int):
+        self.validate()
+        return FAMILIES[self.family](n_cols=n_cols, **dict(self.options))
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverSpec:
+    name: str = "icoa"
+    n_sweeps: int = 10
+    eps: float = 1e-7
+    alpha: float = 1.0
+    delta: float = 0.0
+    engine: str = "incremental"
+    row_broadcast: bool = False  # dense engine only; incremental/fused are row-wise
+    use_kernel: bool = False    # route the products through the CUDA kernels
+    accept_reject: bool = True
+    step0: float = 1.0
+    backtrack: float = 0.5
+    max_probes: int = 16
+    minimax_steps: int = 300
+    minimax_lr: float = 0.05
+
+    def validate(self) -> None:
+        if self.name not in _SOLVERS:
+            raise SpecError(f"unknown solver {self.name!r}; pick one of {_SOLVERS}")
+        if self.alpha < 1.0:
+            raise SpecError(f"alpha is a compression RATE, must be >= 1 "
+                            f"(got {self.alpha})")
+        if self.delta < 0.0:
+            raise SpecError(f"delta must be >= 0 (got {self.delta})")
+        if self.n_sweeps < 1:
+            raise SpecError("need n_sweeps >= 1")
+        if self.engine not in ("dense", "incremental", "fused"):
+            raise SpecError(f"unknown engine {self.engine!r}; pick 'dense', "
+                            f"'incremental' or 'fused'")
+        if self.name != "icoa":
+            raise _not_ported(f"solver {self.name!r}", "A8")
+        if self.alpha > 1.0:
+            raise _not_ported(f"alpha={self.alpha} (compressed exchange)", "A8")
+        if self.delta > 0.0:
+            raise _not_ported(f"delta={self.delta} (Minimax Protection)", "A8")
+        if self.engine == "dense":
+            raise _not_ported("engine='dense'", "A4")
+
+    def icoa_config(self, transport=None) -> ICOAConfig:
+        return ICOAConfig(
+            n_sweeps=self.n_sweeps, eps=self.eps, step0=self.step0,
+            backtrack=self.backtrack, max_probes=self.max_probes,
+            alpha=self.alpha, delta=self.delta, use_kernel=self.use_kernel,
+            accept_reject=self.accept_reject, engine=self.engine,
+            transport=transport)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransportSpec:
+    topology: str = "full"
+    topology_options: Tuple[Tuple[str, Any], ...] = ()
+    codec: str = "exact_f64"
+    codec_options: Tuple[Tuple[str, Any], ...] = ()
+    byte_budget: Optional[float] = None
+    policy: str = "greedy_eta"
+
+    def validate(self) -> None:
+        if self.topology not in _TOPOLOGIES:
+            raise SpecError(f"unknown topology {self.topology!r}; "
+                            f"known: {sorted(_TOPOLOGIES)}")
+        if self.codec not in _CODECS:
+            raise SpecError(f"unknown codec {self.codec!r}; "
+                            f"known: {sorted(_CODECS)}")
+        if self.policy not in _POLICIES:
+            raise SpecError(f"unknown budget policy {self.policy!r}; "
+                            f"pick one of {_POLICIES}")
+        if self.byte_budget is not None and not (
+                math.isfinite(self.byte_budget) and self.byte_budget > 0):
+            raise SpecError(f"byte_budget must be positive and finite (got "
+                            f"{self.byte_budget}); use None for unbudgeted")
+        if self != TransportSpec():
+            raise _not_ported("a non-default TransportSpec (topology, codec, "
+                              "byte budget or policy)", "A9")
+
+
+@dataclasses.dataclass(frozen=True)
+class BackendSpec:
+    name: str = "local"
+    n_devices: Optional[int] = None
+    trial_devices: Optional[int] = None
+    compute_dtype: Optional[str] = None
+    donate: bool = True
+    checks: str = "off"
+
+    def validate(self) -> None:
+        if self.name not in _BACKENDS:
+            raise SpecError(f"unknown backend {self.name!r}; pick one of {_BACKENDS}")
+        if self.checks not in _CHECKS:
+            raise SpecError(f"BackendSpec.checks must be one of {_CHECKS}, "
+                            f"got {self.checks!r}")
+        if self.trial_devices is not None and self.trial_devices < 1:
+            raise SpecError(f"trial_devices must be >= 1 (got {self.trial_devices})")
+        if self.compute_dtype is not None and self.compute_dtype not in _COMPUTE_DTYPES:
+            raise SpecError(f"unknown compute_dtype {self.compute_dtype!r}; "
+                            f"pick one of {list(_COMPUTE_DTYPES)}")
+        if self.name == "shard_map":
+            raise _not_ported("backend='shard_map' (multi-device)", "A11")
+        if self.checks == "raise":
+            raise _not_ported("checks='raise' (the sanitizer rail)", "A15")
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultSpec:
+    """Copy of repro.faults.FaultSpec: the seeded failure model."""
+
+    seed: int = 0
+    drop_rate: float = 0.0
+    corrupt_rate: float = 0.0
+    corrupt_bits: int = 8
+    straggle_rate: float = 0.0
+    max_retries: int = 0
+    crash: Tuple[Tuple[int, int, int], ...] = ()
+
+    @property
+    def is_inert(self) -> bool:
+        return (self.drop_rate == 0.0 and self.corrupt_rate == 0.0
+                and self.straggle_rate == 0.0 and not self.crash)
+
+    def validate(self) -> None:
+        for name in ("drop_rate", "corrupt_rate", "straggle_rate"):
+            v = getattr(self, name)
+            if not 0.0 <= v <= 1.0:
+                raise SpecError(f"faults: {name} is a probability, must be in "
+                                f"[0, 1] (got {v})")
+        if self.max_retries < 0 or self.corrupt_bits < 1:
+            raise SpecError("faults: need max_retries >= 0 and corrupt_bits >= 1")
+        if not self.is_inert:
+            raise _not_ported("fault injection (a non-inert FaultSpec)", "A12")
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsSpec:
+    """Copy of repro.obs.ObsSpec: which in-sweep taps to collect."""
+
+    taps: Tuple[str, ...] = ()
+
+    @property
+    def enabled(self) -> bool:
+        return bool(self.taps)
+
+    def validate(self) -> None:
+        unknown = sorted(set(self.taps) - set(_TAPS))
+        if unknown:
+            raise SpecError(f"obs: unknown tap(s) {unknown}; "
+                            f"registered: {list(_TAPS)}")
+        if self.enabled:
+            raise _not_ported("obs taps (an enabled ObsSpec)", "A13")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExperimentSpec:
+    data: DataSpec = DataSpec()
+    agent: AgentSpec = AgentSpec()
+    solver: SolverSpec = SolverSpec()
+    backend: BackendSpec = BackendSpec()
+    transport: TransportSpec = TransportSpec()
+    faults: FaultSpec = FaultSpec()
+    obs: ObsSpec = ObsSpec()
+    seed: int = 0
+
+    def validate(self) -> None:
+        self.data.validate()
+        self.agent.validate()
+        self.solver.validate()
+        self.backend.validate()
+        self.transport.validate()
+        self.faults.validate()
+        self.obs.validate()
+
+    def resolved_transport(self):
+        """The default transport — the only one this slice accepts."""
+        return default_transport(self.data.resolved_n_agents)
+
+
+# ------------------------------------------------------------- serialisation
+
+
+def spec_to_dict(spec: ExperimentSpec) -> Dict[str, Any]:
+    return dataclasses.asdict(spec)
+
+
+def _checked_fields(cls, d: Dict[str, Any], where: str) -> Dict[str, Any]:
+    allowed = {f.name for f in dataclasses.fields(cls)}
+    unknown = sorted(set(d) - allowed)
+    if unknown:
+        raise SpecError(f"unrecognised field(s) in {where}: {unknown}; "
+                        f"valid fields: {sorted(allowed)}")
+    return dict(d)
+
+
+def _pairs(value, where: str) -> Tuple[Tuple[str, Any], ...]:
+    # JSON turns tuple-of-pairs into list-of-lists; restore it
+    if isinstance(value, (str, bytes)) or not hasattr(value, "__iter__"):
+        raise SpecError(f"{where} must be a sequence of [name, value] pairs "
+                        f"(got {value!r})")
+    out = []
+    for pos, item in enumerate(value):
+        try:
+            k, v = item
+        except (TypeError, ValueError):
+            raise SpecError(f"{where}[{pos}] is not a [name, value] pair "
+                            f"(got {item!r})") from None
+        out.append((str(k), v))
+    return tuple(out)
+
+
+def _crash_entries(value, where: str) -> Tuple[Tuple[int, int, int], ...]:
+    if isinstance(value, (str, bytes)) or not hasattr(value, "__iter__"):
+        raise SpecError(f"{where} must be a sequence of [agent, down_round, "
+                        f"rejoin_round] triples (got {value!r})")
+    out = []
+    for pos, item in enumerate(value):
+        try:
+            agent, down, rejoin = item
+            out.append((int(agent), int(down), int(rejoin)))
+        except (TypeError, ValueError):
+            raise SpecError(f"{where}[{pos}] is not an [agent, down_round, "
+                            f"rejoin_round] integer triple (got {item!r})") from None
+    return tuple(out)
+
+
+def spec_from_dict(d: Dict[str, Any]) -> ExperimentSpec:
+    """Load the JAX package's spec JSON layout (strict on unknown keys)."""
+    top_unknown = sorted(set(d) - {"data", "agent", "solver", "backend",
+                                   "transport", "faults", "obs", "seed"})
+    if top_unknown:
+        raise SpecError(f"unrecognised section(s) in spec dict: {top_unknown}")
+    data = _checked_fields(DataSpec, d.get("data", {}), "spec['data']")
+    for key in ("source_options", "partition_options"):
+        data[key] = _pairs(data.get(key, ()), f"spec['data'][{key!r}]")
+    agent = _checked_fields(AgentSpec, d.get("agent", {}), "spec['agent']")
+    agent["options"] = _pairs(agent.get("options", ()), "spec['agent']['options']")
+    trans = _checked_fields(TransportSpec, d.get("transport", {}),
+                            "spec['transport']")
+    for key in ("topology_options", "codec_options"):
+        trans[key] = _pairs(trans.get(key, ()), f"spec['transport'][{key!r}]")
+    faults = _checked_fields(FaultSpec, d.get("faults", {}), "spec['faults']")
+    faults["crash"] = _crash_entries(faults.get("crash", ()),
+                                     "spec['faults']['crash']")
+    obs = _checked_fields(ObsSpec, d.get("obs", {}), "spec['obs']")
+    obs["taps"] = tuple(str(t) for t in obs.get("taps", ()))
+    return ExperimentSpec(
+        data=DataSpec(**data),
+        agent=AgentSpec(**agent),
+        solver=SolverSpec(**_checked_fields(SolverSpec, d.get("solver", {}),
+                                            "spec['solver']")),
+        backend=BackendSpec(**_checked_fields(BackendSpec, d.get("backend", {}),
+                                              "spec['backend']")),
+        transport=TransportSpec(**trans),
+        faults=FaultSpec(**faults),
+        obs=ObsSpec(**obs),
+        seed=d.get("seed", 0),
+    )

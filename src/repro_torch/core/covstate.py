@@ -1,0 +1,140 @@
+"""Incremental covariance engine: rank-2 row updates of the ICOA solve state.
+
+Only agent i's residual row changes per update, so A moves by a symmetric
+rank-2 perturbation A' = A + e_i u^T + u e_i^T and the cached inverse action
+follows by Sherman-Morrison-Woodbury in O(D^2).  `CovState` carries what a
+sweep needs:
+
+    r_sub      (D, m) transmitted residual rows (m = N at alpha = 1)
+    a0         (D, D) covariance estimate
+    m_inv      (D, D) inverse of (a0 + jitter I), symmetrised
+    s          (D,)   m_inv @ 1
+    eta_tilde  ()     sum(s), the ICOA objective
+
+`eta_probe`/`s_probe` evaluate a hypothetical row change without committing
+(the back-search's probes; a leading batch axis on u probes a whole step
+schedule at once); `apply_row_update` commits one.  The one O(N*D) product
+per probe and per commit runs through kernels.gram.row_gram when
+`use_kernel` is set.  Twin of repro.core.covstate for the alpha = 1 slice:
+the Sec 4.1 exact-diagonal split (`exact_diag`, `ddiag`) and the streaming
+column swaps wait for ROADMAP A8 and A14.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import covariance as cov
+from repro_torch.core.ensemble import _JITTER
+
+__all__ = ["CovState", "build", "refresh", "row_product", "row_update_vector",
+           "eta_probe", "s_probe", "apply_inverse_update", "apply_row_update"]
+
+
+class CovState(NamedTuple):
+    r_sub: torch.Tensor       # (D, m) residual matrix view (transmitted rows)
+    a0: torch.Tensor          # (D, D) covariance
+    m_inv: torch.Tensor       # (D, D) = (a0 + jitter I)^{-1}
+    s: torch.Tensor           # (D,)   = m_inv @ 1
+    eta_tilde: torch.Tensor   # ()     = sum(s)
+
+
+def row_product(vec: torch.Tensor, r_sub: torch.Tensor,
+                use_kernel: bool = False) -> torch.Tensor:
+    """(m,), (D, m) -> (D,) = R @ vec — the engine's one O(N*D) product.
+    Kernel path: fp32 accumulation, cast back to the residual dtype."""
+    if use_kernel:
+        from repro_torch.kernels.gram import ops as gram_ops
+
+        return gram_ops.row_gram(vec, r_sub).to(r_sub.dtype)
+    return r_sub @ vec
+
+
+def _with_solve(r_sub: torch.Tensor, a0: torch.Tensor) -> CovState:
+    d = a0.shape[0]
+    eye = torch.eye(d, dtype=a0.dtype, device=a0.device)
+    m_inv = torch.linalg.inv(a0 + _JITTER * eye)
+    # the SMW update assumes exact symmetry; linalg.inv returns column-major
+    # strides, and the kernels read row-major contiguous memory
+    m_inv = (0.5 * (m_inv + m_inv.T)).contiguous()
+    s = m_inv @ torch.ones((d,), dtype=a0.dtype, device=a0.device)
+    return CovState(r_sub=r_sub, a0=a0, m_inv=m_inv, s=s, eta_tilde=torch.sum(s))
+
+
+def build(r_sub: torch.Tensor, use_kernel: bool = False) -> CovState:
+    """Full O(N*D^2 + D^3) construction — the once-per-sweep refresh."""
+    return _with_solve(r_sub, cov.gram(r_sub, use_kernel=use_kernel))
+
+
+def refresh(state: CovState) -> CovState:
+    """Re-solve m_inv/s from a0, discarding accumulated SMW drift."""
+    return _with_solve(state.r_sub, state.a0)
+
+
+def row_update_vector(state: CovState, i: int, delta_sub: torch.Tensor,
+                      use_kernel: bool = False) -> torch.Tensor:
+    """u with A0' = A0 + e_i u^T + u e_i^T after row i's residual moves by
+    delta_sub (alpha = 1: the diagonal comes from the same Gram).  One
+    row_gram product — O(N*D)."""
+    m = state.r_sub.shape[1]
+    w = row_product(delta_sub, state.r_sub, use_kernel=use_kernel) / m
+    w[i] += torch.dot(delta_sub, delta_sub) / (2.0 * m)
+    return w
+
+
+def _smw_pieces(state: CovState, i: int, u: torch.Tensor):
+    """Shared algebra of (A0' + jitter I)^{-1} = M - Z K^{-1} Z^T with
+    Z = M [e_i, u] and K = C^{-1} + [e_i, u]^T M [e_i, u].  u may carry
+    leading batch axes (..., D); the pieces then carry them too."""
+    z1 = state.m_inv[i]                          # M e_i (M symmetric)
+    z2 = u @ state.m_inv.T                       # M u, row by row
+    k11 = state.m_inv[i, i]
+    k12 = 1.0 + z2[..., i]
+    k22 = torch.sum(u * z2, dim=-1)
+    det = k11 * k22 - k12 * k12
+    return z1, z2, k11, k12, k22, det
+
+
+def eta_probe(state: CovState, i: int, u: torch.Tensor) -> torch.Tensor:
+    """eta_tilde after a hypothetical row-i update u (..., D) — O(D^2) each,
+    no commit."""
+    _, _, k11, k12, k22, det = _smw_pieces(state, i, u)
+    t1, t2 = state.s[i], u @ state.s
+    return state.eta_tilde - (k22 * t1 * t1 - 2.0 * k12 * t1 * t2
+                              + k11 * t2 * t2) / det
+
+
+def s_probe(state: CovState, i: int, u: torch.Tensor) -> torch.Tensor:
+    """(A0' + jitter I)^{-1} 1 after a hypothetical row-i update u (D,)."""
+    z1, z2, k11, k12, k22, det = _smw_pieces(state, i, u)
+    t1, t2 = state.s[i], torch.dot(u, state.s)
+    c1 = (k22 * t1 - k12 * t2) / det
+    c2 = (k11 * t2 - k12 * t1) / det
+    return state.s - c1 * z1 - c2 * z2
+
+
+def apply_inverse_update(state: CovState, i: int, u: torch.Tensor):
+    """(m_inv', s', eta_tilde') after the rank-2 row-i perturbation u."""
+    z1, z2, k11, k12, k22, det = _smw_pieces(state, i, u)
+    m_inv = state.m_inv - (k22 * torch.outer(z1, z1)
+                           - k12 * (torch.outer(z1, z2) + torch.outer(z2, z1))
+                           + k11 * torch.outer(z2, z2)) / det
+    t1, t2 = state.s[i], torch.dot(u, state.s)
+    c1 = (k22 * t1 - k12 * t2) / det
+    c2 = (k11 * t2 - k12 * t1) / det
+    s = state.s - c1 * z1 - c2 * z2
+    return m_inv, s, torch.sum(s)
+
+
+def apply_row_update(state: CovState, i: int, r_new_sub: torch.Tensor,
+                     u: torch.Tensor) -> CovState:
+    """Commit a row change whose update vector u is already in hand — O(D^2)
+    plus one row copy.  Returns a new state; `state` is left as it was."""
+    a0 = state.a0.clone()
+    a0[i, :] += u
+    a0[:, i] += u                    # (i, i) gains 2 u_i: correct
+    m_inv, s, eta = apply_inverse_update(state, i, u)
+    r_sub = state.r_sub.clone()
+    r_sub[i] = r_new_sub
+    return CovState(r_sub=r_sub, a0=a0, m_inv=m_inv, s=s, eta_tilde=eta)

@@ -1,0 +1,46 @@
+"""Closed-form inner stage of the two-stage optimization (paper eq. 10-12).
+
+    min_a a^T A a  s.t.  1^T a = 1
+        => a* = A^{-1} 1 / (1^T A^{-1} 1),   min value  eta = 1 / (1^T A^{-1} 1).
+
+`eta_tilde` is the outer objective 1^T A^{-1} 1 that ICOA maximises (eq. 12).
+Every solve against A adds the same `_JITTER * I` as the JAX package, so the
+CovState engine (core.covstate) and these closed forms agree.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["optimal_weights", "eta", "eta_tilde", "combine", "solve_vec"]
+
+_JITTER = 1e-10
+
+
+def solve_vec(a_mat: torch.Tensor) -> torch.Tensor:
+    """s = (A + jitter I)^{-1} 1: the common intermediate of
+    `optimal_weights` (s normalised) and `eta_tilde` (sum s)."""
+    d = a_mat.shape[0]
+    eye = torch.eye(d, dtype=a_mat.dtype, device=a_mat.device)
+    ones = torch.ones((d,), dtype=a_mat.dtype, device=a_mat.device)
+    return torch.linalg.solve(a_mat + _JITTER * eye, ones)
+
+
+def optimal_weights(a_mat: torch.Tensor) -> torch.Tensor:
+    """a* = A^{-1}1 / (1^T A^{-1} 1)   (paper eq. 10)."""
+    s = solve_vec(a_mat)
+    return s / torch.sum(s)
+
+
+def eta_tilde(a_mat: torch.Tensor) -> torch.Tensor:
+    """1^T A^{-1} 1 — the quantity ICOA maximises (paper eq. 12)."""
+    return torch.sum(solve_vec(a_mat))
+
+
+def eta(a_mat: torch.Tensor) -> torch.Tensor:
+    """Minimum ensemble training MSE = 1 / (1^T A^{-1} 1)  (paper eq. 11)."""
+    return 1.0 / eta_tilde(a_mat)
+
+
+def combine(weights: torch.Tensor, predictions: torch.Tensor) -> torch.Tensor:
+    """Ensemble prediction  sum_i a_i f_i:  (D,), (D, N) -> (N,)."""
+    return weights @ predictions

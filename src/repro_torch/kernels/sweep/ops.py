@@ -1,0 +1,135 @@
+"""Wrappers of the fused sweep kernels (csrc/sweep.cu): `probe_sweep` and
+`commit_sweep`.
+
+Twins of repro.kernels.sweep.ops.  Numerical contract of the TPU kernels:
+inputs read as fp32, fp32 accumulation, the closed-form epilogue algebra in
+fp32, outputs cast back to the input dtype.  The TPU packing — D padded to
+128, (Dp, 8) column packs, (8, Np) row packs, the (8, 128) parameter plate —
+is gone: vectors travel as (D,) and (N,), and eta / threshold / can_tx as
+one-element device tensors, so a commit needs no host round trip.
+
+A CPU tensor runs the plain version (ref.py, in fp32); a CUDA tensor
+launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import math
+from typing import Union
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels._build import as_f32
+from repro_torch.kernels.sweep import ref
+
+__all__ = ["probe_sweep", "commit_sweep", "probe_block_n", "COMMIT_BN"]
+
+COMMIT_BN = 1024               # columns per commit block (kCommitBn in sweep.cu)
+_SMEM_FLOATS = 232448 // 4     # 227 KB: the most shared memory a block may use
+
+Scalar = Union[float, torch.Tensor]
+
+
+def probe_block_n(d: int) -> int:
+    """Columns per probe block: the widest multiple of 32 (at most 256) whose
+    (d, bn) residual tile, cross strip, s and scratch fit shared memory."""
+    bn = min(256, (_SMEM_FLOATS - d - 33) // (d + 1) // 32 * 32)
+    if bn < 32:
+        raise ValueError(
+            f"probe_sweep keeps a (D, 32) residual tile in shared memory; "
+            f"D={d} is too large for the kernel")
+    return bn
+
+
+def _device_scalar(x, device: torch.device) -> torch.Tensor:
+    """A one-element fp32 tensor on `device` (no host sync for a tensor
+    already there; a fill kernel for a Python number)."""
+    if isinstance(x, torch.Tensor):
+        if x.numel() != 1:
+            raise ValueError(f"expected a scalar, got shape {tuple(x.shape)}")
+        if x.device != device:
+            raise ValueError(f"scalar on {x.device}, kernel runs on {device}")
+        return as_f32(x).reshape(1).contiguous()
+    return torch.full((1,), float(x), dtype=torch.float32, device=device)
+
+
+def probe_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
+                eta: Scalar, i: int, steps: torch.Tensor):
+    """alpha=1 fused probe pass for agent i: one pass over r (D, N) yields
+    (etas (K,), cross (N,), p (D,), gnorm ()) — the whole back-search
+    schedule plus the gradient pieces (g_unit = (2 s_i / m / gnorm) * cross).
+    Outputs in r's dtype."""
+    dt = r.dtype
+    if _build.on_cpu(r, "probe_sweep"):
+        eta32 = eta.to(torch.float32) if isinstance(eta, torch.Tensor) else eta
+        out = ref.probe_sweep_ref(as_f32(r), as_f32(m_inv), as_f32(s), eta32,
+                                  i, as_f32(steps))
+        return tuple(o.to(dt) for o in out)
+    d, n = r.shape
+    k = steps.shape[0]
+    if not 0 <= i < d:
+        raise IndexError(f"probe_sweep: agent {i} out of range for D={d}")
+    _build.check_cuda_tensor("probe_sweep: r", r)
+    _build.check_cuda_tensor("probe_sweep: m_inv", m_inv, (d, d))
+    _build.check_cuda_tensor("probe_sweep: s", s, (d,))
+    _build.check_cuda_tensor("probe_sweep: steps", steps, (k,))
+    bn = probe_block_n(d)
+    nb = math.ceil(n / bn)
+    dev = r.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    cross = torch.empty((n,), **f32)
+    part_p = torch.empty((nb, d), **f32)
+    part_gg = torch.empty((nb,), **f32)
+    etas = torch.empty((k,), **f32)
+    p = torch.empty((d,), **f32)
+    gnorm = torch.empty((1,), **f32)
+    _build.launch("sweep", "repro_probe_sweep", as_f32(r), as_f32(m_inv),
+                  as_f32(s), _device_scalar(eta, dev), as_f32(steps), cross,
+                  part_p, part_gg, etas, p, gnorm, d, n, bn, k, i)
+    _build.LAUNCHES["probe_sweep"] += 1
+    return etas.to(dt), cross.to(dt), p.to(dt), gnorm[0].to(dt)
+
+
+def commit_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
+                 eta: Scalar, i: int, delta: torch.Tensor, diag_keep: float,
+                 diag_add: float, threshold: Scalar,
+                 can_tx: Union[bool, torch.Tensor]):
+    """Fused accept/commit for agent i after its residual row moves by delta:
+    one pass over r (D, N) yields (m_inv' (D, D), s' (D,), u_eff (D,),
+    accept (bool), obj_post ()) with accept/reject folded in (a reject is an
+    exact no-op).  See kernels.sweep.ref.commit_sweep_ref for semantics.
+    diag_keep / diag_add are host numbers (1.0 / 0.0 at alpha = 1)."""
+    if _build.on_cpu(r, "commit_sweep"):
+        def c32(x):
+            return x.to(torch.float32) if isinstance(x, torch.Tensor) else x
+        m_new, s_new, u_eff, accept, obj_post = ref.commit_sweep_ref(
+            as_f32(r), as_f32(m_inv), as_f32(s), c32(eta), i,
+            as_f32(delta), c32(diag_keep), c32(diag_add), c32(threshold),
+            can_tx)
+        return (m_new.to(m_inv.dtype), s_new.to(s.dtype), u_eff.to(s.dtype),
+                accept, obj_post.to(s.dtype))
+    d, n = r.shape
+    if not 0 <= i < d:
+        raise IndexError(f"commit_sweep: agent {i} out of range for D={d}")
+    _build.check_cuda_tensor("commit_sweep: r", r)
+    _build.check_cuda_tensor("commit_sweep: delta", delta, (n,))
+    _build.check_cuda_tensor("commit_sweep: m_inv", m_inv, (d, d))
+    _build.check_cuda_tensor("commit_sweep: s", s, (d,))
+    nb = math.ceil(n / COMMIT_BN)
+    dev = r.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    part_w = torch.empty((nb, d), **f32)
+    part_dd = torch.empty((nb,), **f32)
+    m_new = torch.empty((d, d), **f32)
+    s_new = torch.empty((d,), **f32)
+    u_eff = torch.empty((d,), **f32)
+    stats = torch.empty((2,), **f32)
+    _build.launch("sweep", "repro_commit_sweep", as_f32(r), as_f32(delta),
+                  as_f32(m_inv), as_f32(s), _device_scalar(eta, dev),
+                  _device_scalar(threshold, dev),
+                  _device_scalar(can_tx, dev), part_w, part_dd, m_new,
+                  s_new, u_eff, stats, d, n, i, float(diag_keep),
+                  float(diag_add))
+    _build.LAUNCHES["commit_sweep"] += 1
+    return (m_new.to(m_inv.dtype), s_new.to(s.dtype), u_eff.to(s.dtype),
+            stats[1] > 0.5, stats[0].to(s.dtype))

@@ -1,0 +1,56 @@
+"""The byte ledger: traffic accounted from what crossed the wire.
+
+Twin of repro.transport.ledger as host-side integer bookkeeping: no budget
+gates on the device in this slice, so every price is a Python int fixed by
+the spec (payload bytes of the codec times the topology's flood
+transmissions) and the ledger is a plain counter.  Cost model per ICOA
+sweep (m = transmitted instances):
+
+    payload       = nbytes(m)                     one agent's row
+    broadcast_i   = bcast_tx[i] * payload         flood from agent i
+    gather        = sum_i broadcast_i             everyone floods once
+    row-wise      = gather + sum_i broadcast_i    (incremental / fused:
+                                                   one candidate per agent)
+    paper-dense   = D * gather                    (re-gather per update)
+
+On `full` with an exact codec this is comm_floats_per_sweep x itemsize.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+__all__ = ["Ledger", "agent_broadcast_cost", "gather_cost", "icoa_sweep_cost"]
+
+
+@dataclasses.dataclass(frozen=True)
+class Ledger:
+    """Cumulative measured wire bytes (a Python int: never wraps)."""
+
+    spent: int = 0
+
+    def charge(self, n_bytes: int) -> "Ledger":
+        return Ledger(spent=self.spent + int(n_bytes))
+
+
+def _payload(transport, m: int, split: bool) -> int:
+    return int(round(transport.codec.nbytes(m)
+                     + (transport.codec.nbytes(1) if split else 0.0)))
+
+
+def agent_broadcast_cost(transport, i: int, m: int, split: bool) -> int:
+    """Bytes to flood agent i's row to every other agent."""
+    return transport.topology.bcast_tx[i] * _payload(transport, m, split)
+
+
+def gather_cost(transport, m: int, split: bool) -> int:
+    """Bytes for every agent to flood its row once (the sweep-start gather)."""
+    return sum(agent_broadcast_cost(transport, i, m, split)
+               for i in range(transport.topology.n_agents))
+
+
+def icoa_sweep_cost(transport, m: int, split: bool, row_wise: bool) -> int:
+    """Full (unbudgeted) cost of one icoa sweep under the given schedule."""
+    g = gather_cost(transport, m, split)
+    if row_wise:
+        return 2 * g
+    return transport.topology.n_agents * g
