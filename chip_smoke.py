@@ -14,6 +14,11 @@ Phases, each fatal on failure (nothing is caught):
               launches, median of 5 runs) beside its plain version, the one
               PyTorch call that computes the same function where there is
               one, and its bound on the card;
+  3b. batched the four batched kernels at B=8 trials of the same shapes: each
+              against its batched plain version, slices 0 and 7 against the
+              single-trial kernel on that trial bit for bit (torch.equal), a
+              commit batch with mixed accept and reject (rejected trials
+              bitwise unchanged), timed as in phase 3;
   4. paper    `repro_torch.api.fit` on the default ExperimentSpec (Friedman-1,
               D=5, N=2000, degree-4 agents, 10 sweeps) with use_kernel=True,
               both engines, on the card and on the CPU from the same data:
@@ -23,7 +28,20 @@ Phases, each fatal on failure (nothing is caught):
               n_train=262144, n_test=65536): fused 3 sweeps, incremental 1;
               eta finite and non-increasing, ledger bytes per sweep equal to
               the analytic count, launch counts as in phase 4;
-  6. the kernels line, the nvidia-smi line, and the result line
+  6. paper batch  `repro_torch.api.batch_fit` on the default spec, 32 trials
+              (the paper's Monte Carlo), use_kernel=True, both engines: trials
+              0 and 31 against `fit(trial_spec(spec, t))` on the card, the
+              whole batch against the same batch on the CPU (within 1e-4,
+              bytes equal), launch counts equal to the batched schedule and
+              zero launches of the single-trial kernels;
+  7. deploy batch  batch_fit at 100 agents, 8 trials (fused 2 sweeps,
+              incremental 1): every trial's eta finite, bytes per sweep, peak
+              memory; the batch's schedule driven again step by step from the
+              same data (each sweep timed, beside 8x the single-trial sweep
+              of phase 5), its fp32 etas equal to the batch's records, and
+              every trial's eta non-increasing when evaluated in float64
+              (see phase_deploy_batch for why not in fp32);
+  8. the kernels line, the nvidia-smi line, and the result line
      {"ok": true, "device": {...}} last.
 
 It exits non-zero without a result when no CUDA device is present, or when
@@ -49,6 +67,10 @@ H100_FP32_FLOPS = 67e12
 H100_HBM_BYTES_PER_S = 3.35e12
 
 D_DEPLOY, N_DEPLOY, N_TEST_DEPLOY, K_STEPS = 100, 262144, 65536, 16
+B_DEPLOY, B_PAPER = 8, 32     # trials: deployment batch; the paper's Monte Carlo
+SINGLE = ("gram", "row_gram", "probe_sweep", "commit_sweep")
+BATCHED = ("gram_batched", "row_gram_batched", "probe_sweep_batched",
+           "commit_sweep_batched")
 REPS, RUNS = 20, 5
 
 
@@ -148,22 +170,8 @@ def compare(name: str, got, want, tol: float):
     return err, rel
 
 
-def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
-    d, n, k = D_DEPLOY, N_DEPLOY, K_STEPS
-    dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    r = torch.randn((d, n), generator=gen, device=dev)
-    v = torch.randn((n,), generator=gen, device=dev)
-    mm = torch.randn((d, 2 * d), generator=gen, device=dev)
-    m_inv = mm @ mm.T / (2 * d) + torch.eye(d, device=dev)
-    m_inv = 0.5 * (m_inv + m_inv.T)
-    s = m_inv.sum(dim=1)
-    eta = s.sum()
-    delta = 0.05 * torch.randn((n,), generator=gen, device=dev)
-    steps = torch.tensor([0.5 ** j for j in range(k)], device=dev) * math.sqrt(n)
-    i = 37
-    rows = []
-
+def row_recorder(rows):
+    """A function that appends one row of the kernels line to `rows`."""
     def record_row(name, src, replaces, errs, ms, plain_ms, lib_ms, n_bytes, flops):
         b_ms, b_by = bound(n_bytes, flops)
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -173,6 +181,31 @@ def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
                "library_ms": lib_ms}
         log("[kernel] " + json.dumps(row))
         rows.append(row)
+    return record_row
+
+
+def spd_scene(d, gen, dev):
+    """An SPD m_inv with s = m_inv 1 and eta = sum s."""
+    mm = torch.randn((d, 2 * d), generator=gen, device=dev)
+    m_inv = mm @ mm.T / (2 * d) + torch.eye(d, device=dev)
+    m_inv = 0.5 * (m_inv + m_inv.T)
+    s = m_inv.sum(dim=1)
+    return m_inv, s, s.sum()
+
+
+def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
+    d, n, k = D_DEPLOY, N_DEPLOY, K_STEPS
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    r = torch.randn((d, n), generator=gen, device=dev)
+    v = torch.randn((n,), generator=gen, device=dev)
+    m_inv, s, eta = spd_scene(d, gen, dev)
+    delta = 0.05 * torch.randn((n,), generator=gen, device=dev)
+    steps = torch.tensor([0.5 ** j for j in range(k)], device=dev) * math.sqrt(n)
+    i = 37
+    rows = []
+
+    record_row = row_recorder(rows)
 
     # --- gram (B1): R R^T.  Least work: D(D+1)/2 distinct entries, N FMAs each.
     got, want = gram_ops.gram(r), gram_ref.gram_ref(r)
@@ -180,7 +213,7 @@ def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
     require(torch.equal(got, got.T), "gram: result not exactly symmetric")
     require(torch.equal(got, gram_ops.gram(r)), "gram: not the same bits twice")
     record_row("gram", "src/repro_torch/csrc/gram.cu",
-               "src/repro/kernels/gram/kernel.py:52", errs,
+               "src/repro/kernels/gram/kernel.py:54", errs,
                time_ms(lambda: gram_ops.gram(r)),
                time_ms(lambda: gram_ref.gram_ref(r)),
                time_ms(lambda: r @ r.T),
@@ -191,7 +224,7 @@ def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
     errs = [compare("row_gram", got, want, 1e-5)]
     require(torch.equal(got, gram_ops.row_gram(v, r)), "row_gram: not the same bits twice")
     record_row("row_gram", "src/repro_torch/csrc/gram.cu",
-               "src/repro/kernels/gram/kernel.py:120", errs,
+               "src/repro/kernels/gram/kernel.py:129", errs,
                time_ms(lambda: gram_ops.row_gram(v, r)),
                time_ms(lambda: gram_ref.row_gram_ref(v, r)),
                time_ms(lambda: r @ v),
@@ -241,23 +274,163 @@ def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
                None,
                4.0 * (d * n + n + d * d + d + 3) + 4.0 * (d * d + 2 * d + 2),
                2.0 * d * n + 2.0 * n + 12.0 * d * d)
-    del r, v, mm, delta
+    del r, v, delta
+    return rows
+
+
+def phase_kernels_batched(gram_ops, gram_ref, sweep_ops, sweep_ref):
+    """Phase 3b: the batched kernels at B_DEPLOY trials of the deployment
+    shapes, against their batched plain versions and, slice by slice, against
+    the single-trial kernels (bit for bit)."""
+    b, d, n, k = B_DEPLOY, D_DEPLOY, N_DEPLOY, K_STEPS
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    r = torch.randn((b, d, n), generator=gen, device=dev)
+    v = torch.randn((b, n), generator=gen, device=dev)
+    scenes = [spd_scene(d, gen, dev) for _ in range(b)]
+    m_inv, s, eta = (torch.stack(x).contiguous() for x in zip(*scenes))
+    delta = 0.05 * torch.randn((b, n), generator=gen, device=dev)
+    steps = torch.tensor([0.5 ** j for j in range(k)], device=dev) * math.sqrt(n)
+    i = 37
+    probes = (0, b - 1)                 # slices held against the single kernel
+    rows = []
+    record_row = row_recorder(rows)
+
+    def same_as_single(name, batched, single_fn):
+        for t in probes:
+            single = single_fn(t)
+            if isinstance(single, torch.Tensor):
+                batched_t, single = (batched[t],), (single,)
+            else:
+                batched_t = tuple(x[t] for x in batched)
+            require(all(torch.equal(x, y) for x, y in zip(batched_t, single)),
+                    f"{name}: trial {t} differs from the single-trial kernel")
+        log(f"[batched] {name}: trials {list(probes)} equal the single-trial "
+            f"kernel bit for bit")
+
+    def against_f64(name, got, plain, exact, tol_plain):
+        """The Gram products sum N=262144 terms per entry.  The kernel is
+        held to the float64 product at 1e-5 and to its plain version at
+        `tol_plain`; both distances to float64 are logged, so a gap between
+        kernel and plain version shows which side carries the error.  For
+        gram_batched the plain version is cuBLAS's batched SGEMM, which on
+        the H100 is 7.5e-5 (normwise) from the float64 product at these
+        shapes while the kernel is 5.1e-7 from it (measured on the card):
+        tol_plain is then 1e-4, and the kernel's own accuracy is the float64
+        check."""
+        e_kernel = compare(f"{name} vs float64", got, exact, 1e-5)
+        e_plain = compare(f"{name} plain version vs float64", plain, exact, 1e-3)
+        log(f"[batched] {name}: normwise error against the float64 product: "
+            f"kernel {e_kernel[1]:.3e}, plain version {e_plain[1]:.3e}")
+        return [compare(name, got, plain, tol_plain)]
+
+    # --- gram_batched (B2)
+    got = gram_ops.gram(r)
+    require(torch.equal(got, got.mT), "gram_batched: not exactly symmetric")
+    same_as_single("gram_batched", got, lambda t: gram_ops.gram(r[t]))
+    r64 = r.double()
+    errs = against_f64("gram_batched", got, gram_ref.gram_batched_ref(r),
+                       r64 @ r64.mT, 1e-4)
+    del r64
+    record_row("gram_batched", "src/repro_torch/csrc/gram.cu",
+               "src/repro/kernels/gram/kernel.py:88", errs,
+               time_ms(lambda: gram_ops.gram(r)),
+               time_ms(lambda: gram_ref.gram_batched_ref(r)),
+               time_ms(lambda: torch.bmm(r, r.mT)),
+               4.0 * b * (d * n + d * d), float(b * d * (d + 1) * n))
+
+    # --- row_gram_batched (B4): per-trial v, and one v shared by the batch
+    got = gram_ops.row_gram(v, r)
+    same_as_single("row_gram_batched", got, lambda t: gram_ops.row_gram(v[t], r[t]))
+    r64 = r.double()
+    errs = against_f64("row_gram_batched", got,
+                       gram_ref.row_gram_batched_ref(v, r),
+                       (r64 @ v.double()[..., None])[..., 0], 1e-5)
+    shared = gram_ops.row_gram(v[0], r)
+    same_as_single("row_gram_batched (shared v)", shared,
+                   lambda t: gram_ops.row_gram(v[0], r[t]))
+    errs += against_f64("row_gram_batched (shared v)", shared,
+                        gram_ref.row_gram_batched_ref(v[0], r),
+                        r64 @ v[0].double(), 1e-5)
+    del r64
+    record_row("row_gram_batched", "src/repro_torch/csrc/gram.cu",
+               "src/repro/kernels/gram/kernel.py:175", errs,
+               time_ms(lambda: gram_ops.row_gram(v, r)),
+               time_ms(lambda: gram_ref.row_gram_batched_ref(v, r)),
+               time_ms(lambda: torch.bmm(r, v[..., None])),
+               4.0 * b * (d * n + n + d), 2.0 * b * d * n)
+
+    # --- probe_sweep_batched (B6)
+    got = sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps)
+    want = sweep_ref.probe_sweep_batched_ref(r, m_inv, s, eta, i, steps)
+    errs = [compare(f"probe_sweep_batched.{nm}", g, w, 1e-4)
+            for nm, g, w in zip(("etas", "cross", "p", "gnorm"), got, want)]
+    same_as_single("probe_sweep_batched", got, lambda t: sweep_ops.probe_sweep(
+        r[t], m_inv[t], s[t], eta[t], i, steps))
+    record_row("probe_sweep_batched", "src/repro_torch/csrc/sweep.cu",
+               "src/repro/kernels/sweep/kernel.py:201", errs,
+               time_ms(lambda: sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps)),
+               time_ms(lambda: sweep_ref.probe_sweep_batched_ref(r, m_inv, s, eta,
+                                                                 i, steps)),
+               None,
+               4.0 * (b * (d * n + d * d + d + 1) + k) + 4.0 * b * (n + k + d + 1),
+               b * (4.0 * d * n + 2.0 * d * d + 2.0 * n + 20.0 * k))
+
+    # --- commit_sweep_batched (B8): odd trials rejected, even ones committed
+    thr = torch.tensor([math.inf if t % 2 else -math.inf for t in range(b)],
+                       device=dev)
+    got = sweep_ops.commit_sweep(r, m_inv, s, eta, i, delta, 1.0, 0.0, thr, True)
+    want = sweep_ref.commit_sweep_batched_ref(r, m_inv, s, eta, i, delta, 1.0,
+                                              0.0, thr, True)
+    flags = [t % 2 == 0 for t in range(b)]
+    require(got[3].tolist() == want[3].tolist() == flags,
+            f"commit_sweep_batched: accept flags {got[3].tolist()} != {flags}")
+    errs = [compare(f"commit_sweep_batched.{nm}", g, w, 1e-4)
+            for nm, g, w in zip(("m_inv", "s", "u_eff", "obj_post"),
+                                (got[0], got[1], got[2], got[4]),
+                                (want[0], want[1], want[2], want[4]))]
+    for t in range(b):
+        if t % 2:
+            require(torch.equal(got[0][t], m_inv[t]) and torch.equal(got[1][t], s[t])
+                    and not bool(got[2][t].any()),
+                    f"commit_sweep_batched: rejected trial {t} changed")
+        else:
+            require(torch.equal(got[0][t], got[0][t].T),
+                    f"commit_sweep_batched: trial {t} m_inv not exactly symmetric")
+    log("[batched] commit_sweep_batched: rejected trials bitwise unchanged, "
+        "committed trials exactly symmetric")
+    same_as_single("commit_sweep_batched", got, lambda t: sweep_ops.commit_sweep(
+        r[t], m_inv[t], s[t], eta[t], i, delta[t], 1.0, 0.0, thr[t], True))
+    record_row("commit_sweep_batched", "src/repro_torch/csrc/sweep.cu",
+               "src/repro/kernels/sweep/kernel.py:369", errs,
+               time_ms(lambda: sweep_ops.commit_sweep(r, m_inv, s, eta, i, delta,
+                                                      1.0, 0.0, eta, True)),
+               time_ms(lambda: sweep_ref.commit_sweep_batched_ref(
+                   r, m_inv, s, eta, i, delta, 1.0, 0.0, eta, True)),
+               None,
+               4.0 * b * (d * n + n + d * d + d + 3) + 4.0 * b * (d * d + 2 * d + 2),
+               b * (2.0 * d * n + 2.0 * n + 12.0 * d * d))
+    del r, v, delta
     return rows
 
 
 # ------------------------------------------------------- 4./5. main path
 
 
-def expected_launches(engine: str, d: int, sweeps: int) -> dict:
+def expected_launches(engine: str, d: int, sweeps: int,
+                      batched: bool = False) -> dict:
     """Launches of each kernel by core/icoa.py for `sweeps` sweeps: gram at
     record 0 (weights + eta) and, per sweep, the CovState build plus the
     record; row_gram twice per agent (probe + commit) in the incremental
-    engine; probe and commit once per agent in the fused engine."""
+    engine; probe and commit once per agent in the fused engine.  A batch
+    (run_scan) launches the batched kernels on the same schedule, one launch
+    for all trials, and no single-trial kernel."""
     inc = engine == "incremental"
-    return {"gram": 2 + 3 * sweeps,
-            "row_gram": 2 * d * sweeps if inc else 0,
-            "probe_sweep": 0 if inc else d * sweeps,
-            "commit_sweep": 0 if inc else d * sweeps}
+    counts = [2 + 3 * sweeps, 2 * d * sweeps if inc else 0,
+              0 if inc else d * sweeps, 0 if inc else d * sweeps]
+    zeros = [0] * 4
+    return dict(zip(SINGLE + BATCHED,
+                    zeros + counts if batched else counts + zeros))
 
 
 def fit_on_card(api, _build, spec, data, tag: str):
@@ -305,18 +478,19 @@ def phase_paper(api, _build):
     return totals
 
 
-def profile_sweep(icoa, res, cfg, data, engine: str) -> None:
-    """torch.profiler over one deployment sweep: device busy time (sum of
-    kernel durations; one stream, so they do not overlap) against the wall
-    clock, the kernels that take it, and the host calls that wait on the
-    device.  The full tables go to chiprun_out/profile_<engine>.txt."""
+def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str) -> None:
+    """torch.profiler over one deployment sweep (one trial, or a batch of
+    trials): device busy time (sum of kernel durations; one stream, so they
+    do not overlap) against the wall clock, the kernels that take it, and the
+    host calls that wait on the device.  The full tables go to
+    chiprun_out/profile_<engine>.txt."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        icoa.sweep(res.family, cfg, res.params, res.f, data.xcols, data.y)
+        icoa.sweep(family, cfg, params, f, xcols, y)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
@@ -344,7 +518,7 @@ def profile_sweep(icoa, res, cfg, data, engine: str) -> None:
     for key, count in sorted(waits.items(), key=lambda kv: -kv[1])[:4]:
         log(f"[profile] {engine}:   {count} waits in {key[:120]}")
     prof.export_chrome_trace(os.path.join(HERE, "chiprun_out",
-                                          f"trace_{engine}.json"))
+                                          f"trace_{engine}.json.gz"))
     with open(os.path.join(HERE, "chiprun_out", f"profile_{engine}.txt"), "w") as fh:
         fh.write(prof.key_averages().table(sort_by="self_cpu_time_total",
                                            row_limit=40))
@@ -354,7 +528,7 @@ def profile_sweep(icoa, res, cfg, data, engine: str) -> None:
 
 
 def phase_deploy(api, _build, icoa):
-    totals = {}
+    totals, sweep_ms_by_engine = {}, {}
     dspec = api.DataSpec(source="correlated_linear", n_attrs=D_DEPLOY,
                          n_train=N_DEPLOY, n_test=N_TEST_DEPLOY)
     t0 = time.perf_counter()
@@ -380,11 +554,178 @@ def phase_deploy(api, _build, icoa):
         icoa.sweep(res.family, cfg, res.params, res.f, data.xcols, data.y)
         torch.cuda.synchronize()
         sweep_ms = (time.perf_counter() - t1) * 1e3
-        profile_sweep(icoa, res, cfg, data, engine)
+        sweep_ms_by_engine[engine] = sweep_ms
+        profile_sweep(icoa, res.family, cfg, res.params, res.f, data.xcols,
+                      data.y, engine)
         log(f"[deploy] {engine}: eta {h.eta}; test_mse {h.test_mse}; "
             f"bytes/sweep {per_sweep}; fit {secs:.3f} s ({len(h.eta) - 1} "
             f"sweeps, {len(h.eta)} records); one sweep {sweep_ms:.1f} ms; peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        for k_, v_ in counts.items():
+            totals[k_] = totals.get(k_, 0) + v_
+    return totals, sweep_ms_by_engine
+
+
+# ------------------------------------------------- 6./7. the batched path
+
+
+def batch_on_card(api, _build, spec, n_trials: int, tag: str):
+    """One main-path run through api.batch_fit on the card, its launch
+    counts read just after it and held to the batched schedule."""
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rs = api.batch_fit(spec, n_trials, device="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    want = expected_launches(spec.solver.engine, spec.data.resolved_n_agents,
+                             spec.solver.n_sweeps, batched=True)
+    log(f"[{tag}] engine={spec.solver.engine} trials={n_trials} "
+        f"sweeps={spec.solver.n_sweeps} batch_fit {secs:.3f} s "
+        f"launches={json.dumps(counts)} expected={json.dumps(want)}")
+    require(counts == want, f"{tag}: launch counts {counts} != {want}")
+    require(all(counts[k] == 0 for k in SINGLE),
+            f"{tag}: batch_fit launched a single-trial kernel: {counts}")
+    return rs, counts, secs
+
+
+def max_rel(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def phase_paper_batch(api, _build):
+    """Phase 6: the paper's Monte Carlo (32 trials of the default spec)."""
+    totals = {}
+    for engine in ("incremental", "fused"):
+        spec = api.ExperimentSpec(solver=api.SolverSpec(engine=engine,
+                                                        use_kernel=True))
+        rs, counts, secs = batch_on_card(api, _build, spec, B_PAPER,
+                                         "paper-batch")
+        for t in (0, B_PAPER - 1):
+            one = api.fit(api.trial_spec(spec, t), device="cuda")
+            hb, hf = rs[t].history, one.history
+            k = len(hf.eta)            # fit stops at its eps rule; the batch runs on
+            require(hb.bytes_transmitted[:k] == hf.bytes_transmitted,
+                    f"paper-batch {engine} trial {t}: bytes differ")
+            for key in ("train_mse", "test_mse", "eta"):
+                worst = max_rel(getattr(hb, key)[:k], getattr(hf, key))
+                require(worst <= 1e-4, f"paper-batch {engine} trial {t}: {key} "
+                        f"differs from fit by {worst:.2e}")
+                log(f"[paper-batch] {engine} trial {t} {key}: batch vs fit max "
+                    f"rel diff {worst:.3e} over {k} records (converged_at batch "
+                    f"{hb.converged_at}, fit {hf.converged_at})")
+        cpu = api.batch_fit(spec, B_PAPER, device="cpu")
+        worst = {key: 0.0 for key in ("train_mse", "test_mse", "eta")}
+        for a, b in zip(rs, cpu):
+            require(a.history.bytes_transmitted == b.history.bytes_transmitted,
+                    f"paper-batch {engine}: card and cpu bytes differ")
+            for key in worst:
+                worst[key] = max(worst[key], max_rel(getattr(a.history, key),
+                                                     getattr(b.history, key)))
+        require(max(worst.values()) <= 1e-4,
+                f"paper-batch {engine}: card vs cpu {worst}")
+        bytes_axis, mean, std = rs.curve("test_mse")
+        log(f"[paper-batch] {engine}: card vs cpu max rel diff {json.dumps(worst)}; "
+            f"test MSE mean {float(mean[-1])!r} std {float(std[-1])!r} over {B_PAPER} trials; "
+            f"bytes {float(bytes_axis[-1])!r}; {B_PAPER / secs:.2f} trials/s")
+        for k_, v_ in counts.items():
+            totals[k_] = totals.get(k_, 0) + v_
+    return totals
+
+
+def eta_records(cov, ensemble, f, y):
+    """Per-trial eta of a batched state, in the fp32 form of run_scan's
+    record (kernel Gram, fp32 solve) and in float64 from the same f."""
+    r = y[:, None, :] - f
+    e32 = 1.0 / ensemble.eta_tilde(cov.gram(r, use_kernel=True))
+    r64 = r.double()
+    e64 = 1.0 / ensemble.eta_tilde(r64 @ r64.mT / r.shape[-1])
+    return e32.tolist(), e64.tolist()
+
+
+def phase_deploy_batch(api, _build, icoa, data_sources, single_sweep_ms):
+    """Phase 7: 8 trials of the 100-agent deployment as one batch.
+
+    At this scale the residual covariance has a condition number of about
+    4e7 (measured on the CPU for trial 3), so an eta evaluated in fp32 — the
+    history's records, as in the JAX package — carries an error of about
+    0.2% and can rise by that much between sweeps while the state improves
+    (trial 3's fused batch: +0.28% in its fp32 records, falling in float64).
+    So the batch's schedule is driven again step by step on the same data
+    (init_state, then the sweeps run_scan makes), its fp32 etas held equal
+    to the batch's records, and each recorded state's eta evaluated in
+    float64 must not rise."""
+    from repro_torch.core import covariance as cov
+    from repro_torch.core import ensemble
+
+    totals = {}
+    dspec = api.DataSpec(source="correlated_linear", n_attrs=D_DEPLOY,
+                         n_train=N_DEPLOY, n_test=N_TEST_DEPLOY)
+    for engine, n_sweeps in (("fused", 2), ("incremental", 1)):
+        spec = api.ExperimentSpec(data=dspec, solver=api.SolverSpec(
+            engine=engine, use_kernel=True, n_sweeps=n_sweeps))
+        torch.cuda.reset_peak_memory_stats()
+        rs, counts, secs = batch_on_card(api, _build, spec, B_DEPLOY,
+                                         "deploy-batch")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        per_sweep = float(api.comm_floats_per_sweep(spec.solver, D_DEPLOY,
+                                                    N_DEPLOY) * 8)
+        require(per_sweep == 2.0 * N_DEPLOY * D_DEPLOY * 8, "bytes per sweep")
+        for t, res in enumerate(rs):
+            h = res.history
+            require(all(math.isfinite(e) for e in h.eta),
+                    f"deploy-batch {engine} trial {t}: eta {h.eta}")
+            require(h.bytes_transmitted == [0.0] + [per_sweep] * n_sweeps,
+                    f"deploy-batch {engine} trial {t}: bytes {h.bytes_transmitted}")
+        # the batch's schedule again, step by step, on the same data
+        t1 = time.perf_counter()
+        xcols, y, _, _ = data_sources.make_trial_batch(
+            dspec.source, N_DEPLOY, N_TEST_DEPLOY, list(range(B_DEPLOY)),
+            dspec.groups, n_attrs=D_DEPLOY, device="cuda")
+        torch.cuda.synchronize()
+        data_s = time.perf_counter() - t1
+        family = rs[0].family
+        cfg = spec.solver.icoa_config(spec.resolved_transport())
+        state = icoa.init_state(family, xcols, y)
+        params, f = state.params, state.f
+        recs = [eta_records(cov, ensemble, f, y)]
+        sweeps_ms = []
+        for _ in range(n_sweeps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            params, f, _ = icoa.sweep(family, cfg, params, f, xcols, y)
+            torch.cuda.synchronize()
+            sweeps_ms.append((time.perf_counter() - t1) * 1e3)
+            recs.append(eta_records(cov, ensemble, f, y))
+        worst_rec, worst_32, rise_32 = 0.0, 0.0, 0.0
+        for t, res in enumerate(rs):
+            e32 = [rec[0][t] for rec in recs]
+            e64 = [rec[1][t] for rec in recs]
+            worst_rec = max(worst_rec, max_rel(e32, res.history.eta))
+            worst_32 = max(worst_32, max_rel(e32, e64))
+            rise_32 = max(rise_32, max(b / a - 1.0 for a, b in zip(e32, e32[1:])))
+            require(all(b <= a for a, b in zip(e64, e64[1:])),
+                    f"deploy-batch {engine} trial {t}: eta (float64 evaluation "
+                    f"of each recorded state) increased: {e64}")
+        require(worst_rec <= 1e-6, f"deploy-batch {engine}: the step-by-step "
+                f"schedule's fp32 etas differ from the batch's records by "
+                f"{worst_rec:.2e}")
+        sweep_ms = sweeps_ms[-1]
+        single = single_sweep_ms[engine]
+        profile_sweep(icoa, family, cfg, params, f, xcols, y, f"batch-{engine}")
+        log(f"[deploy-batch] {engine}: {B_DEPLOY} trials, eta trial 0 "
+            f"{rs[0].history.eta}; batch_fit {secs:.3f} s ({n_sweeps} sweeps; "
+            f"generating the {B_DEPLOY} datasets alone takes {data_s:.2f} s); "
+            f"step-by-step fp32 etas vs records max rel diff {worst_rec:.2e}; "
+            f"float64 eta non-increasing in every trial; fp32 records vs "
+            f"float64 evaluation max rel diff {worst_32:.3e}, largest rise of "
+            f"an fp32 record {rise_32:.3e}; batched sweeps {sweeps_ms} ms; "
+            f"one batched sweep {sweep_ms:.1f} ms vs {B_DEPLOY} x single-trial "
+            f"sweep {B_DEPLOY * single:.1f} ms (single {single:.1f} ms): "
+            f"{B_DEPLOY * 1e3 / sweep_ms:.2f} trial-sweeps/s batched vs "
+            f"{1e3 / single:.2f} single; peak memory {peak:.2f} GiB")
+        del xcols, y, params, f, rs, state
         for k_, v_ in counts.items():
             totals[k_] = totals.get(k_, 0) + v_
     return totals
@@ -395,6 +736,7 @@ def main() -> None:
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch import api
     from repro_torch.core import icoa
+    from repro_torch.data import sources as data_sources
     from repro_torch.kernels import _build
     from repro_torch.kernels.gram import ops as gram_ops
     from repro_torch.kernels.gram import ref as gram_ref
@@ -402,11 +744,30 @@ def main() -> None:
     from repro_torch.kernels.sweep import ref as sweep_ref
 
     t_start = time.perf_counter()
+    stamps = []
+
+    def stamp(name):
+        stamps.append((name, time.perf_counter()))
+        log(f"[time] {name} done at {stamps[-1][1] - t_start:.1f} s")
+
     phase_build(_build)
+    stamp("build")
     rows = phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref)
+    stamp("kernels")
+    rows += phase_kernels_batched(gram_ops, gram_ref, sweep_ops, sweep_ref)
+    stamp("kernels batched")
     launches = phase_paper(api, _build)
-    for k_, v_ in phase_deploy(api, _build, icoa).items():
+    stamp("paper")
+    deploy, single_sweep_ms = phase_deploy(api, _build, icoa)
+    stamp("deploy")
+    for more in (deploy, phase_paper_batch(api, _build)):
+        for k_, v_ in more.items():
+            launches[k_] += v_
+    stamp("paper batch")
+    for k_, v_ in phase_deploy_batch(api, _build, icoa, data_sources,
+                                     single_sweep_ms).items():
         launches[k_] += v_
+    stamp("deploy batch")
     for row in rows:
         row["launches"] = launches[row["name"]]
         require(row["launches"] > 0, f"{row['name']} never launched on the main path")

@@ -7,7 +7,8 @@ x_a * x_b for C > 1, and a bias — [1, x, .., x^d] for the paper's C = 1.
 
 Params of D agents stack along a leading axis, so `fit`/`predict` also take
 (D, N, C) columns with (D, N) targets and (D, P) params: the explicit batch
-axis stands in for the JAX package's vmap over agents.
+axis stands in for the JAX package's vmap over agents.  Any further leading
+axes batch the same way, e.g. (B, D, N, C) for B Monte-Carlo trials.
 """
 from __future__ import annotations
 

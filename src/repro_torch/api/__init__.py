@@ -8,43 +8,38 @@
     result = api.fit(spec, device="cpu")    # on the CPU, plain PyTorch
     result.test_mse, result.history.eta, result.history.total_bytes
 
-`fit` runs on the card unless the caller asks for the CPU: with no CUDA
-device it raises instead of carrying on.  On the card, `use_kernel=True`
-sends every product the JAX package computes in a Pallas kernel through the
-hand-written CUDA kernels of repro_torch.kernels.
+    rs = api.batch_fit(spec, n_trials=32)   # Monte Carlo, one batched program
+    bytes_axis, mean, std = rs.curve("test_mse")
+
+`fit` and `batch_fit` run on the card unless the caller asks for the CPU:
+with no CUDA device they raise instead of carrying on.  On the card,
+`use_kernel=True` sends every product the JAX package computes in a Pallas
+kernel through the hand-written CUDA kernels of repro_torch.kernels — the
+batched kernels for `batch_fit`.  `sweep(spec, grid, trials=k)` runs a grid
+of specs, each as k trials.
 """
 from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
-from repro_torch.api.result import History, Result
+from repro_torch.api.result import History, Result, ResultSet
+from repro_torch.api.runner import batch_fit, resolve_device, trial_spec
 from repro_torch.api.solvers import (SOLVERS, comm_floats_per_sweep,
                                      register_solver, run_solver)
 from repro_torch.api.specs import (AgentSpec, BackendSpec, DataSpec, Dataset,
                                    ExperimentSpec, FaultSpec, NotPortedError,
                                    ObsSpec, SolverSpec, SpecError,
                                    TransportSpec, spec_from_dict, spec_to_dict)
+from repro_torch.api.sweep import grid_specs, spec_with, sweep, zip_specs
 
 __all__ = [
     "AgentSpec", "BackendSpec", "DataSpec", "Dataset", "ExperimentSpec",
-    "FaultSpec", "History", "NotPortedError", "ObsSpec", "Result", "SOLVERS",
-    "SolverSpec", "SpecError", "TransportSpec", "comm_floats_per_sweep",
-    "fit", "register_solver", "run_solver", "spec_from_dict", "spec_to_dict",
+    "FaultSpec", "History", "NotPortedError", "ObsSpec", "Result",
+    "ResultSet", "SOLVERS", "SolverSpec", "SpecError", "TransportSpec",
+    "batch_fit", "comm_floats_per_sweep", "fit", "grid_specs",
+    "register_solver", "run_solver", "spec_from_dict", "spec_to_dict",
+    "spec_with", "sweep", "trial_spec", "zip_specs",
 ]
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch.api.fit runs on the CUDA card unless asked otherwise, "
-            "and no CUDA device is available; pass device='cpu' to run on the "
-            "CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
-    return dev
 
 
 def fit(spec: ExperimentSpec, *, device="cuda",
@@ -52,7 +47,7 @@ def fit(spec: ExperimentSpec, *, device="cuda",
     """Run one experiment end to end on `device`: build the data from the
     spec (or take `data`, moved to `device`), resolve the agent family, run
     the registered solver and return the standardised Result."""
-    dev = _resolve_device(device)
+    dev = resolve_device(device, "repro_torch.api.fit")
     spec.validate()
     if data is None:
         data = spec.data.build(dev)

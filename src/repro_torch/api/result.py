@@ -3,18 +3,21 @@
 `History` holds one entry per record: train_mse, test_mse, eta (the MSE of
 the optimally weighted ensemble, paper eq. 11) and bytes_transmitted (the
 ledger bytes of the sweep that produced the record; record 0 is 0).
+`ResultSet` is the Monte-Carlo aggregate of api.batch_fit: every trial of
+one spec, with mean/std trade-off curves over the trial axis.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.api.specs import Dataset, ExperimentSpec
 from repro_torch.core import ensemble
 
-__all__ = ["History", "Result"]
+__all__ = ["History", "Result", "ResultSet"]
 
 
 @dataclasses.dataclass
@@ -23,7 +26,11 @@ class History:
     test_mse: List[float] = dataclasses.field(default_factory=list)
     eta: List[float] = dataclasses.field(default_factory=list)
     bytes_transmitted: List[float] = dataclasses.field(default_factory=list)
-    converged_at: Optional[int] = None   # record where the eps rule stopped
+    # record where the serial eps rule stops (|eta_k - eta_{k-1}| < eps over
+    # post-sweep records): the last record of a fit, which truncates there;
+    # batch_fit runs the full static schedule and reports where fit WOULD
+    # have stopped instead
+    converged_at: Optional[int] = None
 
     @property
     def total_bytes(self) -> float:
@@ -61,3 +68,82 @@ class Result:
 
     def mse(self, x: torch.Tensor, y: torch.Tensor) -> float:
         return float(torch.mean((y - self.predict(x)) ** 2))
+
+
+@dataclasses.dataclass
+class ResultSet:
+    """Monte-Carlo aggregate: every trial of ONE spec (api.batch_fit), twin
+    of repro.api.result.ResultSet.
+
+    Each element is a full per-trial `Result` whose spec carries that trial's
+    seeds (trial t offsets both `seed` and `data.seed` by t).  Aggregates are
+    computed over the trial axis; histories are truncated to the shortest
+    trial before stacking (serial trials may stop early on eps — the batched
+    runner always records the full static schedule).
+
+        bytes, mean, std = rs.curve("test_mse")   # trade-off curve +- std
+    """
+
+    spec: ExperimentSpec          # the base spec (trial 0 runs it verbatim)
+    results: List[Result]
+
+    def __len__(self) -> int:
+        return len(self.results)
+
+    def __iter__(self):
+        return iter(self.results)
+
+    def __getitem__(self, i: int) -> Result:
+        return self.results[i]
+
+    @property
+    def n_records(self) -> int:
+        return min(len(r.history.train_mse) for r in self.results)
+
+    def stack(self, field: str = "test_mse") -> np.ndarray:
+        """(n_trials, n_records) history matrix for one History field."""
+        t = self.n_records
+        return np.asarray([getattr(r.history, field)[:t] for r in self.results])
+
+    def mean(self, field: str = "test_mse") -> np.ndarray:
+        return self.stack(field).mean(axis=0)
+
+    def std(self, field: str = "test_mse") -> np.ndarray:
+        return self.stack(field).std(axis=0)
+
+    @property
+    def converged_sweeps(self) -> List[Optional[int]]:
+        """Per-trial record index where the serial eps rule stops."""
+        return [r.history.converged_at for r in self.results]
+
+    @property
+    def cumulative_bytes(self) -> np.ndarray:
+        """Cumulative measured wire bytes per record — defined only when the
+        per-trial ledgers agree (always, for this slice's unbudgeted
+        transport); a divergence names the first offending trial and
+        record."""
+        b = self.stack("bytes_transmitted")
+        scale = max(float(np.max(np.abs(b))), 1.0)
+        dev = np.abs(b - b[0:1])
+        if np.max(dev) > 1e-9 * scale:
+            trial, record = np.unravel_index(int(np.argmax(dev)), dev.shape)
+            raise ValueError(
+                f"per-trial byte ledgers diverge: trial {trial} record "
+                f"{record} transmitted {b[trial, record]:g} bytes vs trial 0's "
+                f"{b[0, record]:g}; there is no single byte axis — use "
+                f"np.cumsum(rs.stack('bytes_transmitted'), axis=1) for "
+                f"per-trial curves")
+        return np.cumsum(b[0])
+
+    def curve(self, field: str = "test_mse"
+              ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The paper's trade-off curve: (cumulative_bytes, mean, std)."""
+        return self.cumulative_bytes, self.mean(field), self.std(field)
+
+    @property
+    def test_mse_mean(self) -> float:
+        return float(self.mean("test_mse")[-1])
+
+    @property
+    def test_mse_std(self) -> float:
+        return float(self.std("test_mse")[-1])

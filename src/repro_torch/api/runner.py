@@ -1,0 +1,131 @@
+"""Compiled Monte Carlo: many trials of one spec as one batched program
+(twin of repro.api.runner for the local backend).
+
+Every figure of the paper averages over independent trials of one scenario.
+`fit` runs one trial; `batch_fit` runs `n_trials` of them at once: the
+trials' datasets are stacked along a leading trial axis and the whole batch
+goes through `core.icoa.run_scan`, where every tensor of the solve carries
+that axis and, with `use_kernel`, every product is one launch of a batched
+kernel for all trials — the explicit counterpart of the JAX package's
+`jit(vmap(run_fn))`.
+
+Trial t of a spec is `fit(trial_spec(spec, t))`: the data seed and the
+solver seed are both offset by t.  The one difference, as in the JAX
+package: the batched schedule is static, so `solver.eps` stops nothing and
+`History.converged_at` records where fit's eps rule would have stopped.
+
+BackendSpec's Monte-Carlo knobs: `trial_devices` of None or 1 runs on one
+card (more waits for ROADMAP A11); `compute_dtype` casts the generated data,
+and so the whole solve; `donate` is accepted and has no effect (PyTorch runs
+eagerly: there is no compiled program whose input buffer could be donated).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.api.result import History, Result, ResultSet
+from repro_torch.api.specs import ExperimentSpec, SpecError, _not_ported
+from repro_torch.core import icoa
+from repro_torch.data import sources as data_sources
+
+__all__ = ["batch_fit", "trial_spec", "resolve_device"]
+
+_COMPILED_SOLVERS = ("icoa",)
+
+
+def resolve_device(device, entry: str = "repro_torch.api") -> torch.device:
+    """The device an entry point runs on: the CUDA card unless the caller
+    asks for the CPU; without a CUDA device, "cuda" raises rather than
+    carrying on elsewhere."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{entry} runs on the CUDA card unless asked otherwise, and no "
+            f"CUDA device is available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}: use 'cuda' or 'cpu'")
+    return dev
+
+
+def trial_spec(spec: ExperimentSpec, trial: int) -> ExperimentSpec:
+    """The spec of Monte-Carlo trial `trial`: fresh data AND solver streams
+    (both seeds offset by the trial index; trial 0 is the spec verbatim)."""
+    if trial == 0:
+        return spec
+    return dataclasses.replace(
+        spec, seed=spec.seed + trial,
+        data=dataclasses.replace(spec.data, seed=spec.data.seed + trial))
+
+
+def _can_compile(spec: ExperimentSpec) -> bool:
+    return spec.solver.name in _COMPILED_SOLVERS
+
+
+def _check_trial_devices(spec: ExperimentSpec, dev: torch.device) -> None:
+    """trial_devices of None or 1: one device.  More is a multi-device
+    trial mesh (ROADMAP A11); more than exist is a SpecError as well."""
+    k = spec.backend.trial_devices
+    if k is None or k == 1:
+        return
+    avail = torch.cuda.device_count() if dev.type == "cuda" else 1
+    have = (f" (and only {avail} {dev.type} device(s) exist)" if k > avail
+            else "")
+    raise _not_ported(f"backend.trial_devices={k}, a trial mesh over several "
+                      f"devices{have},", "A11")
+
+
+def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
+              compiled: Optional[bool] = None) -> ResultSet:
+    """Run `n_trials` independent Monte-Carlo trials of one spec on `device`.
+
+    `compiled=None` runs every trial as one batched program (icoa, the only
+    solver of this slice); `compiled=False` runs `n_trials` serial `fit`
+    calls instead.  Trial t equals `fit(trial_spec(spec, t))` on the same
+    device up to the order of fp32 sums; the batched path ignores
+    `solver.eps` and reports fit's stopping record as History.converged_at."""
+    dev = resolve_device(device, "repro_torch.api.batch_fit")
+    spec.validate()
+    if n_trials < 1:
+        raise SpecError(f"need n_trials >= 1, got {n_trials}")
+    _check_trial_devices(spec, dev)
+    if compiled is None:
+        compiled = _can_compile(spec)
+    if not compiled:
+        from repro_torch.api import fit  # api/__init__ imports this module
+
+        return ResultSet(spec, [fit(trial_spec(spec, t), device=dev)
+                                for t in range(n_trials)])
+    if not _can_compile(spec):
+        raise SpecError(f"no batched runner for solver {spec.solver.name!r}")
+
+    dspec = spec.data
+    groups = dspec.groups
+    # validate() admits only bfloat16 / float32 / float64: torch's own names
+    dtype = (None if spec.backend.compute_dtype is None
+             else getattr(torch, spec.backend.compute_dtype))
+    xcols, y, xcols_test, y_test = data_sources.make_trial_batch(
+        dspec.source, dspec.n_train, dspec.n_test,
+        [dspec.seed + t for t in range(n_trials)], groups, noise=dspec.noise,
+        n_attrs=dspec.n_attrs, options=dspec.source_options, dtype=dtype,
+        device=dev)
+    family = spec.agent.resolve(n_cols=xcols.shape[-1])
+    cfg = spec.solver.icoa_config(spec.resolved_transport())
+    params, f, weights, hist = icoa.run_scan(family, cfg, xcols, y,
+                                             xcols_test, y_test)
+
+    # one device-to-host transfer per history field, not one per scalar
+    host = {k: hist[k].cpu().tolist() for k in ("train_mse", "test_mse", "eta")}
+    conv = hist["converged_at"].cpu().tolist()
+    results = []
+    for t in range(n_trials):
+        history = History(train_mse=host["train_mse"][t],
+                          test_mse=host["test_mse"][t], eta=host["eta"][t],
+                          bytes_transmitted=list(hist["bytes"]),
+                          converged_at=int(conv[t]))
+        results.append(Result(spec=trial_spec(spec, t), family=family,
+                              params=params[t], weights=weights[t], f=f[t],
+                              history=history, data=None))
+    return ResultSet(spec, results)

@@ -3,7 +3,9 @@
 Residuals are held as R (D, N), one row per agent; the covariance is the
 uncentered second moment A_ij = (1/N) r_i^T r_j.  With `use_kernel` the
 product runs through kernels.gram (fp32 accumulation, cast back to the
-residual dtype) — the hand-written CUDA kernel on a CUDA tensor.
+residual dtype) — the hand-written CUDA kernel on a CUDA tensor.  A
+leading Monte-Carlo trial axis (B, D, N) gives one estimate per trial (the
+batched kernel).
 
 The alpha > 1 subsampled estimate (`subsample_indices`, `spliced_gram`, a
 subsample `idx`) waits for Minimax Protection (ROADMAP A8).
@@ -18,12 +20,12 @@ __all__ = ["gram", "residual_covariance", "subsample_size", "subsampled_gram"]
 
 
 def gram(r: torch.Tensor, use_kernel: bool = False) -> torch.Tensor:
-    """(D, N) -> (D, D) Gram matrix R R^T / N."""
+    """(..., D, N) -> (..., D, D) Gram matrix R R^T / N."""
     if use_kernel:
         from repro_torch.kernels.gram import ops as gram_ops
 
-        return (gram_ops.gram(r) / r.shape[1]).to(r.dtype)
-    return (r @ r.T) / r.shape[1]
+        return (gram_ops.gram(r) / r.shape[-1]).to(r.dtype)
+    return (r @ r.mT) / r.shape[-1]
 
 
 def residual_covariance(residuals: torch.Tensor,

@@ -15,7 +15,16 @@ sweep needs:
 (the back-search's probes; a leading batch axis on u probes a whole step
 schedule at once); `apply_row_update` commits one.  The one O(N*D) product
 per probe and per commit runs through kernels.gram.row_gram when
-`use_kernel` is set.  Twin of repro.core.covstate for the alpha = 1 slice:
+`use_kernel` is set.
+
+A CovState may also carry a leading Monte-Carlo trial axis: r_sub (B, D, m),
+a0 and m_inv (B, D, D), s (B, D), eta_tilde (B,) — the twin of the JAX
+package's covstate under the trial vmap.  `build`, `row_product`,
+`row_update_vector`, `eta_probe` and `apply_inverse_update` take such a
+state, with agent i shared by the batch (every trial updates the same agent
+at the same time) and u of shape (B, D), or (B, K, D) for a step schedule.
+
+Twin of repro.core.covstate for the alpha = 1 slice:
 the Sec 4.1 exact-diagonal split (`exact_diag`, `ddiag`) and the streaming
 column swaps wait for ROADMAP A8 and A14.
 """
@@ -42,24 +51,28 @@ class CovState(NamedTuple):
 
 def row_product(vec: torch.Tensor, r_sub: torch.Tensor,
                 use_kernel: bool = False) -> torch.Tensor:
-    """(m,), (D, m) -> (D,) = R @ vec — the engine's one O(N*D) product.
-    Kernel path: fp32 accumulation, cast back to the residual dtype."""
+    """(m,), (D, m) -> (D,) = R @ vec — the engine's one O(N*D) product;
+    per trial (B, m), (B, D, m) -> (B, D).  Kernel path: fp32 accumulation,
+    cast back to the residual dtype."""
     if use_kernel:
         from repro_torch.kernels.gram import ops as gram_ops
 
         return gram_ops.row_gram(vec, r_sub).to(r_sub.dtype)
+    if r_sub.dim() == 3:
+        return (r_sub @ vec[..., None])[..., 0]
     return r_sub @ vec
 
 
 def _with_solve(r_sub: torch.Tensor, a0: torch.Tensor) -> CovState:
-    d = a0.shape[0]
+    d = a0.shape[-1]
     eye = torch.eye(d, dtype=a0.dtype, device=a0.device)
     m_inv = torch.linalg.inv(a0 + _JITTER * eye)
     # the SMW update assumes exact symmetry; linalg.inv returns column-major
     # strides, and the kernels read row-major contiguous memory
-    m_inv = (0.5 * (m_inv + m_inv.T)).contiguous()
+    m_inv = (0.5 * (m_inv + m_inv.mT)).contiguous()
     s = m_inv @ torch.ones((d,), dtype=a0.dtype, device=a0.device)
-    return CovState(r_sub=r_sub, a0=a0, m_inv=m_inv, s=s, eta_tilde=torch.sum(s))
+    return CovState(r_sub=r_sub, a0=a0, m_inv=m_inv, s=s,
+                    eta_tilde=torch.sum(s, dim=-1))
 
 
 def build(r_sub: torch.Tensor, use_kernel: bool = False) -> CovState:
@@ -76,10 +89,13 @@ def row_update_vector(state: CovState, i: int, delta_sub: torch.Tensor,
                       use_kernel: bool = False) -> torch.Tensor:
     """u with A0' = A0 + e_i u^T + u e_i^T after row i's residual moves by
     delta_sub (alpha = 1: the diagonal comes from the same Gram).  One
-    row_gram product — O(N*D)."""
-    m = state.r_sub.shape[1]
+    row_gram product — O(N*D).  Per trial: delta_sub (B, m) -> u (B, D)."""
+    m = state.r_sub.shape[-1]
     w = row_product(delta_sub, state.r_sub, use_kernel=use_kernel) / m
-    w[i] += torch.dot(delta_sub, delta_sub) / (2.0 * m)
+    if delta_sub.dim() == 2:
+        w[:, i] += torch.sum(delta_sub * delta_sub, dim=-1) / (2.0 * m)
+    else:
+        w[i] += torch.dot(delta_sub, delta_sub) / (2.0 * m)
     return w
 
 
@@ -96,9 +112,35 @@ def _smw_pieces(state: CovState, i: int, u: torch.Tensor):
     return z1, z2, k11, k12, k22, det
 
 
+def _smw_pieces_batched(state: CovState, i: int, u: torch.Tensor):
+    """`_smw_pieces` per trial: u (B, K, D) against m_inv (B, D, D); the
+    per-trial scalars come back (B, 1) and the per-probe ones (B, K)."""
+    m_inv = state.m_inv
+    z1 = m_inv[:, i]                             # (B, D): M e_i
+    z2 = u @ m_inv.mT                            # (B, K, D): M u, row by row
+    k11 = m_inv[:, i, i, None]
+    k12 = 1.0 + z2[..., i]
+    k22 = torch.sum(u * z2, dim=-1)
+    det = k11 * k22 - k12 * k12
+    return z1, z2, k11, k12, k22, det
+
+
+def _eta_probe_batched(state: CovState, i: int, u: torch.Tensor) -> torch.Tensor:
+    u3 = u if u.dim() == 3 else u[:, None, :]
+    _, _, k11, k12, k22, det = _smw_pieces_batched(state, i, u3)
+    t1 = state.s[:, i, None]
+    t2 = (u3 @ state.s[..., None])[..., 0]
+    eta = state.eta_tilde[:, None] - (k22 * t1 * t1 - 2.0 * k12 * t1 * t2
+                                      + k11 * t2 * t2) / det
+    return eta if u.dim() == 3 else eta[:, 0]
+
+
 def eta_probe(state: CovState, i: int, u: torch.Tensor) -> torch.Tensor:
     """eta_tilde after a hypothetical row-i update u (..., D) — O(D^2) each,
-    no commit."""
+    no commit.  A batched state takes u (B, D) -> (B,) or (B, K, D) ->
+    (B, K)."""
+    if state.m_inv.dim() == 3:
+        return _eta_probe_batched(state, i, u)
     _, _, k11, k12, k22, det = _smw_pieces(state, i, u)
     t1, t2 = state.s[i], u @ state.s
     return state.eta_tilde - (k22 * t1 * t1 - 2.0 * k12 * t1 * t2
@@ -114,8 +156,30 @@ def s_probe(state: CovState, i: int, u: torch.Tensor) -> torch.Tensor:
     return state.s - c1 * z1 - c2 * z2
 
 
+def _apply_inverse_update_batched(state: CovState, i: int, u: torch.Tensor):
+    z1, z2, k11, k12, k22, det = _smw_pieces_batched(state, i, u[:, None, :])
+    z2, k12, k22, det = z2[:, 0], k12[:, 0], k22[:, 0], det[:, 0]
+    k11 = k11[:, 0]
+
+    def outer(a, b):
+        return a[:, :, None] * b[:, None, :]
+
+    m_inv = state.m_inv - (k22[:, None, None] * outer(z1, z1)
+                           - k12[:, None, None] * (outer(z1, z2) + outer(z2, z1))
+                           + k11[:, None, None] * outer(z2, z2)) / det[:, None, None]
+    t1 = state.s[:, i]
+    t2 = torch.sum(u * state.s, dim=-1)
+    c1 = (k22 * t1 - k12 * t2) / det
+    c2 = (k11 * t2 - k12 * t1) / det
+    s = state.s - c1[:, None] * z1 - c2[:, None] * z2
+    return m_inv, s, torch.sum(s, dim=-1)
+
+
 def apply_inverse_update(state: CovState, i: int, u: torch.Tensor):
-    """(m_inv', s', eta_tilde') after the rank-2 row-i perturbation u."""
+    """(m_inv', s', eta_tilde') after the rank-2 row-i perturbation u; a
+    batched state takes u (B, D), one perturbation per trial."""
+    if state.m_inv.dim() == 3:
+        return _apply_inverse_update_batched(state, i, u)
     z1, z2, k11, k12, k22, det = _smw_pieces(state, i, u)
     m_inv = state.m_inv - (k22 * torch.outer(z1, z1)
                            - k12 * (torch.outer(z1, z2) + torch.outer(z2, z1))

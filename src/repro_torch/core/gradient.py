@@ -15,11 +15,17 @@ __all__ = ["cached_row_gradient"]
 
 def cached_row_gradient(v: torch.Tensor, r_sub: torch.Tensor, i: int,
                         exclude_self: bool = False) -> torch.Tensor:
-    """Closed-form probe gradient of agent i over the transmitted positions.
+    """Closed-form probe gradient of agent i over the transmitted positions:
+    v (D,), r_sub (D, m) -> (m,), or per trial v (B, D), r_sub (B, D, m) ->
+    (B, m).
 
     `exclude_self=True` drops the k = i term (the Sec 4.1 exact-diagonal
     split adds it separately)."""
-    cross = v @ r_sub
+    if v.dim() == 1:
+        cross = v @ r_sub
+    else:
+        cross = (v[..., None, :] @ r_sub)[..., 0, :]
+    vi = v[..., i, None]
     if exclude_self:
-        cross = cross - v[i] * r_sub[i]
-    return (2.0 / r_sub.shape[1]) * v[i] * cross
+        cross = cross - vi * r_sub[..., i, :]
+    return (2.0 / r_sub.shape[-1]) * vi * cross

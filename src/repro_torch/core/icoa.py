@@ -25,6 +25,15 @@ waits for the device.  Two engines compute the same sweep:
     update; with use_kernel these two passes are kernels.sweep's probe and
     commit kernels.
 
+`run_scan` is the Monte-Carlo building block (api.batch_fit): B independent
+trials as one batched program.  Every tensor carries a leading trial axis
+(B, ...) — the explicit counterpart of the JAX package's vmap over its
+run_scan — and `sweep` sends such a state to the batched twins of the two
+engines, where all trials update agent i together (i stays a host int) and
+eta, the chosen step, accept/reject and the solve state are per trial.  With
+use_kernel every product goes to the batched kernels, one launch per agent
+for the whole batch.
+
 The dense oracle engine waits for ROADMAP A4; Minimax Protection (alpha > 1,
 delta > 0) for A8.  At alpha = 1 no random draw reaches the math, so `run`
 carries no generator: the JAX package's per-sweep key splits feed only the
@@ -34,7 +43,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import numpy as np
 import torch
@@ -46,7 +55,8 @@ from repro_torch.core import covstate, ensemble, gradient
 from repro_torch.transport import Ledger, icoa_sweep_cost
 
 __all__ = ["ICOAConfig", "ICOAState", "init_state", "sweep", "run",
-           "converged_record", "ensemble_predict", "NotPortedError"]
+           "run_scan", "converged_record", "ensemble_predict",
+           "NotPortedError"]
 
 
 class NotPortedError(NotImplementedError):
@@ -89,9 +99,11 @@ class ICOAState:
 
 
 def init_state(family, xcols: torch.Tensor, y: torch.Tensor) -> ICOAState:
-    """Non-cooperative warm start: every agent fits y directly."""
-    d, n = xcols.shape[0], xcols.shape[1]
-    params = family.fit(None, xcols, y.expand(d, n))
+    """Non-cooperative warm start: every agent fits y directly.  Batched:
+    xcols (B, D, N, C), y (B, N)."""
+    d, n = xcols.shape[-3], xcols.shape[-2]
+    params = family.fit(None, xcols,
+                        y[..., None, :].expand(*y.shape[:-1], d, n))
     return ICOAState(params=params, f=family.predict(params, xcols))
 
 
@@ -118,19 +130,37 @@ def _first_improving(etas: torch.Tensor, eta0: torch.Tensor,
                        torch.zeros((), dtype=steps.dtype, device=steps.device))
 
 
+def _first_improving_batched(etas: torch.Tensor, eta0: torch.Tensor,
+                             steps: torch.Tensor) -> torch.Tensor:
+    """`_first_improving` per trial: etas (B, K), eta0 (B,) -> steps (B,)."""
+    improved = etas > eta0[:, None]
+    kstar = torch.argmax(improved.to(torch.int8), dim=-1)       # first max
+    return torch.where(improved.any(dim=-1), steps[kstar],
+                       torch.zeros((), dtype=steps.dtype, device=steps.device))
+
+
 def sweep(family, cfg: ICOAConfig, params: torch.Tensor, f: torch.Tensor,
           xcols: torch.Tensor, y: torch.Tensor,
           ledger: Optional[Ledger] = None):
     """One full round-robin sweep over all D agents; returns
     (params, f, ledger).  The inputs are not modified.  The ledger is
     charged the row-wise schedule's bytes: the sweep-start gather plus one
-    candidate-row broadcast per agent."""
+    candidate-row broadcast per agent.
+
+    A batched state — params (B, D, P), f (B, D, N), xcols (B, D, N, C),
+    y (B, N) — runs all B trials through the batched engine.  Every trial
+    transmits the same rows, so the ledger is charged one trial's price,
+    which each trial pays alike."""
     cfg.validate()
-    d, n = f.shape
+    d, n = f.shape[-2:]
     tp = (cfg.transport or transport_lib.default_transport(d)).validate_for(d)
     ledger = (ledger or Ledger()).charge(
         icoa_sweep_cost(tp, n, split=False, row_wise=True))
-    engine = _sweep_fused if cfg.engine == "fused" else _sweep_incremental
+    if f.dim() == 3:
+        engine = (_sweep_fused_batched if cfg.engine == "fused"
+                  else _sweep_incremental_batched)
+    else:
+        engine = _sweep_fused if cfg.engine == "fused" else _sweep_incremental
     params, f = engine(family, cfg, tp, params.clone(), f.clone(), xcols, y)
     return params, f, ledger
 
@@ -191,6 +221,58 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y):
     return params, f
 
 
+def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
+                               xcols, y):
+    """`_sweep_incremental` for B trials at once: one batched CovState, every
+    trial updating agent i together; the step, accept/reject and the commit
+    are per trial (torch.where on (B,) booleans, no host wait)."""
+    d, n = f.shape[-2:]
+    m = n
+    uk = cfg.use_kernel
+    cs = covstate.build(tp.relay_rows(y[:, None, :] - f), use_kernel=uk)
+    steps = _step_schedule(cfg, n, f.dtype, f.device)
+    r_sub = cs.r_sub
+
+    for i in range(d):
+        eta0 = cs.eta_tilde                                       # (B,)
+        g = gradient.cached_row_gradient(cs.s, r_sub, i)          # (B, m)
+        gnorm = torch.linalg.norm(g, dim=-1) + 1e-30
+        g_unit = g / gnorm[:, None]
+
+        p = covstate.row_product(g_unit, r_sub, use_kernel=uk) / m  # (B, D)
+        gg = torch.sum(g_unit * g_unit, dim=-1)
+        u = -steps[None, :, None] * p[:, None, :]                 # (B, K, D)
+        u[:, :, i] += steps[None, :] * steps[None, :] * gg[:, None] / (2.0 * m)
+        step = _first_improving_batched(covstate.eta_probe(cs, i, u), eta0,
+                                        steps)
+
+        f_hat = f[:, i] + step[:, None] * g_unit
+        p_new = family.fit(params[:, i], xcols[:, i], f_hat)
+        f_new = family.predict(p_new, xcols[:, i])
+
+        r_new_sub = tp.relay_row(y - f_new, i)
+        u_acc = covstate.row_update_vector(cs, i, r_new_sub - r_sub[:, i],
+                                           use_kernel=uk)
+        if cfg.accept_reject:
+            accept = covstate.eta_probe(cs, i, u_acc) > eta0
+        else:
+            accept = torch.ones(eta0.shape, dtype=torch.bool, device=f.device)
+
+        params[:, i] = torch.where(accept[:, None], p_new, params[:, i])
+        f[:, i] = torch.where(accept[:, None], f_new, f[:, i])
+        m_inv, s, eta_t = covstate.apply_inverse_update(cs, i, u_acc)
+        a0 = cs.a0.clone()
+        a0[:, i, :] += u_acc
+        a0[:, :, i] += u_acc
+        r_sub[:, i] = torch.where(accept[:, None], r_new_sub, r_sub[:, i])
+        cs = covstate.CovState(
+            r_sub=r_sub, a0=torch.where(accept[:, None, None], a0, cs.a0),
+            m_inv=torch.where(accept[:, None, None], m_inv, cs.m_inv),
+            s=torch.where(accept[:, None], s, cs.s),
+            eta_tilde=torch.where(accept, eta_t, cs.eta_tilde))
+    return params, f
+
+
 def _small_inv(gm: torch.Tensor) -> torch.Tensor:
     """Batched inverse for trailing (P, P), P static and tiny: the cofactor
     form for P <= 2, torch.linalg.inv otherwise."""
@@ -208,14 +290,15 @@ def _small_inv(gm: torch.Tensor) -> torch.Tensor:
 
 def _poly_projector(xcols: torch.Tensor, degree: int, ridge: float):
     """Per-agent ridge projector for PolynomialFamily, precomputed once per
-    sweep: phiT (D, P, N) transposed features and Ginv (D, P, P) =
+    sweep: phiT (..., D, P, N) transposed features and Ginv (..., D, P, P) =
     (phi^T phi + ridge I)^{-1}, the P x P Gram summed entry by entry over
     contiguous phiT rows as the JAX package does."""
-    phi_t = _features(xcols, degree).transpose(1, 2).contiguous()
-    p = phi_t.shape[1]
+    phi_t = _features(xcols, degree).transpose(-1, -2).contiguous()
+    p = phi_t.shape[-2]
     rows = []
     for a in range(p):
-        rows.append(torch.stack([torch.sum(phi_t[:, a, :] * phi_t[:, b, :], dim=-1)
+        rows.append(torch.stack([torch.sum(phi_t[..., a, :] * phi_t[..., b, :],
+                                           dim=-1)
                                  for b in range(p)], -1))
     eye = torch.eye(p, dtype=phi_t.dtype, device=phi_t.device)
     return phi_t, _small_inv(torch.stack(rows, -2) + ridge * eye)
@@ -296,9 +379,73 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y):
     return params, f
 
 
+def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y):
+    """`_sweep_fused` for B trials at once: one batched probe launch and one
+    batched commit launch per agent with use_kernel, eta / threshold / the
+    accept flags per trial as (B,) device tensors."""
+    from repro_torch.kernels.sweep import ops as sweep_ops
+    from repro_torch.kernels.sweep import ref as sweep_ref
+
+    d, n = f.shape[-2:]
+    m = n
+    uk = cfg.use_kernel
+    dt, dev = f.dtype, f.device
+    cs0 = covstate.build(tp.relay_rows(y[:, None, :] - f), use_kernel=uk)
+    rs, a0, m_inv, s, eta = cs0.r_sub, cs0.a0, cs0.m_inv, cs0.s, cs0.eta_tilde
+    steps = _step_schedule(cfg, n, dt, dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+
+    if isinstance(family, PolynomialFamily):
+        phi_t, ginv = _poly_projector(xcols, family.degree, family.ridge)
+
+        def project(i, p_old, f_hat):
+            p_new = (ginv[:, i] @ (phi_t[:, i] @ f_hat[..., None]))[..., 0]
+            return p_new, (p_new[:, None, :] @ phi_t[:, i])[:, 0]
+    else:
+        def project(i, p_old, f_hat):
+            p_new = family.fit(p_old, xcols[:, i], f_hat)
+            return p_new, family.predict(p_new, xcols[:, i])
+
+    threshold_off = float("-inf")
+    for i in range(d):
+        eta0 = eta                                                # (B,)
+        if uk:
+            etas, cross, _, gnorm = sweep_ops.probe_sweep(rs, m_inv, s, eta, i,
+                                                          steps)
+            g_unit = ((2.0 / m) * s[:, i] / gnorm)[:, None] * cross
+        else:
+            g = gradient.cached_row_gradient(s, rs, i)
+            gnorm = torch.linalg.norm(g, dim=-1) + 1e-30
+            g_unit = g / gnorm[:, None]
+            p = (2.0 * s[:, i] / (m * gnorm))[:, None] * (a0 @ s[..., None])[..., 0]
+            gg = torch.sum(g_unit * g_unit, dim=-1)
+            etas = sweep_ref.probe_etas_closed_batched(
+                m_inv, s, eta, i, steps, p, zero, gg / (2.0 * m))
+        step = _first_improving_batched(etas, eta0, steps)
+
+        f_hat = f[:, i] + step[:, None] * g_unit
+        p_new, f_new = project(i, params[:, i], f_hat)
+
+        r_new_sub = tp.relay_row(y - f_new, i)
+        delta = r_new_sub - rs[:, i]
+        threshold = eta0 if cfg.accept_reject else threshold_off
+        commit = sweep_ops.commit_sweep if uk else sweep_ref.commit_sweep_batched_ref
+        m_inv, s, u_eff, accept, _ = commit(rs, m_inv, s, eta, i, delta, 1.0,
+                                            0.0, threshold, True)
+        eta = torch.sum(s, dim=-1)
+
+        params[:, i] = torch.where(accept[:, None], p_new, params[:, i])
+        f[:, i] = torch.where(accept[:, None], f_new, f[:, i])
+        a0[:, i, :] += u_eff                   # u_eff = 0 on reject
+        a0[:, :, i] += u_eff
+        rs[:, i] = torch.where(accept[:, None], r_new_sub, rs[:, i])
+    return params, f
+
+
 def _weights(f: torch.Tensor, y: torch.Tensor, cfg: ICOAConfig) -> torch.Tensor:
-    """Closed-form ensemble weights from the full residual covariance."""
-    return ensemble.optimal_weights(cov.gram(y[None, :] - f,
+    """Closed-form ensemble weights from the full residual covariance
+    (per trial for a batched f (B, D, N), y (B, N))."""
+    return ensemble.optimal_weights(cov.gram(y[..., None, :] - f,
                                              use_kernel=cfg.use_kernel))
 
 
@@ -307,10 +454,23 @@ def ensemble_predict(family, params: torch.Tensor, weights: torch.Tensor,
     return ensemble.combine(weights, family.predict(params, xcols))
 
 
-def converged_record(eta: List[float], eps: float) -> int:
+def converged_record(eta: Union[List[float], torch.Tensor], eps: float):
     """Record index where `run`'s eps rule stops, from a full eta history:
     the first record k >= 2 with |eta[k] - eta[k-1]| < eps, else the last
-    (record 0 is the non-cooperative init, record 1 has no predecessor)."""
+    (record 0 is the non-cooperative init, record 1 has no predecessor).
+
+    A tensor of histories (..., R) — run_scan's per-trial etas — gives an
+    int64 tensor (...,) of records, computed in eta's dtype as the JAX
+    package's closed form is."""
+    if isinstance(eta, torch.Tensor):
+        last = eta.shape[-1] - 1
+        full = torch.full(eta.shape[:-1], last, dtype=torch.int64,
+                          device=eta.device)
+        if eta.shape[-1] < 3:
+            return full
+        hit = torch.abs(eta[..., 2:] - eta[..., 1:-1]) < eps
+        first = torch.argmax(hit.to(torch.int8), dim=-1) + 2
+        return torch.where(hit.any(dim=-1), first, full)
     last = len(eta) - 1
     for k in range(2, len(eta)):
         if abs(eta[k] - eta[k - 1]) < eps:
@@ -359,3 +519,52 @@ def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
             break
         eta_prev = eta_now
     return state, weights, hist
+
+
+def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
+             xcols_test: torch.Tensor, y_test: torch.Tensor):
+    """B independent ICOA runs as one batched program — the Monte-Carlo
+    building block (api.batch_fit), twin of the JAX package's
+    `jax.vmap(run_scan)`.
+
+    xcols (B, D, N, C), y (B, N), xcols_test (B, D, N_test, C), y_test
+    (B, N_test).  Same math as `run`, but the schedule is static: exactly
+    cfg.n_sweeps sweeps run and eps stops nothing.  Returns (params (B, D, P),
+    f (B, D, N), weights (B, D), hist) with hist["train_mse"], ["test_mse"]
+    and ["eta"] (B, n_sweeps + 1) tensors in the data dtype (record 0 is the
+    non-cooperative init), hist["converged_at"] (B,) — the record where
+    `run`'s eps rule would have stopped — and hist["bytes"], the host
+    ledger's bytes per record (record 0: 0), the same for every trial.
+    Nothing in the loop waits for the device."""
+    cfg.validate()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if xcols.dim() != 4 or y.dim() != 2:
+        raise ValueError(f"run_scan: expected xcols (B, D, N, C) and y (B, N), "
+                         f"got {tuple(xcols.shape)} and {tuple(y.shape)}")
+    state = init_state(family, xcols, y)
+    recs = {"train_mse": [], "test_mse": [], "eta": []}
+
+    def record(params, f):
+        w = _weights(f, y, cfg)
+        recs["train_mse"].append(
+            torch.mean((y - ensemble.combine(w, f)) ** 2, dim=-1))
+        pred = ensemble_predict(family, params, w, xcols_test)
+        recs["test_mse"].append(torch.mean((y_test - pred) ** 2, dim=-1))
+        a0 = cov.subsampled_gram(y[:, None, :] - f, None,
+                                 use_kernel=cfg.use_kernel)
+        recs["eta"].append(1.0 / ensemble.eta_tilde(a0))
+        return w
+
+    params, f = state.params, state.f
+    weights = record(params, f)
+    ledger = Ledger()
+    bytes_hist = [0.0]
+    for _ in range(cfg.n_sweeps):
+        params, f, led2 = sweep(family, cfg, params, f, xcols, y, ledger)
+        bytes_hist.append(float(led2.spent - ledger.spent))
+        ledger = led2
+        weights = record(params, f)
+    hist = {k: torch.stack(v, dim=-1) for k, v in recs.items()}
+    hist["converged_at"] = converged_record(hist["eta"], cfg.eps)
+    hist["bytes"] = bytes_hist
+    return params, f, weights, hist

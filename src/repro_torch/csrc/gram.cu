@@ -22,6 +22,15 @@
 //   every row of R with one warp per row (coalesced 128-byte loads, 8 in
 //   flight per lane), writing per-block partial dot products; a second pass
 //   sums them in block order.
+//
+// repro_gram_batched and repro_row_gram_batched replace
+// gram_pallas_batched (B2) and row_gram_pallas_batched (B4): the same
+// products for B independent Monte-Carlo trials, R (B, D, N).  The trial is
+// one more grid dimension of the same kernels (blockIdx.z for gram,
+// blockIdx.y for row_gram) and each trial has its own partial slices, so a
+// trial uses the N blocks, the split count and the summation order of the
+// single-trial launch: slice b of a batched result is the single-trial
+// result on trial b, bit for bit.  Bound: B times the single-trial bound.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,6 +47,9 @@ constexpr int kRowThreads = 256;
 __global__ void __launch_bounds__(kGramThreads)
 gram_partial_kernel(const float* __restrict__ r, float* __restrict__ part,
                     int d, int n, int chunk, int tiles) {
+  // this block's trial: its own R and its own `splits` partial slices
+  r += (size_t)blockIdx.z * d * n;
+  part += (size_t)blockIdx.z * gridDim.y * d * d;
   // upper-triangle tile pair (ti <= tj) of this block
   int p = blockIdx.x, ti = 0;
   while (p >= tiles - ti) {
@@ -97,9 +109,11 @@ gram_partial_kernel(const float* __restrict__ r, float* __restrict__ part,
 }
 
 // out[i][j] = sum over splits of the partial entry (min(i,j), max(i,j)):
-// upper-triangle tiles hold every (a, b) with a <= b.
+// upper-triangle tiles hold every (a, b) with a <= b.  blockIdx.y is the trial.
 __global__ void gram_reduce_kernel(const float* __restrict__ part,
                                    float* __restrict__ out, int d, int splits) {
+  part += (size_t)blockIdx.y * splits * d * d;
+  out += (size_t)blockIdx.y * d * d;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= d * d) return;
   const int i = idx / d, j = idx % d;
@@ -112,7 +126,12 @@ __global__ void gram_reduce_kernel(const float* __restrict__ part,
 
 __global__ void __launch_bounds__(kRowThreads)
 row_gram_partial_kernel(const float* __restrict__ r, const float* __restrict__ v,
-                        float* __restrict__ part, int d, int n) {
+                        float* __restrict__ part, int d, int n, int v_stride) {
+  // blockIdx.y is the trial; v_stride is n for a per-trial v, 0 for a v
+  // shared by every trial
+  r += (size_t)blockIdx.y * d * n;
+  v += (size_t)blockIdx.y * v_stride;
+  part += (size_t)blockIdx.y * gridDim.x * d;
   __shared__ float vs[kRowBn];
   const int n0 = blockIdx.x * kRowBn;
   const int cols = min(kRowBn, n - n0);
@@ -132,9 +151,42 @@ row_gram_partial_kernel(const float* __restrict__ r, const float* __restrict__ v
 
 __global__ void rows_reduce_kernel(const float* __restrict__ part, int nb,
                                    int d, float* __restrict__ out) {
+  part += (size_t)blockIdx.y * nb * d;                      // the trial
+  out += (size_t)blockIdx.y * d;
   const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int nwarps = (gridDim.x * blockDim.x) >> 5;
   repro::reduce_partials(part, nb, d, 1.f, out, warp, nwarps);
+}
+
+}  // namespace
+
+namespace {
+
+int launch_gram(const float* r, float* part, float* out, int d, int n,
+                int chunk, int splits, int batch, cudaStream_t st) {
+  const int tiles = (d + kTile - 1) / kTile;
+  dim3 grid(tiles * (tiles + 1) / 2, splits, batch);
+  gram_partial_kernel<<<grid, kGramThreads, 0, st>>>(r, part, d, n, chunk, tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int total = d * d;
+  gram_reduce_kernel<<<dim3((total + 255) / 256, batch), 256, 0, st>>>(
+      part, out, d, splits);
+  return cudaGetLastError();
+}
+
+int launch_row_gram(const float* r, const float* v, float* part, float* out,
+                    int d, int n, int v_stride, int batch, cudaStream_t st) {
+  const int nb = (n + kRowBn - 1) / kRowBn;
+  row_gram_partial_kernel<<<dim3(nb, batch), kRowThreads, 0, st>>>(
+      r, v, part, d, n, v_stride);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int warps_per_block = 8;
+  const int blocks = (d + warps_per_block - 1) / warps_per_block;
+  rows_reduce_kernel<<<dim3(blocks, batch), 32 * warps_per_block, 0, st>>>(
+      part, nb, d, out);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -143,27 +195,31 @@ __global__ void rows_reduce_kernel(const float* __restrict__ part, int nb,
 // The wrapper picks chunk (a multiple of 32) and splits = ceil(n / chunk).
 extern "C" int repro_gram(const float* r, float* part, float* out, int d,
                           int n, int chunk, int splits, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int tiles = (d + kTile - 1) / kTile;
-  dim3 grid(tiles * (tiles + 1) / 2, splits);
-  gram_partial_kernel<<<grid, kGramThreads, 0, st>>>(r, part, d, n, chunk, tiles);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int total = d * d;
-  gram_reduce_kernel<<<(total + 255) / 256, 256, 0, st>>>(part, out, d, splits);
-  return cudaGetLastError();
+  return launch_gram(r, part, out, d, n, chunk, splits, 1,
+                     static_cast<cudaStream_t>(stream));
+}
+
+// r (batch, d, n) fp32; part (batch, splits, d, d) scratch; out (batch, d, d).
+// chunk and splits are the single-trial launch's for (d, n).
+extern "C" int repro_gram_batched(const float* r, float* part, float* out,
+                                  int d, int n, int chunk, int splits,
+                                  int batch, void* stream) {
+  return launch_gram(r, part, out, d, n, chunk, splits, batch,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // r (d, n), v (n,) fp32; part (ceil(n / 1024), d) scratch; out (d,).
 extern "C" int repro_row_gram(const float* r, const float* v, float* part,
                               float* out, int d, int n, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = (n + kRowBn - 1) / kRowBn;
-  row_gram_partial_kernel<<<nb, kRowThreads, 0, st>>>(r, v, part, d, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int warps_per_block = 8;
-  const int blocks = (d + warps_per_block - 1) / warps_per_block;
-  rows_reduce_kernel<<<blocks, 32 * warps_per_block, 0, st>>>(part, nb, d, out);
-  return cudaGetLastError();
+  return launch_row_gram(r, v, part, out, d, n, 0, 1,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// r (batch, d, n); v (batch, n) with v_stride = n, or (n,) shared by every
+// trial with v_stride = 0; part (batch, ceil(n / 1024), d); out (batch, d).
+extern "C" int repro_row_gram_batched(const float* r, const float* v,
+                                      float* part, float* out, int d, int n,
+                                      int v_stride, int batch, void* stream) {
+  return launch_row_gram(r, v, part, out, d, n, v_stride, batch,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -21,6 +21,20 @@
 //   Bound: the one read of R.  eta, threshold and can_tx are read from device
 //   memory, so the agent loop commits without a host round trip.
 //
+// repro_probe_sweep_batched and repro_commit_sweep_batched replace
+// probe_sweep_pallas_batched (B6) and commit_sweep_pallas_batched (B8): the
+// same agent update for B independent Monte-Carlo trials, every operand with
+// a leading trial axis (R (B, D, N), m_inv (B, D, D), s (B, D); eta,
+// threshold and can_tx (B,) device tensors) while agent i, the step schedule
+// and the diagonal constants are shared by the batch.  The trial is one more
+// grid dimension of the same pass kernels (blockIdx.y), with its own partial
+// rows, and the one-block epilogue becomes one epilogue block per trial
+// (blockIdx.x), each running the closed form against that trial's m_inv, s
+// and eta.  A trial therefore sums the same N blocks in the same order as the
+// single-trial launch: slice b of a batched launch equals the single-trial
+// launch on trial b bit for bit, and a rejected trial keeps its m_inv and s
+// bitwise while its neighbours commit.  Bound: B times the one read of R.
+//
 // All cross-block sums are two-pass in a fixed order (no atomics): the
 // accept/reject and first-improving-step decisions must not flicker between
 // runs.  The rank-2 update forms each outer-product entry with
@@ -47,6 +61,12 @@ __global__ void probe_pass_kernel(const float* __restrict__ r,
                                   float* __restrict__ part_gg, int d, int n) {
   extern __shared__ float smem[];
   const int bn = blockDim.x;
+  // blockIdx.y is the trial: its own R, s, cross and partial rows
+  r += (size_t)blockIdx.y * d * n;
+  s += (size_t)blockIdx.y * d;
+  cross += (size_t)blockIdx.y * n;
+  part_p += (size_t)blockIdx.y * gridDim.x * d;
+  part_gg += (size_t)blockIdx.y * gridDim.x;
   float* tile = smem;              // d * bn
   float* cs = tile + (size_t)d * bn;  // bn
   float* ss = cs + bn;             // d
@@ -79,7 +99,8 @@ __global__ void probe_pass_kernel(const float* __restrict__ r,
   }
 }
 
-// One block of kFinishThreads.  Dynamic shared memory: p (d), q (d), red (33).
+// One block of kFinishThreads per trial (blockIdx.x).  Dynamic shared
+// memory: p (d), q (d), red (33).
 __global__ void __launch_bounds__(kFinishThreads)
 probe_finish_kernel(const float* __restrict__ part_p,
                     const float* __restrict__ part_gg, int nb,
@@ -90,6 +111,15 @@ probe_finish_kernel(const float* __restrict__ part_p,
                     int i, float m, float* __restrict__ etas,
                     float* __restrict__ p_out, float* __restrict__ gnorm_out) {
   extern __shared__ float smem[];
+  const size_t b_ = blockIdx.x;                             // the trial
+  part_p += b_ * nb * d;
+  part_gg += b_ * nb;
+  minv += b_ * d * d;
+  s += b_ * d;
+  eta_p += b_;
+  etas += b_ * k_steps;
+  p_out += b_ * d;
+  gnorm_out += b_;
   float* p = smem;
   float* q = p + d;
   float* red = q + d;
@@ -150,6 +180,11 @@ commit_pass_kernel(const float* __restrict__ r,
                    const float* __restrict__ delta,
                    float* __restrict__ part_w, float* __restrict__ part_dd,
                    int d, int n) {
+  // blockIdx.y is the trial: its own R, delta and partial rows
+  r += (size_t)blockIdx.y * d * n;
+  delta += (size_t)blockIdx.y * n;
+  part_w += (size_t)blockIdx.y * gridDim.x * d;
+  part_dd += (size_t)blockIdx.y * gridDim.x;
   __shared__ float ds[kCommitBn];
   __shared__ float red[33];
   const int n0 = blockIdx.x * kCommitBn;
@@ -173,7 +208,8 @@ commit_pass_kernel(const float* __restrict__ r,
   }
 }
 
-// One block of kFinishThreads.  Dynamic shared memory: u (d), z2 (d), red (33).
+// One block of kFinishThreads per trial (blockIdx.x).  Dynamic shared
+// memory: u (d), z2 (d), red (33).
 __global__ void __launch_bounds__(kFinishThreads)
 commit_finish_kernel(const float* __restrict__ part_w,
                      const float* __restrict__ part_dd, int nb,
@@ -186,6 +222,18 @@ commit_finish_kernel(const float* __restrict__ part_w,
                      float* __restrict__ minv_out, float* __restrict__ s_out,
                      float* __restrict__ u_out, float* __restrict__ stats) {
   extern __shared__ float smem[];
+  const size_t b_ = blockIdx.x;                             // the trial
+  part_w += b_ * nb * d;
+  part_dd += b_ * nb;
+  minv += b_ * d * d;
+  s += b_ * d;
+  eta_p += b_;
+  threshold_p += b_;
+  can_tx_p += b_;
+  minv_out += b_ * d * d;
+  s_out += b_ * d;
+  u_out += b_ * d;
+  stats += 2 * b_;
   float* u = smem;
   float* z2 = u + d;
   float* red = z2 + d;
@@ -254,6 +302,45 @@ commit_finish_kernel(const float* __restrict__ part_w,
   }
 }
 
+int launch_probe(const float* r, const float* minv, const float* s,
+                 const float* eta, const float* steps, float* cross,
+                 float* part_p, float* part_gg, float* etas, float* p,
+                 float* gnorm, int d, int n, int bn, int k_steps, int i,
+                 int batch, cudaStream_t st) {
+  const int nb = (n + bn - 1) / bn;
+  const size_t smem = ((size_t)d * bn + bn + d + 33) * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute(
+      probe_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  probe_pass_kernel<<<dim3(nb, batch), bn, smem, st>>>(r, s, cross, part_p,
+                                                       part_gg, d, n);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem2 = ((size_t)2 * d + 33) * sizeof(float);
+  probe_finish_kernel<<<batch, kFinishThreads, smem2, st>>>(
+      part_p, part_gg, nb, minv, s, eta, steps, k_steps, d, i, (float)n, etas,
+      p, gnorm);
+  return cudaGetLastError();
+}
+
+int launch_commit(const float* r, const float* delta, const float* minv,
+                  const float* s, const float* eta, const float* threshold,
+                  const float* can_tx, float* part_w, float* part_dd,
+                  float* minv_out, float* s_out, float* u_out, float* stats,
+                  int d, int n, int i, float diag_keep, float diag_add,
+                  int batch, cudaStream_t st) {
+  const int nb = (n + kCommitBn - 1) / kCommitBn;
+  commit_pass_kernel<<<dim3(nb, batch), kCommitThreads, 0, st>>>(
+      r, delta, part_w, part_dd, d, n);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t smem2 = ((size_t)2 * d + 33) * sizeof(float);
+  commit_finish_kernel<<<batch, kFinishThreads, smem2, st>>>(
+      part_w, part_dd, nb, minv, s, eta, threshold, can_tx, d, i, (float)n,
+      diag_keep, diag_add, minv_out, s_out, u_out, stats);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // r (d, n), s (d,), m_inv (d, d), steps (k_steps,), eta (1,) fp32.
@@ -265,20 +352,23 @@ extern "C" int repro_probe_sweep(const float* r, const float* minv,
                                  float* part_p, float* part_gg, float* etas,
                                  float* p, float* gnorm, int d, int n, int bn,
                                  int k_steps, int i, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = (n + bn - 1) / bn;
-  const size_t smem = ((size_t)d * bn + bn + d + 33) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      probe_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  probe_pass_kernel<<<nb, bn, smem, st>>>(r, s, cross, part_p, part_gg, d, n);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem2 = ((size_t)2 * d + 33) * sizeof(float);
-  probe_finish_kernel<<<1, kFinishThreads, smem2, st>>>(
-      part_p, part_gg, nb, minv, s, eta, steps, k_steps, d, i, (float)n, etas,
-      p, gnorm);
-  return cudaGetLastError();
+  return launch_probe(r, minv, s, eta, steps, cross, part_p, part_gg, etas, p,
+                      gnorm, d, n, bn, k_steps, i, 1,
+                      static_cast<cudaStream_t>(stream));
+}
+
+// Every operand of repro_probe_sweep with a leading trial axis of `batch`
+// (r (batch, d, n), m_inv (batch, d, d), s (batch, d), eta (batch,), scratch
+// (batch, nb, d) and (batch, nb), outputs (batch, ...)), except steps
+// (k_steps,), which every trial shares.  bn is the single-trial launch's.
+extern "C" int repro_probe_sweep_batched(
+    const float* r, const float* minv, const float* s, const float* eta,
+    const float* steps, float* cross, float* part_p, float* part_gg,
+    float* etas, float* p, float* gnorm, int d, int n, int bn, int k_steps,
+    int i, int batch, void* stream) {
+  return launch_probe(r, minv, s, eta, steps, cross, part_p, part_gg, etas, p,
+                      gnorm, d, n, bn, k_steps, i, batch,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // r (d, n), delta (n,), m_inv (d, d), s (d,); eta, threshold, can_tx (1,)
@@ -292,15 +382,22 @@ extern "C" int repro_commit_sweep(const float* r, const float* delta,
                                   float* s_out, float* u_out, float* stats,
                                   int d, int n, int i, float diag_keep,
                                   float diag_add, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nb = (n + kCommitBn - 1) / kCommitBn;
-  commit_pass_kernel<<<nb, kCommitThreads, 0, st>>>(r, delta, part_w, part_dd,
-                                                    d, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t smem2 = ((size_t)2 * d + 33) * sizeof(float);
-  commit_finish_kernel<<<1, kFinishThreads, smem2, st>>>(
-      part_w, part_dd, nb, minv, s, eta, threshold, can_tx, d, i, (float)n,
-      diag_keep, diag_add, minv_out, s_out, u_out, stats);
-  return cudaGetLastError();
+  return launch_commit(r, delta, minv, s, eta, threshold, can_tx, part_w,
+                       part_dd, minv_out, s_out, u_out, stats, d, n, i,
+                       diag_keep, diag_add, 1, static_cast<cudaStream_t>(stream));
+}
+
+// Every operand of repro_commit_sweep with a leading trial axis of `batch`:
+// delta (batch, n); eta, threshold, can_tx (batch,); stats (batch, 2).
+// diag_keep and diag_add are shared by the batch.
+extern "C" int repro_commit_sweep_batched(
+    const float* r, const float* delta, const float* minv, const float* s,
+    const float* eta, const float* threshold, const float* can_tx,
+    float* part_w, float* part_dd, float* minv_out, float* s_out,
+    float* u_out, float* stats, int d, int n, int i, float diag_keep,
+    float diag_add, int batch, void* stream) {
+  return launch_commit(r, delta, minv, s, eta, threshold, can_tx, part_w,
+                       part_dd, minv_out, s_out, u_out, stats, d, n, i,
+                       diag_keep, diag_add, batch,
+                       static_cast<cudaStream_t>(stream));
 }

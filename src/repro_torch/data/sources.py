@@ -11,14 +11,14 @@ from __future__ import annotations
 
 import dataclasses
 import inspect
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.data import friedman
 
 __all__ = ["Source", "SOURCES", "NOT_PORTED", "register_source",
-           "make_dataset", "correlated_linear"]
+           "make_dataset", "make_trial_batch", "correlated_linear"]
 
 # sources of the JAX package that are not ported yet -> the ROADMAP item
 NOT_PORTED = {"cosine": "A7"}
@@ -118,3 +118,29 @@ def make_dataset(source: str, n_train: int, n_test: int, seed: int,
     xte, yte = src.fn(gen, n_test, m, noise, **kw)
     xtr, xte = friedman.standardise(xtr, xte)
     return xtr, ytr, xte, yte
+
+
+def make_trial_batch(source: str, n_train: int, n_test: int,
+                     seeds: Sequence[int], groups: Sequence[Sequence[int]],
+                     noise: float = 0.0, n_attrs: Optional[int] = None,
+                     options: Sequence[Tuple[str, Any]] = (),
+                     dtype: Optional[torch.dtype] = None, device="cpu"):
+    """The Monte-Carlo batch of datasets, one per seed, partitioned and
+    stacked along a leading trial axis: (xcols (B, D, N, C), y (B, N),
+    xcols_test (B, D, N_test, C), y_test (B, N_test)) on `device`, cast to
+    `dtype` when given (BackendSpec.compute_dtype).  Trial b is exactly
+    `make_dataset(..., seed=seeds[b])` partitioned by `groups`."""
+    parts: List[List[torch.Tensor]] = [[], [], [], []]
+    for seed in seeds:
+        xtr, ytr, xte, yte = make_dataset(source, n_train, n_test, seed,
+                                          noise=noise, n_attrs=n_attrs,
+                                          options=options)
+        for out, a in zip(parts, (torch.stack([xtr[:, g] for g in groups]),
+                                  ytr, torch.stack([xte[:, g] for g in groups]),
+                                  yte)):
+            out.append(a)
+    stacked = []
+    for out in parts:
+        a = torch.stack(out)
+        stacked.append(a.to(device=device, dtype=dtype or a.dtype))
+    return tuple(stacked)

@@ -46,7 +46,9 @@ _FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
           "-lineinfo", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {"gram": 0, "row_gram": 0, "probe_sweep": 0,
-                            "commit_sweep": 0}
+                            "commit_sweep": 0, "gram_batched": 0,
+                            "row_gram_batched": 0, "probe_sweep_batched": 0,
+                            "commit_sweep_batched": 0}
 
 
 class KernelBuildError(RuntimeError):

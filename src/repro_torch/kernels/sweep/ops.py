@@ -8,6 +8,14 @@ fp32, outputs cast back to the input dtype.  The TPU packing — D padded to
 is gone: vectors travel as (D,) and (N,), and eta / threshold / can_tx as
 one-element device tensors, so a commit needs no host round trip.
 
+Both take an optional leading Monte-Carlo trial axis: with r of shape
+(B, D, N), every operand carries the trial axis (eta, threshold and can_tx
+as (B,) tensors, or one number for all trials), agent i and the step
+schedule are shared, and the batched kernel runs — the twin of the JAX
+package's custom_vmap rules (repro/kernels/sweep/ops.py).  Trial b gets the
+single-trial kernel's blocks and summation order, so slice b equals the
+single-trial result bit for bit.
+
 A CPU tensor runs the plain version (ref.py, in fp32); a CUDA tensor
 launches the kernel or raises.
 """
@@ -53,12 +61,43 @@ def _device_scalar(x, device: torch.device) -> torch.Tensor:
     return torch.full((1,), float(x), dtype=torch.float32, device=device)
 
 
+def _device_vector(x, b: int, device: torch.device) -> torch.Tensor:
+    """A (b,) fp32 tensor on `device`: a (b,) tensor already there, or one
+    number (a Python number or a one-element tensor) given to every trial."""
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"per-trial scalar on {x.device}, kernel runs on "
+                             f"{device}")
+        if x.numel() == 1:
+            return as_f32(x).reshape(1).expand(b).contiguous()
+        if tuple(x.shape) != (b,):
+            raise ValueError(f"expected per-trial scalars of shape ({b},), "
+                             f"got {tuple(x.shape)}")
+        return as_f32(x).contiguous()
+    return torch.full((b,), float(x), dtype=torch.float32, device=device)
+
+
+def _check_batched(op: str, r: torch.Tensor, **operands) -> None:
+    """Shapes of a batched call: operand name -> its shape after (B,)."""
+    if r.dim() != 3:
+        raise ValueError(f"{op}: expected a (B, D, N) residual, got "
+                         f"{tuple(r.shape)}")
+    b = r.shape[0]
+    for name, (t, tail) in operands.items():
+        if tuple(t.shape) != (b, *tail):
+            raise ValueError(f"{op}: expected {name} of shape {(b, *tail)}, "
+                             f"got {tuple(t.shape)}")
+
+
 def probe_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
                 eta: Scalar, i: int, steps: torch.Tensor):
     """alpha=1 fused probe pass for agent i: one pass over r (D, N) yields
     (etas (K,), cross (N,), p (D,), gnorm ()) — the whole back-search
     schedule plus the gradient pieces (g_unit = (2 s_i / m / gnorm) * cross).
-    Outputs in r's dtype."""
+    Outputs in r's dtype.  With r (B, D, N), m_inv (B, D, D), s (B, D) and
+    eta (B,): (etas (B, K), cross (B, N), p (B, D), gnorm (B,))."""
+    if r.dim() == 3:
+        return _probe_sweep_batched(r, m_inv, s, eta, i, steps)
     dt = r.dtype
     if _build.on_cpu(r, "probe_sweep"):
         eta32 = eta.to(torch.float32) if isinstance(eta, torch.Tensor) else eta
@@ -98,7 +137,12 @@ def commit_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
     one pass over r (D, N) yields (m_inv' (D, D), s' (D,), u_eff (D,),
     accept (bool), obj_post ()) with accept/reject folded in (a reject is an
     exact no-op).  See kernels.sweep.ref.commit_sweep_ref for semantics.
-    diag_keep / diag_add are host numbers (1.0 / 0.0 at alpha = 1)."""
+    diag_keep / diag_add are host numbers (1.0 / 0.0 at alpha = 1).  With r
+    (B, D, N), delta (B, N) and per-trial eta, threshold and can_tx (B,):
+    every output gains the leading trial axis, accept is (B,) bool."""
+    if r.dim() == 3:
+        return _commit_sweep_batched(r, m_inv, s, eta, i, delta, diag_keep,
+                                     diag_add, threshold, can_tx)
     if _build.on_cpu(r, "commit_sweep"):
         def c32(x):
             return x.to(torch.float32) if isinstance(x, torch.Tensor) else x
@@ -133,3 +177,77 @@ def commit_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
     _build.LAUNCHES["commit_sweep"] += 1
     return (m_new.to(m_inv.dtype), s_new.to(s.dtype), u_eff.to(s.dtype),
             stats[1] > 0.5, stats[0].to(s.dtype))
+
+
+def _probe_sweep_batched(r, m_inv, s, eta, i, steps):
+    dt = r.dtype
+    b, d, n = r.shape
+    k = steps.shape[0]
+    _check_batched("probe_sweep", r, m_inv=(m_inv, (d, d)), s=(s, (d,)))
+    if not 0 <= i < d:
+        raise IndexError(f"probe_sweep: agent {i} out of range for D={d}")
+    if _build.on_cpu(r, "probe_sweep"):
+        eta32 = eta.to(torch.float32) if isinstance(eta, torch.Tensor) else eta
+        out = ref.probe_sweep_batched_ref(as_f32(r), as_f32(m_inv), as_f32(s),
+                                          eta32, i, as_f32(steps))
+        return tuple(o.to(dt) for o in out)
+    _build.check_cuda_tensor("probe_sweep: r", r)
+    _build.check_cuda_tensor("probe_sweep: m_inv", m_inv)
+    _build.check_cuda_tensor("probe_sweep: s", s)
+    _build.check_cuda_tensor("probe_sweep: steps", steps, (k,))
+    bn = probe_block_n(d)                      # the single-trial launch's
+    nb = math.ceil(n / bn)
+    dev = r.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    cross = torch.empty((b, n), **f32)
+    part_p = torch.empty((b, nb, d), **f32)
+    part_gg = torch.empty((b, nb), **f32)
+    etas = torch.empty((b, k), **f32)
+    p = torch.empty((b, d), **f32)
+    gnorm = torch.empty((b,), **f32)
+    _build.launch("sweep", "repro_probe_sweep_batched", as_f32(r),
+                  as_f32(m_inv), as_f32(s), _device_vector(eta, b, dev),
+                  as_f32(steps), cross, part_p, part_gg, etas, p, gnorm, d, n,
+                  bn, k, i, b)
+    _build.LAUNCHES["probe_sweep_batched"] += 1
+    return etas.to(dt), cross.to(dt), p.to(dt), gnorm.to(dt)
+
+
+def _commit_sweep_batched(r, m_inv, s, eta, i, delta, diag_keep, diag_add,
+                          threshold, can_tx):
+    b, d, n = r.shape
+    _check_batched("commit_sweep", r, m_inv=(m_inv, (d, d)), s=(s, (d,)),
+                   delta=(delta, (n,)))
+    if not 0 <= i < d:
+        raise IndexError(f"commit_sweep: agent {i} out of range for D={d}")
+    if _build.on_cpu(r, "commit_sweep"):
+        def c32(x):
+            return x.to(torch.float32) if isinstance(x, torch.Tensor) else x
+        m_new, s_new, u_eff, accept, obj_post = ref.commit_sweep_batched_ref(
+            as_f32(r), as_f32(m_inv), as_f32(s), c32(eta), i, as_f32(delta),
+            c32(diag_keep), c32(diag_add), c32(threshold), can_tx)
+        return (m_new.to(m_inv.dtype), s_new.to(s.dtype), u_eff.to(s.dtype),
+                accept, obj_post.to(s.dtype))
+    _build.check_cuda_tensor("commit_sweep: r", r)
+    _build.check_cuda_tensor("commit_sweep: delta", delta)
+    _build.check_cuda_tensor("commit_sweep: m_inv", m_inv)
+    _build.check_cuda_tensor("commit_sweep: s", s)
+    nb = math.ceil(n / COMMIT_BN)
+    dev = r.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    part_w = torch.empty((b, nb, d), **f32)
+    part_dd = torch.empty((b, nb), **f32)
+    m_new = torch.empty((b, d, d), **f32)
+    s_new = torch.empty((b, d), **f32)
+    u_eff = torch.empty((b, d), **f32)
+    stats = torch.empty((b, 2), **f32)
+    _build.launch("sweep", "repro_commit_sweep_batched", as_f32(r),
+                  as_f32(delta), as_f32(m_inv), as_f32(s),
+                  _device_vector(eta, b, dev),
+                  _device_vector(threshold, b, dev),
+                  _device_vector(can_tx, b, dev), part_w, part_dd, m_new,
+                  s_new, u_eff, stats, d, n, i, float(diag_keep),
+                  float(diag_add), b)
+    _build.LAUNCHES["commit_sweep_batched"] += 1
+    return (m_new.to(m_inv.dtype), s_new.to(s.dtype), u_eff.to(s.dtype),
+            stats[:, 1] > 0.5, stats[:, 0].to(s.dtype))

@@ -23,6 +23,10 @@ kernels, and chip_smoke.py holds the CUDA kernels against them on the card.
   * `commit_sweep_ref` — row-Gram + accept/reject + symmetric rank-2 SMW
     update in one evaluation, accept selecting the update: a rejected
     candidate leaves (m_inv, s) bitwise untouched.
+
+The `_batched` versions compute the same for B independent Monte-Carlo
+trials: every operand carries a leading trial axis (eta, threshold and can_tx
+as (B,) tensors) while agent i and the step schedule are shared.
 """
 from __future__ import annotations
 
@@ -30,7 +34,9 @@ from typing import Tuple, Union
 
 import torch
 
-__all__ = ["probe_etas_closed", "probe_sweep_ref", "commit_sweep_ref"]
+__all__ = ["probe_etas_closed", "probe_sweep_ref", "commit_sweep_ref",
+           "probe_etas_closed_batched", "probe_sweep_batched_ref",
+           "commit_sweep_batched_ref"]
 
 Scalar = Union[float, torch.Tensor]
 
@@ -115,4 +121,107 @@ def commit_sweep_ref(r_sub: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
     c2 = torch.where(accept, (k11 * t2 - k12 * t1) / det, zero)
     s_new = s - c1 * z1 - c2 * z2
     u_eff = torch.where(accept, u, zero)
+    return m_inv_new, s_new, u_eff, accept, obj_post
+
+
+# ------------------------------------------------- batched over trials (B, ...)
+
+
+def _matvec(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, D, D), (B, D) -> (B, D): one matrix-vector product per trial."""
+    return (m @ v[..., None])[..., 0]
+
+
+def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, D), (B, D) -> (B,): one dot product per trial."""
+    return torch.sum(a * b, dim=-1)
+
+
+def probe_etas_closed_batched(m_inv: torch.Tensor, s: torch.Tensor,
+                              eta: torch.Tensor, i: int, steps: torch.Tensor,
+                              p_hat: torch.Tensor, c1h: Scalar,
+                              c2h: Scalar) -> torch.Tensor:
+    """`probe_etas_closed` per trial: m_inv (B, D, D), s and p_hat (B, D),
+    eta, c1h and c2h (B,) or scalars, steps (K,) shared -> (B, K)."""
+    q = _matvec(m_inv, p_hat)
+    a = _vdot(p_hat, q)[:, None]
+    b = q[:, i, None]
+    c = m_inv[:, i, i, None]
+    e = _vdot(p_hat, s)[:, None]
+    t1 = s[:, i, None]
+    c1h = torch.as_tensor(c1h, dtype=s.dtype, device=s.device).reshape(-1, 1)
+    c2h = torch.as_tensor(c2h, dtype=s.dtype, device=s.device).reshape(-1, 1)
+    st = steps[None, :]
+    beta = c2h * st * st + c1h * st
+    k12 = 1.0 - st * b + beta * c
+    k22 = st * st * a - 2.0 * st * beta * b + beta * beta * c
+    t2 = -st * e + beta * t1
+    det = c * k22 - k12 * k12
+    eta = torch.as_tensor(eta, dtype=s.dtype, device=s.device).reshape(-1, 1)
+    return eta - (k22 * t1 * t1 - 2.0 * k12 * t1 * t2 + c * t2 * t2) / det
+
+
+def probe_sweep_batched_ref(r_sub: torch.Tensor, m_inv: torch.Tensor,
+                            s: torch.Tensor, eta: Scalar, i: int,
+                            steps: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]:
+    """`probe_sweep_ref` per trial: r_sub (B, D, m), m_inv (B, D, D),
+    s (B, D), eta (B,) -> (etas (B, K), cross (B, m), p (B, D), gnorm (B,))."""
+    m = r_sub.shape[-1]
+    cross = (s[:, None, :] @ r_sub)[:, 0]
+    p_acc = _matvec(r_sub, cross)              # = m * A0 @ s
+    gg_cross = _vdot(cross, cross)
+    scale = (2.0 / m) * s[:, i]
+    gnorm = torch.sqrt(gg_cross) * torch.abs(scale) + 1e-30
+    p = (scale / (m * gnorm))[:, None] * p_acc  # R @ g_unit / m
+    gg = (scale / gnorm) ** 2 * gg_cross       # <g_unit, g_unit>
+    etas = probe_etas_closed_batched(m_inv, s, eta, i, steps, p, 0.0,
+                                     gg / (2.0 * m))
+    return etas, cross, p, gnorm
+
+
+def commit_sweep_batched_ref(r_sub: torch.Tensor, m_inv: torch.Tensor,
+                             s: torch.Tensor, eta: Scalar, i: int,
+                             delta: torch.Tensor, diag_keep: Scalar,
+                             diag_add: Scalar, threshold: Scalar,
+                             can_tx: Union[bool, torch.Tensor]
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """`commit_sweep_ref` per trial: r_sub (B, D, m), m_inv (B, D, D),
+    s (B, D), delta (B, m); eta, threshold and can_tx (B,) or scalars ->
+    (m_inv' (B, D, D), s' (B, D), u_eff (B, D), accept (B,), obj_post (B,)).
+    A rejected trial keeps its m_inv and s bitwise."""
+    m = r_sub.shape[-1]
+    w = _matvec(r_sub, delta) / m
+    dd_auto = _vdot(delta, delta) / (2.0 * m)
+    u = w.clone()
+    u[:, i] = diag_keep * (w[:, i] + dd_auto) + diag_add
+
+    z1 = m_inv[:, i]
+    z2 = _matvec(m_inv, u)
+    k11 = m_inv[:, i, i]
+    k12 = 1.0 + z2[:, i]
+    k22 = _vdot(u, z2)
+    det = k11 * k22 - k12 * k12
+    t1 = s[:, i]
+    t2 = _vdot(u, s)
+    obj_post = eta - (k22 * t1 * t1 - 2.0 * k12 * t1 * t2
+                      + k11 * t2 * t2) / det
+    can = torch.as_tensor(can_tx, device=obj_post.device).to(torch.bool)
+    accept = torch.logical_and(obj_post > threshold, can)
+
+    def outer(a, b):
+        return a[:, :, None] * b[:, None, :]
+
+    zero = torch.zeros((), dtype=m_inv.dtype, device=m_inv.device)
+    corr = (k22[:, None, None] * outer(z1, z1)
+            - k12[:, None, None] * (outer(z1, z2) + outer(z2, z1))
+            + k11[:, None, None] * outer(z2, z2)) / det[:, None, None]
+    m_inv_new = m_inv - torch.where(accept[:, None, None], corr, zero)
+    c1 = torch.where(accept, (k22 * t1 - k12 * t2) / det, zero)
+    c2 = torch.where(accept, (k11 * t2 - k12 * t1) / det, zero)
+    s_new = s - c1[:, None] * z1 - c2[:, None] * z2
+    u_eff = torch.where(accept[:, None], u, zero)
     return m_inv_new, s_new, u_eff, accept, obj_post
