@@ -41,7 +41,28 @@ Phases, each fatal on failure (nothing is caught):
               of phase 5), its fp32 etas equal to the batch's records, and
               every trial's eta non-increasing when evaluated in float64
               (see phase_deploy_batch for why not in fp32);
-  8. the kernels line, the nvidia-smi line, and the result line
+  9. lm kernels  flash attention (B9), flash decode (B10) and WKV (B11)
+              against their plain versions on the same card inputs (fp32:
+              1e-5 normwise; bf16: 8e-3, about two bf16 roundings of the
+              output) at ragged lengths, a sliding window, GQA G=3 and a
+              decode position mid-cache, then checked the same way on the
+              very tensors it is timed on, and timed as in phase 3 at the
+              serving shapes (B9: B=8, S=1024 in bf16, checked in fp32 too,
+              and the long row B=1, S=8192; B10: B=8, cache 1088, idx 1087
+              and the decode_32k row B=128, S=32768; B11: B=8, S=1024,
+              rwkv6 heads, output and final state);
+  10. serve smollm  `ServeEngine.generate` on the full smollm-360m config
+              (32 layers, d=960, bf16): batch 8, a 1024-token MarkovStream
+              prompt, 64 greedy tokens; every logit finite, exactly 32 flash
+              attention and 32 x 64 flash decode launches, no SDPA call;
+              prefill ms, decode ms per token, tokens/s, peak memory, and one
+              decode step under torch.profiler; then the same architecture
+              at full width and 2 layers in fp32 on the card against the CPU
+              from the same parameters (B=1, 128-token prompt, 8 greedy
+              steps: logits within 1e-4 normwise, tokens equal);
+  11. serve rwkv6  the same for the full rwkv6-1.6b config (24 layers,
+              d=2048, bf16) with exactly 24 WKV launches in the prefill;
+  12. the kernels line, the nvidia-smi line, and the result line
      {"ok": true, "device": {...}} last.
 
 It exits non-zero without a result when no CUDA device is present, or when
@@ -49,6 +70,7 @@ the repository's src/repro_torch is not beside it.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -62,8 +84,10 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM peaks (NVIDIA data sheet; dense, 700 W): fp32 outside the
-# tensor cores and HBM3 bandwidth.  bound_ms = max(bytes / BW, flops / FP32).
+# tensor cores, bf16 on the tensor cores, and HBM3 bandwidth.
+# bound_ms = max(bytes / BW, flops / the peak of the inputs' type).
 H100_FP32_FLOPS = 67e12
+H100_BF16_FLOPS = 989e12
 H100_HBM_BYTES_PER_S = 3.35e12
 
 D_DEPLOY, N_DEPLOY, N_TEST_DEPLOY, K_STEPS = 100, 262144, 65536, 16
@@ -71,6 +95,7 @@ B_DEPLOY, B_PAPER = 8, 32     # trials: deployment batch; the paper's Monte Carl
 SINGLE = ("gram", "row_gram", "probe_sweep", "commit_sweep")
 BATCHED = ("gram_batched", "row_gram_batched", "probe_sweep_batched",
            "commit_sweep_batched")
+LM = ("flash_attention", "flash_decode", "wkv")
 REPS, RUNS = 20, 5
 
 
@@ -134,9 +159,10 @@ def _keep_device_busy() -> None:
     _BUSY["z"] @ _BUSY["z"]
 
 
-def time_ms(fn) -> float:
-    """Device time of one call: CUDA events around a run of REPS back-to-back
-    calls, divided by REPS, after 3 warm-ups; the median of RUNS such runs."""
+def time_ms(fn, reps: int = REPS) -> float:
+    """Device time of one call: CUDA events around a run of `reps`
+    back-to-back calls, divided by `reps`, after 3 warm-ups; the median of
+    RUNS such runs."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -146,17 +172,17 @@ def time_ms(fn) -> float:
         b = torch.cuda.Event(enable_timing=True)
         _keep_device_busy()
         a.record()
-        for _ in range(REPS):
+        for _ in range(reps):
             fn()
         b.record()
         b.synchronize()
-        per_call.append(a.elapsed_time(b) / REPS)
+        per_call.append(a.elapsed_time(b) / reps)
     return statistics.median(per_call)
 
 
-def bound(n_bytes: float, flops: float):
+def bound(n_bytes: float, flops: float, peak: float = H100_FP32_FLOPS):
     t_bytes = n_bytes / H100_HBM_BYTES_PER_S * 1e3
-    t_ops = flops / H100_FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -172,8 +198,9 @@ def compare(name: str, got, want, tol: float):
 
 def row_recorder(rows):
     """A function that appends one row of the kernels line to `rows`."""
-    def record_row(name, src, replaces, errs, ms, plain_ms, lib_ms, n_bytes, flops):
-        b_ms, b_by = bound(n_bytes, flops)
+    def record_row(name, src, replaces, errs, ms, plain_ms, lib_ms, n_bytes, flops,
+                   peak=H100_FP32_FLOPS):
+        b_ms, b_by = bound(n_bytes, flops, peak)
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": 0, "max_abs_err": max(e for e, _ in errs),
                "max_rel_err": max(r_ for _, r_ in errs), "ms": ms,
@@ -424,13 +451,13 @@ def expected_launches(engine: str, d: int, sweeps: int,
     record; row_gram twice per agent (probe + commit) in the incremental
     engine; probe and commit once per agent in the fused engine.  A batch
     (run_scan) launches the batched kernels on the same schedule, one launch
-    for all trials, and no single-trial kernel."""
+    for all trials, and no single-trial kernel.  No LM kernel runs."""
     inc = engine == "incremental"
     counts = [2 + 3 * sweeps, 2 * d * sweeps if inc else 0,
               0 if inc else d * sweeps, 0 if inc else d * sweeps]
     zeros = [0] * 4
-    return dict(zip(SINGLE + BATCHED,
-                    zeros + counts if batched else counts + zeros))
+    return dict(zip(SINGLE + BATCHED + LM,
+                    (zeros + counts if batched else counts + zeros) + [0] * len(LM)))
 
 
 def fit_on_card(api, _build, spec, data, tag: str):
@@ -731,6 +758,346 @@ def phase_deploy_batch(api, _build, icoa, data_sources, single_sweep_ms):
     return totals
 
 
+# ------------------------------------------------------------ 9. LM kernels
+
+
+LM_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+def sdpa_layout(q, k, v):
+    """(B, S, H, dh) views as SDPA's (B, H, S, dh): no copy."""
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def phase_lm_kernels(fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref):
+    """Phase 9: B9, B10, B11 against their plain versions, then timed."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    errs = {"flash_attention": [], "flash_decode": [], "wkv": []}
+    worst = {}                      # (kernel, dtype) -> (normwise error, tolerance)
+
+    def check(name, dt, what, got, want, timed=False):
+        err = compare(f"{name} {dt} {what}", got, want, LM_TOL[dt])
+        if timed:
+            log(f"[lm-kernels] {name} {str(dt).removeprefix('torch.')} {what}: "
+                f"normwise error against the plain version {err[1]:.3e}")
+        errs[name].append(err)
+        key = (name, str(dt).removeprefix("torch."))
+        worst[key] = (max(worst.get(key, (0.0,))[0], err[1]), LM_TOL[dt])
+
+    # --- correctness at awkward shapes (ragged lengths, windows, G = 3)
+    for dt in (torch.float32, torch.bfloat16):
+        for b, sq, hq, hkv, dh, window in ((2, 333, 15, 5, 64, 0), (2, 333, 15, 5, 64, 100),
+                                           (1, 77, 3, 1, 80, 16), (1, 200, 12, 3, 128, 0)):
+            q, k, v = rn(b, sq, hq, dh, dtype=dt), rn(b, sq, hkv, dh, dtype=dt), rn(b, sq, hkv, dh, dtype=dt)
+            got = fa_ops.flash_attention(q, k, v, causal=True, window=window)
+            want = fa_ref.attention_ref(q, k, v, causal=True, window=window)
+            require(got.dtype == dt, f"flash_attention returned {got.dtype}")
+            check("flash_attention", dt, (b, sq, hq, hkv, dh, window), got, want)
+        q, k, v = rn(1, 40, 6, 64, dtype=dt), rn(1, 93, 2, 64, dtype=dt), rn(1, 93, 2, 64, dtype=dt)
+        check("flash_attention", dt, "non-causal, ragged Skv",
+              fa_ops.flash_attention(q, k, v, causal=False),
+              fa_ref.attention_ref(q, k, v, causal=False))
+        for b, s, hq, hkv, dh, idx, window in ((8, 1088, 15, 5, 64, 517, 0),
+                                               (8, 1088, 15, 5, 64, 1087, 256),
+                                               (2, 300, 3, 1, 80, 250, 64),
+                                               (3, 999, 8, 1, 128, 0, 0)):
+            q, k, v = rn(b, hq, dh, dtype=dt), rn(b, s, hkv, dh, dtype=dt), rn(b, s, hkv, dh, dtype=dt)
+            got = fd_ops.flash_decode(q, k, v, idx, window=window)
+            want = fd_ref.decode_ref(q, k, v, idx, window=window)
+            require(got.dtype == dt, f"flash_decode returned {got.dtype}")
+            check("flash_decode", dt, (b, s, hq, hkv, dh, idx, window), got, want)
+    for b, s, h, dh in ((2, 333, 4, 64), (1, 77, 8, 32), (3, 50, 2, 64)):
+        r, k, v = rn(b, s, h, dh), rn(b, s, h, dh), rn(b, s, h, dh)
+        w = torch.exp(-torch.exp(rn(b, s, h, dh) - 1.0))
+        u = 0.1 * rn(h, dh)
+        out, state = wkv_ops.wkv_chunked(r, k, v, w, u)
+        out_ref, state_ref = wkv_ref.wkv_ref(r, k, v, w, u)
+        check("wkv", torch.float32, f"out {(b, s, h, dh)}", out, out_ref)
+        check("wkv", torch.float32, f"state {(b, s, h, dh)}", state, state_ref)
+    rows = []
+    record_row = row_recorder(rows)
+    bf = torch.bfloat16
+
+    # --- B9 at the smollm serving shape and the long row, each checked on
+    # the tensors it is timed on (the serving shape in fp32 as well)
+    def b9_case(b, s, dtypes):
+        hq, hkv, dh = 15, 5, 64
+        q, k, v = rn(b, s, hq, dh, dtype=bf), rn(b, s, hkv, dh, dtype=bf), rn(b, s, hkv, dh, dtype=bf)
+        for dt in dtypes:
+            qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+            check("flash_attention", dt, f"timed shape {(b, s, hq, hkv, dh)}",
+                  fa_ops.flash_attention(qq, kk, vv), fa_ref.attention_ref(qq, kk, vv),
+                  timed=True)
+            del qq, kk, vv
+        sq_, sk_, sv_ = sdpa_layout(q, k, v)
+        n_bytes = 2.0 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
+        flops = 4.0 * b * hq * dh * s * (s + 1) / 2
+        return (time_ms(lambda: fa_ops.flash_attention(q, k, v)),
+                time_ms(lambda: fa_ref.attention_ref(q, k, v)),
+                time_ms(lambda: F.scaled_dot_product_attention(
+                    sq_, sk_, sv_, is_causal=True, enable_gqa=True)),
+                n_bytes, flops)
+
+    def long_row(shape, ms, plain, lib, n_bytes, flops):
+        b_ms, b_by = bound(n_bytes, flops, H100_BF16_FLOPS)
+        return {"shape": shape, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    main = b9_case(8, 1024, (bf, torch.float32))
+    extra = long_row("B=1, S=8192", *b9_case(1, 8192, (bf,)))
+    record_row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:74", errs["flash_attention"],
+               *main, H100_BF16_FLOPS)
+    rows[-1]["long_row"] = extra
+    log(f"[lm-kernels] flash_attention long row {json.dumps(extra)}")
+
+    # --- B10 at the smollm serving cache and the decode_32k row
+    def b10_case(b, s, idx):
+        hq, hkv, dh = 15, 5, 64
+        q = rn(b, hq, dh, dtype=bf)
+        k = torch.empty((b, s, hkv, dh), dtype=bf, device=dev).normal_(generator=gen)
+        v = torch.empty((b, s, hkv, dh), dtype=bf, device=dev).normal_(generator=gen)
+        check("flash_decode", bf, f"timed shape {(b, s, hq, hkv, dh, idx)}",
+              fd_ops.flash_decode(q, k, v, idx), fd_ref.decode_ref(q, k, v, idx),
+              timed=True)
+        filled = (torch.arange(s, device=dev) <= idx)[None, None, None, :]
+        sq_, sk_, sv_ = sdpa_layout(q[:, None], k, v)
+        n = idx + 1
+        n_bytes = 2.0 * (2 * b * n * hkv * dh + 2 * b * hq * dh)
+        flops = 4.0 * b * hq * dh * n
+        out = (time_ms(lambda: fd_ops.flash_decode(q, k, v, idx)),
+               time_ms(lambda: fd_ref.decode_ref(q, k, v, idx)),
+               time_ms(lambda: F.scaled_dot_product_attention(
+                   sq_, sk_, sv_, attn_mask=filled, enable_gqa=True)),
+               n_bytes, flops)
+        del k, v
+        return out
+
+    main = b10_case(8, 1088, 1087)
+    extra = long_row("decode_32k: B=128, S=32768, one layer", *b10_case(128, 32768, 32767))
+    record_row("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
+               "src/repro/kernels/flash_decode/kernel.py:68", errs["flash_decode"],
+               *main, H100_BF16_FLOPS)
+    rows[-1]["long_row"] = extra
+    log(f"[lm-kernels] flash_decode long row {json.dumps(extra)}")
+    torch.cuda.empty_cache()
+
+    # --- B11 at the rwkv6 serving shape (no single PyTorch call computes it)
+    b, s, h, dh = 8, 1024, 32, 64
+    r, k, v = rn(b, s, h, dh), rn(b, s, h, dh), rn(b, s, h, dh)
+    w = torch.exp(-torch.exp(rn(b, s, h, dh) - 1.0))
+    u = 0.1 * rn(h, dh)
+    out, state = wkv_ops.wkv_chunked(r, k, v, w, u)
+    out_ref, state_ref = wkv_ref.wkv_ref(r, k, v, w, u)
+    check("wkv", torch.float32, f"out, timed shape {(b, s, h, dh)}", out, out_ref,
+          timed=True)
+    check("wkv", torch.float32, f"state, timed shape {(b, s, h, dh)}", state, state_ref,
+          timed=True)
+    del out, state, out_ref, state_ref
+    for (name, dt), (e, tol) in sorted(worst.items()):
+        log(f"[lm-kernels] {name} {dt}: worst normwise error against the plain "
+            f"version {e:.3e} (held to {tol:g})")
+    record_row("wkv", "src/repro_torch/csrc/wkv.cu", "src/repro/kernels/wkv/kernel.py:67",
+               errs["wkv"],
+               time_ms(lambda: wkv_ops.wkv_chunked(r, k, v, w, u)),
+               time_ms(lambda: wkv_ref.wkv_ref(r, k, v, w, u), reps=2), None,
+               4.0 * (5 * b * s * h * dh + h * dh + b * h * dh * dh),
+               4.0 * b * h * s * dh * dh)
+    return rows
+
+
+# ------------------------------------------------------ 10./11. LM serving
+
+
+SDPA_NAMES = ("pytorch_flash", "fmha", "sdpa", "efficient_attention", "cudnn")
+
+
+class NoSdpa:
+    """Inside the block any call of scaled_dot_product_attention raises, so
+    the serving path can be shown to run none."""
+
+    def __enter__(self):
+        import torch.nn.functional as F
+
+        self._saved = F.scaled_dot_product_attention
+
+        def refuse(*args, **kwargs):
+            raise AssertionError("the serving path called scaled_dot_product_attention")
+
+        F.scaled_dot_product_attention = refuse
+        return self
+
+    def __exit__(self, *exc):
+        import torch.nn.functional as F
+
+        F.scaled_dot_product_attention = self._saved
+
+
+class LogitRecorder:
+    """A model in front of `model` that records the logits of its prefill
+    and decode steps; ServeEngine drives it like the model itself."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+
+    def prefill(self, params, batch):
+        out, cache = self.model.prefill(params, batch)
+        self.logits.append(out)
+        return out, cache
+
+    def decode_step(self, params, batch, cache):
+        out, cache = self.model.decode_step(params, batch, cache)
+        self.logits.append(out)
+        return out, cache
+
+
+def profile_decode(model, params, prompt, tag: str, steps: int = 4):
+    """torch.profiler over `steps` decode steps after a prefill: device busy
+    share against the wall clock and the top device operations; the tables
+    go to chiprun_out/profile_<tag>.txt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.engine import _pad_cache
+
+    logits, cache = model.prefill(params, prompt)
+    s0 = prompt["tokens"].shape[1]
+    cache = _pad_cache(cache, s0 + steps)
+    tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            logits, cache = model.decode_step(params, {"tokens": tok, "idx": s0 + i}, cache)
+            tok = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+    busy_ms = sum(by_kernel.values()) / 1e3
+    n_ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+    log(f"[profile] {tag}: {steps} decode steps wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_ops / steps:.0f} device "
+        f"operations per step")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"[profile] {tag}:   {us / 1e3 / steps:8.4f} ms/step  {name[:100]}")
+    bad = [n for n in by_kernel if any(x in n.lower() for x in SDPA_NAMES)]
+    require(not bad, f"{tag}: a library attention kernel ran: {bad}")
+    with open(os.path.join(HERE, "chiprun_out", f"profile_{tag}.txt"), "w") as fh:
+        fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
+    return busy_ms / wall_ms
+
+
+def serve_full(lm, _build, arch: str, expect: dict, batch=8, prompt_len=1024, new=64):
+    """The main path: ServeEngine.generate on the full config, launch
+    counts read just after it; then the timings and a profile."""
+    cfg = lm["get_config"](arch)
+    model = lm["build_model"](cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    prompt = lm["build_prompt"](cfg, batch, prompt_len, "cuda")
+    torch.cuda.synchronize()
+    log(f"[{arch}] {cfg.n_layers} layers, d={cfg.d_model}, {cfg.param_dtype}: "
+        f"{sum(t.numel() for t in iter_tensors(params)) / 1e9:.3f} B parameters made "
+        f"in {time.perf_counter() - t0:.1f} s")
+    recorder = LogitRecorder(model)
+    logits = recorder.logits
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with NoSdpa():
+        out, _ = lm["ServeEngine"](recorder).generate(params, prompt, new)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    log(f"[{arch}] main path: generate {tuple(out.shape)} in {first_s:.3f} s (first "
+        f"call), launches {json.dumps(counts)}, expected {json.dumps(expect)}")
+    require(counts == expect, f"{arch}: launch counts {counts} != {expect}")
+    require(len(logits) == new + 1, f"{arch}: {len(logits)} logit sets")
+    finite = torch.stack([torch.isfinite(x).all() for x in logits]).all()
+    require(bool(finite), f"{arch}: non-finite logits")
+    require(out.shape == (batch, new) and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
+            f"{arch}: tokens {out.shape} out of range")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    # timed again, warm: the prefill alone, then the whole generate
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.prefill(params, prompt)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    again, _ = lm["ServeEngine"](model).generate(params, prompt, new)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    require(torch.equal(again, out), f"{arch}: greedy tokens differ between two runs")
+    decode_ms = (total_ms - prefill_ms) / new
+    busy = profile_decode(model, params, prompt, arch.replace(".", "_"))
+    log(f"[{arch}] batch {batch}, prompt {prompt_len}, {new} new tokens: prefill "
+        f"{prefill_ms:.2f} ms ({batch * prompt_len / prefill_ms * 1e3:.0f} prompt tokens/s), "
+        f"decode {decode_ms:.3f} ms per step ({batch / decode_ms * 1e3:.1f} tokens/s), "
+        f"generate {total_ms:.1f} ms ({batch * new / total_ms * 1e3:.1f} new tokens/s end "
+        f"to end); decode device busy {100 * busy:.1f}%; peak memory {peak:.2f} GiB")
+    del params, recorder, logits
+    torch.cuda.empty_cache()
+    return counts
+
+
+def iter_tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from iter_tensors(v)
+    else:
+        for v in tree:
+            yield from iter_tensors(v)
+
+
+def to_device(tree, dev):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(dev)
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return [to_device(v, dev) for v in tree]
+
+
+def serve_two_layers_vs_cpu(lm, arch: str, steps: int = 8, prompt_len: int = 128):
+    """The architecture at full width and 2 layers in fp32, on the card and
+    on the CPU from the same parameters: prefill and per-step logits within
+    1e-4 normwise, greedy tokens equal."""
+    cfg = dataclasses.replace(lm["get_config"](arch), n_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    model = lm["build_model"](cfg)
+    params_cpu = model.init(seed=1, device="cpu")
+    params_gpu = to_device(params_cpu, "cuda")
+    runs = {}
+    for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+        recorder = LogitRecorder(model)
+        prompt = lm["build_prompt"](cfg, 1, prompt_len, dev)
+        out, _ = lm["ServeEngine"](recorder).generate(params, prompt, steps)
+        runs[dev] = (out.cpu(), [x.cpu() for x in recorder.logits])
+    (tok_g, log_g), (tok_c, log_c) = runs["cuda"], runs["cpu"]
+    worst = max(compare(f"{arch} 2-layer step {i}", g, c, 1e-4)[1]
+                for i, (g, c) in enumerate(zip(log_g, log_c)))
+    require(torch.equal(tok_g, tok_c), f"{arch} 2-layer: tokens differ "
+            f"{tok_g.tolist()} vs {tok_c.tolist()}")
+    margin = min(float((t[0, 0] - t[0, 1]) / c.abs().max())
+                 for c in log_c[:-1] for t in [torch.topk(c, 2, dim=-1).values])
+    log(f"[{arch}] 2 layers, full width, fp32: card vs cpu logits worst normwise "
+        f"{worst:.3e} over prefill + {steps} steps; tokens equal {tok_g[0].tolist()}; "
+        f"smallest top-2 margin {margin:.3e} of max |logit|")
+
+
 def main() -> None:
     smi = phase_device()
     sys.path.insert(0, os.path.join(HERE, "src"))
@@ -742,6 +1109,18 @@ def main() -> None:
     from repro_torch.kernels.gram import ref as gram_ref
     from repro_torch.kernels.sweep import ops as sweep_ops
     from repro_torch.kernels.sweep import ref as sweep_ref
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+    from repro_torch.kernels.wkv import ops as wkv_ops
+    from repro_torch.kernels.wkv import ref as wkv_ref
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import build_prompt
+    from repro_torch.models import build_model
+    from repro_torch.serve import ServeEngine
+    lm = dict(get_config=get_config, build_model=build_model,
+              build_prompt=build_prompt, ServeEngine=ServeEngine)
 
     t_start = time.perf_counter()
     stamps = []
@@ -768,6 +1147,16 @@ def main() -> None:
                                      single_sweep_ms).items():
         launches[k_] += v_
     stamp("deploy batch")
+    rows += phase_lm_kernels(fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref)
+    stamp("lm kernels")
+    launches.update(serve_full(lm, _build, "smollm-360m",
+                               {"flash_attention": 32, "flash_decode": 32 * 64}))
+    serve_two_layers_vs_cpu(lm, "smollm-360m")
+    stamp("serve smollm")
+    launches.update(serve_full(lm, _build, "rwkv6-1.6b", {"wkv": 24}))
+    serve_two_layers_vs_cpu(lm, "rwkv6-1.6b")
+    stamp("serve rwkv6")
+    require(len(rows) == 11, f"{len(rows)} kernel rows")
     for row in rows:
         row["launches"] = launches[row["name"]]
         require(row["launches"] > 0, f"{row['name']} never launched on the main path")

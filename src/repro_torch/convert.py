@@ -1,29 +1,35 @@
-"""Carry data and solver state across from numpy (and so from the JAX
-package) into the port's tensors.
+"""Carry data, solver state and LM parameters across from numpy (and so from
+the JAX package) into the port's tensors.
 
 With these a test starts the port's `sweep` from the exact state the JAX
 package reached, or predicts with the JAX package's fitted coefficients:
 the arrays keep their dtype and move to `device`.  `batch_from_numpy`
 stacks numpy trial datasets into the (B, ...) tensors of icoa.run_scan, so
 the port's batch and `jax.vmap` over the JAX package's run_scan see the same
-arrays.
+arrays.  `lm_params_from_numpy` turns the JAX package's `Model.init` tree
+into the port's per-layer LM parameters.
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Any, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.api.specs import Dataset
 from repro_torch.core.icoa import ICOAState
+from repro_torch.models.model import check_ported
+from repro_torch.models.transformer import pattern_period
 
-__all__ = ["batch_from_numpy", "dataset_from_numpy", "params_from_numpy",
-           "state_from_numpy"]
+__all__ = ["batch_from_numpy", "dataset_from_numpy", "lm_params_from_numpy",
+           "params_from_numpy", "state_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":       # numpy has no bf16: move the bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def dataset_from_numpy(xcols, y, xcols_test, y_test,
@@ -62,3 +68,28 @@ def batch_from_numpy(xcols, y, xcols_test, y_test, device="cpu"
     if len({a.shape[0] for a in out}) != 1:
         raise ValueError(f"trial axes differ: {[a.shape[0] for a in out]}")
     return out
+
+
+def lm_params_from_numpy(cfg, tree, device="cpu") -> dict:
+    """The port's LM parameters from the JAX package's `Model.init` tree
+    (as numpy arrays, e.g. `jax.tree.map(np.asarray, params)`).
+
+    The JAX tree stacks each pattern position over the layer repetitions,
+    `blocks/pos<p>/...` with a leading n_rep axis (e.g. mixer/wq of shape
+    (L, d, Hq*dh) for a dense model); the port keeps one dict per layer, and
+    layer i is repetition i // period of position i % period.  Weights keep
+    the JAX layout (x @ w), so the conversion only slices: no arithmetic,
+    and both packages compute with the same numbers."""
+    check_ported(cfg)
+    period = pattern_period(cfg)
+
+    def conv(node, pick=None) -> Any:
+        if isinstance(node, dict):
+            return {k: conv(v, pick) for k, v in node.items()}
+        return _tensor(node if pick is None else node[pick], device)
+
+    blocks = tree["blocks"]
+    layers = [conv(blocks[f"pos{i % period}"], i // period)
+              for i in range(cfg.n_layers)]
+    return {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"]),
+            "layers": layers}

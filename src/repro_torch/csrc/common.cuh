@@ -6,9 +6,28 @@
 // accept/reject and back-search decisions depend on these sums, and its
 // same-seed replay contract needs them to be reproducible.
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace repro {
+
+// Loads and stores of the LM kernels, which read bf16 or fp32 tensors and
+// compute in fp32 (the TPU kernels' contract: fp32 accumulation, the output
+// in the input's dtype).
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+// Max over the 32 lanes of a warp; every lane returns the same value.
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
 
 // Sum over the 32 lanes of a warp; every lane returns the same value.
 // The warp must be full (blockDim.x a multiple of 32).

@@ -48,7 +48,8 @@ _FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 LAUNCHES: Dict[str, int] = {"gram": 0, "row_gram": 0, "probe_sweep": 0,
                             "commit_sweep": 0, "gram_batched": 0,
                             "row_gram_batched": 0, "probe_sweep_batched": 0,
-                            "commit_sweep_batched": 0}
+                            "commit_sweep_batched": 0, "flash_attention": 0,
+                            "flash_decode": 0, "wkv": 0}
 
 
 class KernelBuildError(RuntimeError):

@@ -1,0 +1,66 @@
+"""Wrapper of the flash-attention kernel (csrc/flash_attention.cu):
+`flash_attention`, twin of repro.kernels.flash_attention.ops.
+
+The numerical contract is the TPU kernel's: q, k, v in one dtype (bf16 or
+fp32), fp32 scores, softmax and accumulation, the output in q's dtype.  The
+layout is the JAX package's, q (B, Sq, Hq, dh) and k, v (B, Skv, Hkv, dh).
+The kernel masks the ragged edges of Sq and Skv itself, so nothing is
+padded, and a non-causal call with any Skv is exact (the JAX wrapper refuses
+that call only because its padding would enter the softmax).  As in the JAX
+op, query row i sits at position i.
+
+A CPU tensor runs the plain version (ref.py); a CUDA tensor launches the
+kernel or raises.  There is no fallback between the two.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ref import attention_ref
+
+__all__ = ["flash_attention", "HEAD_DIMS"]
+
+HEAD_DIMS = (64, 80, 128)    # the dh values of the configs' attention heads
+
+
+def check_lm_operands(op: str, tensors) -> bool:
+    """Raise unless the (name, tensor) pairs are contiguous CUDA tensors of
+    one dtype, bf16 or fp32, each 16-byte aligned; True for bf16."""
+    dtypes = {t.dtype for _, t in tensors}
+    for name, t in tensors:
+        _build.check_cuda_tensor(f"{op}: {name}", t)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{op}: {name} is not 16-byte aligned")
+    if len(dtypes) != 1 or not dtypes <= {torch.float32, torch.bfloat16}:
+        raise TypeError(f"{op}: expected operands all bf16 or all fp32, got "
+                        f"{sorted(map(str, dtypes))}")
+    return dtypes == {torch.bfloat16}
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """GQA attention: q (B,Sq,Hq,dh), k,v (B,Skv,Hkv,dh), Hq % Hkv == 0 ->
+    (B,Sq,Hq,dh) in q's dtype.  `window` > 0 limits lookback."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"flash_attention: expected q (B,Sq,Hq,dh) and k, v "
+                         f"(B,Skv,Hkv,dh), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, sq, hq, dh = q.shape
+    _, skv, hkv, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != dh or hq % hkv:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+                         f"k, v {tuple(k.shape)}")
+    if _build.on_cpu(q, "flash_attention"):
+        return attention_ref(q, k, v, causal=causal, window=window)
+    bf16 = check_lm_operands("flash_attention", (("q", q), ("k", k), ("v", v)))
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
+    if min(b, sq, skv) == 0:
+        raise ValueError(f"flash_attention: empty operand {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}")
+    out = torch.empty_like(q)
+    _build.launch("flash_attention", "repro_flash_attention", q, k, v, out,
+                  int(bf16), b, sq, skv, hq, hkv, dh, int(causal), int(window),
+                  dh ** -0.5)
+    _build.LAUNCHES["flash_attention"] += 1
+    return out

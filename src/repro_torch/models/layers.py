@@ -1,0 +1,202 @@
+"""Shared neural building blocks (twin of repro.models.layers): plain
+functions over parameter dicts.
+
+Conventions, as in the JAX package:
+  * params are nested dicts of tensors, weights in the JAX layout (x @ w,
+    w of shape (d_in, d_out))
+  * activations: (B, S, D); attention heads: (B, S, H, dh)
+  * compute dtype from cfg.compute_dtype, fp32 for norms and softmax, the
+    result cast back to the input's dtype
+
+Attention on a CUDA tensor runs the hand-written kernels: one query token
+(decode) goes to flash_decode (B10), a query block that starts at position
+0 (prefill) to flash_attention (B9).  A longer block later in the sequence
+(chunked prefill) has no kernel yet and raises NotPortedError (A16).  On a
+CPU tensor it runs the plain functions here.
+The JAX package's sharding constraints are gone (one device; sharding is
+ROADMAP A11).  `mrope_angles`, `gelu_mlp` and `sinusoidal_positions` wait for
+the VLM and enc-dec slice (A16).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.icoa import NotPortedError
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_decode.ops import flash_decode
+
+# ---------------------------------------------------------------- init utils
+
+
+def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None):
+    fan_in = shape[0]
+    scale = scale if scale is not None else 1.0 / (fan_in**0.5)
+    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+
+
+# ------------------------------------------------------------------ RMSNorm
+
+
+def rmsnorm_init(d: int, dtype, device) -> dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(p: dict, x: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * p["scale"].float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------- RoPE
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,S) -> cos/sin (...,S,head_dim//2), fp32."""
+    half = head_dim // 2
+    ar = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = 1.0 / (theta ** (ar / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x (B,S,H,dh); cos/sin (B,S,half) or (S,half)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.dim() == 2:  # (S, half) -> broadcast over batch and heads
+        c = cos[None, :, None, :]
+        s = sin[None, :, None, :]
+    else:  # (B, S, half)
+        c = cos[:, :, None, :]
+        s = sin[:, :, None, :]
+    xf1, xf2 = x1.float(), x2.float()
+    out = torch.cat([xf1 * c - xf2 * s, xf2 * c + xf1 * s], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------- attention
+
+
+def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     causal: bool, window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """Grouped-query attention.
+
+    q: (B, Sq, Hq, dh); k, v: (B, Skv, Hkv, dh); Hq = Hkv * G.  `q_offset`
+    (a host int) is the absolute position of q[0] (decode: the fill
+    position).  Sliding `window` > 0 limits lookback.  `causal` masks keys
+    after each query (the JAX twin masks unless `bidirectional`, which only
+    its ring-buffer decode sets, together with causal=False; that decode
+    waits for A16, and with it `kv_mask`).
+    """
+    if not _build.on_cpu(q, "attention_scores"):
+        if q.shape[1] == 1 and causal:
+            return flash_decode(q[:, 0], k, v, q_offset, window=window)[:, None]
+        if q_offset:
+            raise NotPortedError(
+                f"attention of a {q.shape[1]}-token query block at position "
+                f"{q_offset} on the card (chunked prefill) waits for ROADMAP A16")
+        return flash_attention(q, k, v, causal=causal, window=window)
+    b, sq, hq, dh = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, dh)
+    scale = dh**-0.5
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+
+    kv_pos = torch.arange(skv, device=q.device)
+    q_pos = torch.arange(sq, device=q.device) + q_offset
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = kv_pos[None, :] <= q_pos[:, None]
+    if window > 0:
+        mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+    scores = torch.where(mask[None, None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v.float())
+    return out.reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, window: int = 0, q_offset: int = 0,
+                      q_block: int = 512) -> torch.Tensor:
+    """Attention with the query axis in blocks of `q_block`: the semantics
+    of `attention_scores`, without an (Sq, Skv) score tensor at once.  On a
+    CUDA tensor the flash kernel already streams the keys, so the whole
+    query axis is one launch."""
+    b, sq, hq, dh = q.shape
+    if sq <= q_block or not _build.on_cpu(q, "chunked_attention"):
+        return attention_scores(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    assert sq % q_block == 0, (sq, q_block)
+    return torch.cat([attention_scores(q[:, s0:s0 + q_block], k, v, causal=causal,
+                                       window=window, q_offset=q_offset + s0)
+                      for s0 in range(0, sq, q_block)], dim=1)
+
+
+def attn_proj_init(gen: torch.Generator, cfg) -> dict:
+    d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    dt = cfg.pdtype()
+    p = {
+        "wq": dense_init(gen, (d, hq * dh), dt),
+        "wk": dense_init(gen, (d, hkv * dh), dt),
+        "wv": dense_init(gen, (d, hkv * dh), dt),
+        "wo": dense_init(gen, (hq * dh, d), dt),
+    }
+    if cfg.qkv_bias:
+        for name, n in (("bq", hq * dh), ("bk", hkv * dh), ("bv", hkv * dh)):
+            p[name] = torch.zeros((n,), dtype=dt, device=gen.device)
+    return p
+
+
+def qkv(p: dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return q.reshape(b, s, hq, dh), k.reshape(b, s, hkv, dh), v.reshape(b, s, hkv, dh)
+
+
+# ------------------------------------------------------------------- SwiGLU
+
+
+def mlp_init(gen: torch.Generator, d: int, f: int, dtype) -> dict:
+    return {
+        "wi_gate": dense_init(gen, (d, f), dtype),
+        "wi_up": dense_init(gen, (d, f), dtype),
+        "wo": dense_init(gen, (f, d), dtype),
+    }
+
+
+def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+    return h @ p["wo"]
+
+
+# --------------------------------------------------------------- embeddings
+
+
+def embed_init(gen: torch.Generator, cfg) -> dict:
+    dt = cfg.pdtype()
+    p = {"tok": dense_init(gen, (cfg.padded_vocab, cfg.d_model), dt, scale=0.02)}
+    if not cfg.tie_embeddings:
+        p["out"] = dense_init(gen, (cfg.d_model, cfg.padded_vocab), dt)
+    return p
+
+
+def embed(p: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+    return p["tok"][tokens].to(cfg.cdtype())
+
+
+def unembed(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    w = p["tok"].T if cfg.tie_embeddings else p["out"]
+    return x @ w.to(cfg.cdtype())

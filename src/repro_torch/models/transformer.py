@@ -1,0 +1,201 @@
+"""Decoder-only transformer assembly for serving (twin of
+repro.models.transformer), for the `dense` and `ssm` (RWKV-6) families.
+
+The JAX package stacks each pattern position's parameters over the layer
+repetitions and consumes the stack with `lax.scan`; here the parameters are
+a list with one dict per layer and a Python loop runs them (PyTorch runs
+eagerly; repro_torch.convert unstacks the JAX tree).  The decode cache is a
+list of per-layer dicts likewise: attention layers hold k, v (B, S, Hkv, dh)
+in the compute dtype, RWKV layers wkv (B, H, dh, dh), shift_t and shift_c
+(B, D) in fp32.  A decode step writes the new K/V into the cache tensors in
+place (the JAX step returns updated copies), which keeps a long cache from
+being copied once per token.
+
+`forward` and the remat machinery (training) wait for the training slice;
+the moe, hybrid, enc-dec and vlm families and the ring-buffer window cache
+for later slices of A16 (models.model.build_model refuses them).
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Tuple
+
+import torch
+
+from repro_torch.models import layers as L
+from repro_torch.models import rwkv as R
+
+__all__ = ["pattern_period", "init", "prefill", "decode_step", "cache_shapes"]
+
+
+# ----------------------------------------------------------------- pattern
+
+
+def pattern_period(cfg) -> int:
+    if cfg.family == "hybrid":
+        p = cfg.attn_period
+        if cfg.n_experts:
+            p = max(p, cfg.moe_every) if p % cfg.moe_every == 0 else p * cfg.moe_every
+        return p
+    if cfg.n_experts and cfg.moe_every > 1:
+        return cfg.moe_every
+    return 1
+
+
+def _effective_window(cfg) -> int:
+    if cfg.sliding_window > 0:
+        return cfg.sliding_window
+    if cfg.attn_variant == "sliding":
+        return 4096
+    return 0
+
+
+# -------------------------------------------------------------------- init
+
+
+def _layer_init(gen: torch.Generator, cfg, kind: str) -> dict:
+    dt = cfg.pdtype()
+    p: Dict[str, Any] = {"norm1": L.rmsnorm_init(cfg.d_model, dt, gen.device),
+                         "norm2": L.rmsnorm_init(cfg.d_model, dt, gen.device)}
+    if kind == "attn":
+        p["mixer"] = L.attn_proj_init(gen, cfg)
+        p["ffn"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
+    elif kind == "rwkv":
+        p["mixer"] = R.rwkv_time_init(gen, cfg)
+        p["ffn"] = R.rwkv_chan_init(gen, cfg)
+    else:
+        raise ValueError(kind)
+    return p
+
+
+def init(gen: torch.Generator, cfg) -> dict:
+    """Random parameters drawn from `gen`, on the generator's device."""
+    return {
+        "embed": L.embed_init(gen, cfg),
+        "final_norm": L.rmsnorm_init(cfg.d_model, cfg.pdtype(), gen.device),
+        "layers": [_layer_init(gen, cfg, kind) for kind in cfg.layer_kinds()],
+    }
+
+
+# ------------------------------------------------------------------- cache
+
+
+def cache_shapes(cfg, batch: int, max_len: int) -> List[Dict[str, Tuple[tuple, torch.dtype]]]:
+    """Per layer, {name: (shape, dtype)} of the decode cache."""
+    hkv, dh = cfg.n_kv_heads, cfg.resolved_head_dim
+    out = []
+    for kind in cfg.layer_kinds():
+        if kind == "attn":
+            out.append({"k": ((batch, max_len, hkv, dh), cfg.cdtype()),
+                        "v": ((batch, max_len, hkv, dh), cfg.cdtype())})
+        else:
+            out.append({k: (v, torch.float32)
+                        for k, v in R.rwkv_cache_shape(cfg, batch).items()})
+    return out
+
+
+# ------------------------------------------------------------------ layers
+
+
+def _attention(q, k, v, cfg, **kw):
+    if cfg.attn_impl == "chunked" and q.shape[1] > 1:
+        return L.chunked_attention(q, k, v, q_block=cfg.attn_q_block, **kw)
+    return L.attention_scores(q, k, v, **kw)
+
+
+def _apply_layer_decode(pp, x, cache, idx: int, cfg, kind, rope, window):
+    h = L.rmsnorm(pp["norm1"], x, cfg.norm_eps)
+    if kind == "attn":
+        q, k, v = L.qkv(pp["mixer"], h, cfg)
+        if rope is not None:
+            cos, sin = rope
+            q = L.apply_rope(q, cos, sin)
+            k = L.apply_rope(k, cos, sin)
+        kc, vc = cache["k"], cache["v"]
+        if not 0 <= idx < kc.shape[1]:
+            raise IndexError(f"decode position {idx} outside the cache of "
+                             f"length {kc.shape[1]}")
+        kc[:, idx] = k[:, 0].to(kc.dtype)        # in place: see the module doc
+        vc[:, idx] = v[:, 0].to(vc.dtype)
+        out = _attention(q, kc, vc, cfg, causal=True, window=window, q_offset=idx)
+        mix = out.reshape(x.shape[0], 1, -1) @ pp["mixer"]["wo"]
+    else:
+        mix, cache = R.rwkv_time_decode(pp["mixer"], h, cache, cfg)
+    x = x + mix
+    h = L.rmsnorm(pp["norm2"], x, cfg.norm_eps)
+    if kind == "rwkv":
+        ffn, cache = R.rwkv_chan_decode(pp["ffn"], h, cache, cfg)
+    else:
+        ffn = L.mlp(pp["ffn"], h)
+    return x + ffn, cache
+
+
+def decode_step(params, batch, cache, cfg) -> Tuple[torch.Tensor, list]:
+    """One new token against the cache. batch: {"tokens": (B,1), "idx": int}.
+
+    Returns (logits (B, V), cache).  `idx` is the current fill length, a
+    host int (or a one-element integer tensor)."""
+    idx = int(batch["idx"])
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens, cfg)
+    if cfg.family == "ssm" or cfg.rope_theta == 0.0:
+        rope = None
+    else:
+        pos = torch.arange(idx, idx + 1, device=tokens.device)
+        rope = L.rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    window = _effective_window(cfg)
+    new_cache = []
+    for pp, c, kind in zip(params["layers"], cache, cfg.layer_kinds()):
+        x, c = _apply_layer_decode(pp, x, c, idx, cfg, kind, rope, window)
+        new_cache.append(c)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = L.unembed(params["embed"], x, cfg)
+    return logits[:, 0], new_cache
+
+
+def _rwkv_final_state(wkv_state, h):
+    """The RWKV layer's decode cache after a full-sequence pass: the WKV
+    state that the time-mix returned (the JAX twin replays the recurrence
+    for it), the last token for the time shift, and a zero channel shift
+    (prefill sets it after the channel-mix)."""
+    b, _, d = h.shape
+    return {"wkv": wkv_state, "shift_t": h[:, -1].float(),
+            "shift_c": torch.zeros((b, d), dtype=torch.float32, device=h.device)}
+
+
+def prefill(params, batch, cfg) -> Tuple[torch.Tensor, list]:
+    """Forward over the prompt, building the cache. Returns (last logits, cache)."""
+    window = _effective_window(cfg)
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens, cfg)
+    b, s, _ = x.shape
+    rope = None
+    if cfg.family != "ssm" and cfg.rope_theta != 0.0:
+        rope = L.rope_angles(torch.arange(s, device=tokens.device),
+                             cfg.resolved_head_dim, cfg.rope_theta)
+    cache = []
+    for pp, kind in zip(params["layers"], cfg.layer_kinds()):
+        h = L.rmsnorm(pp["norm1"], x, cfg.norm_eps)
+        if kind == "attn":
+            q, k, v = L.qkv(pp["mixer"], h, cfg)
+            if rope is not None:
+                cos, sin = rope
+                q = L.apply_rope(q, cos, sin)
+                k = L.apply_rope(k, cos, sin)
+            out = _attention(q, k, v, cfg, causal=True, window=window)
+            mix = out.reshape(b, s, -1) @ pp["mixer"]["wo"]
+            c = {"k": k.to(cfg.cdtype()), "v": v.to(cfg.cdtype())}
+        else:
+            mix, state = R.rwkv_time_apply(pp["mixer"], h, cfg)
+            c = _rwkv_final_state(state, h)
+        x = x + mix
+        h = L.rmsnorm(pp["norm2"], x, cfg.norm_eps)
+        if kind == "rwkv":
+            ffn = R.rwkv_chan_apply(pp["ffn"], h, cfg)
+            c["shift_c"] = h[:, -1].float()
+        else:
+            ffn = L.mlp(pp["ffn"], h)
+        x = x + ffn
+        cache.append(c)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = L.unembed(params["embed"], x[:, -1:], cfg)
+    return logits[:, 0], cache

@@ -1,6 +1,6 @@
 """repro_torch on the card: the CUDA kernels against their plain versions,
-and `api.fit` and `api.batch_fit` on the card against the same runs on the
-CPU.
+`api.fit` and `api.batch_fit` on the card against the same runs on the CPU,
+and the LM serving path (smoke configs) on the card against the CPU.
 
 Every test here is marked `cuda` and skips without a CUDA device: the
 kernels have no CPU mode.  The file imports neither jax nor repro, so it
@@ -12,6 +12,10 @@ Tolerances are normwise (max |kernel - plain| <= tol * max |plain|): 1e-5
 for the Gram products, 1e-4 for the sweep kernels, whose closed-form
 epilogue divides by SMW pivots (both sides fp32).  The batched kernels
 must give trial b exactly the single-trial kernel's bits (torch.equal).
+The LM kernels (flash attention, flash decode, WKV) are held to 1e-5 in
+fp32 and to 8e-3 in bf16 (about two bf16 roundings of the output: both
+sides accumulate in fp32 and round once to bf16); the serving path's
+logits on the card to the CPU's at 1e-4 (fp32, a few layers).
 """
 import math
 
@@ -25,6 +29,16 @@ from repro_torch.kernels.gram import ops as gram_ops
 from repro_torch.kernels.gram import ref as gram_ref
 from repro_torch.kernels.sweep import ops as sweep_ops
 from repro_torch.kernels.sweep import ref as sweep_ref
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_decode.ops import flash_decode
+from repro_torch.kernels.flash_decode.ref import decode_ref
+from repro_torch.kernels.wkv.ops import wkv_chunked
+from repro_torch.kernels.wkv.ref import wkv_ref
+from repro_torch.launch.serve import build_prompt
+from repro_torch.models import build_model, layers
+from repro_torch.serve import ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -83,7 +97,8 @@ def test_kernels_match_plain(card, d, n):
     assert {k: _build.LAUNCHES[k] - before[k] for k in before} == {
         "gram": 1, "row_gram": 1, "probe_sweep": 1, "commit_sweep": 2,
         "gram_batched": 0, "row_gram_batched": 0, "probe_sweep_batched": 0,
-        "commit_sweep_batched": 0}
+        "commit_sweep_batched": 0, "flash_attention": 0, "flash_decode": 0,
+        "wkv": 0}
 
 
 @pytest.mark.parametrize("engine", ["incremental", "fused"])
@@ -228,3 +243,138 @@ def test_batched_wrappers_refuse_bad_card_inputs(card):
         sweep_ops.commit_sweep(r, m_inv, s, 1.0, 4,
                                torch.zeros((2, 64), device=card), 1.0, 0.0,
                                0.0, True)
+
+
+# ------------------------------------------------------------- LM kernels
+
+LM_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+
+
+def _lm(seed, *shapes, dtype, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=device).to(dtype) for s in shapes]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dh,causal,window", [
+    (2, 150, 150, 15, 5, 64, True, 0),     # G = 3, ragged tiles
+    (1, 77, 77, 3, 1, 80, True, 16),       # the smollm smoke heads, window
+    (2, 40, 93, 4, 2, 64, False, 0),       # non-causal, ragged Skv
+    (1, 96, 96, 8, 1, 128, True, 32),      # G = 8, window inside a tile
+])
+def test_flash_attention_matches_plain(card, dtype, b, sq, skv, hq, hkv, dh,
+                                       causal, window):
+    q, k, v = _lm(sq, (b, sq, hq, dh), (b, skv, hkv, dh), (b, skv, hkv, dh),
+                  dtype=dtype, device=card)
+    before = _build.LAUNCHES["flash_attention"]
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert got.dtype == dtype and _build.LAUNCHES["flash_attention"] == before + 1
+    _close(got, attention_ref(q, k, v, causal=causal, window=window),
+           LM_TOL[dtype], "flash_attention")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,s,hq,hkv,dh,idx,window", [
+    (2, 96, 6, 2, 64, 0, 0),          # one position
+    (8, 1088, 15, 5, 64, 517, 0),     # G = 3, idx mid-cache
+    (2, 300, 3, 1, 80, 299, 64),      # the smollm smoke heads, window
+    (3, 999, 8, 1, 128, 700, 0),      # G = 8
+])
+def test_flash_decode_matches_plain(card, dtype, b, s, hq, hkv, dh, idx, window):
+    q, k, v = _lm(s + idx, (b, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh),
+                  dtype=dtype, device=card)
+    before = _build.LAUNCHES["flash_decode"]
+    got = flash_decode(q, k, v, idx, window=window)
+    assert got.dtype == dtype and _build.LAUNCHES["flash_decode"] == before + 1
+    _close(got, decode_ref(q, k, v, idx, window=window), LM_TOL[dtype], "flash_decode")
+
+
+@pytest.mark.parametrize("b,s,h,dh", [(2, 333, 4, 64), (1, 77, 8, 32), (3, 50, 2, 64)])
+def test_wkv_matches_plain(card, b, s, h, dh):
+    r, k, v, z = _lm(s + dh, *[(b, s, h, dh)] * 4, dtype=torch.float32, device=card)
+    w = torch.exp(-torch.exp(z - 1.0))
+    u = 0.1 * _lm(1, (h, dh), dtype=torch.float32, device=card)[0]
+    out, state = wkv_chunked(r, k, v, w, u)
+    want, want_state = wkv_ref(r, k, v, w, u)
+    _close(out, want, 1e-5, "wkv out")
+    _close(state, want_state, 1e-5, "wkv state")
+    assert torch.equal(out, wkv_chunked(r, k, v, w, u)[0])   # same bits again
+
+
+def test_lm_wrappers_refuse_bad_card_inputs(card):
+    q, k, v = _lm(0, (1, 16, 4, 64), (1, 16, 2, 64), (1, 16, 2, 64),
+                  dtype=torch.float32, device=card)
+    with pytest.raises(ValueError, match="CUDA"):              # mixed devices
+        flash_attention(q, k.cpu(), v)
+    with pytest.raises(TypeError, match="bf16 or all fp32"):   # mixed dtypes
+        flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(TypeError, match="bf16 or all fp32"):
+        flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                        v[..., :48].contiguous())
+    with pytest.raises(api.NotPortedError, match="A16"):    # chunked prefill
+        layers.attention_scores(q, k, v, causal=True, q_offset=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_decode(q[:, 0], k.transpose(1, 2).contiguous().transpose(1, 2), v, 3)
+    with pytest.raises(ValueError, match="group"):             # G = 16 > 8
+        qq = _lm(1, (1, 16, 64), dtype=torch.float32, device=card)[0]
+        flash_decode(qq, k[:, :, :1].contiguous(), v[:, :, :1].contiguous(), 3)
+    r = _lm(2, (1, 16, 2, 64), dtype=torch.float32, device=card)[0]
+    u = torch.zeros((2, 64), device=card)
+    with pytest.raises(TypeError, match="fp32"):
+        wkv_chunked(r.bfloat16(), r.bfloat16(), r.bfloat16(), r.bfloat16(), u)
+    with pytest.raises(ValueError, match="shape"):
+        wkv_chunked(r, r, r, r, torch.zeros((2, 32), device=card))
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-1.6b"])
+def test_serve_smoke_on_card_matches_cpu(card, arch):
+    """The smoke config's prefill and greedy decode on the card (the LM
+    kernels) against the CPU (plain versions) from the same parameters:
+    logits within 1e-4 normwise, tokens equal, the kernels launched."""
+    model = build_model(get_config(arch, smoke=True))
+    params = model.init(seed=0, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        recorder = _LogitRecorder(model)
+        p = params if dev == "cpu" else _to(params, card)
+        _build.reset_launches()
+        out, _ = ServeEngine(recorder).generate(p, build_prompt(model.cfg, 2, 24, dev), 5)
+        runs[dev] = (out.cpu(), [lg.cpu() for lg in recorder.logits],
+                     dict(_build.LAUNCHES))
+    (tok_g, log_g, launched), (tok_c, log_c, _) = runs["cuda"], runs["cpu"]
+    for g, c in zip(log_g, log_c):
+        _close(g, c, 1e-4, f"{arch} logits")
+    assert torch.equal(tok_g, tok_c)
+    n = model.cfg.n_layers
+    want = ({"flash_attention": n, "flash_decode": 5 * n} if arch.startswith("smollm")
+            else {"wkv": n})
+    assert {k: v for k, v in launched.items() if v} == want
+
+
+class _LogitRecorder:
+    """The model, recording the logits of its prefill and decode steps."""
+
+    def __init__(self, model):
+        self.model, self.logits = model, []
+
+    def prefill(self, p, batch):
+        out, cache = self.model.prefill(p, batch)
+        self.logits.append(out)
+        return out, cache
+
+    def decode_step(self, p, batch, cache):
+        out, cache = self.model.decode_step(p, batch, cache)
+        self.logits.append(out)
+        return out, cache
+
+
+def _to(tree, device):
+    if isinstance(tree, torch.Tensor):
+        return tree.to(device)
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return [_to(v, device) for v in tree]

@@ -1,0 +1,231 @@
+"""repro_torch LM serving (prefill + decode) against the JAX package, on the
+CPU, at the smoke configs of smollm-360m (dense, GQA) and rwkv6-1.6b (ssm).
+
+The JAX package's `Model.init` parameters are carried across with
+`convert.lm_params_from_numpy` (no arithmetic), so both packages compute
+with the same numbers in fp32.  Prefill logits, every decode_step's logits
+and the caches are held to the JAX package's at 1e-4 normwise
+(max |torch - jax| <= 1e-4 * max |jax|): the same fp32 function, summed in
+other orders through a few layers.  Greedy generation must give the JAX
+engine's tokens, and at each step the top-2 logit margin must exceed 10x
+that tolerance, so that a mismatch means a fault and not a near-tie.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
+from repro.configs import get_config as jax_get_config
+from repro.data.lm import MarkovStream as JaxMarkovStream
+from repro.models import build_model as jax_build_model
+from repro.models import transformer as jtransformer
+from repro.serve import ServeEngine as JaxServeEngine
+from repro.serve.engine import _pad_cache as jax_pad_cache
+from repro_torch.api import NotPortedError
+from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
+from repro_torch.convert import lm_params_from_numpy
+from repro_torch.data.lm import MarkovStream
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import build_model
+from repro_torch.models import transformer
+from repro_torch.serve import ServeEngine, greedy_sample
+from repro_torch.serve.engine import _pad_cache
+
+TOL = 1e-4
+ARCHS = ["smollm-360m", "rwkv6-1.6b"]
+N_STEPS = 6
+
+# variants of the smoke configs that take the model's other attention and
+# WKV routes: chunked attention (query blocks of 8), a sliding window of 8,
+# the chunked WKV form (chunks of 8)
+VARIANTS = {
+    "smollm-360m": [{}, {"attn_impl": "chunked", "attn_q_block": 8},
+                    {"sliding_window": 8}],
+    "rwkv6-1.6b": [{}, {"rwkv_chunk": 8}],
+}
+
+
+def _close(got, want, tol, what=""):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    err = np.abs(got - want).max()
+    scale = max(np.abs(want).max(), 1e-30)
+    assert err <= tol * scale, f"{what}: {err:.3e} > {tol} x {scale:.3e}"
+
+
+def _pair(arch, **overrides):
+    """(JAX model, JAX params, port model, port params) of one config."""
+    jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), **overrides)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **overrides)
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    params = lm_params_from_numpy(cfg, jax.tree.map(np.asarray, jparams))
+    return jmodel, jparams, build_model(cfg), params
+
+
+def _prompt(cfg, b=2, s=16, seed=1):
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def _stack_cache(cache, jcache):
+    """The port's per-layer cache as the JAX pattern layout's leaves (pos0,
+    stacked over the layers), beside the JAX leaves."""
+    for name in jcache["pos0"]:
+        yield name, torch.stack([layer[name] for layer in cache]), jcache["pos0"][name]
+
+
+CASES = [(a, i) for a in ARCHS for i in range(len(VARIANTS[a]))]
+
+
+@pytest.mark.parametrize("arch,variant", CASES)
+def test_prefill_and_decode_match_jax(arch, variant):
+    jmodel, jparams, model, params = _pair(arch, **VARIANTS[arch][variant])
+    toks = _prompt(model.cfg)
+    jlogits, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)})
+    logits, cache = model.prefill(params, {"tokens": torch.from_numpy(toks).long()})
+    _close(logits, jlogits, TOL, "prefill logits")
+    for name, got, want in _stack_cache(cache, jcache):
+        _close(got, want, TOL, f"prefill cache {name}")
+
+    s0 = toks.shape[1]
+    jcache = jax_pad_cache(jcache, jmodel.cfg, s0 + N_STEPS)
+    cache = _pad_cache(cache, s0 + N_STEPS)
+    tok = np.asarray(jnp.argmax(jlogits, axis=-1))[:, None].astype(np.int32)
+    for i in range(N_STEPS):
+        jlogits, jcache = jmodel.decode_step(
+            jparams, {"tokens": jnp.asarray(tok), "idx": jnp.array(s0 + i, jnp.int32)}, jcache)
+        logits, cache = model.decode_step(
+            params, {"tokens": torch.from_numpy(tok).long(), "idx": s0 + i}, cache)
+        _close(logits, jlogits, TOL, f"decode step {i} logits")
+        for name, got, want in _stack_cache(cache, jcache):
+            _close(got, want, TOL, f"decode step {i} cache {name}")
+        tok = np.asarray(jnp.argmax(jlogits, axis=-1))[:, None].astype(np.int32)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_generate_matches_jax_engine(arch):
+    jmodel, jparams, model, params = _pair(arch)
+    toks = _prompt(model.cfg, b=3, s=12, seed=4)
+    jout, _ = JaxServeEngine(jmodel).generate(jparams, {"tokens": jnp.asarray(toks)},
+                                               max_new_tokens=N_STEPS)
+    recorder = _MarginRecorder(model)
+    out, cache = ServeEngine(recorder).generate(
+        params, {"tokens": torch.from_numpy(toks).long()}, N_STEPS)
+    assert out.shape == (3, N_STEPS) and len(cache) == model.cfg.n_layers
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+    # every sampled decision but the discarded last one is well separated
+    assert min(recorder.margins[:-1]) > 10 * TOL, recorder.margins
+
+
+class _MarginRecorder:
+    """The model, recording each decode step's top-2 logit margin relative
+    to its largest |logit|."""
+
+    def __init__(self, model):
+        self.model, self.margins = model, []
+
+    def prefill(self, p, batch):
+        return self.model.prefill(p, batch)
+
+    def decode_step(self, p, batch, cache):
+        logits, cache = self.model.decode_step(p, batch, cache)
+        top2 = torch.topk(logits, 2, dim=-1).values
+        self.margins.append(float((top2[:, 0] - top2[:, 1]).min() / logits.abs().max()))
+        return logits, cache
+
+
+def test_greedy_sample_and_temperature():
+    logits = torch.tensor([[0.1, 2.0, -1.0], [3.0, 0.0, 0.0]])
+    assert greedy_sample(logits).tolist() == [1, 0]
+    draws = [greedy_sample(logits, torch.Generator().manual_seed(s), temperature=5.0)
+             for s in range(16)]
+    assert len({tuple(d.tolist()) for d in draws}) > 1        # it samples
+    again = greedy_sample(logits, torch.Generator().manual_seed(3), temperature=5.0)
+    assert torch.equal(again, draws[3])                       # from its generator
+
+
+@pytest.mark.parametrize("vocab,seed", [(512, 0), (49152, 3)])
+def test_markov_stream_matches_jax(vocab, seed):
+    got = MarkovStream(vocab, seed=seed).sample(np.random.default_rng(seed), 4, 40)
+    want = JaxMarkovStream(vocab, seed=seed).sample(np.random.default_rng(seed), 4, 40)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_launcher_runs_on_cpu(arch, capsys):
+    assert launch_serve.main(["--arch", arch, "--smoke", "--batch", "2",
+                              "--prompt-len", "12", "--new-tokens", "4",
+                              "--device", "cpu"]) == 0
+    assert "generated (2, 4)" in capsys.readouterr().out
+    prompt = launch_serve.build_prompt(get_config(arch, smoke=True), 2, 12)
+    assert prompt["tokens"].shape == (2, 12)
+
+
+def test_configs_match_jax():
+    assert ARCH_IDS == JAX_ARCH_IDS
+    for arch in ARCH_IDS:
+        for smoke in (False, True):
+            got = dataclasses.asdict(get_config(arch, smoke=smoke))
+            want = dataclasses.asdict(jax_get_config(arch, smoke=smoke))
+            assert got == want, arch
+            cfg = get_config(arch, smoke=smoke)
+            assert cfg.pdtype() == getattr(torch, cfg.param_dtype)
+
+
+def test_convert_carries_bf16_params_bit_for_bit():
+    """A bf16 JAX tree (the full configs' dtype) crosses as bf16 tensors with
+    the same bits, stacked layers sliced per layer."""
+    over = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jcfg = dataclasses.replace(jax_get_config("smollm-360m", smoke=True), **over)
+    cfg = dataclasses.replace(get_config("smollm-360m", smoke=True), **over)
+    tree = jax.tree.map(np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+    params = lm_params_from_numpy(cfg, tree)
+    wq = params["layers"][1]["mixer"]["wq"]
+    assert wq.dtype == torch.bfloat16 and len(params["layers"]) == cfg.n_layers
+    want = tree["blocks"]["pos0"]["mixer"]["wq"][1].astype(np.float32)
+    np.testing.assert_array_equal(wq.float().numpy(), want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_shapes_match_jax(arch):
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    shapes = transformer.cache_shapes(cfg, 8, 1088)
+    jshapes = jtransformer.cache_shapes(jcfg, 8, 1088)["pos0"]
+    assert len(shapes) == cfg.n_layers
+    for name, (jshape, jdtype) in jshapes.items():
+        shape, dtype = shapes[0][name]
+        assert (cfg.n_layers, *shape) == tuple(jshape)
+        assert str(dtype).removeprefix("torch.") == jnp.dtype(jdtype).name
+    model = build_model(get_config(arch, smoke=True))
+    cache = model.make_cache(dataclasses.replace(INPUT_SHAPES["decode_32k"],
+                                                 seq_len=64, global_batch=2), device="cpu")
+    assert all(float(t.abs().sum()) == 0.0 for layer in cache for t in layer.values())
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "jamba-v0.1-52b", "whisper-medium",
+                                  "qwen2-vl-7b", "phi3.5-moe-42b-a6.6b"])
+def test_unported_families_raise(arch):
+    with pytest.raises(NotPortedError, match="A16"):
+        build_model(get_config(arch, smoke=True))
+
+
+def test_window_cache_raises():
+    cfg = dataclasses.replace(get_config("smollm-360m", smoke=True),
+                              sliding_window=8, window_cache=True)
+    with pytest.raises(NotPortedError, match="A16"):
+        build_model(cfg)
+
+
+def test_cuda_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: nothing to refuse")
+    model = build_model(get_config("smollm-360m", smoke=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init(seed=0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--arch", "smollm-360m", "--smoke"])
