@@ -44,22 +44,31 @@ Phases, each fatal on failure (nothing is caught):
   9. lm kernels  flash attention (B9), flash decode (B10) and WKV (B11)
               against their plain versions on the same card inputs (fp32:
               1e-5 normwise; bf16: 8e-3, about two bf16 roundings of the
-              output) at ragged lengths, a sliding window, GQA G=3 and a
-              decode position mid-cache, then checked the same way on the
-              very tensors it is timed on, and timed as in phase 3 at the
-              serving shapes (B9: B=8, S=1024 in bf16, checked in fp32 too,
-              and the long row B=1, S=8192; B10: B=8, cache 1088, idx 1087
-              and the decode_32k row B=128, S=32768; B11: B=8, S=1024,
-              rwkv6 heads, output and final state);
+              output, or of P and the output in B9's tensor-core kernel),
+              every call made twice and required to give the same bits, at
+              ragged lengths, sliding windows (one inside a key tile), GQA
+              G=3 and 8, a single query row, Skv > Sq, decode positions
+              mid-cache and caches cut into many chunks (two geometries
+              back to back); each B9 case logs the kernel that its
+              (dtype, head dim) route picked.  Then each is checked the same
+              way on the very tensors it is timed on, and timed as in phase
+              3 at the serving shapes (B9: B=8, S=1024 in bf16, beside the
+              earlier FMA kernel on the same inputs, and in fp32 through
+              the FMA route, the long row B=1, S=8192, and dh 128 at
+              phi3.5-moe's heads (32/8), B=4, S=2048; B10: B=8, cache
+              1088, idx 1087 and the decode_32k row B=128, S=32768; B11:
+              B=8, S=1024, rwkv6 heads, output and final state);
   10. serve smollm  `ServeEngine.generate` on the full smollm-360m config
               (32 layers, d=960, bf16): batch 8, a 1024-token MarkovStream
               prompt, 64 greedy tokens; every logit finite, exactly 32 flash
-              attention and 32 x 64 flash decode launches, no SDPA call;
-              prefill ms, decode ms per token, tokens/s, peak memory, and one
-              decode step under torch.profiler; then the same architecture
-              at full width and 2 layers in fp32 on the card against the CPU
-              from the same parameters (B=1, 128-token prompt, 8 greedy
-              steps: logits within 1e-4 normwise, tokens equal);
+              attention launches, all 32 on the tensor-core kernel, and
+              32 x 64 flash decode launches, no SDPA call; prefill ms (the
+              median of 3 warm prefills), decode ms per token, tokens/s,
+              peak memory, one prefill and four decode steps under
+              torch.profiler; then the same architecture at full width and
+              2 layers in fp32 on the card against the CPU from the same
+              parameters (B=1, 128-token prompt, 8 greedy steps: logits
+              within 1e-4 normwise, tokens equal);
   11. serve rwkv6  the same for the full rwkv6-1.6b config (24 layers,
               d=2048, bf16) with exactly 24 WKV launches in the prefill;
   12. the kernels line, the nvidia-smi line, and the result line
@@ -95,7 +104,7 @@ B_DEPLOY, B_PAPER = 8, 32     # trials: deployment batch; the paper's Monte Carl
 SINGLE = ("gram", "row_gram", "probe_sweep", "commit_sweep")
 BATCHED = ("gram_batched", "row_gram_batched", "probe_sweep_batched",
            "commit_sweep_batched")
-LM = ("flash_attention", "flash_decode", "wkv")
+LM = ("flash_attention", "flash_attention_tc", "flash_decode", "wkv")
 REPS, RUNS = 20, 5
 
 
@@ -762,6 +771,8 @@ def phase_deploy_batch(api, _build, icoa, data_sources, single_sweep_ms):
 
 
 LM_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+# B9 at dh 128 is timed at the heads of this config (32 query / 8 KV heads)
+DH128_ARCH = "phi3.5-moe-42b-a6.6b"
 
 
 def sdpa_layout(q, k, v):
@@ -769,7 +780,7 @@ def sdpa_layout(q, k, v):
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
 
 
-def phase_lm_kernels(fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref):
+def phase_lm_kernels(_build, fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref, get_config):
     """Phase 9: B9, B10, B11 against their plain versions, then timed."""
     import torch.nn.functional as F
 
@@ -782,81 +793,127 @@ def phase_lm_kernels(fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref):
     errs = {"flash_attention": [], "flash_decode": [], "wkv": []}
     worst = {}                      # (kernel, dtype) -> (normwise error, tolerance)
 
-    def check(name, dt, what, got, want, timed=False):
+    def check(name, dt, what, run, want, note=""):
+        """run() twice: the same bits, and within LM_TOL[dt] of `want`."""
+        got = run()
+        require(got.dtype == want.dtype, f"{name} {dt} {what}: returned {got.dtype}")
+        require(torch.equal(got, run()), f"{name} {dt} {what}: a second call gave other bits")
         err = compare(f"{name} {dt} {what}", got, want, LM_TOL[dt])
-        if timed:
-            log(f"[lm-kernels] {name} {str(dt).removeprefix('torch.')} {what}: "
-                f"normwise error against the plain version {err[1]:.3e}")
+        dname = str(dt).removeprefix("torch.")
+        log(f"[lm-kernels] {name} {dname} {what}{note}: normwise error against the "
+            f"plain version {err[1]:.3e}, same bits twice")
         errs[name].append(err)
-        key = (name, str(dt).removeprefix("torch."))
+        key = (name, dname)
         worst[key] = (max(worst.get(key, (0.0,))[0], err[1]), LM_TOL[dt])
 
-    # --- correctness at awkward shapes (ragged lengths, windows, G = 3)
+    def b9(dt, what, q, k, v, causal=True, window=0):
+        """A B9 case, its route from the ops module's (dtype, dh) table logged."""
+        check("flash_attention", dt, what,
+              lambda: fa_ops.flash_attention(q, k, v, causal=causal, window=window),
+              fa_ref.attention_ref(q, k, v, causal=causal, window=window),
+              note=f" [route {fa_ops.route(q.dtype, q.shape[-1])}]")
+
+    # --- correctness at awkward shapes (ragged lengths, windows, G = 3 and 8,
+    # a single row, a window inside one key tile)
     for dt in (torch.float32, torch.bfloat16):
         for b, sq, hq, hkv, dh, window in ((2, 333, 15, 5, 64, 0), (2, 333, 15, 5, 64, 100),
-                                           (1, 77, 3, 1, 80, 16), (1, 200, 12, 3, 128, 0)):
+                                           (1, 77, 3, 1, 80, 16), (1, 200, 12, 3, 128, 0),
+                                           (1, 300, 6, 2, 64, 16), (1, 300, 8, 1, 128, 16),
+                                           (2, 1, 4, 4, 128, 0)):
             q, k, v = rn(b, sq, hq, dh, dtype=dt), rn(b, sq, hkv, dh, dtype=dt), rn(b, sq, hkv, dh, dtype=dt)
-            got = fa_ops.flash_attention(q, k, v, causal=True, window=window)
-            want = fa_ref.attention_ref(q, k, v, causal=True, window=window)
-            require(got.dtype == dt, f"flash_attention returned {got.dtype}")
-            check("flash_attention", dt, (b, sq, hq, hkv, dh, window), got, want)
-        q, k, v = rn(1, 40, 6, 64, dtype=dt), rn(1, 93, 2, 64, dtype=dt), rn(1, 93, 2, 64, dtype=dt)
-        check("flash_attention", dt, "non-causal, ragged Skv",
-              fa_ops.flash_attention(q, k, v, causal=False),
-              fa_ref.attention_ref(q, k, v, causal=False))
+            b9(dt, (b, sq, hq, hkv, dh, window), q, k, v, window=window)
+        for dh in (64, 128):
+            q, k, v = rn(1, 40, 6, dh, dtype=dt), rn(1, 93, 2, dh, dtype=dt), rn(1, 93, 2, dh, dtype=dt)
+            b9(dt, f"non-causal, Skv 93 > Sq 40, dh {dh}", q, k, v, causal=False)
         for b, s, hq, hkv, dh, idx, window in ((8, 1088, 15, 5, 64, 517, 0),
                                                (8, 1088, 15, 5, 64, 1087, 256),
                                                (2, 300, 3, 1, 80, 250, 64),
-                                               (3, 999, 8, 1, 128, 0, 0)):
+                                               (3, 999, 8, 1, 128, 0, 0),
+                                               (1, 5000, 15, 5, 64, 4999, 0),
+                                               (2, 3000, 8, 2, 128, 2500, 1000),
+                                               (1, 5000, 15, 5, 64, 4999, 0)):
             q, k, v = rn(b, hq, dh, dtype=dt), rn(b, s, hkv, dh, dtype=dt), rn(b, s, hkv, dh, dtype=dt)
-            got = fd_ops.flash_decode(q, k, v, idx, window=window)
-            want = fd_ref.decode_ref(q, k, v, idx, window=window)
-            require(got.dtype == dt, f"flash_decode returned {got.dtype}")
-            check("flash_decode", dt, (b, s, hq, hkv, dh, idx, window), got, want)
+            _, nsplit = fd_ops.decode_geometry(
+                idx + 1 - (max(0, idx - window + 1) if window else 0), b * hkv,
+                fd_ops.tile_positions(dh, q.element_size()))
+            check("flash_decode", dt, (b, s, hq, hkv, dh, idx, window),
+                  lambda: fd_ops.flash_decode(q, k, v, idx, window=window),
+                  fd_ref.decode_ref(q, k, v, idx, window=window), note=f" [{nsplit} chunks]")
     for b, s, h, dh in ((2, 333, 4, 64), (1, 77, 8, 32), (3, 50, 2, 64)):
         r, k, v = rn(b, s, h, dh), rn(b, s, h, dh), rn(b, s, h, dh)
         w = torch.exp(-torch.exp(rn(b, s, h, dh) - 1.0))
         u = 0.1 * rn(h, dh)
-        out, state = wkv_ops.wkv_chunked(r, k, v, w, u)
         out_ref, state_ref = wkv_ref.wkv_ref(r, k, v, w, u)
-        check("wkv", torch.float32, f"out {(b, s, h, dh)}", out, out_ref)
-        check("wkv", torch.float32, f"state {(b, s, h, dh)}", state, state_ref)
+        check("wkv", torch.float32, f"out {(b, s, h, dh)}",
+              lambda: wkv_ops.wkv_chunked(r, k, v, w, u)[0], out_ref)
+        check("wkv", torch.float32, f"state {(b, s, h, dh)}",
+              lambda: wkv_ops.wkv_chunked(r, k, v, w, u)[1], state_ref)
     rows = []
     record_row = row_recorder(rows)
     bf = torch.bfloat16
 
+    def fma_b9(q, k, v):
+        """B9's earlier kernel (the fp32-FMA one, which ROUTES now gives fp32
+        and dh 80 only) on bf16 inputs, launched directly: its time on the
+        same inputs is the kernels line's `earlier_ms`.  Not counted."""
+        b, s, hq, dh = q.shape
+        out = torch.empty_like(q)
+        _build.launch("flash_attention", "repro_flash_attention", q, k, v, out, 1, b, s,
+                      s, hq, k.shape[2], dh, 1, 0, dh ** -0.5)
+        return out
+
     # --- B9 at the smollm serving shape and the long row, each checked on
-    # the tensors it is timed on (the serving shape in fp32 as well)
-    def b9_case(b, s, dtypes):
-        hq, hkv, dh = 15, 5, 64
-        q, k, v = rn(b, s, hq, dh, dtype=bf), rn(b, s, hkv, dh, dtype=bf), rn(b, s, hkv, dh, dtype=bf)
-        for dt in dtypes:
-            qq, kk, vv = q.to(dt), k.to(dt), v.to(dt)
+    # the tensors it is timed on; the serving shape also in fp32 (the FMA
+    # route) and through the earlier FMA kernel
+    def b9_case(b, s, dt=bf, earlier=True, heads=(15, 5, 64)):
+        hq, hkv, dh = heads
+        q, k, v = rn(b, s, hq, dh, dtype=dt), rn(b, s, hkv, dh, dtype=dt), rn(b, s, hkv, dh, dtype=dt)
+        want = fa_ref.attention_ref(q, k, v)
+        route = fa_ops.route(dt, dh)
+        check("flash_attention", dt, f"timed shape {(b, s, hq, hkv, dh)}",
+              lambda: fa_ops.flash_attention(q, k, v), want, note=f" [route {route}]")
+        out = {"route": route}
+        if earlier:
             check("flash_attention", dt, f"timed shape {(b, s, hq, hkv, dh)}",
-                  fa_ops.flash_attention(qq, kk, vv), fa_ref.attention_ref(qq, kk, vv),
-                  timed=True)
-            del qq, kk, vv
+                  lambda: fma_b9(q, k, v), want, note=" [earlier FMA kernel]")
+            out["earlier_ms"] = time_ms(lambda: fma_b9(q, k, v))
+        del want
         sq_, sk_, sv_ = sdpa_layout(q, k, v)
-        n_bytes = 2.0 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh)
-        flops = 4.0 * b * hq * dh * s * (s + 1) / 2
-        return (time_ms(lambda: fa_ops.flash_attention(q, k, v)),
-                time_ms(lambda: fa_ref.attention_ref(q, k, v)),
-                time_ms(lambda: F.scaled_dot_product_attention(
-                    sq_, sk_, sv_, is_causal=True, enable_gqa=True)),
-                n_bytes, flops)
+        esize = q.element_size()
+        out.update(ms=time_ms(lambda: fa_ops.flash_attention(q, k, v)),
+                   plain_ms=time_ms(lambda: fa_ref.attention_ref(q, k, v)),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       sq_, sk_, sv_, is_causal=True, enable_gqa=True)),
+                   n_bytes=esize * (2 * b * s * hq * dh + 2 * b * s * hkv * dh),
+                   flops=4.0 * b * hq * dh * s * (s + 1) / 2)
+        return out
 
-    def long_row(shape, ms, plain, lib, n_bytes, flops):
-        b_ms, b_by = bound(n_bytes, flops, H100_BF16_FLOPS)
-        return {"shape": shape, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                "bound_ms": b_ms, "bound_by": b_by}
+    def extra_row(shape, case, peak):
+        b_ms, b_by = bound(case["n_bytes"], case["flops"], peak)
+        row = {"shape": shape, "ms": case["ms"], "plain_ms": case["plain_ms"],
+               "library_ms": case["library_ms"], "bound_ms": b_ms, "bound_by": b_by}
+        row.update({key: case[key] for key in ("route", "earlier_ms") if key in case})
+        return row
 
-    main = b9_case(8, 1024, (bf, torch.float32))
-    extra = long_row("B=1, S=8192", *b9_case(1, 8192, (bf,)))
+    main = b9_case(8, 1024)
+    long_row = extra_row("B=1, S=8192", b9_case(1, 8192), H100_BF16_FLOPS)
+    cfg = get_config(DH128_ARCH)
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    require(heads[2] == 128, f"{DH128_ARCH}: head dim {heads[2]}, expected 128")
+    dh128_row = extra_row(f"{DH128_ARCH} heads {heads}, B=4, S=2048",
+                          b9_case(4, 2048, heads=heads), H100_BF16_FLOPS)
+    fp32_row = extra_row("fp32, B=8, S=1024", b9_case(8, 1024, torch.float32, earlier=False),
+                         H100_FP32_FLOPS)
     record_row("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:74", errs["flash_attention"],
-               *main, H100_BF16_FLOPS)
-    rows[-1]["long_row"] = extra
-    log(f"[lm-kernels] flash_attention long row {json.dumps(extra)}")
+               main["ms"], main["plain_ms"], main["library_ms"], main["n_bytes"],
+               main["flops"], H100_BF16_FLOPS)
+    rows[-1].update(variant=main["route"], earlier_ms=main["earlier_ms"],
+                    earlier="the FMA kernel on the same inputs, this run",
+                    long_row=long_row, dh128_row=dh128_row, fp32_row=fp32_row)
+    for tag, row in (("long row", long_row), ("dh 128 row", dh128_row),
+                     ("fp32 row", fp32_row)):
+        log(f"[lm-kernels] flash_attention {tag} {json.dumps(row)}")
 
     # --- B10 at the smollm serving cache and the decode_32k row
     def b10_case(b, s, idx):
@@ -864,29 +921,31 @@ def phase_lm_kernels(fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref):
         q = rn(b, hq, dh, dtype=bf)
         k = torch.empty((b, s, hkv, dh), dtype=bf, device=dev).normal_(generator=gen)
         v = torch.empty((b, s, hkv, dh), dtype=bf, device=dev).normal_(generator=gen)
+        _, nsplit = fd_ops.decode_geometry(idx + 1, b * hkv, fd_ops.tile_positions(dh, 2))
         check("flash_decode", bf, f"timed shape {(b, s, hq, hkv, dh, idx)}",
-              fd_ops.flash_decode(q, k, v, idx), fd_ref.decode_ref(q, k, v, idx),
-              timed=True)
+              lambda: fd_ops.flash_decode(q, k, v, idx), fd_ref.decode_ref(q, k, v, idx),
+              note=f" [{nsplit} chunks]")
         filled = (torch.arange(s, device=dev) <= idx)[None, None, None, :]
         sq_, sk_, sv_ = sdpa_layout(q[:, None], k, v)
         n = idx + 1
-        n_bytes = 2.0 * (2 * b * n * hkv * dh + 2 * b * hq * dh)
-        flops = 4.0 * b * hq * dh * n
-        out = (time_ms(lambda: fd_ops.flash_decode(q, k, v, idx)),
-               time_ms(lambda: fd_ref.decode_ref(q, k, v, idx)),
-               time_ms(lambda: F.scaled_dot_product_attention(
+        out = {"ms": time_ms(lambda: fd_ops.flash_decode(q, k, v, idx)),
+               "plain_ms": time_ms(lambda: fd_ref.decode_ref(q, k, v, idx)),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                    sq_, sk_, sv_, attn_mask=filled, enable_gqa=True)),
-               n_bytes, flops)
+               "n_bytes": 2.0 * (2 * b * n * hkv * dh + 2 * b * hq * dh),
+               "flops": 4.0 * b * hq * dh * n}
         del k, v
         return out
 
     main = b10_case(8, 1088, 1087)
-    extra = long_row("decode_32k: B=128, S=32768, one layer", *b10_case(128, 32768, 32767))
+    long_row = extra_row("decode_32k: B=128, S=32768, one layer", b10_case(128, 32768, 32767),
+                         H100_BF16_FLOPS)
     record_row("flash_decode", "src/repro_torch/csrc/flash_decode.cu",
                "src/repro/kernels/flash_decode/kernel.py:68", errs["flash_decode"],
-               *main, H100_BF16_FLOPS)
-    rows[-1]["long_row"] = extra
-    log(f"[lm-kernels] flash_decode long row {json.dumps(extra)}")
+               main["ms"], main["plain_ms"], main["library_ms"], main["n_bytes"],
+               main["flops"], H100_BF16_FLOPS)
+    rows[-1].update(long_row=long_row)
+    log(f"[lm-kernels] flash_decode long row {json.dumps(long_row)}")
     torch.cuda.empty_cache()
 
     # --- B11 at the rwkv6 serving shape (no single PyTorch call computes it)
@@ -894,13 +953,12 @@ def phase_lm_kernels(fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref):
     r, k, v = rn(b, s, h, dh), rn(b, s, h, dh), rn(b, s, h, dh)
     w = torch.exp(-torch.exp(rn(b, s, h, dh) - 1.0))
     u = 0.1 * rn(h, dh)
-    out, state = wkv_ops.wkv_chunked(r, k, v, w, u)
     out_ref, state_ref = wkv_ref.wkv_ref(r, k, v, w, u)
-    check("wkv", torch.float32, f"out, timed shape {(b, s, h, dh)}", out, out_ref,
-          timed=True)
-    check("wkv", torch.float32, f"state, timed shape {(b, s, h, dh)}", state, state_ref,
-          timed=True)
-    del out, state, out_ref, state_ref
+    check("wkv", torch.float32, f"out, timed shape {(b, s, h, dh)}",
+          lambda: wkv_ops.wkv_chunked(r, k, v, w, u)[0], out_ref)
+    check("wkv", torch.float32, f"state, timed shape {(b, s, h, dh)}",
+          lambda: wkv_ops.wkv_chunked(r, k, v, w, u)[1], state_ref)
+    del out_ref, state_ref
     for (name, dt), (e, tol) in sorted(worst.items()):
         log(f"[lm-kernels] {name} {dt}: worst normwise error against the plain "
             f"version {e:.3e} (held to {tol:g})")
@@ -958,25 +1016,18 @@ class LogitRecorder:
         return out, cache
 
 
-def profile_decode(model, params, prompt, tag: str, steps: int = 4):
-    """torch.profiler over `steps` decode steps after a prefill: device busy
-    share against the wall clock and the top device operations; the tables
-    go to chiprun_out/profile_<tag>.txt."""
+def profile_window(tag: str, what: str, run, steps: int) -> float:
+    """torch.profiler around run() (`steps` steps of `what`): device busy
+    share against the wall clock and the top device operations, no library
+    attention kernel among them; the table goes to
+    chiprun_out/profile_<tag>.txt.  Returns the busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.serve.engine import _pad_cache
-
-    logits, cache = model.prefill(params, prompt)
-    s0 = prompt["tokens"].shape[1]
-    cache = _pad_cache(cache, s0 + steps)
-    tok = logits.argmax(-1)[:, None]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for i in range(steps):
-            logits, cache = model.decode_step(params, {"tokens": tok, "idx": s0 + i}, cache)
-            tok = logits.argmax(-1)[:, None]
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_kernel = {}
@@ -985,7 +1036,7 @@ def profile_decode(model, params, prompt, tag: str, steps: int = 4):
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(by_kernel.values()) / 1e3
     n_ops = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
-    log(f"[profile] {tag}: {steps} decode steps wall {wall_ms:.2f} ms, device busy "
+    log(f"[profile] {tag}: {steps} {what} wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_ops / steps:.0f} device "
         f"operations per step")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]:
@@ -995,6 +1046,25 @@ def profile_decode(model, params, prompt, tag: str, steps: int = 4):
     with open(os.path.join(HERE, "chiprun_out", f"profile_{tag}.txt"), "w") as fh:
         fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
     return busy_ms / wall_ms
+
+
+def profile_serving(model, params, prompt, tag: str, steps: int = 4) -> float:
+    """One warm prefill, then `steps` decode steps after it, each under
+    torch.profiler; returns the decode's device busy share."""
+    from repro_torch.serve.engine import _pad_cache
+
+    profile_window(f"{tag}_prefill", "prefill", lambda: model.prefill(params, prompt), 1)
+    logits, cache = model.prefill(params, prompt)
+    s0 = prompt["tokens"].shape[1]
+    state = {"cache": _pad_cache(cache, s0 + steps), "tok": logits.argmax(-1)[:, None]}
+
+    def decode():
+        for i in range(steps):
+            out, state["cache"] = model.decode_step(
+                params, {"tokens": state["tok"], "idx": s0 + i}, state["cache"])
+            state["tok"] = out.argmax(-1)[:, None]
+
+    return profile_window(tag, "decode steps", decode, steps)
 
 
 def serve_full(lm, _build, arch: str, expect: dict, batch=8, prompt_len=1024, new=64):
@@ -1029,19 +1099,23 @@ def serve_full(lm, _build, arch: str, expect: dict, batch=8, prompt_len=1024, ne
     require(out.shape == (batch, new) and bool(((out >= 0) & (out < cfg.padded_vocab)).all()),
             f"{arch}: tokens {out.shape} out of range")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    # timed again, warm: the prefill alone, then the whole generate
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.prefill(params, prompt)
-    torch.cuda.synchronize()
-    prefill_ms = (time.perf_counter() - t0) * 1e3
+    # timed again, warm: the prefill alone (median of 3), then the whole generate
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, prompt)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = statistics.median(runs)
+    log(f"[{arch}] warm prefills {', '.join(f'{r:.2f}' for r in runs)} ms")
     t0 = time.perf_counter()
     again, _ = lm["ServeEngine"](model).generate(params, prompt, new)
     torch.cuda.synchronize()
     total_ms = (time.perf_counter() - t0) * 1e3
     require(torch.equal(again, out), f"{arch}: greedy tokens differ between two runs")
     decode_ms = (total_ms - prefill_ms) / new
-    busy = profile_decode(model, params, prompt, arch.replace(".", "_"))
+    busy = profile_serving(model, params, prompt, arch.replace(".", "_"))
     log(f"[{arch}] batch {batch}, prompt {prompt_len}, {new} new tokens: prefill "
         f"{prefill_ms:.2f} ms ({batch * prompt_len / prefill_ms * 1e3:.0f} prompt tokens/s), "
         f"decode {decode_ms:.3f} ms per step ({batch / decode_ms * 1e3:.1f} tokens/s), "
@@ -1147,10 +1221,12 @@ def main() -> None:
                                      single_sweep_ms).items():
         launches[k_] += v_
     stamp("deploy batch")
-    rows += phase_lm_kernels(fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref)
+    rows += phase_lm_kernels(_build, fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref,
+                             get_config)
     stamp("lm kernels")
     launches.update(serve_full(lm, _build, "smollm-360m",
-                               {"flash_attention": 32, "flash_decode": 32 * 64}))
+                               {"flash_attention": 32, "flash_attention_tc": 32,
+                                "flash_decode": 32 * 64}))
     serve_two_layers_vs_cpu(lm, "smollm-360m")
     stamp("serve smollm")
     launches.update(serve_full(lm, _build, "rwkv6-1.6b", {"wkv": 24}))

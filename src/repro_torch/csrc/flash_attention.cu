@@ -1,34 +1,74 @@
-// Grouped-query flash attention of the LM prefill, fp32 accumulation.
+// Grouped-query flash attention of the LM prefill: two kernels, one contract.
 //
-// repro_flash_attention replaces src/repro/kernels/flash_attention/kernel.py
+// Both replace src/repro/kernels/flash_attention/kernel.py
 // flash_attention_pallas (B9, body _flash_kernel):
 //   out[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h / G] / sqrt(dh)) v[b, j, h / G]
 //   over the positions j the mask admits (causal: j <= i; sliding window:
 //   j > i - window; always j < Skv), with q (B, Sq, Hq, dh),
-//   k and v (B, Skv, Hkv, dh), G = Hq / Hkv, bf16 or fp32 in, q's dtype out.
-//   The TPU kernel walked the KV blocks as a sequential grid axis with the
-//   online-softmax state (m, l, acc) in VMEM scratch.  Here one block owns a
-//   (batch, query head, 64-query tile) and loops over 64-key tiles itself,
-//   with its Q, K, V and P tiles in shared memory and each thread's rows of
-//   (m, l, acc) in registers.  Key tiles wholly above the causal diagonal or
+//   k and v (B, Skv, Hkv, dh), G = Hq / Hkv, bf16 or fp32 in, q's dtype out,
+//   fp32 scores, softmax and sums.  The TPU kernel walked the KV blocks as a
+//   sequential grid axis with the online-softmax state (m, l, acc) in VMEM
+//   scratch.  Here a block owns a (batch, query head, query tile) and loops
+//   over 64-key tiles itself.  Key tiles wholly above the causal diagonal or
 //   before the window are skipped (the TPU grid could not skip them), and the
 //   ragged edges of Sq and Skv are masked in the kernel, so no caller pads.
 //   A masked score is the kernel's finite -1e30 and its probability is set
 //   to 0, so a tile that a row sees wholly masked adds nothing and gives no
-//   NaN in exp(m_prev - m_cur).
-// Bound on an H100: the matrix products, 4 dh Sq(Sq+1)/2 FLOPs per (b, h)
-//   over the causal half, far above the bytes (q, k, v read once).  This
-//   first version is the simple right one: fp32 FMA on CUDA cores from
-//   shared memory, 4x4 scores and 4 x dh/16 outputs per thread (the S and O
-//   rows of a thread coincide, so the per-row rescale needs no exchange).
-//   Its reach is a fraction of the 67 TFLOP/s fp32 rate; the tensor-core
-//   (mma/wgmma on bf16 tiles) redesign is queued behind the port.
-// Sums over a row's 16 lanes use a fixed xor butterfly: the same bits on
-// every run.
+//   NaN in exp(m_prev - m_cur).  The wrapper (kernels/flash_attention/ops.py)
+//   picks the kernel from an explicit (dtype, dh) table.
+//
+// repro_flash_attention_tc, bf16 at dh 64 and 128 (the serving path).
+//   Bound on an H100: the two matrix products, 4 dh Sq(Sq+1)/2 FLOPs per
+//   (b, h) over the causal half, against 989 TFLOP/s of bf16 tensor cores;
+//   the bytes (q, k, v read once) are far below.  Beside the products, one
+//   exp per score runs on a unit of 16 lanes per SM (~1/250 of the tensor
+//   rate), so the softmax, not the MMAs, is the first wall.  The design:
+//   - Both products are warpgroup MMAs (wgmma, inline PTX).  A block is two
+//     warpgroups of 64 query rows (a 128-row tile), two blocks per SM at
+//     dh 64.  S = Q K^T is m64n64k16 with Q (resident for the block) and K
+//     read from shared memory in the 128-byte-swizzled K-major layout (a
+//     bf16 row of 64 is one 128-byte line; dh 128 is two column blocks).
+//     O += P V takes P from registers as the A operand and V from shared
+//     memory MN-major (the descriptor's transpose bit): no transpose
+//     anywhere.
+//   - The online softmax runs on the fp32 accumulator fragment in
+//     registers: row max and sum by fixed trees in the thread and a fixed
+//     xor butterfly over the 4 lanes of a row, exp2 with the 1/sqrt(dh)
+//     scale folded into one FMA.  Only tiles that cross the diagonal, the
+//     window's edge or the ragged Skv edge pay for the mask; O is rescaled
+//     only when a row's max moved.
+//   - Within a warpgroup, S of tile t+1 is issued before O += P_t V_t and
+//     its softmax runs while P_t V_t is on the tensor cores.
+//   - P is rounded to bf16 with integer ops (to nearest, ties away from
+//     zero), since the card's fp32 -> bf16 conversion shares the exp unit.
+//   - K and V tiles arrive by cp.async 16-byte copies into a 4-stage ring
+//     (tiles t and t+1 resident, two more in flight); each thread's copy
+//     offsets are computed once.
+//   - Query tiles are launched longest causal rows first, so that the last
+//     wave is not all short rows; a warpgroup skips a key tile none of its
+//     rows can see.
+//   Rounding: P is rounded to bf16 before P V, which the TPU kernel and the
+//   plain version do not do (the usual flash-attention trade); l is summed
+//   from the fp32 p before rounding, and O accumulates in fp32.
+//
+// repro_flash_attention, fp32 at dh 64/80/128 and bf16 at dh 80 (the smoke
+//   config's heads, whose 80 columns do not fill the 128-byte swizzle).
+//   The first, simple kernel, kept for its fp32 exactness (TF32 tensor
+//   cores would break the 1e-5 parity): fp32 FMA on the CUDA cores from
+//   shared memory, one block per (batch, head, 64-query tile), 4x4 scores
+//   and 4 x dh/16 outputs per thread (the S and O rows of a thread coincide,
+//   so the per-row rescale needs no exchange).  It is bound by the
+//   shared-memory pipe (2 FMAs per shared load), far below either peak.
+//
+// Every sum over lanes uses a fixed xor butterfly and the MMAs a fixed
+// order: the same bits on every run.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "common.cuh"
+
+// ---------------------------------------------------------------------------
+// The fp32-FMA kernel.
 
 namespace {
 
@@ -214,6 +254,416 @@ int dispatch(int dh, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// The bf16 tensor-core kernel.
+
+namespace tc {
+
+constexpr int kBq = 128;             // query rows per block: two warpgroups of 64
+constexpr int kBk = 64;              // keys per tile
+constexpr int kThreads = 256;
+constexpr float kNeg = -1e30f;       // the TPU kernel's finite mask value
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+struct Cfg {
+  static constexpr int kStages = 4;    // K/V ring: tiles t, t+1 resident, t+2.. landing
+  static constexpr int kQBytes = kBq * DH * 2;
+  static constexpr int kTileBytes = kBk * DH * 2;      // one K or V tile
+  static constexpr int kSmem = kQBytes + kStages * 2 * kTileBytes + 1024;  // + alignment
+};
+
+// Byte offset of 16-byte chunk j (8 bf16 columns) of row r in a tile of
+// `rows` rows, 128-byte swizzled: column block j / 8 holds rows of 128 bytes,
+// chunk j % 8 of row r stored at position (j % 8) ^ (r % 8).  Tiles start on
+// 1024-byte boundaries, so this is the layout wgmma's 128B swizzle reads.
+__device__ __forceinline__ uint32_t swz(int r, int j, int rows) {
+  return (uint32_t)((j >> 3) * rows * 128 + r * 128 + (((j & 7) ^ (r & 7)) << 4));
+}
+
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
+
+// Rows [row0, row0 + rows) of a bf16 matrix with row stride ld (elements)
+// into the swizzled tile at dst; rows >= limit are zero-filled.
+template <int DH>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, size_t ld,
+                                          int row0, int rows, int limit) {
+  constexpr int C = DH / 8;
+  for (int e = threadIdx.x; e < rows * C; e += kThreads) {
+    const int r = e / C, j = e % C, s = row0 + r;
+    const bool ok = s < limit;
+    cp_async16(dst + swz(r, j, rows), ok ? src + (size_t)s * ld + j * 8 : src, ok);
+  }
+}
+
+// wgmma shared-memory matrix descriptor, 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keep the compiler from moving register accesses across the async MMAs
+// (and from reusing the registers of an A fragment an MMA still reads).
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void hold(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+// Max and sum of 16 values as a fixed tree (short dependency chains).
+__device__ __forceinline__ float tree_max16(float (&x)[16]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] = fmaxf(x[j], x[j + 8]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] = fmaxf(x[j], x[j + 4]);
+#pragma unroll
+  for (int j = 0; j < 2; ++j) x[j] = fmaxf(x[j], x[j + 2]);
+  return fmaxf(x[0], x[1]);
+}
+__device__ __forceinline__ float tree_sum16(float (&x)[16]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) x[j] += x[j + 8];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) x[j] += x[j + 4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) x[j] += x[j + 2];
+  return x[0] + x[1];
+}
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// D (64 x 64, fp32) {=, +=} A (64 x 16, smem) B^T (64 x 16, smem), both K-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 registers) B (16 x 64, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 registers) B (16 x 128, smem, MN-major).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+template <int DH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[DH / 2], const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_n64(o, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64], const uint32_t (&a)[4], uint64_t b) {
+  wgmma_rs_n128(o, a, b);
+}
+
+// Two p in [0, 1] to a bf16 pair (lo in the low half), rounded to nearest
+// (ties away from zero) with integer ops: the card's fp32 -> bf16 conversion
+// shares its 16-per-clock unit with ex2, the integer pipe does not.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo) + 0x8000u, __float_as_uint(hi) + 0x8000u, 0x7632);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, DH == 64 ? 2 : 1)
+flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                          int sq, int skv, int hq, int hkv, int causal, int window,
+                          float scale_log2) {
+  using C = Cfg<DH>;
+  constexpr int NO = DH / 2;         // O accumulator floats per thread
+  constexpr int KS = DH / 16;        // k-steps of Q K^T
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;                          // [DH / 64][kBq][128 B]
+  const uint32_t sKV = base + C::kQBytes;            // stage s: K, then V
+
+  const int h = blockIdx.x % hq, b = blockIdx.x / hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBq;   // longest causal rows first
+  const int hk = h / (hq / hkv);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+
+  const size_t ldq = (size_t)hq * DH, ldk = (size_t)hkv * DH;
+  const __nv_bfloat16* qb = q + (size_t)b * sq * ldq + (size_t)h * DH;
+  const __nv_bfloat16* kb = k + (size_t)b * skv * ldk + (size_t)hk * DH;
+  const __nv_bfloat16* vb = v + (size_t)b * skv * ldk + (size_t)hk * DH;
+
+  // key tiles of the block, and the keys this warpgroup's rows can see
+  const int q_last = min(q0 + kBq, sq) - 1;
+  const int kv_end = causal ? min(skv, q_last + 1) : skv;
+  const int t_first = (window > 0 ? max(0, q0 - window + 1) : 0) / kBk;
+  const int n_tiles = kv_end > t_first * kBk ? (kv_end - t_first * kBk + kBk - 1) / kBk : 0;
+  const int w_lo = q0 + wg * 64;                 // first row of this warpgroup
+  const int w_hi = min(w_lo + 63, sq - 1);       // last (< w_lo: no rows)
+  const int wk_begin = window > 0 ? max(0, w_lo - window + 1) : 0;
+  const int wk_end = causal ? min(skv, w_hi + 1) : skv;
+
+  auto key0 = [&](int t) { return (t_first + t) * kBk; };
+  auto stage = [&](int t) { return sKV + (t % C::kStages) * 2 * C::kTileBytes; };
+  // This thread's 16-byte chunks of a K or V tile: one chunk column j0 of
+  // rows row0 + i RP.  RP is a multiple of 8 and the swizzle repeats every 8
+  // rows, so the shared offsets are soff0 + i RP 128.
+  constexpr int CPR = DH / 8, RP = kThreads / CPR, NCH = kBk / RP;
+  const int row0 = threadIdx.x / CPR, j0 = threadIdx.x % CPR;
+  const uint32_t soff0 = swz(row0, j0, kBk);
+  const int goff0 = row0 * (int)ldk + j0 * 8;
+  auto load_kv = [&](int t) {        // K and V of tile t into its ring slot
+    const int kv0 = key0(t);
+    const __nv_bfloat16* kt = kb + (size_t)kv0 * ldk;
+    const __nv_bfloat16* vt = vb + (size_t)kv0 * ldk;
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      const bool ok = kv0 + row0 + i * RP < skv;
+      const int off = goff0 + i * RP * (int)ldk;
+      const uint32_t dst = stage(t) + soff0 + i * RP * 128;
+      cp_async16(dst, ok ? kt + off : kb, ok);
+      cp_async16(dst + C::kTileBytes, ok ? vt + off : vb, ok);
+    }
+  };
+
+  load_tile<DH>(sQ, qb, ldq, q0, kBq, sq);
+#pragma unroll
+  for (int t = 0; t < C::kStages - 1; ++t) {
+    if (t < n_tiles) load_kv(t);
+    cp_async_commit();               // group t (group 0 also holds Q)
+  }
+
+  float acc[NO], sc[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+  uint32_t pa[4][4];                 // P of the tile whose P V is next, bf16 pairs
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f}, alpha[2];
+  const int r0 = w_lo + warp * 16 + (lane >> 2);   // this thread's rows: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);                    // and columns c0, c0 + 1 of each 8
+  auto visible = [&](int t) {        // does any row of this warpgroup see tile t?
+    const int kv0 = key0(t);
+    return w_lo <= w_hi && kv0 + kBk > wk_begin && kv0 < wk_end;
+  };
+  // S = Q K^T, both K-major: a k-step of 16 columns is 32 bytes into the line
+  auto issue_s = [&](int t) {
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss_n64(sc, desc(sQ + (kk >> 2) * kBq * 128 + wg * 64 * 128 + off, 16, 1024),
+                   desc(stage(t) + (kk >> 2) * kBk * 128 + off, 16, 1024), kk > 0);
+    }
+  };
+  // Online softmax of tile t on the fragment: sc[4j + e] is row r0 + 8 (e >> 1),
+  // key key0(t) + 8 j + c0 + (e & 1).  m is kept in the log2 domain; sc
+  // becomes p (fp32), l takes the fp32 p, alpha the rescale of O.  Only a
+  // tile that crosses a mask edge pays for the mask.
+  auto softmax = [&](int t) {
+    const int kv0 = key0(t);
+    const bool edge = kv0 + kBk > skv || (causal && kv0 + kBk - 1 > w_lo) ||
+                      (window > 0 && kv0 <= w_hi - window);
+    uint32_t okbits = 0xffffffffu;
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int kp = kv0 + 8 * (i >> 2) + c0 + (i & 1);
+        const int qp = r0 + 8 * ((i >> 1) & 1);
+        if (!(kp < skv && (!causal || kp <= qp) && (window <= 0 || kp > qp - window))) {
+          sc[i] = kNeg;
+          okbits &= ~(1u << i);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {    // row r0 + 8 r: sc[4 j + 2 r + {0, 1}]
+      float x[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) x[j] = sc[4 * (j >> 1) + 2 * r + (j & 1)];
+      float mx = tree_max16(x);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx * scale_log2);
+      alpha[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+    }
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        sc[i] = (okbits >> i) & 1u ? ex2(fmaf(sc[i], scale_log2, -m[(i >> 1) & 1])) : 0.f;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = ex2(fmaf(sc[i], scale_log2, -m[(i >> 1) & 1]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {    // l from the fp32 p, before rounding
+      float x[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) x[j] = sc[4 * (j >> 1) + 2 * r + (j & 1)];
+      l[r] = l[r] * alpha[r] + tree_sum16(x);
+    }
+  };
+  // O *= alpha, then P (bf16) into the A fragment: k-step kk is keys
+  // 16 kk.., fragment registers 8 kk..8 kk + 7
+  auto rescale_pack = [&]() {
+    if (alpha[0] != 1.f || alpha[1] != 1.f) {   // no row max moved: nothing to do
+#pragma unroll
+      for (int i = 0; i < NO; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pa[kk][e] = pack_bf16(sc[8 * kk + 2 * e], sc[8 * kk + 2 * e + 1]);
+  };
+
+  // Per visible tile t: S of tile t+1 is issued before O += P_t V_t, and its
+  // softmax runs while P_t V_t is on the tensor cores.
+  bool have_p = false;               // pa holds P of tile t, O is rescaled for it
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<C::kStages - 3>();   // tiles t and t+1 have landed (this thread's copies)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // visible to wgmma
+    __syncthreads();                 // everyone's copies; tile t-1's slot consumed by all
+    if (t + C::kStages - 1 < n_tiles) load_kv(t + C::kStages - 1);
+    cp_async_commit();
+    if (!visible(t)) continue;
+    if (!have_p) {                   // the first visible tile: S_t alone
+      hold(sc);
+      wg_fence();
+      issue_s(t);
+      wg_commit();
+      wg_wait<0>();
+      hold(sc);
+      softmax(t);
+      rescale_pack();
+    }
+    const bool next = t + 1 < n_tiles && visible(t + 1);
+    hold(sc);
+    hold(acc);
+    hold(pa);
+    wg_fence();
+    if (next) {
+      issue_s(t + 1);
+      wg_commit();
+    }
+    // O += P V, V MN-major: 16 keys are 2 KB down the tile; the next 64
+    // columns (dh 128) are the next column block, kBk * 128 bytes on
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_pv<DH>(acc, pa[kk], desc(stage(t) + C::kTileBytes + kk * 16 * 128, kBk * 128, 1024));
+    wg_commit();
+    if (next) {
+      wg_wait<1>();                  // S_{t+1} done; P_t V_t may still run
+      hold(sc);
+      softmax(t + 1);
+    }
+    wg_wait<0>();
+    hold(acc);
+    hold(pa);
+    if (next) rescale_pack();
+    have_p = next;
+  }
+
+  // l over the 4 lanes of a row, then O / l for the rows inside Sq
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float t = l[r] + __shfl_xor_sync(0xffffffffu, l[r], 1);
+    t += __shfl_xor_sync(0xffffffffu, t, 2);
+    const float inv = 1.f / fmaxf(t, 1e-30f);
+    const int row = r0 + 8 * r;
+    if (row < sq && w_lo <= w_hi) {
+      __nv_bfloat16* dst = o + ((size_t)b * sq + row) * ldq + (size_t)h * DH + c0;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv,
+           int hq, int hkv, int causal, int window, float scale, cudaStream_t st) {
+  constexpr int bytes = Cfg<DH>::kSmem;
+  auto* kern = flash_attention_tc_kernel<DH>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid(b * hq, (sq + kBq - 1) / kBq);
+  kern<<<grid, kThreads, bytes, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, skv, hq, hkv,
+      causal, window, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 // q (b, sq, hq, dh); k, v (b, skv, hkv, dh); o (b, sq, hq, dh); all
 // contiguous, of one dtype: bf16 when is_bf16, else fp32.  dh in {64, 80,
 // 128} (the configs' head dims); hq a multiple of hkv.  Query row i sits at
@@ -229,4 +679,17 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                    window, scale, st);
   return dispatch<float>(dh, q, k, v, o, b, sq, skv, hq, hkv, causal, window,
                          scale, st);
+}
+
+// The tensor-core kernel: q, k, v, o as for repro_flash_attention, all bf16,
+// dh 64 or 128, 16-byte aligned.
+extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* o,
+                                        int b, int sq, int skv, int hq, int hkv, int dh,
+                                        int causal, int window, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 64: return tc::launch<64>(q, k, v, o, b, sq, skv, hq, hkv, causal, window, scale, st);
+    case 128: return tc::launch<128>(q, k, v, o, b, sq, skv, hq, hkv, causal, window, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

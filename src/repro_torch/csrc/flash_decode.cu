@@ -10,19 +10,34 @@
 //   so the cache is read once per group.
 // Bound on an H100: the bytes.  One token does 4 G dh FLOPs per 2 dh cache
 //   elements read, far below the card's ops-per-byte balance, so the time is
-//   the read of K and V over the filled positions.  The TPU kernel walked
-//   the cache as a sequential grid axis; here (flash-decoding) the positions
-//   are split over warps so that enough loads are in flight: at the serving
-//   shape (B=8, Hkv=5) the 40 (batch, KV head) pairs alone would occupy 40 of
-//   the 132 SMs.  Each warp owns one contiguous chunk of positions and keeps
-//   its own (m, l, acc) for the G heads: a lane forms the scores of one
-//   position (its K row in 16-byte loads, q from shared memory), the warp
-//   rescales by its running max, and the lanes then own pairs of the dh
-//   output columns for the P V product (V rows read coalesced, each lane's p
-//   broadcast by shuffle).  A second kernel merges the per-warp partials of
-//   each (batch, head) in chunk order: a fixed order, no float atomics, the
-//   same bits on every run.  The wrapper sizes the chunks (multiples of 32
-//   positions) to put about 16 warps on every SM.
+//   the read of K and V over the filled positions, and the design's one job
+//   is to keep enough of that read in flight (Little's law: 3.35 TB/s times
+//   ~0.6 us of latency is ~15 KB per SM) with few instructions per byte.
+//   The TPU kernel walked the cache as a sequential grid axis; here
+//   (flash-decoding) a block of 8 warps owns one chunk of positions of one
+//   (batch, KV head), and:
+//   - K and V tiles of the chunk stream into shared memory by cp.async
+//     16-byte copies, through a ring of 4 stages: 3 tiles (~48 KB) are in
+//     flight per block while one is consumed.  The wrapper sizes the chunks
+//     (kernels/flash_decode/ops.py, decode_geometry) so that every SM holds
+//     at least two such blocks.
+//   - A lane owns a 16-byte column slice of dh (8 bf16 or 4 fp32): dh/8
+//     lanes (a lane group) cover one K or V row, so one warp instruction
+//     reads 32/(dh/8) whole rows.  The lane keeps its q slice and its acc
+//     slice of the G heads in registers, sized by a tier (G <= 2, 4 or 8)
+//     so that small groups leave room for more warps per SM; a score is its
+//     partial dot product summed over the group by a fixed xor butterfly,
+//     and since every lane of the group then holds the same p, P V needs no
+//     exchange at all.
+//   - Each lane group runs its own online softmax over the rows it reads,
+//     rescaling its state only when the max rises; at the end of the chunk
+//     the groups of a warp merge by xor butterfly and the warps in index
+//     order, and then the chunks of a (batch, KV head) are merged in chunk
+//     order by the last of its blocks to finish, in the same launch: an
+//     integer arrival counter per (batch, KV head), in a workspace the
+//     wrapper keeps zeroed, picks that block, which resets it for the next
+//     call.  The atomic only picks the merging block; the sum order is
+//     fixed, and there are no float atomics: the same bits on every run.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -30,199 +45,285 @@
 
 namespace {
 
-constexpr int kWarps = 4;          // warps (chunks) per block
+constexpr int kThreads = 256;      // 8 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kStages = 4;         // ring depth (tiles)
 constexpr int kMaxG = 8;           // query heads per KV head
 constexpr float kNeg = -1e30f;     // the TPU kernel's finite mask value
 
-// VEC elements of T in one 16-byte load
-template <typename T> struct Vec;
-template <> struct Vec<float> { static constexpr int n = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int n = 8; };
+template <typename T, int DH>
+struct Cfg {
+  static constexpr int VN = 16 / (int)sizeof(T);   // elements of a 16-byte slice
+  static constexpr int CH = DH / VN;               // slices per row
+  static constexpr int GS = CH <= 8 ? 8 : CH <= 16 ? 16 : 32;   // lanes per row
+  static constexpr int RPW = 32 / GS;              // rows per warp instruction
+  // positions per tile: 8 KB of K (5 KB at dh 80); repro_flash_decode_tile
+  static constexpr int TP = (DH == 64 ? 64 : 32) * 2 / (int)sizeof(T);
+  static constexpr int STEPS = TP / (kWarps * RPW);   // row steps per warp per tile
+  static constexpr int TILE = TP * DH * (int)sizeof(T);
+  static constexpr int SMEM = kStages * 2 * TILE;
+  static_assert(DH % VN == 0 && CH <= 32 && STEPS * kWarps * RPW == TP, "decode geometry");
+  static_assert(kWarps * kMaxG * (DH + 2) * 4 <= SMEM, "merge scratch");
+};
+
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 
 template <typename T>
-__device__ __forceinline__ void load16(const T* src, float* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+__device__ __forceinline__ void unpack16(const uint4 raw, float* dst) {
   const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-  for (int i = 0; i < Vec<T>::n; ++i) dst[i] = repro::to_f32(e[i]);
+  for (int i = 0; i < 16 / (int)sizeof(T); ++i) dst[i] = repro::to_f32(e[i]);
 }
 
+// Positions [p, p + TP) of K and V (rows >= p1 not copied) into a stage.
 template <typename T, int DH>
-__global__ void __launch_bounds__(32 * kWarps)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, float* __restrict__ part_m,
-                      float* __restrict__ part_l, float* __restrict__ part_acc,
-                      int s, int hkv, int g, int lo, int hi, int chunk,
-                      int nsplit, float scale) {
-  constexpr int NP = (DH + 63) / 64;   // column pairs per lane
-  constexpr int VN = Vec<T>::n;
-  __shared__ float sq[kMaxG * DH];
-  const int b = blockIdx.z, hk = blockIdx.y;
-  const int hq = hkv * g;
-  for (int e = threadIdx.x; e < g * DH; e += blockDim.x)
-    sq[e] = repro::to_f32(q[((size_t)b * hq + hk * g) * DH + e]) * scale;
-  __syncthreads();
+__device__ __forceinline__ void load_tile(uint32_t sk, uint32_t sv, const T* kb, const T* vb,
+                                          size_t ld, int p, int p1) {
+  using C = Cfg<T, DH>;
+  for (int e = threadIdx.x; e < C::TP * C::CH; e += kThreads) {
+    const int r = e / C::CH, j = e % C::CH;
+    if (p + r < p1) {
+      const size_t off = (size_t)(p + r) * ld + j * C::VN;
+      const uint32_t so = (uint32_t)((r * DH + j * C::VN) * sizeof(T));
+      cp_async16(sk + so, kb + off);
+      cp_async16(sv + so, vb + off);
+    }
+  }
+}
 
+// Merge softmax state b into a: (m, l, acc) over two disjoint position sets.
+template <int VN>
+__device__ __forceinline__ void merge(float& m, float& l, float (&acc)[VN], float mb, float lb,
+                                      const float (&accb)[VN]) {
+  const float mx = fmaxf(m, mb);
+  const float wa = expf(m - mx), wb = expf(mb - mx);
+  m = mx;
+  l = l * wa + lb * wb;
+#pragma unroll
+  for (int e = 0; e < VN; ++e) acc[e] = acc[e] * wa + accb[e] * wb;
+}
+
+// GT: register slots for the G query heads (G <= GT).
+template <typename T, int DH, int GT>
+__global__ void __launch_bounds__(kThreads)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    float* __restrict__ part, int* __restrict__ arrivals, T* __restrict__ out,
+                    int s, int hkv, int g, int lo, int hi, int chunk, int nsplit, float scale) {
+  using C = Cfg<T, DH>;
+  constexpr int VN = C::VN, GS = C::GS;
+  constexpr int PW = DH + 2;                 // a partial: m, l, acc[DH]
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t s_base = (uint32_t)__cvta_generic_to_shared(smem);
+  __shared__ int s_last;
+
+  const int sp = blockIdx.x, hk = blockIdx.y, b = blockIdx.z;
+  const int pair = b * hkv + hk;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int sp = blockIdx.x * kWarps + warp;
-  if (sp >= nsplit) return;
+  const int grp = lane / GS, c = lane % GS;  // lane group (a row) and slice
+  const bool has = c < C::CH;                // dh 80: the group's last lanes idle
+  const size_t ld = (size_t)hkv * DH;
+  const T* kb = k + (size_t)b * s * ld + (size_t)hk * DH;
+  const T* vb = v + (size_t)b * s * ld + (size_t)hk * DH;
   const int p0 = lo + sp * chunk;
   const int p1 = min(hi, p0 + chunk);
-  const size_t row = (size_t)hkv * DH;                     // one position
-  const T* kb = k + (size_t)b * s * row + (size_t)hk * DH;
-  const T* vb = v + (size_t)b * s * row + (size_t)hk * DH;
+  const int n_tiles = (p1 - p0 + C::TP - 1) / C::TP;
 
-  float m[kMaxG], l[kMaxG], acc[kMaxG][2 * NP];
 #pragma unroll
-  for (int gg = 0; gg < kMaxG; ++gg) {
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < n_tiles)
+      load_tile<T, DH>(s_base + st * 2 * C::TILE, s_base + st * 2 * C::TILE + C::TILE, kb, vb,
+                       ld, p0 + st * C::TP, p1);
+    cp_async_commit();
+  }
+
+  // this lane's q slice of the G heads, pre-scaled, and its running state
+  float qf[GT][VN], acc[GT][VN], m[GT], l[GT];
+#pragma unroll
+  for (int gg = 0; gg < GT; ++gg) {
     m[gg] = kNeg;
     l[gg] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 2 * NP; ++c) acc[gg][c] = 0.f;
+    for (int e = 0; e < VN; ++e) qf[gg][e] = acc[gg][e] = 0.f;
+    if (gg < g && has) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          q + ((size_t)pair * g + gg) * DH + c * VN);
+      unpack16<T>(raw, qf[gg]);
+#pragma unroll
+      for (int e = 0; e < VN; ++e) qf[gg][e] *= scale;
+    }
   }
 
-  for (int t0 = p0; t0 < p1; t0 += 32) {
-    const int pos = t0 + lane;
-    const bool ok = pos < p1;
-    float sc[kMaxG];
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<kStages - 2>();            // tile t has landed (this thread's copies)
+    __syncthreads();                         // everyone's; tile t-1 consumed by all
+    {
+      const int tn = t + kStages - 1;
+      if (tn < n_tiles) {
+        const uint32_t sk = s_base + (tn % kStages) * 2 * C::TILE;
+        load_tile<T, DH>(sk, sk + C::TILE, kb, vb, ld, p0 + tn * C::TP, p1);
+      }
+      cp_async_commit();
+    }
+    const uint8_t* sk = smem + (t % kStages) * 2 * C::TILE;
+    const uint8_t* sv = sk + C::TILE;
 #pragma unroll
-    for (int gg = 0; gg < kMaxG; ++gg) sc[gg] = 0.f;
-    if (ok) {
-      const T* kr = kb + (size_t)pos * row;
-#pragma unroll 2
-      for (int d0 = 0; d0 < DH; d0 += VN) {
-        float kf[VN];
-        load16(kr + d0, kf);
+    for (int step = 0; step < C::STEPS; ++step) {
+      const int row = (warp * C::STEPS + step) * C::RPW + grp;
+      const bool ok = p0 + t * C::TP + row < p1;     // the same for the whole group
+      float kf[VN], vf[VN];
+      uint4 kraw = make_uint4(0, 0, 0, 0), vraw = kraw;
+      if (ok && has) {
+        const int so = (row * DH + c * VN) * (int)sizeof(T);
+        kraw = *reinterpret_cast<const uint4*>(sk + so);
+        vraw = *reinterpret_cast<const uint4*>(sv + so);
+      }
+      unpack16<T>(kraw, kf);
+      unpack16<T>(vraw, vf);
 #pragma unroll
-        for (int gg = 0; gg < kMaxG; ++gg) {
-          if (gg < g) {
-            float a = sc[gg];
+      for (int gg = 0; gg < GT; ++gg) {
+        if (gg < g) {
+          float sc = 0.f;
 #pragma unroll
-            for (int e = 0; e < VN; ++e) a = fmaf(sq[gg * DH + d0 + e], kf[e], a);
-            sc[gg] = a;
+          for (int e = 0; e < VN; ++e) sc = fmaf(qf[gg][e], kf[e], sc);
+#pragma unroll
+          for (int off = GS / 2; off > 0; off >>= 1)
+            sc += __shfl_xor_sync(0xffffffffu, sc, off);
+          if (ok) {
+            if (sc > m[gg]) {                // a new max: rescale the state (rare)
+              const float alpha = expf(m[gg] - sc);
+              m[gg] = sc;
+              l[gg] *= alpha;
+#pragma unroll
+              for (int i = 0; i < VN; ++i) acc[gg][i] *= alpha;
+            }
+            const float p = expf(sc - m[gg]);
+            l[gg] += p;
+#pragma unroll
+            for (int i = 0; i < VN; ++i) acc[gg][i] = fmaf(p, vf[i], acc[gg][i]);
           }
         }
       }
     }
-    float p[kMaxG];
+  }
+
+  // merge the lane groups of each warp (xor butterfly over the group bits),
+  // then the warps in index order; the ring is free scratch after the loop
 #pragma unroll
-    for (int gg = 0; gg < kMaxG; ++gg) {
+  for (int off = GS; off < 32; off <<= 1) {
+#pragma unroll
+    for (int gg = 0; gg < GT; ++gg) {
       if (gg < g) {
-        const float m_new = fmaxf(m[gg], repro::warp_max(ok ? sc[gg] : kNeg));
-        const float alpha = expf(m[gg] - m_new);
-        p[gg] = ok ? expf(sc[gg] - m_new) : 0.f;
-        l[gg] = l[gg] * alpha + p[gg];                     // this lane's share
-        m[gg] = m_new;
+        float accb[VN];
 #pragma unroll
-        for (int c = 0; c < 2 * NP; ++c) acc[gg][c] *= alpha;
+        for (int e = 0; e < VN; ++e) accb[e] = __shfl_xor_sync(0xffffffffu, acc[gg][e], off);
+        const float mb = __shfl_xor_sync(0xffffffffu, m[gg], off);
+        const float lb = __shfl_xor_sync(0xffffffffu, l[gg], off);
+        merge<VN>(m[gg], l[gg], acc[gg], mb, lb, accb);
       }
     }
-    const int nt = min(32, p1 - t0);
-#pragma unroll 4
-    for (int j = 0; j < nt; ++j) {
-      const T* vr = vb + (size_t)(t0 + j) * row;
-      float vv[2 * NP];
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem);      // [warp][g][m, l, acc]
+  if (grp == 0) {
 #pragma unroll
-      for (int pr = 0; pr < NP; ++pr) {
-        const int d = pr * 64 + 2 * lane;
-        vv[2 * pr] = d < DH ? repro::to_f32(vr[d]) : 0.f;
-        vv[2 * pr + 1] = d < DH ? repro::to_f32(vr[d + 1]) : 0.f;
-      }
+    for (int gg = 0; gg < GT; ++gg) {
+      if (gg < g) {
+        float* dst = red + (warp * g + gg) * PW;
+        if (c == 0) {
+          dst[0] = m[gg];
+          dst[1] = l[gg];
+        }
+        if (has) {
 #pragma unroll
-      for (int gg = 0; gg < kMaxG; ++gg) {
-        if (gg < g) {
-          const float pj = __shfl_sync(0xffffffffu, p[gg], j);
-#pragma unroll
-          for (int c = 0; c < 2 * NP; ++c) acc[gg][c] = fmaf(pj, vv[c], acc[gg][c]);
+          for (int e = 0; e < VN; ++e) dst[2 + c * VN + e] = acc[gg][e];
         }
       }
     }
   }
-
-  const size_t base = ((size_t)b * hkv + hk) * nsplit + sp;  // (b, hk, sp)
-#pragma unroll
-  for (int gg = 0; gg < kMaxG; ++gg) {
-    if (gg < g) {
-      const float lsum = repro::warp_sum(l[gg]);
-      if (lane == 0) {
-        part_m[base * g + gg] = m[gg];
-        part_l[base * g + gg] = lsum;
+  __syncthreads();
+  float* mine = part + ((size_t)pair * nsplit + sp) * g * PW;   // (pair, sp, g, PW)
+  for (int it = threadIdx.x; it < g * DH; it += kThreads) {
+    const int gg = it / DH, d = it % DH;
+    float mx = kNeg;
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red[(w * g + gg) * PW]);
+    float den = 0.f, num = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float* src = red + (w * g + gg) * PW;
+      const float wt = expf(src[0] - mx);
+      den = fmaf(src[1], wt, den);
+      num = fmaf(src[2 + d], wt, num);
+    }
+    if (nsplit == 1) {
+      out[((size_t)pair * g + gg) * DH + d] = repro::from_f32<T>(num / fmaxf(den, 1e-30f));
+    } else {
+      if (d == 0) {
+        mine[gg * PW] = mx;
+        mine[gg * PW + 1] = den;
       }
-      float* dst = part_acc + (base * g + gg) * DH;
-#pragma unroll
-      for (int pr = 0; pr < NP; ++pr) {
-        const int d = pr * 64 + 2 * lane;
-        if (d < DH) {
-          dst[d] = acc[gg][2 * pr];
-          dst[d + 1] = acc[gg][2 * pr + 1];
-        }
-      }
+      mine[gg * PW + 2 + d] = num;
     }
   }
-}
+  if (nsplit == 1) return;
 
-// One warp per (batch, query head): merge the nsplit partials in chunk order.
-template <typename T, int DH>
-__global__ void decode_merge_kernel(const float* __restrict__ part_m,
-                                    const float* __restrict__ part_l,
-                                    const float* __restrict__ part_acc,
-                                    T* __restrict__ out, int hkv, int g,
-                                    int nsplit) {
-  const int b = blockIdx.y, h = blockIdx.x, lane = threadIdx.x;
-  const int hk = h / g, gg = h % g;
-  const size_t first = ((size_t)b * hkv + hk) * nsplit;    // (b, hk, 0)
-  float mx = kNeg;
-  for (int sp = 0; sp < nsplit; ++sp) mx = fmaxf(mx, part_m[(first + sp) * g + gg]);
-  constexpr int NC = (DH + 31) / 32;
-  float o[NC], den = 0.f;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) o[c] = 0.f;
-  for (int sp = 0; sp < nsplit; ++sp) {
-    const size_t at = (first + sp) * g + gg;
-    const float wgt = expf(part_m[at] - mx);
-    den = fmaf(part_l[at], wgt, den);
-    const float* src = part_acc + at * DH;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = c * 32 + lane;
-      if (d < DH) o[c] = fmaf(src[d], wgt, o[c]);
+  // the last block of this (batch, KV head) to arrive merges the chunks
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(arrivals + pair, 1) == nsplit - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* first = part + (size_t)pair * nsplit * g * PW;
+  for (int it = threadIdx.x; it < g * DH; it += kThreads) {
+    const int gg = it / DH, d = it % DH;
+    float mx = kNeg;
+    for (int j = 0; j < nsplit; ++j) mx = fmaxf(mx, __ldcg(first + ((size_t)j * g + gg) * PW));
+    float den = 0.f, num = 0.f;
+    for (int j = 0; j < nsplit; ++j) {
+      const float* src = first + ((size_t)j * g + gg) * PW;
+      const float wt = expf(__ldcg(src) - mx);
+      den = fmaf(__ldcg(src + 1), wt, den);
+      num = fmaf(__ldcg(src + 2 + d), wt, num);
     }
+    out[((size_t)pair * g + gg) * DH + d] = repro::from_f32<T>(num / fmaxf(den, 1e-30f));
   }
-  den = fmaxf(den, 1e-30f);
-  T* dst = out + ((size_t)b * hkv * g + h) * DH;
-#pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    const int d = c * 32 + lane;
-    if (d < DH) dst[d] = repro::from_f32<T>(o[c] / den);
-  }
+  if (threadIdx.x == 0) arrivals[pair] = 0;        // ready for the next call
 }
 
-template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, float* part_m,
-           float* part_l, float* part_acc, void* out, int b, int s, int hkv,
-           int g, int lo, int hi, int chunk, int nsplit, float scale,
+template <typename T, int DH, int GT>
+int launch(const void* q, const void* k, const void* v, float* part, int* arrivals, void* out,
+           int b, int s, int hkv, int g, int lo, int hi, int chunk, int nsplit, float scale,
            cudaStream_t st) {
-  dim3 grid((nsplit + kWarps - 1) / kWarps, hkv, b);
-  decode_partial_kernel<T, DH><<<grid, 32 * kWarps, 0, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), part_m, part_l, part_acc, s, hkv, g, lo, hi,
-      chunk, nsplit, scale);
-  cudaError_t err = cudaGetLastError();
+  constexpr int bytes = Cfg<T, DH>::SMEM;
+  auto* kern = flash_decode_kernel<T, DH, GT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  decode_merge_kernel<T, DH><<<dim3(hkv * g, b), 32, 0, st>>>(
-      part_m, part_l, part_acc, static_cast<T*>(out), hkv, g, nsplit);
+  kern<<<dim3(nsplit, hkv, b), kThreads, bytes, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), part,
+      arrivals, static_cast<T*>(out), s, hkv, g, lo, hi, chunk, nsplit, scale);
   return cudaGetLastError();
 }
 
+template <typename T, int DH>
+int by_group(int g, const void* q, const void* k, const void* v, float* part, int* arrivals,
+             void* out, int b, int s, int hkv, int lo, int hi, int chunk, int nsplit,
+             float scale, cudaStream_t st) {
+  if (g <= 2) return launch<T, DH, 2>(q, k, v, part, arrivals, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
+  if (g <= 4) return launch<T, DH, 4>(q, k, v, part, arrivals, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
+  return launch<T, DH, 8>(q, k, v, part, arrivals, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
+}
+
 template <typename T>
-int dispatch(int dh, const void* q, const void* k, const void* v, float* pm,
-             float* pl, float* pa, void* out, int b, int s, int hkv, int g,
-             int lo, int hi, int chunk, int nsplit, float scale,
-             cudaStream_t st) {
+int dispatch(int dh, const void* q, const void* k, const void* v, float* part, int* arrivals,
+             void* out, int b, int s, int hkv, int g, int lo, int hi, int chunk, int nsplit,
+             float scale, cudaStream_t st) {
   switch (dh) {
-    case 64: return launch<T, 64>(q, k, v, pm, pl, pa, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
-    case 80: return launch<T, 80>(q, k, v, pm, pl, pa, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
-    case 128: return launch<T, 128>(q, k, v, pm, pl, pa, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
+    case 64: return by_group<T, 64>(g, q, k, v, part, arrivals, out, b, s, hkv, lo, hi, chunk, nsplit, scale, st);
+    case 80: return by_group<T, 80>(g, q, k, v, part, arrivals, out, b, s, hkv, lo, hi, chunk, nsplit, scale, st);
+    case 128: return by_group<T, 128>(g, q, k, v, part, arrivals, out, b, s, hkv, lo, hi, chunk, nsplit, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -232,19 +333,35 @@ int dispatch(int dh, const void* q, const void* k, const void* v, float* pm,
 // q (b, hkv * g, dh); k, v (b, s, hkv, dh), contiguous and 16-byte aligned,
 // of one dtype (bf16 when is_bf16, else fp32); out like q.  Positions
 // [lo, hi) are attended (hi = idx + 1), split into nsplit chunks of `chunk`
-// positions; part_m, part_l (b, hkv, nsplit, g) and part_acc (b, hkv,
-// nsplit, g, dh) fp32 scratch.  dh in {64, 80, 128}, 1 <= g <= 8.
-extern "C" int repro_flash_decode(const void* q, const void* k, const void* v,
-                                  float* part_m, float* part_l,
-                                  float* part_acc, void* out, int is_bf16,
-                                  int b, int s, int hkv, int g, int dh, int lo,
-                                  int hi, int chunk, int nsplit, float scale,
-                                  void* stream) {
+// positions (a multiple of the tile; no chunk empty).  part: fp32 scratch of
+// b * hkv * nsplit * g * (dh + 2) floats (unused when nsplit == 1); arrivals:
+// b * hkv ints, zero on entry and left zero.  dh in {64, 80, 128}, 1 <= g <= 8.
+extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, float* part,
+                                  int* arrivals, void* out, int is_bf16, int b, int s, int hkv,
+                                  int g, int dh, int lo, int hi, int chunk, int nsplit,
+                                  float scale, void* stream) {
   if (g < 1 || g > kMaxG) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(dh, q, k, v, part_m, part_l, part_acc, out,
-                                   b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
-  return dispatch<float>(dh, q, k, v, part_m, part_l, part_acc, out, b, s,
-                         hkv, g, lo, hi, chunk, nsplit, scale, st);
+    return dispatch<__nv_bfloat16>(dh, q, k, v, part, arrivals, out, b, s, hkv, g, lo, hi,
+                                   chunk, nsplit, scale, st);
+  return dispatch<float>(dh, q, k, v, part, arrivals, out, b, s, hkv, g, lo, hi, chunk, nsplit,
+                         scale, st);
 }
+
+// Positions per K/V tile of the kernel for (dh, itemsize 2 = bf16 or 4 =
+// fp32), 0 for a pair it does not serve: the wrapper cuts chunks in whole
+// tiles of this size.
+extern "C" int repro_flash_decode_tile(int dh, int itemsize) {
+  if (itemsize != 2 && itemsize != 4) return 0;
+  const bool b = itemsize == 2;
+  switch (dh) {
+    case 64: return b ? Cfg<__nv_bfloat16, 64>::TP : Cfg<float, 64>::TP;
+    case 80: return b ? Cfg<__nv_bfloat16, 80>::TP : Cfg<float, 80>::TP;
+    case 128: return b ? Cfg<__nv_bfloat16, 128>::TP : Cfg<float, 128>::TP;
+    default: return 0;
+  }
+}
+
+// The most query heads per KV head one launch serves.
+extern "C" int repro_flash_decode_max_group() { return kMaxG; }

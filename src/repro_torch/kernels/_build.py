@@ -20,6 +20,7 @@ stream from `torch.cuda.current_stream()`, and the C function's return code
 `LAUNCHES` counts kernel launches by wrapper name.  Each ops wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels (`reset_launches()` before, read after).
+"flash_attention_tc" counts the tensor-core launches among "flash_attention"'s.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from typing import Dict, List
 import torch
 
 __all__ = ["LAUNCHES", "KernelBuildError", "as_f32", "build_all", "build_log",
-           "check_cuda_tensor", "launch", "on_cpu", "reset_launches"]
+           "check_cuda_tensor", "launch", "on_cpu", "query", "reset_launches"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -49,7 +50,8 @@ LAUNCHES: Dict[str, int] = {"gram": 0, "row_gram": 0, "probe_sweep": 0,
                             "commit_sweep": 0, "gram_batched": 0,
                             "row_gram_batched": 0, "probe_sweep_batched": 0,
                             "commit_sweep_batched": 0, "flash_attention": 0,
-                            "flash_decode": 0, "wkv": 0}
+                            "flash_attention_tc": 0, "flash_decode": 0,
+                            "wkv": 0}
 
 
 class KernelBuildError(RuntimeError):
@@ -175,6 +177,15 @@ def _ctype(arg):
     if isinstance(arg, float):
         return ctypes.c_float, ctypes.c_float(arg)
     raise TypeError(f"unsupported kernel argument type {type(arg).__name__}")
+
+
+def query(source: str, symbol: str, *args: int) -> int:
+    """The int that host function `symbol` of the library built from
+    csrc/<source>.cu returns for int `args` (a kernel's own constants)."""
+    fn = getattr(_libraries()[source], symbol)
+    fn.argtypes = [ctypes.c_int] * len(args)
+    fn.restype = ctypes.c_int
+    return fn(*args)
 
 
 def launch(source: str, symbol: str, *args) -> None:

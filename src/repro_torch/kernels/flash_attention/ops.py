@@ -1,16 +1,30 @@
-"""Wrapper of the flash-attention kernel (csrc/flash_attention.cu):
+"""Wrapper of the flash-attention kernels (csrc/flash_attention.cu):
 `flash_attention`, twin of repro.kernels.flash_attention.ops.
 
 The numerical contract is the TPU kernel's: q, k, v in one dtype (bf16 or
 fp32), fp32 scores, softmax and accumulation, the output in q's dtype.  The
 layout is the JAX package's, q (B, Sq, Hq, dh) and k, v (B, Skv, Hkv, dh).
-The kernel masks the ragged edges of Sq and Skv itself, so nothing is
+The kernels mask the ragged edges of Sq and Skv themselves, so nothing is
 padded, and a non-causal call with any Skv is exact (the JAX wrapper refuses
 that call only because its padding would enter the softmax).  As in the JAX
 op, query row i sits at position i.
 
-A CPU tensor runs the plain version (ref.py); a CUDA tensor launches the
-kernel or raises.  There is no fallback between the two.
+Two kernels serve the call, chosen by `ROUTES`, an explicit table of
+(dtype, head dim) -> kernel; a pair not in it raises:
+
+  "tc"   bf16 at dh 64 and 128 (every full dense config's heads): both
+         products on the tensor cores (wgmma).  P is rounded to bf16 before
+         P V, which the TPU kernel and the plain version do not do; O and
+         the row sums stay fp32.
+  "fma"  fp32 at every head dim (1e-5 parity with the plain version), and
+         bf16 at dh 80 (the smoke config's heads, which do not fill the tc
+         kernel's 128-byte rows): fp32 FMA on the CUDA cores.
+
+`_build.LAUNCHES["flash_attention"]` counts every launch, and
+`_build.LAUNCHES["flash_attention_tc"]` the tensor-core ones among them.
+
+A CPU tensor runs the plain version (ref.py); a CUDA tensor launches a
+kernel or raises.  There is no fallback between them.
 """
 from __future__ import annotations
 
@@ -19,9 +33,31 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
-__all__ = ["flash_attention", "HEAD_DIMS"]
+__all__ = ["flash_attention", "HEAD_DIMS", "ROUTES", "route"]
 
 HEAD_DIMS = (64, 80, 128)    # the dh values of the configs' attention heads
+
+# (dtype, head dim) -> the kernel that runs it; _SYMBOLS names its C entry.
+ROUTES = {
+    (torch.bfloat16, 64): "tc",
+    (torch.bfloat16, 128): "tc",
+    (torch.bfloat16, 80): "fma",
+    (torch.float32, 64): "fma",
+    (torch.float32, 80): "fma",
+    (torch.float32, 128): "fma",
+}
+_SYMBOLS = {"tc": "repro_flash_attention_tc", "fma": "repro_flash_attention"}
+
+
+def route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel ("tc" or "fma") that runs (dtype, dh); raises for a pair
+    outside ROUTES."""
+    try:
+        return ROUTES[(dtype, dh)]
+    except KeyError:
+        raise ValueError(f"flash_attention: head dim {dh} in {dtype} not in "
+                         f"the kernels' table {sorted((str(t), d) for t, d in ROUTES)} "
+                         f"(head dims {HEAD_DIMS})") from None
 
 
 def check_lm_operands(op: str, tensors) -> bool:
@@ -53,14 +89,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.T
     if _build.on_cpu(q, "flash_attention"):
         return attention_ref(q, k, v, causal=causal, window=window)
     bf16 = check_lm_operands("flash_attention", (("q", q), ("k", k), ("v", v)))
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {dh} not in {HEAD_DIMS}")
+    kernel = route(q.dtype, dh)
     if min(b, sq, skv) == 0:
         raise ValueError(f"flash_attention: empty operand {tuple(q.shape)}, "
                          f"{tuple(k.shape)}")
     out = torch.empty_like(q)
-    _build.launch("flash_attention", "repro_flash_attention", q, k, v, out,
-                  int(bf16), b, sq, skv, hq, hkv, dh, int(causal), int(window),
-                  dh ** -0.5)
+    dtype_flag = () if kernel == "tc" else (int(bf16),)
+    _build.launch("flash_attention", _SYMBOLS[kernel], q, k, v, out, *dtype_flag,
+                  b, sq, skv, hq, hkv, dh, int(causal), int(window), dh ** -0.5)
     _build.LAUNCHES["flash_attention"] += 1
+    if kernel == "tc":
+        _build.LAUNCHES["flash_attention_tc"] += 1
     return out

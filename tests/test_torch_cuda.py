@@ -97,8 +97,8 @@ def test_kernels_match_plain(card, d, n):
     assert {k: _build.LAUNCHES[k] - before[k] for k in before} == {
         "gram": 1, "row_gram": 1, "probe_sweep": 1, "commit_sweep": 2,
         "gram_batched": 0, "row_gram_batched": 0, "probe_sweep_batched": 0,
-        "commit_sweep_batched": 0, "flash_attention": 0, "flash_decode": 0,
-        "wkv": 0}
+        "commit_sweep_batched": 0, "flash_attention": 0, "flash_attention_tc": 0,
+        "flash_decode": 0, "wkv": 0}
 
 
 @pytest.mark.parametrize("engine", ["incremental", "fused"])
@@ -271,6 +271,7 @@ def test_flash_attention_matches_plain(card, dtype, b, sq, skv, hq, hkv, dh,
     assert got.dtype == dtype and _build.LAUNCHES["flash_attention"] == before + 1
     _close(got, attention_ref(q, k, v, causal=causal, window=window),
            LM_TOL[dtype], "flash_attention")
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal, window=window))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -287,6 +288,67 @@ def test_flash_decode_matches_plain(card, dtype, b, s, hq, hkv, dh, idx, window)
     got = flash_decode(q, k, v, idx, window=window)
     assert got.dtype == dtype and _build.LAUNCHES["flash_decode"] == before + 1
     _close(got, decode_ref(q, k, v, idx, window=window), LM_TOL[dtype], "flash_decode")
+    assert torch.equal(got, flash_decode(q, k, v, idx, window=window))   # same bits
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,causal,window", [
+    (2, 200, 200, 15, 5, True, 0),     # G = 3, Sq not a multiple of 128
+    (1, 100, 300, 8, 1, False, 0),     # G = 8, Skv > Sq, non-causal, ragged
+    (1, 300, 300, 6, 2, True, 16),     # window < one key tile: rows with a
+                                       # wholly masked tile in their warpgroup
+    (1, 260, 260, 8, 1, True, 100),    # G = 8, window, three query tiles
+    (2, 1, 1, 4, 4, True, 0),          # a single row
+    (1, 1, 77, 3, 1, False, 0),        # a single row over a ragged Skv
+])
+def test_flash_attention_tc_matches_plain(card, dh, b, sq, skv, hq, hkv, causal, window):
+    """The bf16 tensor-core kernel (ROUTES: bf16 at dh 64 and 128) against
+    the plain version at 8e-3, and the same bits from a second call."""
+    q, k, v = _lm(sq + dh, (b, sq, hq, dh), (b, skv, hkv, dh), (b, skv, hkv, dh),
+                  dtype=torch.bfloat16, device=card)
+    before = dict(_build.LAUNCHES)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    assert _build.LAUNCHES["flash_attention_tc"] == before["flash_attention_tc"] + 2
+    assert _build.LAUNCHES["flash_attention"] == before["flash_attention"] + 2
+    _close(got, attention_ref(q, k, v, causal=causal, window=window),
+           LM_TOL[torch.bfloat16], "flash_attention tc")
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dh,itemsize,want", [(64, 2, 64), (80, 2, 32), (128, 2, 32),
+                                              (64, 4, 32), (80, 4, 16), (128, 4, 16)])
+def test_decode_tile_positions(card, dh, itemsize, want):
+    """The kernel's tile as its library reports it: 8 KB of K at dh 64 and
+    128, 5 KB at 80; no tile for a head dim it does not serve."""
+    from repro_torch.kernels.flash_decode.ops import max_group, tile_positions
+
+    tile = tile_positions(dh, itemsize)
+    assert tile == want and tile * dh * itemsize <= 8192
+    assert tile_positions(96, itemsize) == 0 and max_group() == 8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_flash_decode_split_and_back_to_back(card, dtype):
+    """A cache long enough for many chunks at B=1 (the in-launch merge), then
+    a call of another geometry and the first again: each against the plain
+    version, and the first call's bits unchanged (the arrival counters were
+    left zero)."""
+    from repro_torch.kernels.flash_decode.ops import decode_geometry, tile_positions
+
+    calls = [((1, 5000, 15, 5, 64), 4999, 0), ((2, 3000, 8, 2, 128), 2500, 1000),
+             ((1, 5000, 15, 5, 64), 4999, 0)]
+    outs = []
+    for (b, s, hq, hkv, dh), idx, window in calls:
+        q, k, v = _lm(s, (b, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh), dtype=dtype,
+                      device=card)
+        lo = max(0, idx - window + 1) if window else 0
+        _, nsplit = decode_geometry(idx + 1 - lo, b * hkv, tile_positions(dh, q.element_size()))
+        assert nsplit > 1
+        got = flash_decode(q, k, v, idx, window=window)
+        _close(got, decode_ref(q, k, v, idx, window=window), LM_TOL[dtype], "flash_decode")
+        outs.append(got)
+    assert torch.equal(outs[0], outs[2])
 
 
 @pytest.mark.parametrize("b,s,h,dh", [(2, 333, 4, 64), (1, 77, 8, 32), (3, 50, 2, 64)])

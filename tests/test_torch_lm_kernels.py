@@ -35,11 +35,13 @@ from repro.kernels.wkv.ref import wkv_ref as jwkv_ref
 from repro.models import layers as jlayers
 from repro.models import rwkv as jrwkv
 from repro.models import transformer as jtransformer
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.convert import _tensor
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.kernels.flash_decode.ref import decode_ref
 from repro_torch.kernels.wkv.ops import wkv_chunked
@@ -281,3 +283,79 @@ def test_layers_attention_routes_like_jax_on_cpu():
                                        q_offset=20),
                jlayers.attention_scores(*_j(q[:, :1], k, v), causal=True, window=window,
                                         q_offset=20), TOL, "decode")
+
+
+# ------------------------------------------------- host-side kernel logic
+
+
+@pytest.mark.parametrize("arch", [a for a in ARCH_IDS if get_config(a).n_heads])
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+def test_flash_attention_route_covers_configs(arch, smoke):
+    """Every (dtype, head dim) a config's attention runs in has a kernel in
+    the routing table; the full configs' bf16 heads (64 or 128) take the
+    tensor-core kernel."""
+    cfg = get_config(arch, smoke=smoke)
+    dh, dtype = cfg.resolved_head_dim, cfg.cdtype()
+    kernel = fa_ops.route(dtype, dh)
+    assert kernel in ("tc", "fma")
+    if dtype == torch.bfloat16 and dh in (64, 128):
+        assert kernel == "tc"
+    if dtype == torch.float32:
+        assert kernel == "fma"          # fp32 parity: no tensor cores
+
+
+@pytest.mark.parametrize("dtype,dh", [(torch.bfloat16, 96), (torch.float32, 32),
+                                      (torch.float16, 64), (torch.bfloat16, 256)])
+def test_flash_attention_route_refuses_unknown(dtype, dh):
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.route(dtype, dh)
+
+
+# The kernel's tiles (its library reports them; tests/test_torch_cuda.py
+# pins the values): 64 positions at dh 64 bf16, 32 at dh 64 fp32 and at dh
+# 80/128 bf16, 16 at dh 80/128 fp32.
+@pytest.mark.parametrize("n,pairs,tile,n_sm", [
+    (1, 1, 64, 132),             # one position
+    (64, 40, 64, 132),           # exactly one tile
+    (65, 40, 64, 132),           # one tile and one position
+    (1088, 40, 64, 132),         # the smollm serving cache
+    (5000, 5, 64, 132),          # B = 1: many chunks
+    (32768, 640, 64, 132),       # decode_32k: the longest chunks
+    (300, 2, 32, 132),           # the smoke heads (dh 80 bf16)
+    (999, 3, 16, 132),           # fp32 dh 128, G = 8 shape
+    (1000, 1, 64, 7),            # a small card
+    (262144, 1, 32, 132),        # a very long cache (dh 128 bf16)
+    (1088, 40, 32, 132),         # the serving cache in fp32
+    (31, 1, 32, 132),            # less than one tile
+    (4097, 8, 16, 132),          # fp32 dh 80/128, a ragged end
+    (32768, 128, 32, 132),       # decode_32k at dh 128
+    (1, 640, 16, 132),           # one position, many pairs
+    (500, 3, 64, 1),             # a one-SM card
+])
+def test_decode_geometry_covers_positions(n, pairs, tile, n_sm):
+    chunk, nsplit = fd_ops.decode_geometry(n, pairs, tile, n_sm)
+    tiles = -(-n // tile)
+    assert chunk % tile == 0 and 0 < chunk <= fd_ops.MAX_CHUNK_TILES * tile
+    assert (nsplit - 1) * chunk < n <= nsplit * chunk      # covered, no chunk empty
+    assert nsplit <= tiles
+    # about BLOCKS_PER_SM blocks per SM where the cache has the tiles for
+    # them: whole tiles per chunk round the count down, at most to half
+    assert 2 * nsplit * pairs >= min(fd_ops.BLOCKS_PER_SM * n_sm, pairs * tiles)
+
+
+@pytest.mark.parametrize("n,pairs,g,dh,tile", [(1088, 40, 3, 64, 64), (5000, 5, 3, 64, 64),
+                                               (2501, 4, 4, 128, 32), (10, 1, 8, 80, 32)])
+def test_decode_workspace_holds_partials(n, pairs, g, dh, tile):
+    """The workspace a call gets holds its nsplit partials and zeroed
+    arrival counters, and grows when a larger call comes."""
+    fd_ops._WORKSPACES.clear()
+    small_arr, small_part = fd_ops._workspace(torch.device("cpu"), 0, 1, 10)
+    _, nsplit = fd_ops.decode_geometry(n, pairs, tile)
+    need = fd_ops.partial_floats(pairs, nsplit, g, dh)
+    assert need == (pairs * nsplit * g * (dh + 2) if nsplit > 1 else 0)
+    arrivals, part = fd_ops._workspace(torch.device("cpu"), 0, pairs, need)
+    assert arrivals.dtype == torch.int32 and arrivals.numel() >= pairs
+    assert not arrivals.any() and part.numel() >= max(need, 1)
+    assert fd_ops._workspace(torch.device("cpu"), 0, pairs, need)[1] is part   # reused
+    assert fd_ops._workspace(torch.device("cpu"), 1, pairs, need)[1] is not part  # per stream
+    fd_ops._WORKSPACES.clear()
