@@ -13,7 +13,10 @@ Phases, each fatal on failure (nothing is caught):
               the stated tolerance, and timed (CUDA events around runs of 20
               launches, median of 5 runs) beside its plain version, the one
               PyTorch call that computes the same function where there is
-              one, and its bound on the card;
+              one, and its bound on the card; gram and row_gram also log
+              their launch geometry (here and in 3b), ten calls under
+              torch.profiler split by kernel, and the host time to enqueue
+              a call beside their library call's;
   3b. batched the four batched kernels at B=8 trials of the same shapes: each
               against its batched plain version, slices 0 and 7 against the
               single-trial kernel on that trial bit for bit (torch.equal), a
@@ -189,6 +192,22 @@ def time_ms(fn, reps: int = REPS) -> float:
     return statistics.median(per_call)
 
 
+def host_us(fn, calls: int = 100) -> float:
+    """Host time to enqueue one call of fn() (microseconds), behind a busy
+    device so that no call waits for the card: what a host-bound loop of
+    such calls pays per call."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    _keep_device_busy()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    out = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return out
+
+
 def bound(n_bytes: float, flops: float, peak: float = H100_FP32_FLOPS):
     t_bytes = n_bytes / H100_HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak * 1e3
@@ -220,6 +239,28 @@ def row_recorder(rows):
     return record_row
 
 
+def log_gram_geometry(gram_ops, r, v, batch: int = 1) -> None:
+    """The launch geometry of gram and row_gram for residual r (and v), on
+    [kernel] lines: blocks, threads, occupancy, waves and the load path."""
+    d, n = r.shape[-2:]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    threads, kg, smem = gram_ops.gram_block(d)
+    bps = gram_ops.blocks_per_sm("gram", threads, kg, smem)
+    chunk, splits = gram_ops.gram_geometry(d, n, n_sm, bps)
+    pairs = gram_ops.gram_pairs(d)
+    log(f"[kernel] gram geometry D={d} N={n} B={batch}: {pairs} tile pair(s) x {splits} "
+        f"chunks of {chunk} x {batch} trial(s) = {pairs * splits * batch} blocks of "
+        f"{threads} threads ({kg} groups), {smem} B shared memory, {bps} block(s) per SM "
+        f"on {n_sm} SMs ({pairs * splits / (n_sm * bps):.3f} waves per trial); 16-byte "
+        f"loads: {bool(gram_ops.aligned16(n, r))}; then one reduce launch")
+    strip, blocks = gram_ops.row_gram_geometry(n, n_sm, gram_ops.blocks_per_sm("row_gram"))
+    bps = gram_ops.blocks_per_sm("row_gram")
+    log(f"[kernel] row_gram geometry D={d} N={n} B={batch}: {blocks} strips of {strip} "
+        f"columns x {batch} trial(s) = {blocks * batch} blocks of 256 threads, {bps} per SM "
+        f"({blocks / (n_sm * bps):.3f} waves per trial); 16-byte loads: "
+        f"{bool(gram_ops.aligned16(n, r, v))}; the strips summed in the same launch")
+
+
 def spd_scene(d, gen, dev):
     """An SPD m_inv with s = m_inv 1 and eta = sum s."""
     mm = torch.randn((d, 2 * d), generator=gen, device=dev)
@@ -242,6 +283,7 @@ def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
     rows = []
 
     record_row = row_recorder(rows)
+    log_gram_geometry(gram_ops, r, v)
 
     # --- gram (B1): R R^T.  Least work: D(D+1)/2 distinct entries, N FMAs each.
     got, want = gram_ops.gram(r), gram_ref.gram_ref(r)
@@ -254,6 +296,9 @@ def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
                time_ms(lambda: gram_ref.gram_ref(r)),
                time_ms(lambda: r @ r.T),
                4.0 * (d * n + d * d), float(d * (d + 1) * n))
+    profile_window("gram", "calls", lambda: [gram_ops.gram(r) for _ in range(10)], 10)
+    log(f"[kernel] gram host enqueue {host_us(lambda: gram_ops.gram(r)):.1f} us a call; "
+        f"r @ r.T {host_us(lambda: r @ r.T):.1f} us")
 
     # --- row_gram (B3): R v.
     got, want = gram_ops.row_gram(v, r), gram_ref.row_gram_ref(v, r)
@@ -265,6 +310,9 @@ def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
                time_ms(lambda: gram_ref.row_gram_ref(v, r)),
                time_ms(lambda: r @ v),
                4.0 * (d * n + n + d), 2.0 * d * n)
+    profile_window("row_gram", "calls", lambda: [gram_ops.row_gram(v, r) for _ in range(10)], 10)
+    log(f"[kernel] row_gram host enqueue {host_us(lambda: gram_ops.row_gram(v, r)):.1f} us a "
+        f"call; r @ v {host_us(lambda: r @ v):.1f} us")
 
     # --- probe_sweep (B5): cross, p, ||cross||, the K-step schedule.
     got = sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps)
@@ -361,6 +409,7 @@ def phase_kernels_batched(gram_ops, gram_ref, sweep_ops, sweep_ref):
         return [compare(name, got, plain, tol_plain)]
 
     # --- gram_batched (B2)
+    log_gram_geometry(gram_ops, r, v, b)
     got = gram_ops.gram(r)
     require(torch.equal(got, got.mT), "gram_batched: not exactly symmetric")
     same_as_single("gram_batched", got, lambda t: gram_ops.gram(r[t]))

@@ -2,35 +2,73 @@
 //
 // repro_gram replaces src/repro/kernels/gram/kernel.py gram_pallas (B1):
 //   out = R R^T for R (D, N), N >> D.  The TPU kernel walked N sequentially
-//   into one VMEM accumulator.  Here blocks run in parallel, so the N axis is
-//   split: block (pair, split) computes one 64x64 output tile of the upper
-//   triangle over one N-chunk (64x32 slabs of both row ranges through shared
-//   memory, 4x4 outputs per thread, fp32 FMA) and writes it to its own
-//   partial slice; a second kernel sums the slices in split order and mirrors
-//   the upper triangle, so the result is exactly symmetric and the same bits
-//   on every run.
-//   Bound on an H100: fp32 FMAs, about D(D+1)N of them; at D=100 the D x N
-//   read (105 MB at N=262144) takes less than half as long as the arithmetic
-//   at 67 TFLOP/s.  Tensor cores are not used: TF32 would break the fp32
-//   contract of the TPU kernel.  The split count is chosen by the wrapper so
-//   that a few hundred blocks fill the 132 SMs though D/64 gives few tiles.
+//   into one VMEM accumulator; here the N axis is split over blocks.
+//   Bound on an H100: fp32 FMAs (no TF32: the TPU kernel's fp32 contract),
+//   D(D+1)/2 distinct outputs times N; the D x N read takes less than half
+//   as long at 67 TFLOP/s.  So the design spends its FMAs on the upper
+//   triangle only and feeds them from registers:
+//   - A block owns one N-chunk of one upper-triangle pair of 128-row tiles.
+//     At D <= 128 (the deployment's D=100, the paper's D=5) there is one
+//     diagonal tile, and the block loads ONE slab of R per step; off-
+//     diagonal pairs (D > 128) load two.
+//   - A thread accumulates an 8x8 micro-tile of outputs in registers.  In a
+//     diagonal tile only the micro-tiles on or above the diagonal have a
+//     thread (91 at D=100: 5,824 outputs per instance for 5,050 needed),
+//     taken in bands of 8 columns so that a warp reads at most 8 distinct
+//     rows of each operand (one shared-memory wavefront a read).
+//   - Slabs sit in shared memory as [row][k], each 8-row group followed by
+//     16 bytes of padding: a warp's 16-byte reads (threads on different
+//     8-row groups, same k) then hit distinct banks, and a thread addresses
+//     its 8 rows as one register plus immediates.  16 LDS.128 feed 256
+//     FMAs.  At 384 threads a thread may hold 168 registers; ptxas's report
+//     (chip_smoke.py's build phase logs it) shows no spill but 12 bytes in
+//     the one-group, 4-byte-load kernel (D > 128 with N % 4 != 0).
+//   - A 3-stage ring of cp.async copies fills step k+2 while step k is
+//     multiplied; a warp copies whole rows, lane by lane.  16-byte copies
+//     need rows that start on 16 bytes (N % 4 == 0 and an aligned base);
+//     otherwise the same kernel (template flag, picked by the wrapper)
+//     copies 4 bytes at a time.  Past the chunk's end and past row D both
+//     zero-fill.  Only the loads differ, so the sums and their bits are the
+//     same on either path.
+//   - A block holds KG thread groups (up to 4, as many as 384 threads
+//     allow) that each take one 32-instance sub-slab of every step (so a
+//     step is 32 KG instances); the groups' sums meet in shared memory in
+//     group order.  That gives each SM 12 warps at D=100 and cuts the
+//     partial results per N-chunk by KG.
+//   - The wrapper (kernels/gram/ops.py, gram_geometry) cuts N into as many
+//     chunks as fill one wave of blocks on the card.  Each block writes its
+//     partial tile; a second launch sums the partials of every output in a
+//     fixed order (8 warps over the chunks, then the warps in order) with
+//     many loads in flight, and writes both triangles, so the result is
+//     exactly symmetric and the same bits on every run.  A second launch
+//     and not a last-arriving block: the partials (chunks x D(D+1)/2
+//     floats, ~2.6 MB at D=100) would all go through one SM.
 //
 // repro_row_gram replaces src/repro/kernels/gram/kernel.py row_gram_pallas
 // (B3): out = R v for one N-vector v.
-//   Bound: the single read of R (one FMA per 4 bytes).  Each block stages a
-//   1024-wide strip of v in shared memory and streams the matching strip of
-//   every row of R with one warp per row (coalesced 128-byte loads, 8 in
-//   flight per lane), writing per-block partial dot products; a second pass
-//   sums them in block order.
+//   Bound: the single read of R (one FMA per 4 bytes), so the design keeps
+//   HBM busy with few instructions per byte: a block of 8 warps takes a
+//   strip of N, and each lane owns 16-byte column slices of it (up to 8,
+//   the strip's width over 128 columns).  The lane holds its slices of v in
+//   registers, loaded once, with no shared memory and no barrier before the
+//   stream; a warp reads all slices of a row at once (4 KB in flight per
+//   warp, ~64 KB per SM at two blocks) and sums the row over the warp once,
+//   after the strip.  The wrapper sizes the strip so that the grid is whole
+//   waves.  The same unaligned-load rule as gram applies.  Block b writes
+//   the row sums of its strip; the last block to arrive (an integer counter
+//   per trial, in a workspace the wrapper keeps zeroed; it resets it) sums
+//   them in block order in the same launch, with 16-byte loads of 4 rows at
+//   once.  The atomic only picks that block: no float atomics, the same
+//   bits on every run.  The counters assume one stream at a time, as the
+//   port runs.
 //
 // repro_gram_batched and repro_row_gram_batched replace
 // gram_pallas_batched (B2) and row_gram_pallas_batched (B4): the same
 // products for B independent Monte-Carlo trials, R (B, D, N).  The trial is
 // one more grid dimension of the same kernels (blockIdx.z for gram,
-// blockIdx.y for row_gram) and each trial has its own partial slices, so a
-// trial uses the N blocks, the split count and the summation order of the
-// single-trial launch: slice b of a batched result is the single-trial
-// result on trial b, bit for bit.  Bound: B times the single-trial bound.
+// blockIdx.y for row_gram), with its own partials and counter, and the
+// launch geometry depends on (D, N) and the card only: slice b of a
+// batched result is the single-trial result on trial b, bit for bit.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -38,188 +76,447 @@
 
 namespace {
 
-constexpr int kTile = 64;      // gram output tile edge
-constexpr int kBk = 32;        // instances per shared-memory step
-constexpr int kGramThreads = 256;
-constexpr int kRowBn = 1024;   // row_gram strip width (columns per block)
-constexpr int kRowThreads = 256;
+using repro::cp_async16;
+using repro::cp_async_commit;
+using repro::cp_async_wait;
 
-__global__ void __launch_bounds__(kGramThreads)
-gram_partial_kernel(const float* __restrict__ r, float* __restrict__ part,
-                    int d, int n, int chunk, int tiles) {
-  // this block's trial: its own R and its own `splits` partial slices
-  r += (size_t)blockIdx.z * d * n;
-  part += (size_t)blockIdx.z * gridDim.y * d * d;
-  // upper-triangle tile pair (ti <= tj) of this block
-  int p = blockIdx.x, ti = 0;
+constexpr int kTile = 128;        // gram tile edge
+constexpr int kMicro = 8;         // micro-tile edge (outputs per thread: 8 x 8)
+constexpr int kGroups = kTile / kMicro;
+constexpr int kBk = 32;           // instances per thread group per step
+constexpr int kStages = 3;        // cp.async ring depth
+constexpr int kGramMaxThreads = 384;
+constexpr int kGramMaxShared = 232448;   // an H100 block's shared-memory limit
+constexpr int kRowThreads = 256;  // row_gram: 8 warps
+constexpr int kRowWarps = kRowThreads / 32;
+constexpr int kRowSlices = 8;     // most 16-byte slices per lane per row
+constexpr int kTailRows = 4;      // rows a warp sums at once in the fold
+
+// 4-byte copy into shared memory (cp.async.ca); valid == false writes zero.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ int groups_in_tile(int d, int t) {
+  return min(kGroups, (d - t * kTile + kMicro - 1) / kMicro);
+}
+
+// Floats of one slab: `groups` 8-row groups of RS floats a row, 4 floats
+// of padding after each group.  Row lr of a slab starts at
+// lr * RS + 4 * (lr / 8): rows 8 apart then start on different banks, and
+// a thread's reads of its 8 rows are one base register plus immediates.
+template <int KG>
+__device__ __forceinline__ int slab_floats(int groups) {
+  return groups * (kMicro * kBk * KG + 4);
+}
+
+// One step of the ring: the slab of tile ti (rows_a rows), then that of
+// tile tj (none for a diagonal pair), instances [k0, k0 + 32 KG).  A warp
+// copies whole rows, its lanes on consecutive 16-byte (or 4-byte) pieces.
+template <bool ALIGNED, int KG>
+__device__ __forceinline__ void gram_load(uint32_t dst, const float* __restrict__ r, int d,
+                                          int n, int k0, int k_end, int ti, int tj,
+                                          int rows_a, int rows) {
+  constexpr int RS = kBk * KG;                    // floats per slab row
+  constexpr int PER_ROW = ALIGNED ? RS / 4 : RS;  // copies per row
+  const int lane = threadIdx.x & 31, warps = blockDim.x >> 5;
+  const int b_base = slab_floats<KG>(rows_a / kMicro);
+  for (int ls = threadIdx.x >> 5; ls < rows; ls += warps) {
+    const bool in_a = ls < rows_a;
+    const int lr = in_a ? ls : ls - rows_a;       // row in its own slab
+    const int grow = (in_a ? ti : tj) * kTile + lr;
+    const float* src_row = r + (size_t)min(grow, d - 1) * n;
+    const uint32_t dst_row = dst + 4u * ((in_a ? 0 : b_base) + lr * RS + 4 * (lr >> 3));
+#pragma unroll
+    for (int e = lane; e < PER_ROW; e += 32) {
+      const int k = k0 + (ALIGNED ? 4 * e : e);
+      const bool ok = grow < d && k < k_end;
+      const float* src = ok ? src_row + k : r;
+      const uint32_t at = dst_row + 4u * (ALIGNED ? 4 * e : e);
+      if (ALIGNED)
+        cp_async16(at, src, ok);
+      else
+        cp_async4(at, src, ok);
+    }
+  }
+}
+
+template <bool ALIGNED, int KG>
+__global__ void __launch_bounds__(kGramMaxThreads)
+gram_partial_kernel(const float* __restrict__ r, float* __restrict__ part, int d, int n,
+                    int chunk, int tiles) {
+  constexpr int RS = kBk * KG;              // floats per slab row; instances per step
+  constexpr int GROUP = kMicro * RS + 4;    // floats of an 8-row group
+  r += (size_t)blockIdx.z * d * n;                                // the trial
+  part += ((size_t)blockIdx.z * gridDim.y + blockIdx.y) * d * d;  // its chunk's slice
+  int p = blockIdx.x, ti = 0;                                     // tile pair ti <= tj
   while (p >= tiles - ti) {
     p -= tiles - ti;
     ++ti;
   }
   const int tj = ti + p;
-  const int row0 = ti * kTile, col0 = tj * kTile;
-  const int k_begin = blockIdx.y * chunk;
-  const int k_end = min(n, k_begin + chunk);
+  const bool diag = ti == tj;
+  const int ga = groups_in_tile(d, ti), gb = groups_in_tile(d, tj);
+  const int rows_a = ga * kMicro, rows = rows_a + (diag ? 0 : gb * kMicro);
+  const int stage = slab_floats<KG>(ga) + (diag ? 0 : slab_floats<KG>(gb));
 
-  __shared__ float sa[kBk][kTile + 1];
-  __shared__ float sb[kBk][kTile + 1];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[4][4];
-#pragma unroll
-  for (int u = 0; u < 4; ++u)
-#pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = 0.f;
-
-  for (int k0 = k_begin; k0 < k_end; k0 += kBk) {
-    for (int q = threadIdx.x; q < kTile * kBk; q += kGramThreads) {
-      const int rr = q / kBk, kk = q % kBk, k = k0 + kk;
-      float va = 0.f, vb = 0.f;
-      if (k < k_end) {
-        if (row0 + rr < d) va = r[(size_t)(row0 + rr) * n + k];
-        if (col0 + rr < d) vb = r[(size_t)(col0 + rr) * n + k];
+  // this thread's group (a 32-instance sub-slab) and micro-tile (a, b)
+  const int gt = blockDim.x / KG, grp = threadIdx.x / gt, t = threadIdx.x % gt;
+  int a = 0, b = 0;
+  bool active;
+  if (diag) {
+    // the triangle in bands of 8 columns, rows in turn within a band: a
+    // warp's threads then read at most 8 distinct rows of each operand
+    active = false;
+    for (int b0 = 0, q = t; b0 < ga && !active; b0 += 8) {
+      const int b1 = min(b0 + 8, ga);
+      for (int aa = 0; aa < b1 && !active; ++aa) {
+        const int lo = max(aa, b0);
+        if (q < b1 - lo) {
+          active = true;
+          a = aa;
+          b = lo + q;
+        }
+        q -= b1 - lo;
       }
-      sa[kk][rr] = va;
-      sb[kk][rr] = vb;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kBk; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        a[u] = sa[kk][ty + 16 * u];
-        b[u] = sb[kk][tx + 16 * u];
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[u][v] = fmaf(a[u], b[v], acc[u][v]);
-    }
-    __syncthreads();
+  } else {
+    active = t < ga * gb;
+    a = t / gb;
+    b = t % gb;
   }
 
-  float* dst = part + (size_t)blockIdx.y * d * d;
+  extern __shared__ __align__(16) float smem[];
+  const uint32_t s_base = (uint32_t)__cvta_generic_to_shared(smem);
+  const int k_begin = blockIdx.y * chunk, k_end = min(n, k_begin + chunk);
+  const int steps = (k_end - k_begin + RS - 1) / RS;
+
+  float acc[kMicro][kMicro];
 #pragma unroll
-  for (int u = 0; u < 4; ++u)
+  for (int u = 0; u < kMicro; ++u)
 #pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int i = row0 + ty + 16 * u, j = col0 + tx + 16 * v;
-      if (i < d && j < d) dst[(size_t)i * d + j] = acc[u][v];
+    for (int v = 0; v < kMicro; ++v) acc[u][v] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps)
+      gram_load<ALIGNED, KG>(s_base + 4u * s * stage, r, d, n, k_begin + s * RS, k_end, ti, tj,
+                             rows_a, rows);
+    cp_async_commit();
+  }
+  const int a_off = a * GROUP + grp * kBk;
+  const int b_off = (diag ? 0 : slab_floats<KG>(ga)) + b * GROUP + grp * kBk;
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();   // step it has landed; step it - 1 is no longer read
+    const int nx = it + kStages - 1;
+    if (nx < steps)
+      gram_load<ALIGNED, KG>(s_base + 4u * (nx % kStages) * stage, r, d, n, k_begin + nx * RS,
+                             k_end, ti, tj, rows_a, rows);
+    cp_async_commit();
+    if (active) {
+      const float* st = smem + (it % kStages) * stage;
+      const float* sa = st + a_off;
+      const float* sb = st + b_off;
+      // float2 steps along k (the compiler pairs them into LDS.128); each
+      // output adds its products in k order
+#pragma unroll
+      for (int c = 0; c < kBk / 2; ++c) {
+        float2 av[kMicro];
+#pragma unroll
+        for (int u = 0; u < kMicro; ++u)
+          av[u] = *reinterpret_cast<const float2*>(sa + u * RS + 2 * c);
+#pragma unroll
+        for (int v = 0; v < kMicro; ++v) {
+          const float2 bv = *reinterpret_cast<const float2*>(sb + v * RS + 2 * c);
+#pragma unroll
+          for (int u = 0; u < kMicro; ++u)
+            acc[u][v] = fmaf(av[u].y, bv.y, fmaf(av[u].x, bv.x, acc[u][v]));
+        }
+      }
     }
+  }
+  cp_async_wait<0>();
+  __syncthreads();     // the ring is free: it holds the groups' sums now
+
+  if (KG > 1) {
+    if (grp > 0 && active) {
+#pragma unroll
+      for (int u = 0; u < kMicro; ++u)
+#pragma unroll
+        for (int v = 0; v < kMicro; ++v)
+          smem[((grp - 1) * kMicro * kMicro + u * kMicro + v) * gt + t] = acc[u][v];
+    }
+    __syncthreads();
+    if (grp == 0 && active) {
+#pragma unroll
+      for (int g = 1; g < KG; ++g)
+#pragma unroll
+        for (int u = 0; u < kMicro; ++u)
+#pragma unroll
+          for (int v = 0; v < kMicro; ++v)
+            acc[u][v] += smem[((g - 1) * kMicro * kMicro + u * kMicro + v) * gt + t];
+    }
+  }
+  if (grp != 0 || !active) return;
+#pragma unroll
+  for (int u = 0; u < kMicro; ++u) {
+    const int i = ti * kTile + kMicro * a + u;
+#pragma unroll
+    for (int v = 0; v < kMicro; ++v) {
+      const int j = tj * kTile + kMicro * b + v;
+      if (i < d && j < d) part[(size_t)i * d + j] = acc[u][v];
+    }
+  }
 }
 
-// out[i][j] = sum over splits of the partial entry (min(i,j), max(i,j)):
-// upper-triangle tiles hold every (a, b) with a <= b.  blockIdx.y is the trial.
-__global__ void gram_reduce_kernel(const float* __restrict__ part,
-                                   float* __restrict__ out, int d, int splits) {
-  part += (size_t)blockIdx.y * splits * d * d;
-  out += (size_t)blockIdx.y * d * d;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= d * d) return;
+// out[i][j] = out[j][i] = the sum over chunks of partial entry (i, j), i <= j
+// (the upper-triangle tiles hold every such entry).  A block takes 32
+// consecutive entries; warp w sums chunks w, w + 8, ... and the warps'
+// sums add in warp order.  blockIdx.y is the trial.
+__global__ void __launch_bounds__(256)
+gram_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, int d,
+                   int splits) {
+  const size_t dd = (size_t)d * d;
+  part += blockIdx.y * splits * dd;
+  out += blockIdx.y * dd;
+  __shared__ float red[8][33];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int idx = blockIdx.x * 32 + lane;
   const int i = idx / d, j = idx % d;
-  const int a = min(i, j), b = max(i, j);
-  const size_t off = (size_t)a * d + b, stride = (size_t)d * d;
+  const bool ok = idx < d * d && i <= j;
   float s = 0.f;
-  for (int q = 0; q < splits; ++q) s += part[q * stride + off];
-  out[idx] = s;
-}
-
-__global__ void __launch_bounds__(kRowThreads)
-row_gram_partial_kernel(const float* __restrict__ r, const float* __restrict__ v,
-                        float* __restrict__ part, int d, int n, int v_stride) {
-  // blockIdx.y is the trial; v_stride is n for a per-trial v, 0 for a v
-  // shared by every trial
-  r += (size_t)blockIdx.y * d * n;
-  v += (size_t)blockIdx.y * v_stride;
-  part += (size_t)blockIdx.y * gridDim.x * d;
-  __shared__ float vs[kRowBn];
-  const int n0 = blockIdx.x * kRowBn;
-  const int cols = min(kRowBn, n - n0);
-  for (int t = threadIdx.x; t < kRowBn; t += kRowThreads)
-    vs[t] = t < cols ? v[n0 + t] : 0.f;
-  __syncthreads();
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int row = warp; row < d; row += kRowThreads / 32) {
-    const float* rr = r + (size_t)row * n + n0;
-    float acc = 0.f;
+  if (ok) {
 #pragma unroll 8
-    for (int c = lane; c < cols; c += 32) acc = fmaf(rr[c], vs[c], acc);
-    acc = repro::warp_sum(acc);
-    if (lane == 0) part[(size_t)blockIdx.x * d + row] = acc;
+    for (int q = warp; q < splits; q += 8) s += __ldcg(part + q * dd + idx);
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && ok) {
+    float tot = red[0][lane];
+#pragma unroll
+    for (int w = 1; w < 8; ++w) tot += red[w][lane];
+    out[(size_t)i * d + j] = tot;
+    out[(size_t)j * d + i] = tot;
   }
 }
 
-__global__ void rows_reduce_kernel(const float* __restrict__ part, int nb,
-                                   int d, float* __restrict__ out) {
-  part += (size_t)blockIdx.y * nb * d;                      // the trial
-  out += (size_t)blockIdx.y * d;
-  const int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int nwarps = (gridDim.x * blockDim.x) >> 5;
-  repro::reduce_partials(part, nb, d, 1.f, out, warp, nwarps);
+// Columns [col, col + 4) of a row (zero past n); 4-byte loads when unaligned.
+template <bool ALIGNED, bool STREAM>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int col, int n) {
+  if constexpr (ALIGNED) {
+    if (col >= n) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4* p = reinterpret_cast<const float4*>(row + col);
+    return STREAM ? __ldcs(p) : __ldg(p);
+  } else {
+    float e[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      e[q] = col + q < n ? (STREAM ? __ldcs(row + col + q) : __ldg(row + col + q)) : 0.f;
+    return make_float4(e[0], e[1], e[2], e[3]);
+  }
 }
 
-}  // namespace
+__device__ __forceinline__ float dot4(float4 x, float4 y, float acc) {
+  acc = fmaf(x.x, y.x, acc);
+  acc = fmaf(x.y, y.y, acc);
+  acc = fmaf(x.z, y.z, acc);
+  return fmaf(x.w, y.w, acc);
+}
 
-namespace {
+// part: (trial, d, nbp) with nbp = nb rounded up to 4; arrivals: one int
+// per trial, zero on entry and on exit.
+template <bool ALIGNED>
+__global__ void __launch_bounds__(kRowThreads, 2)
+row_gram_kernel(const float* __restrict__ r, const float* __restrict__ v,
+                float* __restrict__ part, int* __restrict__ arrivals, float* __restrict__ out,
+                int d, int n, int strip, int v_stride) {
+  const int trial = blockIdx.y, nb = gridDim.x, nbp = (nb + 3) & ~3;
+  r += (size_t)trial * d * n;
+  v += (size_t)trial * v_stride;   // 0: one v shared by every trial
+  part += (size_t)trial * d * nbp;
+  out += (size_t)trial * d;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col = blockIdx.x * strip + 4 * lane;   // this lane's first column
+  const int cs = strip / 128;                      // slices per lane
+  __shared__ int s_last;
 
-int launch_gram(const float* r, float* part, float* out, int d, int n,
-                int chunk, int splits, int batch, cudaStream_t st) {
+  float4 vr[kRowSlices];
+#pragma unroll
+  for (int s = 0; s < kRowSlices; ++s)
+    vr[s] = s < cs ? load4<ALIGNED, false>(v, col + 128 * s, n) : make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int row = warp; row < d; row += kRowWarps) {
+    const float* src = r + (size_t)row * n;
+    float4 x[kRowSlices];
+#pragma unroll
+    for (int s = 0; s < kRowSlices; ++s)
+      x[s] = s < cs ? load4<ALIGNED, true>(src, col + 128 * s, n) : make_float4(0.f, 0.f, 0.f, 0.f);
+    float acc = 0.f;
+#pragma unroll
+    for (int s = 0; s < kRowSlices; ++s)
+      if (s < cs) acc = dot4(x[s], vr[s], acc);
+    acc = repro::warp_sum(acc);
+    if (lane == 0) part[(size_t)row * nbp + blockIdx.x] = acc;
+  }
+
+  // the last block of this trial to arrive sums the strips in block order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(arrivals + trial, 1) == nb - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const int nq = nbp / 4;
+  for (int row0 = warp; row0 < d; row0 += kRowWarps * kTailRows) {
+    float acc[kTailRows];
+#pragma unroll
+    for (int g = 0; g < kTailRows; ++g) acc[g] = 0.f;
+    for (int q0 = lane; q0 < nq; q0 += 32 * 4) {
+      float4 x[kTailRows][4];
+#pragma unroll
+      for (int g = 0; g < kTailRows; ++g)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int row = row0 + kRowWarps * g, q = q0 + 32 * m;
+          x[g][m] = row < d && q < nq
+                        ? __ldcg(reinterpret_cast<const float4*>(part + (size_t)row * nbp) + q)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+      for (int g = 0; g < kTailRows; ++g)
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int b0 = 4 * (q0 + 32 * m);   // entries past nb are padding
+          if (b0 < nb) acc[g] += x[g][m].x;
+          if (b0 + 1 < nb) acc[g] += x[g][m].y;
+          if (b0 + 2 < nb) acc[g] += x[g][m].z;
+          if (b0 + 3 < nb) acc[g] += x[g][m].w;
+        }
+    }
+#pragma unroll
+    for (int g = 0; g < kTailRows; ++g) {
+      const float tot = repro::warp_sum(acc[g]);
+      if (lane == 0 && row0 + kRowWarps * g < d) out[row0 + kRowWarps * g] = tot;
+    }
+  }
+  if (threadIdx.x == 0) arrivals[trial] = 0;   // ready for the next call
+}
+
+// Let gram_partial_kernel<ALIGNED, KG> take a block's largest dynamic shared
+// memory (set once: a per-call attribute call costs host time).
+template <bool ALIGNED, int KG>
+cudaError_t allow_shared_memory() {
+  static const cudaError_t done = cudaFuncSetAttribute(
+      gram_partial_kernel<ALIGNED, KG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kGramMaxShared);
+  return done;
+}
+
+template <bool ALIGNED, int KG>
+int launch_gram(const float* r, float* part, float* out, int d, int n, int chunk, int splits,
+                int threads, int smem, int batch, cudaStream_t st) {
   const int tiles = (d + kTile - 1) / kTile;
-  dim3 grid(tiles * (tiles + 1) / 2, splits, batch);
-  gram_partial_kernel<<<grid, kGramThreads, 0, st>>>(r, part, d, n, chunk, tiles);
-  cudaError_t err = cudaGetLastError();
+  if (threads > kGramMaxThreads || threads % (32 * KG) || smem > kGramMaxShared)
+    return cudaErrorInvalidValue;
+  cudaError_t err = allow_shared_memory<ALIGNED, KG>();
   if (err != cudaSuccess) return err;
-  const int total = d * d;
-  gram_reduce_kernel<<<dim3((total + 255) / 256, batch), 256, 0, st>>>(
-      part, out, d, splits);
+  gram_partial_kernel<ALIGNED, KG><<<dim3(tiles * (tiles + 1) / 2, splits, batch), threads,
+                                     smem, st>>>(r, part, d, n, chunk, tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  gram_reduce_kernel<<<dim3((d * d + 31) / 32, batch), 256, 0, st>>>(part, out, d, splits);
   return cudaGetLastError();
 }
 
-int launch_row_gram(const float* r, const float* v, float* part, float* out,
-                    int d, int n, int v_stride, int batch, cudaStream_t st) {
-  const int nb = (n + kRowBn - 1) / kRowBn;
-  row_gram_partial_kernel<<<dim3(nb, batch), kRowThreads, 0, st>>>(
-      r, v, part, d, n, v_stride);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int warps_per_block = 8;
-  const int blocks = (d + warps_per_block - 1) / warps_per_block;
-  rows_reduce_kernel<<<dim3(blocks, batch), 32 * warps_per_block, 0, st>>>(
-      part, nb, d, out);
+template <bool ALIGNED>
+int gram_by_groups(int kg, const float* r, float* part, float* out, int d, int n, int chunk,
+                   int splits, int threads, int smem, int batch, cudaStream_t st) {
+  switch (kg) {
+    case 1: return launch_gram<ALIGNED, 1>(r, part, out, d, n, chunk, splits, threads, smem, batch, st);
+    case 2: return launch_gram<ALIGNED, 2>(r, part, out, d, n, chunk, splits, threads, smem, batch, st);
+    case 3: return launch_gram<ALIGNED, 3>(r, part, out, d, n, chunk, splits, threads, smem, batch, st);
+    case 4: return launch_gram<ALIGNED, 4>(r, part, out, d, n, chunk, splits, threads, smem, batch, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool ALIGNED>
+int launch_row_gram(const float* r, const float* v, float* part, int* arrivals, float* out,
+                    int d, int n, int strip, int v_stride, int batch, cudaStream_t st) {
+  if (strip % 128 || strip > 128 * kRowSlices || strip < 128) return cudaErrorInvalidValue;
+  const int nb = (n + strip - 1) / strip;
+  row_gram_kernel<ALIGNED><<<dim3(nb, batch), kRowThreads, 0, st>>>(r, v, part, arrivals, out,
+                                                                   d, n, strip, v_stride);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// r (d, n) fp32; part (splits, d, d) scratch; out (d, d).
-// The wrapper picks chunk (a multiple of 32) and splits = ceil(n / chunk).
-extern "C" int repro_gram(const float* r, float* part, float* out, int d,
-                          int n, int chunk, int splits, void* stream) {
-  return launch_gram(r, part, out, d, n, chunk, splits, 1,
-                     static_cast<cudaStream_t>(stream));
+// r (batch, d, n) fp32 (batch 1: one trial); part (batch, splits, d, d)
+// scratch; out (batch, d, d).  The wrapper picks the block (threads, kg
+// thread groups, smem bytes) and the N-chunk (a multiple of 32 kg
+// instances, splits = ceil(n / chunk)) from (d, n) and the card, never
+// from the batch; aligned != 0 only if n % 4 == 0 and r is 16-byte aligned.
+extern "C" int repro_gram_batched(const float* r, float* part, float* out, int d, int n,
+                                  int chunk, int splits, int threads, int kg, int smem,
+                                  int aligned, int batch, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  return aligned ? gram_by_groups<true>(kg, r, part, out, d, n, chunk, splits, threads, smem, batch, st)
+                 : gram_by_groups<false>(kg, r, part, out, d, n, chunk, splits, threads, smem, batch, st);
 }
 
-// r (batch, d, n) fp32; part (batch, splits, d, d) scratch; out (batch, d, d).
-// chunk and splits are the single-trial launch's for (d, n).
-extern "C" int repro_gram_batched(const float* r, float* part, float* out,
-                                  int d, int n, int chunk, int splits,
-                                  int batch, void* stream) {
-  return launch_gram(r, part, out, d, n, chunk, splits, batch,
-                     static_cast<cudaStream_t>(stream));
-}
-
-// r (d, n), v (n,) fp32; part (ceil(n / 1024), d) scratch; out (d,).
-extern "C" int repro_row_gram(const float* r, const float* v, float* part,
-                              float* out, int d, int n, void* stream) {
-  return launch_row_gram(r, v, part, out, d, n, 0, 1,
-                         static_cast<cudaStream_t>(stream));
+extern "C" int repro_gram(const float* r, float* part, float* out, int d, int n, int chunk,
+                          int splits, int threads, int kg, int smem, int aligned,
+                          void* stream) {
+  return repro_gram_batched(r, part, out, d, n, chunk, splits, threads, kg, smem, aligned, 1,
+                            stream);
 }
 
 // r (batch, d, n); v (batch, n) with v_stride = n, or (n,) shared by every
-// trial with v_stride = 0; part (batch, ceil(n / 1024), d); out (batch, d).
-extern "C" int repro_row_gram_batched(const float* r, const float* v,
-                                      float* part, float* out, int d, int n,
-                                      int v_stride, int batch, void* stream) {
-  return launch_row_gram(r, v, part, out, d, n, v_stride, batch,
-                         static_cast<cudaStream_t>(stream));
+// trial with v_stride = 0; part (batch, d, ceil(n / strip) rounded up to
+// 4) scratch; arrivals (>= batch ints, zero); out (batch, d).  strip: a
+// multiple of 128 columns, at most 1024; aligned != 0 only if n % 4 == 0
+// and r and v are 16-byte aligned.
+extern "C" int repro_row_gram_batched(const float* r, const float* v, float* part,
+                                      int* arrivals, float* out, int d, int n, int strip,
+                                      int v_stride, int aligned, int batch, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  return aligned ? launch_row_gram<true>(r, v, part, arrivals, out, d, n, strip, v_stride, batch, st)
+                 : launch_row_gram<false>(r, v, part, arrivals, out, d, n, strip, v_stride, batch, st);
+}
+
+extern "C" int repro_row_gram(const float* r, const float* v, float* part, int* arrivals,
+                              float* out, int d, int n, int strip, int aligned, void* stream) {
+  return repro_row_gram_batched(r, v, part, arrivals, out, d, n, strip, 0, aligned, 1, stream);
+}
+
+template <int KG>
+int gram_occupancy(int threads, int smem) {
+  int blocks = 0;
+  cudaError_t err = allow_shared_memory<true, KG>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, gram_partial_kernel<true, KG>,
+                                                        threads, smem);
+  return err == cudaSuccess ? blocks : 0;
+}
+
+// Blocks of each kernel an SM holds at once (kind 0: gram's partial kernel
+// with kg thread groups in `threads` threads and `smem` bytes; kind 1:
+// row_gram), for the wrapper's geometry; 0 on error.
+extern "C" int repro_gram_blocks_per_sm(int kind, int kg, int threads, int smem) {
+  if (kind == 0) {
+    switch (kg) {
+      case 1: return gram_occupancy<1>(threads, smem);
+      case 2: return gram_occupancy<2>(threads, smem);
+      case 3: return gram_occupancy<3>(threads, smem);
+      case 4: return gram_occupancy<4>(threads, smem);
+      default: return 0;
+    }
+  }
+  int blocks = 0;
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, row_gram_kernel<true>, kRowThreads, 0);
+  return err == cudaSuccess ? blocks : 0;
 }

@@ -71,16 +71,47 @@ def _close(got, want, tol, what):
     assert err <= tol * scale, f"{what}: {err:.3e} > {tol} x {scale:.3e}"
 
 
-@pytest.mark.parametrize("d,n", [(1, 7), (5, 600), (65, 3000), (100, 20000)])
+# D picks the gram block's thread groups: 4 up to D=104, 3 at 105-120 (here
+# 120), 2 at 121-128, 1 (two tiles, off-diagonal pairs) above
+GRAM_CASES = [(1, 7), (5, 600), (64, 3000), (65, 3000), (100, 20000), (100, 20001),
+              (120, 2002), (127, 999), (128, 4096), (129, 7), (300, 20001)]
+
+
+def _unaligned_copy(x):
+    """x's values in a contiguous tensor that starts 4 bytes into its
+    storage, so the kernels take their 4-byte load path."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    assert out.is_contiguous() and out.data_ptr() % 16 == 4
+    return out
+
+
+@pytest.mark.parametrize("d,n", GRAM_CASES)
 def test_kernels_match_plain(card, d, n):
+    """Each kernel against its plain version; gram and row_gram also give
+    the same bits twice, on a copy that starts off 16-byte alignment (the
+    4-byte load path), and after a call of another geometry (row_gram's
+    arrival counters are left zero); gram is exactly symmetric."""
     sc = _scene(d, n, seed=d, device=card)
     i = d // 2
     before = dict(_build.LAUNCHES)
     got = gram_ops.gram(sc["r"])
     _close(got, gram_ref.gram_ref(sc["r"]), 1e-5, "gram")
     assert torch.equal(got, got.T)
-    _close(gram_ops.row_gram(sc["v"], sc["r"]),
-           gram_ref.row_gram_ref(sc["v"], sc["r"]), 1e-5, "row_gram")
+    assert torch.equal(got, gram_ops.gram(sc["r"]))
+    assert torch.equal(got, gram_ops.gram(_unaligned_copy(sc["r"])))
+    rg = gram_ops.row_gram(sc["v"], sc["r"])
+    _close(rg, gram_ref.row_gram_ref(sc["v"], sc["r"]), 1e-5, "row_gram")
+    assert torch.equal(rg, gram_ops.row_gram(sc["v"], sc["r"]))
+    assert torch.equal(rg, gram_ops.row_gram(_unaligned_copy(sc["v"]),
+                                             _unaligned_copy(sc["r"])))
+    other = _scene(d + 3, 2 * n + 5, seed=d + 1, device=card)   # another geometry
+    _close(gram_ops.row_gram(other["v"], other["r"]),
+           gram_ref.row_gram_ref(other["v"], other["r"]), 1e-5, "row_gram (other)")
+    _close(gram_ops.gram(other["r"]), gram_ref.gram_ref(other["r"]), 1e-5, "gram (other)")
+    assert torch.equal(rg, gram_ops.row_gram(sc["v"], sc["r"]))
+    assert torch.equal(got, gram_ops.gram(sc["r"]))
     args = (sc["r"], sc["m_inv"], sc["s"], sc["eta"], i, sc["steps"])
     for g, w in zip(sweep_ops.probe_sweep(*args), sweep_ref.probe_sweep_ref(*args)):
         _close(g, w, 1e-4, "probe")
@@ -94,8 +125,9 @@ def test_kernels_match_plain(card, d, n):
         if thr > 0:    # a reject is a bitwise no-op
             assert torch.equal(got[0], sc["m_inv"]) and torch.equal(got[1], sc["s"])
     torch.cuda.synchronize()
+    # one launch per call: gram 5 calls, row_gram 5
     assert {k: _build.LAUNCHES[k] - before[k] for k in before} == {
-        "gram": 1, "row_gram": 1, "probe_sweep": 1, "commit_sweep": 2,
+        "gram": 5, "row_gram": 5, "probe_sweep": 1, "commit_sweep": 2,
         "gram_batched": 0, "row_gram_batched": 0, "probe_sweep_batched": 0,
         "commit_sweep_batched": 0, "flash_attention": 0, "flash_attention_tc": 0,
         "flash_decode": 0, "wkv": 0}
@@ -146,11 +178,13 @@ def _batch(d, n, b, device):
 
 
 @pytest.mark.parametrize("b", [1, 3])
-@pytest.mark.parametrize("d,n", [(1, 7), (5, 600), (65, 3000), (100, 20000)])
+@pytest.mark.parametrize("d,n", GRAM_CASES)
 def test_batched_kernels_match_plain_and_single(card, d, n, b):
     """Each batched kernel against its batched plain version, and slice t
-    against the single-trial kernel on trial t, bit for bit; a commit batch
-    with mixed accept and reject keeps the rejected trials bitwise."""
+    against the single-trial kernel on trial t, bit for bit (at N % 4 != 0
+    the slices start off 16-byte alignment); a commit batch with mixed
+    accept and reject keeps the rejected trials bitwise; the batched Gram
+    products give the same bits twice and on unaligned copies."""
     sc = _batch(d, n, b, card)
     i = d // 2
     _build.reset_launches()
@@ -194,6 +228,12 @@ def test_batched_kernels_match_plain_and_single(card, d, n, b):
             assert torch.equal(commit[1][t], sc["s"][t])
         else:
             assert torch.equal(commit[0][t], commit[0][t].T)
+    # the same bits twice, and again on copies off 16-byte alignment
+    assert torch.equal(got, gram_ops.gram(sc["r"]))
+    assert torch.equal(rg, gram_ops.row_gram(sc["v"], sc["r"]))
+    assert torch.equal(got, gram_ops.gram(_unaligned_copy(sc["r"])))
+    assert torch.equal(rg, gram_ops.row_gram(_unaligned_copy(sc["v"]),
+                                             _unaligned_copy(sc["r"])))
 
 
 @pytest.mark.parametrize("engine", ["incremental", "fused"])

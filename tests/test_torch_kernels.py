@@ -228,14 +228,62 @@ def test_commit_sweep_ref_f64(x64, thr):
 # ------------------------------------------------------ wrapper plumbing
 
 
-def test_gram_geometry_covers_n():
-    for d, n in [(1, 7), (5, 600), (100, 262144), (130, 5000), (300, 20000)]:
-        chunk, splits = gram_ops.gram_geometry(d, n)
-        assert chunk % 32 == 0 and chunk >= 32
-        assert (splits - 1) * chunk < n <= splits * chunk
-    tiles_pairs = 3                                  # D=100: two 64-row tiles
-    chunk, splits = gram_ops.gram_geometry(100, 262144)
-    assert tiles_pairs * splits >= 132               # at least one wave
+GEOMETRY_CASES = [(1, 7), (5, 600), (5, 2000), (64, 3000), (100, 20001),
+                  (100, 262144), (120, 2002), (127, 131), (128, 5000),
+                  (129, 100), (130, 5000), (300, 20000)]
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+@pytest.mark.parametrize("d,n", GEOMETRY_CASES)
+def test_gram_geometry_covers_n(d, n, blocks_per_sm):
+    """The N-chunks of gram cover N exactly with no empty chunk, each a
+    whole number of the block's steps (32 kg instances), and the grid
+    (tile pairs x chunks) is at most one wave of 132 SMs; the block fits
+    the card and its shared memory holds the ring and the groups' sums."""
+    threads, kg, smem = gram_ops.gram_block(d)
+    chunk, splits = gram_ops.gram_geometry(d, n, 132, blocks_per_sm)
+    step = 32 * kg
+    assert chunk % step == 0 and chunk >= step
+    assert (splits - 1) * chunk < n <= splits * chunk
+    pairs = gram_ops.gram_pairs(d)
+    assert pairs * splits <= max(pairs, 132 * blocks_per_sm)
+    assert threads % (32 * kg) == 0 and threads <= 384 and 1 <= kg <= 4
+    gt, tiles = threads // kg, -(-d // 128)
+    if tiles == 1:
+        g = -(-d // 8)
+        assert g * (g + 1) // 2 <= gt < g * (g + 1) // 2 + 32   # triangle only
+        groups = g
+    else:
+        assert gt == 256
+        groups = 32
+    ring = 3 * groups * (8 * step + 4) * 4        # 8-row groups padded by 16 B
+    assert smem == max(ring, (kg - 1) * 64 * gt * 4) and smem <= 232448
+
+
+def test_gram_geometry_fills_one_wave_at_the_deployment_shape():
+    """D=100, N=262144: one diagonal tile, 91 micro-tiles (96 threads) in
+    each of 4 groups, and 128 chunks of 2048 on the 132 SMs (one block of
+    384 threads each): 97% of a wave."""
+    assert gram_ops.gram_block(100) == (384, 4, 3 * 13 * (8 * 128 + 4) * 4)
+    assert gram_ops.gram_pairs(100) == 1
+    assert gram_ops.gram_geometry(100, 262144, 132, 1) == (2048, 128)
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2, 3])
+@pytest.mark.parametrize("n", [7, 128, 600, 2000, 20001, 262144, 1 << 20])
+def test_row_gram_geometry_covers_n(n, blocks_per_sm):
+    """row_gram's strips: a multiple of 128 columns, at most 1024, covering
+    N exactly with no empty strip, in the fewest whole waves of 132 SMs
+    that 1024-column strips allow; its scratch pads each row to 4 floats."""
+    strip, blocks = gram_ops.row_gram_geometry(n, 132, blocks_per_sm)
+    assert strip % 128 == 0 and 128 <= strip <= 1024
+    assert (blocks - 1) * strip < n <= blocks * strip
+    slots = 132 * blocks_per_sm
+    waves = -(-blocks // slots)
+    assert waves == max(1, -(-(-(-n // 1024)) // slots))
+    assert gram_ops.row_gram_partial_floats(100, blocks) == 100 * (-(-blocks // 4) * 4)
+    if n == 262144 and blocks_per_sm == 2:
+        assert (strip, blocks) == (1024, 256)           # 97% of one wave
 
 
 def test_probe_block_fits_shared_memory():
