@@ -13,15 +13,22 @@ Phases, each fatal on failure (nothing is caught):
               the stated tolerance, and timed (CUDA events around runs of 20
               launches, median of 5 runs) beside its plain version, the one
               PyTorch call that computes the same function where there is
-              one, and its bound on the card; gram and row_gram also log
-              their launch geometry (here and in 3b), ten calls under
-              torch.profiler split by kernel, and the host time to enqueue
-              a call beside their library call's;
+              one, and its bound on the card; gram, row_gram and the probe
+              also log their launch geometry (here and in 3b), ten calls
+              under torch.profiler split by kernel, and the host time to
+              enqueue a call beside their library call's (the probe's: the
+              pair s @ r, r @ cross, also timed on the device, and the
+              probe at one chunk of N=128, its launch and epilogue); the
+              probe is held also to its plain version in float64 (its
+              closed form runs in float64), on both routes (D=100 in
+              registers, D=300 in shared memory, N=20001), and on a copy of
+              R off 16-byte alignment (the 4-byte load path: the same bits);
   3b. batched the four batched kernels at B=8 trials of the same shapes: each
               against its batched plain version, slices 0 and 7 against the
               single-trial kernel on that trial bit for bit (torch.equal), a
               commit batch with mixed accept and reject (rejected trials
-              bitwise unchanged), timed as in phase 3;
+              bitwise unchanged), the probe's routes and load paths as in
+              phase 3, timed as in phase 3;
   4. paper    `repro_torch.api.fit` on the default ExperimentSpec (Friedman-1,
               D=5, N=2000, degree-4 agents, 10 sweeps) with use_kernel=True,
               both engines, on the card and on the CPU from the same data:
@@ -227,13 +234,15 @@ def compare(name: str, got, want, tol: float):
 def row_recorder(rows):
     """A function that appends one row of the kernels line to `rows`."""
     def record_row(name, src, replaces, errs, ms, plain_ms, lib_ms, n_bytes, flops,
-                   peak=H100_FP32_FLOPS):
+                   peak=H100_FP32_FLOPS, note=None):
         b_ms, b_by = bound(n_bytes, flops, peak)
         row = {"name": name, "route": "cuda", "source": src, "replaces": replaces,
                "launches": 0, "max_abs_err": max(e for e, _ in errs),
                "max_rel_err": max(r_ for _, r_ in errs), "ms": ms,
                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                "library_ms": lib_ms}
+        if note:
+            row["note"] = note
         log("[kernel] " + json.dumps(row))
         rows.append(row)
     return record_row
@@ -259,6 +268,89 @@ def log_gram_geometry(gram_ops, r, v, batch: int = 1) -> None:
         f"columns x {batch} trial(s) = {blocks * batch} blocks of 256 threads, {bps} per SM "
         f"({blocks / (n_sm * bps):.3f} waves per trial); 16-byte loads: "
         f"{bool(gram_ops.aligned16(n, r, v))}; the strips summed in the same launch")
+
+
+def probe_evidence(tag: str, call, pair) -> str:
+    """Ten probe calls under torch.profiler (the device time split between
+    the probe's kernels), the host time to enqueue one call, and the device
+    time of the library pair that forms the same two products (cross = s @ r,
+    then r @ cross): two calls, so a note in the row, not its library_ms."""
+    profile_window(tag, "calls", lambda: [call() for _ in range(10)], 10)
+    pair_ms = time_ms(pair)
+    log(f"[kernel] {tag} host enqueue {host_us(call):.1f} us a call; library pair "
+        f"{host_us(pair):.1f} us; library pair device time {pair_ms:.4f} ms")
+    return f"library pair s @ r, r @ cross (two calls): {pair_ms:.4f} ms"
+
+
+def unaligned_copy(x):
+    """x's values in a contiguous tensor that starts 4 bytes into its
+    storage, so the kernels take their 4-byte load path."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    require(out.data_ptr() % 16 == 4, "unaligned_copy: copy is 16-byte aligned")
+    return out
+
+
+def log_probe_geometry(sweep_ops, d: int, n: int, batch: int) -> None:
+    """The probe's route and launch geometry for (d, n) on a [kernel] line."""
+    route = sweep_ops.probe_route(d)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    bps = sweep_ops.probe_blocks_per_sm(d) if route == "registers" else 1
+    geo = sweep_ops.probe_geometry(d, n, batch, n_sm, bps)
+    how = (f"{sweep_ops.probe_rows_per_warp(d)} rows a warp, {bps} block(s) of 256 "
+           f"threads per SM ({geo.blocks / (n_sm * bps):.3f} waves per trial), the "
+           f"chunks summed in the same launch" if route == "registers"
+           else "then one finish launch")
+    log(f"[kernel] probe geometry D={d} N={n} B={batch}: route {route}, {geo.blocks} "
+        f"chunks of {geo.chunk} columns x {batch} trial(s); {how}")
+
+
+PROBE_OUT = ("etas", "cross", "p", "gnorm")
+
+
+def probe_vs_f64(name, plain, got, args):
+    """The probe kernel takes ||cross||^2 and its closed form in float64:
+    hold it to its plain version evaluated in float64 on the same fp32
+    inputs (1e-4 normwise), and log the fp32 plain version's distance from
+    that too (near a pole of the step schedule it is ~1e-4 itself)."""
+    want = plain(*(a.double() if isinstance(a, torch.Tensor) else a for a in args))
+    errs = [compare(f"{name}.{nm} vs float64", g, w, 1e-4)
+            for nm, g, w in zip(PROBE_OUT, got, want)]
+    e32 = max(compare(f"{name}.{nm} fp32 plain vs float64", g, w, 1.0)[1]
+              for nm, g, w in zip(PROBE_OUT, plain(*args), want))
+    log(f"[kernel] {name}: normwise error against the plain version in float64: "
+        f"kernel {max(e for _, e in errs):.3e}, fp32 plain version {e32:.3e}")
+    return errs
+
+
+def check_probe_routes(sweep_ops, sweep_ref, gen, dev, got, args, batch: int) -> None:
+    """The probe's other paths, each against its plain version (1e-4) and
+    giving the same bits twice: the main call again on a copy of r 4 bytes
+    off alignment (the 4-byte load path: the same bits as `got`), then
+    D=100 (register route) and D=300 (shared-memory route, above the
+    register limit) at N=20001, where N % 4 != 0 takes the 4-byte path."""
+    again = sweep_ops.probe_sweep(unaligned_copy(args[0]), *args[1:])
+    require(all(map(torch.equal, got, again)),
+            f"probe_sweep (B={batch}): the 4-byte load path gave other bits")
+    plain = sweep_ref.probe_sweep_batched_ref if batch > 1 else sweep_ref.probe_sweep_ref
+    lead = (batch,) if batch > 1 else ()
+    for d in (100, 300):
+        n = 20001
+        log_probe_geometry(sweep_ops, d, n, batch)
+        scenes = [spd_scene(d, gen, dev) for _ in range(batch)]
+        m_inv, s, eta = (torch.stack(x).reshape(lead + tuple(x[0].shape)).contiguous()
+                         for x in zip(*scenes))
+        r = torch.randn(lead + (d, n), generator=gen, device=dev)
+        steps = torch.tensor([0.5 ** j for j in range(K_STEPS)], device=dev) * math.sqrt(n)
+        call = (r, m_inv, s, eta, d // 3, steps)
+        out = sweep_ops.probe_sweep(*call)
+        probe_vs_f64(f"probe_sweep D={d} N={n} B={batch} ({sweep_ops.probe_route(d)} "
+                     f"route)", plain, out, call)
+        require(all(map(torch.equal, out, sweep_ops.probe_sweep(*call))),
+                f"probe_sweep D={d} N={n} B={batch}: not the same bits twice")
+    log(f"[kernel] probe_sweep B={batch}: the 4-byte load path gives the same bits; "
+        f"every call the same bits twice")
 
 
 def spd_scene(d, gen, dev):
@@ -318,17 +410,27 @@ def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
     got = sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps)
     want = sweep_ref.probe_sweep_ref(r, m_inv, s, eta, i, steps)
     errs = [compare(f"probe_sweep.{nm}", g, w, 1e-4)
-            for nm, g, w in zip(("etas", "cross", "p", "gnorm"), got, want)]
+            for nm, g, w in zip(PROBE_OUT, got, want)]
+    errs += probe_vs_f64("probe_sweep", sweep_ref.probe_sweep_ref, got,
+                         (r, m_inv, s, eta, i, steps))
     again = sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps)
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             "probe_sweep: not the same bits twice")
+    log_probe_geometry(sweep_ops, d, n, 1)
+    check_probe_routes(sweep_ops, sweep_ref, gen, dev, got, (r, m_inv, s, eta, i, steps), 1)
+    note = probe_evidence("probe_sweep",
+                          lambda: sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps),
+                          lambda: r @ (s @ r))
+    r1 = r[:, :128].contiguous()     # one strip: the launch and the epilogue
+    log(f"[kernel] probe_sweep D={d} N=128 (one chunk: launch and epilogue) "
+        f"{time_ms(lambda: sweep_ops.probe_sweep(r1, m_inv, s, eta, i, steps)):.4f} ms")
     record_row("probe_sweep", "src/repro_torch/csrc/sweep.cu",
                "src/repro/kernels/sweep/kernel.py:138", errs,
                time_ms(lambda: sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps)),
                time_ms(lambda: sweep_ref.probe_sweep_ref(r, m_inv, s, eta, i, steps)),
                None,
                4.0 * (d * n + d * d + d + k + 1) + 4.0 * (n + k + d + 1),
-               4.0 * d * n + 2.0 * d * d + 2.0 * n + 20.0 * k)
+               4.0 * d * n + 2.0 * d * d + 2.0 * n + 20.0 * k, note=note)
 
     # --- commit_sweep (B7): w = R delta / m, SMW accept probe, rank-2 update.
     errs = []
@@ -449,9 +551,22 @@ def phase_kernels_batched(gram_ops, gram_ref, sweep_ops, sweep_ref):
     got = sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps)
     want = sweep_ref.probe_sweep_batched_ref(r, m_inv, s, eta, i, steps)
     errs = [compare(f"probe_sweep_batched.{nm}", g, w, 1e-4)
-            for nm, g, w in zip(("etas", "cross", "p", "gnorm"), got, want)]
+            for nm, g, w in zip(PROBE_OUT, got, want)]
+    errs += probe_vs_f64("probe_sweep_batched", sweep_ref.probe_sweep_batched_ref, got,
+                         (r, m_inv, s, eta, i, steps))
     same_as_single("probe_sweep_batched", got, lambda t: sweep_ops.probe_sweep(
         r[t], m_inv[t], s[t], eta[t], i, steps))
+    require(all(map(torch.equal, got, sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps))),
+            "probe_sweep_batched: not the same bits twice")
+    log_probe_geometry(sweep_ops, d, n, b)
+    check_probe_routes(sweep_ops, sweep_ref, gen, dev, got, (r, m_inv, s, eta, i, steps), b)
+    note = probe_evidence("probe_sweep_batched",
+                          lambda: sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps),
+                          lambda: torch.bmm(r, torch.bmm(s[:, None, :], r).mT))
+    r1 = r[..., :128].contiguous()
+    log(f"[kernel] probe_sweep_batched D={d} N=128 B={b} (one chunk a trial: launch "
+        f"and epilogues) "
+        f"{time_ms(lambda: sweep_ops.probe_sweep(r1, m_inv, s, eta, i, steps)):.4f} ms")
     record_row("probe_sweep_batched", "src/repro_torch/csrc/sweep.cu",
                "src/repro/kernels/sweep/kernel.py:201", errs,
                time_ms(lambda: sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps)),
@@ -459,7 +574,7 @@ def phase_kernels_batched(gram_ops, gram_ref, sweep_ops, sweep_ref):
                                                                  i, steps)),
                None,
                4.0 * (b * (d * n + d * d + d + 1) + k) + 4.0 * b * (n + k + d + 1),
-               b * (4.0 * d * n + 2.0 * d * d + 2.0 * n + 20.0 * k))
+               b * (4.0 * d * n + 2.0 * d * d + 2.0 * n + 20.0 * k), note=note)
 
     # --- commit_sweep_batched (B8): odd trials rejected, even ones committed
     thr = torch.tensor([math.inf if t % 2 else -math.inf for t in range(b)],

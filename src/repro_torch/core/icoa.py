@@ -42,6 +42,7 @@ alpha > 1 subsample.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import List, Optional, Union
 
@@ -478,6 +479,22 @@ def converged_record(eta: Union[List[float], torch.Tensor], eps: float):
     return last
 
 
+def _full_fp32(fn):
+    """Run fn with plain float32 matrix products in full fp32 on the card
+    (TF32 off, PyTorch's default), and give the caller back the TF32 flag
+    as it found it, whatever fn does."""
+    @functools.wraps(fn)
+    def call(*args, **kwargs):
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+    return call
+
+
+@_full_fp32
 def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
         xcols_test: Optional[torch.Tensor] = None,
         y_test: Optional[torch.Tensor] = None):
@@ -488,9 +505,9 @@ def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     record-time residual covariance) and the bytes the sweep put on the wire
     (record 0: 0).  The run stops after a sweep whose eta moved less than
     cfg.eps from the previous sweep's.  Plain float32 matrix products on the
-    card stay full fp32: TF32 is switched off here (PyTorch's default)."""
+    card stay full fp32: TF32 is off for the call (PyTorch's default) and the
+    caller's setting is restored after it."""
     cfg.validate()
-    torch.backends.cuda.matmul.allow_tf32 = False
     state = init_state(family, xcols, y)
     hist = {"train_mse": [], "test_mse": [], "eta": [], "bytes": [0.0]}
 
@@ -521,6 +538,7 @@ def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     return state, weights, hist
 
 
+@_full_fp32
 def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
              xcols_test: torch.Tensor, y_test: torch.Tensor):
     """B independent ICOA runs as one batched program — the Monte-Carlo
@@ -535,9 +553,9 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     non-cooperative init), hist["converged_at"] (B,) — the record where
     `run`'s eps rule would have stopped — and hist["bytes"], the host
     ledger's bytes per record (record 0: 0), the same for every trial.
-    Nothing in the loop waits for the device."""
+    Nothing in the loop waits for the device.  TF32 is off for the call, as
+    in `run`."""
     cfg.validate()
-    torch.backends.cuda.matmul.allow_tf32 = False
     if xcols.dim() != 4 or y.dim() != 2:
         raise ValueError(f"run_scan: expected xcols (B, D, N, C) and y (B, N), "
                          f"got {tuple(xcols.shape)} and {tuple(y.shape)}")

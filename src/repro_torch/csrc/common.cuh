@@ -39,6 +39,33 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Columns [col, col + 4) of a row of n floats (zero past n): one 16-byte
+// load, or, with ALIGNED false (n % 4 != 0 or a row that does not start on
+// 16 bytes), four 4-byte loads of the same values.  STREAM marks data read
+// once (evict first).
+template <bool ALIGNED, bool STREAM>
+__device__ __forceinline__ float4 load4(const float* __restrict__ row, int col, int n) {
+  if constexpr (ALIGNED) {
+    if (col >= n) return make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4* p = reinterpret_cast<const float4*>(row + col);
+    return STREAM ? __ldcs(p) : __ldg(p);
+  } else {
+    float e[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      e[q] = col + q < n ? (STREAM ? __ldcs(row + col + q) : __ldg(row + col + q)) : 0.f;
+    return make_float4(e[0], e[1], e[2], e[3]);
+  }
+}
+
+// acc + <x, y>, the four products in order.
+__device__ __forceinline__ float dot4(float4 x, float4 y, float acc) {
+  acc = fmaf(x.x, y.x, acc);
+  acc = fmaf(x.y, y.y, acc);
+  acc = fmaf(x.z, y.z, acc);
+  return fmaf(x.w, y.w, acc);
+}
+
 // Max over the 32 lanes of a warp; every lane returns the same value.
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -46,17 +73,19 @@ __device__ __forceinline__ float warp_max(float x) {
   return x;
 }
 
-// Sum over the 32 lanes of a warp; every lane returns the same value.
-// The warp must be full (blockDim.x a multiple of 32).
-__device__ __forceinline__ float warp_sum(float x) {
+// Sum over the 32 lanes of a warp (float or double); every lane returns the
+// same value.  The warp must be full (blockDim.x a multiple of 32).
+template <typename T>
+__device__ __forceinline__ T warp_sum(T x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
 
 // Sum over the whole block; every thread returns the same value.
-// `red` is shared scratch of at least 33 floats; blockDim.x a multiple of 32.
-__device__ __forceinline__ float block_sum(float x, float* red) {
+// `red` is shared scratch of at least 33 values; blockDim.x a multiple of 32.
+template <typename T>
+__device__ __forceinline__ T block_sum(T x, T* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   x = warp_sum(x);
@@ -64,7 +93,7 @@ __device__ __forceinline__ float block_sum(float x, float* red) {
   if (lane == 0) red[warp] = x;
   __syncthreads();
   if (threadIdx.x == 0) {
-    float t = 0.f;
+    T t = 0;
     for (int w = 0; w < nw; ++w) t += red[w];
     red[32] = t;
   }
@@ -85,6 +114,53 @@ __device__ __forceinline__ void reduce_partials(const float* __restrict__ part,
     for (int b = lane; b < nb; b += 32) acc += part[(size_t)b * d + row];
     acc = warp_sum(acc);
     if (lane == 0) out[row] = acc / div;
+  }
+}
+
+// out[row] = sum over b < nb of part[row * nbp + b] for the d rows of a
+// (d, nbp) scratch that other blocks of this launch wrote (nbp: nb rounded
+// up to 4, entries past nb are padding).  Called by the whole block, after
+// a __threadfence() that follows those blocks' writes: each warp sums 8 rows
+// at a time with 16-byte loads through L2 (16 a lane in flight), lanes over
+// quads of b in increasing order, then the lanes in a fixed order, so the
+// result has the same bits on every run.  Rows are written by lane 0 of
+// their warp; the caller syncs before reading.
+__device__ __forceinline__ void fold_rows(const float* __restrict__ part, int nbp, int nb,
+                                          int d, float* __restrict__ out) {
+  constexpr int kRows = 8, kQuads = 2;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const int nq = nbp / 4;
+  for (int row0 = warp; row0 < d; row0 += nw * kRows) {
+    float acc[kRows];
+#pragma unroll
+    for (int g = 0; g < kRows; ++g) acc[g] = 0.f;
+    for (int q0 = lane; q0 < nq; q0 += 32 * kQuads) {
+      float4 x[kRows][kQuads];
+#pragma unroll
+      for (int g = 0; g < kRows; ++g)
+#pragma unroll
+        for (int m = 0; m < kQuads; ++m) {
+          const int row = row0 + nw * g, q = q0 + 32 * m;
+          x[g][m] = row < d && q < nq
+                        ? __ldcg(reinterpret_cast<const float4*>(part + (size_t)row * nbp) + q)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+      for (int g = 0; g < kRows; ++g)
+#pragma unroll
+        for (int m = 0; m < kQuads; ++m) {
+          const int b0 = 4 * (q0 + 32 * m);
+          if (b0 < nb) acc[g] += x[g][m].x;
+          if (b0 + 1 < nb) acc[g] += x[g][m].y;
+          if (b0 + 2 < nb) acc[g] += x[g][m].z;
+          if (b0 + 3 < nb) acc[g] += x[g][m].w;
+        }
+    }
+#pragma unroll
+    for (int g = 0; g < kRows; ++g) {
+      const float tot = warp_sum(acc[g]);
+      if (lane == 0 && row0 + nw * g < d) out[row0 + nw * g] = tot;
+    }
   }
 }
 

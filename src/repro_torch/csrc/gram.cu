@@ -79,6 +79,8 @@ namespace {
 using repro::cp_async16;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
+using repro::dot4;
+using repro::load4;
 
 constexpr int kTile = 128;        // gram tile edge
 constexpr int kMicro = 8;         // micro-tile edge (outputs per thread: 8 x 8)
@@ -90,7 +92,6 @@ constexpr int kGramMaxShared = 232448;   // an H100 block's shared-memory limit
 constexpr int kRowThreads = 256;  // row_gram: 8 warps
 constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kRowSlices = 8;     // most 16-byte slices per lane per row
-constexpr int kTailRows = 4;      // rows a warp sums at once in the fold
 
 // 4-byte copy into shared memory (cp.async.ca); valid == false writes zero.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
@@ -303,29 +304,6 @@ gram_reduce_kernel(const float* __restrict__ part, float* __restrict__ out, int 
   }
 }
 
-// Columns [col, col + 4) of a row (zero past n); 4-byte loads when unaligned.
-template <bool ALIGNED, bool STREAM>
-__device__ __forceinline__ float4 load4(const float* __restrict__ row, int col, int n) {
-  if constexpr (ALIGNED) {
-    if (col >= n) return make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4* p = reinterpret_cast<const float4*>(row + col);
-    return STREAM ? __ldcs(p) : __ldg(p);
-  } else {
-    float e[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      e[q] = col + q < n ? (STREAM ? __ldcs(row + col + q) : __ldg(row + col + q)) : 0.f;
-    return make_float4(e[0], e[1], e[2], e[3]);
-  }
-}
-
-__device__ __forceinline__ float dot4(float4 x, float4 y, float acc) {
-  acc = fmaf(x.x, y.x, acc);
-  acc = fmaf(x.y, y.y, acc);
-  acc = fmaf(x.z, y.z, acc);
-  return fmaf(x.w, y.w, acc);
-}
-
 // part: (trial, d, nbp) with nbp = nb rounded up to 4; arrivals: one int
 // per trial, zero on entry and on exit.
 template <bool ALIGNED>
@@ -368,39 +346,7 @@ row_gram_kernel(const float* __restrict__ r, const float* __restrict__ v,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-  const int nq = nbp / 4;
-  for (int row0 = warp; row0 < d; row0 += kRowWarps * kTailRows) {
-    float acc[kTailRows];
-#pragma unroll
-    for (int g = 0; g < kTailRows; ++g) acc[g] = 0.f;
-    for (int q0 = lane; q0 < nq; q0 += 32 * 4) {
-      float4 x[kTailRows][4];
-#pragma unroll
-      for (int g = 0; g < kTailRows; ++g)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const int row = row0 + kRowWarps * g, q = q0 + 32 * m;
-          x[g][m] = row < d && q < nq
-                        ? __ldcg(reinterpret_cast<const float4*>(part + (size_t)row * nbp) + q)
-                        : make_float4(0.f, 0.f, 0.f, 0.f);
-        }
-#pragma unroll
-      for (int g = 0; g < kTailRows; ++g)
-#pragma unroll
-        for (int m = 0; m < 4; ++m) {
-          const int b0 = 4 * (q0 + 32 * m);   // entries past nb are padding
-          if (b0 < nb) acc[g] += x[g][m].x;
-          if (b0 + 1 < nb) acc[g] += x[g][m].y;
-          if (b0 + 2 < nb) acc[g] += x[g][m].z;
-          if (b0 + 3 < nb) acc[g] += x[g][m].w;
-        }
-    }
-#pragma unroll
-    for (int g = 0; g < kTailRows; ++g) {
-      const float tot = repro::warp_sum(acc[g]);
-      if (lane == 0 && row0 + kRowWarps * g < d) out[row0 + kRowWarps * g] = tot;
-    }
-  }
+  repro::fold_rows(part, nbp, nb, d, out);
   if (threadIdx.x == 0) arrivals[trial] = 0;   // ready for the next call
 }
 

@@ -1,16 +1,37 @@
 // The fused ICOA agent update (alpha = 1): one probe pass and one commit pass
-// over the residual matrix R (D, N), each followed by a one-block epilogue
-// that evaluates the O(D^2) closed-form algebra in fp32.
+// over the residual matrix R (D, N), each with an epilogue that evaluates the
+// O(D^2) closed-form algebra: the commit's in fp32, the probe's (and its
+// ||cross||^2) in float64, where the fp32 algebra alone moves an eta near a
+// pole of the step schedule by ~1e-4 of the largest.
 //
 // repro_probe_sweep replaces src/repro/kernels/sweep/kernel.py
 // probe_sweep_pallas (B5) and its epilogue _probe_finalize:
 //   cross = s^T R (N,), p = R cross (D,), ||cross||^2, then the whole K-step
 //   back-search schedule against m_inv.  cross and p are two orthogonal
-//   reductions of the same tile, so each block loads a D x BN tile of R into
-//   shared memory once: one thread per column forms cross (and ||cross||^2),
-//   then one warp per row forms the partial p from the tile in shared memory.
-//   Bound on an H100: the one read of R, about 2 FMAs per 4 bytes.  BN is
-//   chosen by the wrapper so that the tile fits the 227 KB of shared memory.
+//   reductions of the same tile, so R is read once.  Bound on an H100: that
+//   one read of R, about 2 FMAs per 4 bytes.  Two routes, chosen by D in the
+//   wrapper (kernels/sweep/ops.py::probe_route), each with one geometry that
+//   depends on (D, N) and the card only:
+//
+//   * registers (D <= 128, the main path): a block of 8 warps takes
+//     128-column strips of its chunk of N, each lane 4 adjacent columns
+//     with one 16-byte load per row; warp w holds rows w, w + 8, ... in
+//     registers (at most 16 float4 a lane) and issues all of them before it
+//     uses any, so ~6.6 KB a warp are in flight at D=100.  Each warp writes
+//     its rows' share of cross to shared memory (double-buffered, one
+//     barrier a strip), every warp sums the 8 shares in warp order, and then
+//     forms its rows' p from the registers against that cross; p and
+//     ||cross||^2 stay in registers across the chunk.  The wrapper cuts N
+//     into about one wave of chunks; each block writes one partial per row
+//     and one ||cross||^2 partial, and the last block of the trial to arrive
+//     (an integer counter per trial in a zeroed workspace, reset by that
+//     block) sums them in chunk order and runs the closed form: one launch.
+//   * shared (D > 128): each block loads a D x BN tile of R into shared
+//     memory once; one thread per column forms cross (and ||cross||^2), then
+//     one warp per row forms the partial p from the tile; a second, one-block
+//     launch sums the partials in block order and runs the closed form.  BN
+//     is chosen by the wrapper so that the tile fits the 227 KB of shared
+//     memory.
 //
 // repro_commit_sweep replaces kernel.py commit_sweep_pallas (B7) and its
 // epilogue _commit_finalize:
@@ -28,20 +49,25 @@
 // threshold and can_tx (B,) device tensors) while agent i, the step schedule
 // and the diagonal constants are shared by the batch.  The trial is one more
 // grid dimension of the same pass kernels (blockIdx.y), with its own partial
-// rows, and the one-block epilogue becomes one epilogue block per trial
-// (blockIdx.x), each running the closed form against that trial's m_inv, s
-// and eta.  A trial therefore sums the same N blocks in the same order as the
+// rows (and, on the probe's register route, its own arrival counter), and a
+// one-block epilogue runs per trial (the last arrival of the trial, or
+// blockIdx.x of the finish launch) against that trial's m_inv, s and eta.
+// A trial therefore sums the same blocks in the same order as the
 // single-trial launch: slice b of a batched launch equals the single-trial
 // launch on trial b bit for bit, and a rejected trial keeps its m_inv and s
 // bitwise while its neighbours commit.  Bound: B times the one read of R.
 //
-// All cross-block sums are two-pass in a fixed order (no atomics): the
-// accept/reject and first-improving-step decisions must not flicker between
-// runs.  The rank-2 update forms each outer-product entry with
-// non-contracted multiplies so that m_inv stays exactly symmetric.
+// All cross-block sums are in a fixed order (no float atomics; the one
+// integer atomic only picks the block that sums): the accept/reject and
+// first-improving-step decisions must not flicker between runs.  The rank-2
+// update forms each outer-product entry with non-contracted multiplies so
+// that m_inv stays exactly symmetric.  The arrival counters assume one
+// stream at a time, as the port runs.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <utility>
 
 #include "common.cuh"
 
@@ -50,8 +76,230 @@ namespace {
 constexpr int kCommitBn = 1024;
 constexpr int kCommitThreads = 256;
 constexpr int kFinishThreads = 512;
+constexpr int kProbeThreads = 256;      // register route: 8 warps
+constexpr int kProbeWarps = kProbeThreads / 32;
+constexpr int kProbeStrip = 128;        // columns a block takes at once: 4 a lane
+constexpr int kProbeMaxRows = 16;       // rows a warp holds in registers
+constexpr int kProbeMaxD = kProbeWarps * kProbeMaxRows;
 
-// ---------------------------------------------------------------- probe pass
+// ------------------------------------------------------- probe closed form
+// The back-search schedule of one trial, by the whole block, from p = R cross
+// (d floats of shared memory, complete before the call) and ||cross||^2.
+// The algebra runs in float64: near a pole of the schedule (det -> 0) the
+// fp32 algebra alone moves an eta by ~1e-4 of the largest, as much as the
+// tests allow between kernel and plain version, while the sums it starts
+// from are good to an ulp or two.  q is d doubles of shared scratch, red 33.
+// Writes p_out = R g_unit / m, the K etas and gnorm in fp32.
+__device__ __noinline__ void probe_closed_form(const float* p, double* q, double* red,
+                                               double gg_cross,
+                                               const float* __restrict__ minv,
+                                               const float* __restrict__ s, float eta,
+                                               const float* __restrict__ steps,
+                                               int k_steps, int d, int i, float m,
+                                               float* __restrict__ etas,
+                                               float* __restrict__ p_out,
+                                               float* __restrict__ gnorm_out) {
+  const int t = threadIdx.x, nt = blockDim.x;
+  const int warp = t >> 5, lane = t & 31, nw = nt >> 5;
+  const double s_i = s[i];
+  const double scale = 2.0 * s_i / m;
+  const double gnorm = sqrt(gg_cross) * fabs(scale) + 1e-30;
+  const double coef = scale / (m * gnorm);                  // p_hat = coef * p
+  for (int k = t; k < d; k += nt) p_out[k] = (float)(coef * p[k]);   // R g_unit / m
+  // q = m_inv p_hat: a warp takes 8 rows at once, lanes over columns, so
+  // the loads of 8 rows are in flight together
+  constexpr int kRows = 8;
+  for (int row0 = warp; row0 < d; row0 += nw * kRows) {
+    double acc[kRows];
+#pragma unroll
+    for (int g = 0; g < kRows; ++g) acc[g] = 0.0;
+#pragma unroll 4
+    for (int c = lane; c < d; c += 32) {
+      const double ph = coef * p[c];
+#pragma unroll
+      for (int g = 0; g < kRows; ++g) {
+        const int row = row0 + nw * g;
+        const float mv = row < d ? minv[(size_t)row * d + c] : 0.f;
+        acc[g] = fma((double)mv, ph, acc[g]);
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kRows; ++g) {
+      const double tot = repro::warp_sum(acc[g]);
+      if (lane == 0 && row0 + nw * g < d) q[row0 + nw * g] = tot;
+    }
+  }
+  double pa = 0.0, pe = 0.0;
+  __syncthreads();
+  for (int k = t; k < d; k += nt) {
+    const double ph = coef * p[k];
+    pa = fma(ph, q[k], pa);
+    pe = fma(ph, (double)s[k], pe);
+  }
+  const double a = repro::block_sum(pa, red);               // <p_hat, q>
+  const double e = repro::block_sum(pe, red);               // <p_hat, s>
+  const double b = q[i];
+  const double c = minv[(size_t)i * d + i];
+  const double t1 = s_i;
+  const double ratio = scale / gnorm;
+  const double gg = ratio * ratio * gg_cross;               // <g_unit, g_unit>
+  const double c2h = gg / (2.0 * m);
+  for (int k = t; k < k_steps; k += nt) {
+    const double st = steps[k];
+    const double beta = c2h * st * st;                      // alpha = 1: c1h = 0
+    const double k12 = 1.0 - st * b + beta * c;
+    const double k22 = st * st * a - 2.0 * st * beta * b + beta * beta * c;
+    const double t2 = -st * e + beta * t1;
+    const double det = c * k22 - k12 * k12;
+    etas[k] = (float)(eta - (k22 * t1 * t1 - 2.0 * k12 * t1 * t2 + c * t2 * t2) / det);
+  }
+  if (t == 0) gnorm_out[0] = (float)gnorm;
+}
+
+// Sum of nb fp32 partials in float64, by one warp (lanes over the
+// partials, then the lanes in a fixed order); every lane returns it.
+__device__ __forceinline__ double fold_f64(const float* __restrict__ part, int nb) {
+  double g = 0.0;
+#pragma unroll 8
+  for (int b = threadIdx.x & 31; b < nb; b += 32) g += (double)__ldcg(part + b);
+  return repro::warp_sum(g);
+}
+
+// ------------------------------------------------ probe, register route
+template <bool ALIGNED>
+__device__ __forceinline__ void store4(float* __restrict__ row, int col, int n, float4 x) {
+  if constexpr (ALIGNED) {
+    if (col < n) *reinterpret_cast<float4*>(row + col) = x;
+  } else {
+    if (col < n) row[col] = x.x;
+    if (col + 1 < n) row[col + 1] = x.y;
+    if (col + 2 < n) row[col + 2] = x.z;
+    if (col + 3 < n) row[col + 3] = x.w;
+  }
+}
+
+// Grid (chunks, trials); block kProbeThreads.  RPW = ceil(d / 8) rows a
+// warp.  chunk: columns a block takes, a multiple of kProbeStrip.
+// part_p: (trial, d, ncp) and part_gg: (trial, ncp) scratch, ncp = chunks
+// rounded up to 4; arrivals: one int per trial, zero on entry and on exit.
+template <bool ALIGNED, int RPW>
+__global__ void __launch_bounds__(kProbeThreads, 2)
+probe_rows_kernel(const float* __restrict__ r, const float* __restrict__ minv,
+                  const float* __restrict__ s, const float* __restrict__ eta,
+                  const float* __restrict__ steps, float* __restrict__ cross,
+                  float* __restrict__ part_p, float* __restrict__ part_gg,
+                  int* __restrict__ arrivals, float* __restrict__ etas,
+                  float* __restrict__ p_out, float* __restrict__ gnorm_out, int d,
+                  int n, int chunk, int k_steps, int i) {
+  const int trial = blockIdx.y, nc = gridDim.x, ncp = (nc + 3) & ~3;
+  r += (size_t)trial * d * n;
+  s += (size_t)trial * d;
+  cross += (size_t)trial * n;
+  part_p += (size_t)trial * d * ncp;
+  part_gg += (size_t)trial * ncp;
+  __shared__ float4 shares[2][kProbeWarps][32];   // each warp's share of cross
+  __shared__ float p_s[kProbeMaxD];               // R cross; q, red: closed-form scratch
+  __shared__ double q_s[kProbeMaxD];
+  __shared__ double red[33];
+  __shared__ double gg_s;
+  __shared__ int s_last;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float sr[RPW], acc[RPW];
+#pragma unroll
+  for (int j = 0; j < RPW; ++j) {
+    const int row = warp + kProbeWarps * j;
+    sr[j] = row < d ? s[row] : 0.f;
+    acc[j] = 0.f;
+  }
+  double gg = 0.0;                                // ||cross||^2 (warp 0), float64
+  const int c0 = blockIdx.x * chunk, c1 = min(c0 + chunk, n);
+  int buf = 0;
+  for (int c = c0; c < c1; c += kProbeStrip, buf ^= 1) {
+    const int col = c + 4 * lane;
+    float4 x[RPW];
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) {
+      const int row = warp + kProbeWarps * j;
+      x[j] = row < d ? repro::load4<ALIGNED, true>(r + (size_t)row * n, col, n) : zero;
+    }
+    float4 cw = zero;
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) {
+      cw.x = fmaf(sr[j], x[j].x, cw.x);
+      cw.y = fmaf(sr[j], x[j].y, cw.y);
+      cw.z = fmaf(sr[j], x[j].z, cw.z);
+      cw.w = fmaf(sr[j], x[j].w, cw.w);
+    }
+    shares[buf][warp][lane] = cw;
+    __syncthreads();   // one barrier a strip: buf was last read two strips ago
+    float4 cr = shares[buf][0][lane];
+#pragma unroll
+    for (int w = 1; w < kProbeWarps; ++w) {
+      const float4 o = shares[buf][w][lane];
+      cr.x += o.x;
+      cr.y += o.y;
+      cr.z += o.z;
+      cr.w += o.w;
+    }
+    if (warp == 0) {
+      store4<ALIGNED>(cross, col, n, cr);
+      gg = fma((double)cr.x, (double)cr.x, gg);
+      gg = fma((double)cr.y, (double)cr.y, gg);
+      gg = fma((double)cr.z, (double)cr.z, gg);
+      gg = fma((double)cr.w, (double)cr.w, gg);
+    }
+#pragma unroll
+    for (int j = 0; j < RPW; ++j) acc[j] = repro::dot4(x[j], cr, acc[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < RPW; ++j) {
+    const int row = warp + kProbeWarps * j;
+    const float tot = repro::warp_sum(acc[j]);
+    if (lane == 0 && row < d) part_p[(size_t)row * ncp + blockIdx.x] = tot;
+  }
+  if (warp == 0) {
+    gg = repro::warp_sum(gg);
+    if (lane == 0) part_gg[blockIdx.x] = (float)gg;
+  }
+
+  // the last block of this trial to arrive sums the chunks in chunk order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(arrivals + trial, 1) == nc - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  repro::fold_rows(part_p, ncp, nc, d, p_s);
+  if (warp == 0) {
+    const double tot = fold_f64(part_gg, nc);
+    if (lane == 0) gg_s = tot;
+  }
+  __syncthreads();
+  probe_closed_form(p_s, q_s, red, gg_s,
+                    minv + (size_t)trial * d * d, s, eta[trial], steps, k_steps, d, i,
+                    (float)n, etas + (size_t)trial * k_steps, p_out + (size_t)trial * d,
+                    gnorm_out + trial);
+  if (threadIdx.x == 0) arrivals[trial] = 0;                // ready for the next call
+}
+
+using RowsKernel = decltype(&probe_rows_kernel<true, 1>);
+
+template <bool ALIGNED, int... R>
+RowsKernel rows_kernel(int rpw, std::integer_sequence<int, R...>) {
+  static const RowsKernel table[] = {probe_rows_kernel<ALIGNED, R + 1>...};
+  return table[rpw - 1];
+}
+
+// probe_rows_kernel for d rows (rpw = ceil(d / 8) <= kProbeMaxRows).
+template <bool ALIGNED>
+RowsKernel rows_kernel_for(int d) {
+  return rows_kernel<ALIGNED>((d + kProbeWarps - 1) / kProbeWarps,
+                              std::make_integer_sequence<int, kProbeMaxRows>{});
+}
+
+// -------------------------------------------------- probe, shared route
 // blockDim.x = bn (a multiple of 32); dynamic shared memory holds the
 // (d, bn) tile, cross for the bn columns, s, and reduction scratch.
 __global__ void probe_pass_kernel(const float* __restrict__ r,
@@ -100,78 +348,35 @@ __global__ void probe_pass_kernel(const float* __restrict__ r,
 }
 
 // One block of kFinishThreads per trial (blockIdx.x).  Dynamic shared
-// memory: p (d), q (d), red (33).
+// memory: q (d doubles), red (33 doubles), gg (1 double), p (d floats).
 __global__ void __launch_bounds__(kFinishThreads)
 probe_finish_kernel(const float* __restrict__ part_p,
                     const float* __restrict__ part_gg, int nb,
                     const float* __restrict__ minv,
                     const float* __restrict__ s,
-                    const float* __restrict__ eta_p,
+                    const float* __restrict__ eta,
                     const float* __restrict__ steps, int k_steps, int d,
                     int i, float m, float* __restrict__ etas,
                     float* __restrict__ p_out, float* __restrict__ gnorm_out) {
-  extern __shared__ float smem[];
+  extern __shared__ double smem_d[];
   const size_t b_ = blockIdx.x;                             // the trial
   part_p += b_ * nb * d;
   part_gg += b_ * nb;
-  minv += b_ * d * d;
-  s += b_ * d;
-  eta_p += b_;
-  etas += b_ * k_steps;
-  p_out += b_ * d;
-  gnorm_out += b_;
-  float* p = smem;
-  float* q = p + d;
-  float* red = q + d;
+  double* q = smem_d;
+  double* red = q + d;
+  double* gg = red + 33;
+  float* p = reinterpret_cast<float*>(gg + 1);
   const int t = threadIdx.x, warp = t >> 5, nw = kFinishThreads >> 5;
 
   repro::reduce_partials(part_p, nb, d, 1.f, p, warp, nw);  // R cross
-  float g = 0.f;
-  for (int b = t; b < nb; b += kFinishThreads) g += part_gg[b];
-  const float gg_cross = repro::block_sum(g, red);          // syncs p too
-
-  const float s_i = s[i];
-  const float scale = 2.0f * s_i / m;
-  const float gnorm = sqrtf(gg_cross) * fabsf(scale) + 1e-30f;
-  const float coef = scale / (m * gnorm);
-  for (int k = t; k < d; k += kFinishThreads) {
-    p[k] = coef * p[k];                                     // R g_unit / m
-    p_out[k] = p[k];
+  if (warp == 0) {
+    const double tot = fold_f64(part_gg, nb);
+    if ((t & 31) == 0) gg[0] = tot;
   }
   __syncthreads();
-  const int lane = t & 31;
-  for (int row = warp; row < d; row += nw) {                // q = m_inv p
-    const float* mr = minv + (size_t)row * d;
-    float acc = 0.f;
-    for (int c = lane; c < d; c += 32) acc = fmaf(mr[c], p[c], acc);
-    acc = repro::warp_sum(acc);
-    if (lane == 0) q[row] = acc;
-  }
-  float pa = 0.f, pe = 0.f;
-  __syncthreads();
-  for (int k = t; k < d; k += kFinishThreads) {
-    pa = fmaf(p[k], q[k], pa);
-    pe = fmaf(p[k], s[k], pe);
-  }
-  const float a = repro::block_sum(pa, red);                // <p, q>
-  const float e = repro::block_sum(pe, red);                // <p, s>
-  const float b = q[i];
-  const float c = minv[(size_t)i * d + i];
-  const float t1 = s_i;
-  const float ratio = scale / gnorm;
-  const float gg = ratio * ratio * gg_cross;                // <g_unit, g_unit>
-  const float c2h = gg / (2.0f * m);
-  const float eta = eta_p[0];
-  for (int k = t; k < k_steps; k += kFinishThreads) {
-    const float st = steps[k];
-    const float beta = c2h * st * st;                       // alpha = 1: c1h = 0
-    const float k12 = 1.0f - st * b + beta * c;
-    const float k22 = st * st * a - 2.0f * st * beta * b + beta * beta * c;
-    const float t2 = -st * e + beta * t1;
-    const float det = c * k22 - k12 * k12;
-    etas[k] = eta - (k22 * t1 * t1 - 2.0f * k12 * t1 * t2 + c * t2 * t2) / det;
-  }
-  if (t == 0) gnorm_out[0] = gnorm;
+  probe_closed_form(p, q, red, gg[0], minv + b_ * d * d, s + b_ * d, eta[b_], steps,
+                    k_steps, d, i, m, etas + b_ * k_steps, p_out + b_ * d,
+                    gnorm_out + b_);
 }
 
 // --------------------------------------------------------------- commit pass
@@ -302,12 +507,29 @@ commit_finish_kernel(const float* __restrict__ part_w,
   }
 }
 
+// route 0 (registers): chunk columns a block, a multiple of kProbeStrip;
+// scratch holds part_p (batch, d, ncp) then part_gg (batch, ncp), ncp =
+// chunks rounded up to 4; arrivals >= batch zeroed ints.  route 1 (shared):
+// chunk = bn, a multiple of 32 of at most 256; scratch holds part_p (batch,
+// nb, d) then part_gg (batch, nb); arrivals unused.
 int launch_probe(const float* r, const float* minv, const float* s,
                  const float* eta, const float* steps, float* cross,
-                 float* part_p, float* part_gg, float* etas, float* p,
-                 float* gnorm, int d, int n, int bn, int k_steps, int i,
-                 int batch, cudaStream_t st) {
-  const int nb = (n + bn - 1) / bn;
+                 float* scratch, int* arrivals, float* etas, float* p,
+                 float* gnorm, int d, int n, int k_steps, int i, int route,
+                 int chunk, int aligned, int batch, cudaStream_t st) {
+  const int nb = (n + chunk - 1) / chunk;
+  float* part_p = scratch;
+  float* part_gg = scratch + (size_t)batch * d * (route == 0 ? (nb + 3) & ~3 : nb);
+  if (route == 0) {
+    if (d > kProbeMaxD || chunk % kProbeStrip) return cudaErrorInvalidValue;
+    const RowsKernel kernel = aligned ? rows_kernel_for<true>(d) : rows_kernel_for<false>(d);
+    kernel<<<dim3(nb, batch), kProbeThreads, 0, st>>>(r, minv, s, eta, steps, cross, part_p,
+                                                      part_gg, arrivals, etas, p, gnorm, d, n,
+                                                      chunk, k_steps, i);
+    return cudaGetLastError();
+  }
+  const int bn = chunk;
+  if (bn % 32 || bn > 256) return cudaErrorInvalidValue;
   const size_t smem = ((size_t)d * bn + bn + d + 33) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       probe_pass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -316,7 +538,7 @@ int launch_probe(const float* r, const float* minv, const float* s,
                                                        part_gg, d, n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t smem2 = ((size_t)2 * d + 33) * sizeof(float);
+  const size_t smem2 = ((size_t)d + 34) * sizeof(double) + (size_t)d * sizeof(float);
   probe_finish_kernel<<<batch, kFinishThreads, smem2, st>>>(
       part_p, part_gg, nb, minv, s, eta, steps, k_steps, d, i, (float)n, etas,
       p, gnorm);
@@ -343,32 +565,43 @@ int launch_commit(const float* r, const float* delta, const float* minv,
 
 }  // namespace
 
-// r (d, n), s (d,), m_inv (d, d), steps (k_steps,), eta (1,) fp32.
-// Scratch: part_p (nb, d), part_gg (nb,) with nb = ceil(n / bn).
-// Outputs: cross (n,), etas (k_steps,), p (d,), gnorm (1,).
-extern "C" int repro_probe_sweep(const float* r, const float* minv,
-                                 const float* s, const float* eta,
-                                 const float* steps, float* cross,
-                                 float* part_p, float* part_gg, float* etas,
-                                 float* p, float* gnorm, int d, int n, int bn,
-                                 int k_steps, int i, void* stream) {
-  return launch_probe(r, minv, s, eta, steps, cross, part_p, part_gg, etas, p,
-                      gnorm, d, n, bn, k_steps, i, 1,
+// Every operand with a leading trial axis of `batch`: r (batch, d, n),
+// m_inv (batch, d, d), s (batch, d), eta (batch,), except steps (k_steps,),
+// which every trial shares.  Outputs: cross (batch, n), etas (batch,
+// k_steps), p (batch, d), gnorm (batch,).  route, chunk and the scratch as
+// in launch_probe; the wrapper picks them from (d, n) and the card, never
+// from the batch.  aligned != 0 only if n % 4 == 0 and r is 16-byte aligned.
+extern "C" int repro_probe_sweep_batched(
+    const float* r, const float* minv, const float* s, const float* eta,
+    const float* steps, float* cross, float* scratch, int* arrivals,
+    float* etas, float* p, float* gnorm, int d, int n, int k_steps, int i,
+    int route, int chunk, int aligned, int batch, void* stream) {
+  return launch_probe(r, minv, s, eta, steps, cross, scratch, arrivals, etas,
+                      p, gnorm, d, n, k_steps, i, route, chunk, aligned, batch,
                       static_cast<cudaStream_t>(stream));
 }
 
-// Every operand of repro_probe_sweep with a leading trial axis of `batch`
-// (r (batch, d, n), m_inv (batch, d, d), s (batch, d), eta (batch,), scratch
-// (batch, nb, d) and (batch, nb), outputs (batch, ...)), except steps
-// (k_steps,), which every trial shares.  bn is the single-trial launch's.
-extern "C" int repro_probe_sweep_batched(
-    const float* r, const float* minv, const float* s, const float* eta,
-    const float* steps, float* cross, float* part_p, float* part_gg,
-    float* etas, float* p, float* gnorm, int d, int n, int bn, int k_steps,
-    int i, int batch, void* stream) {
-  return launch_probe(r, minv, s, eta, steps, cross, part_p, part_gg, etas, p,
-                      gnorm, d, n, bn, k_steps, i, batch,
-                      static_cast<cudaStream_t>(stream));
+// The same for one trial: r (d, n), s (d,), m_inv (d, d), eta (1,).
+extern "C" int repro_probe_sweep(const float* r, const float* minv,
+                                 const float* s, const float* eta,
+                                 const float* steps, float* cross,
+                                 float* scratch, int* arrivals, float* etas,
+                                 float* p, float* gnorm, int d, int n,
+                                 int k_steps, int i, int route, int chunk,
+                                 int aligned, void* stream) {
+  return repro_probe_sweep_batched(r, minv, s, eta, steps, cross, scratch,
+                                   arrivals, etas, p, gnorm, d, n, k_steps, i,
+                                   route, chunk, aligned, 1, stream);
+}
+
+// Blocks of the register route's kernel for d rows that one SM holds at
+// once, for the wrapper's geometry; 0 on error.
+extern "C" int repro_probe_blocks_per_sm(int d) {
+  if (d < 1 || d > kProbeMaxD) return 0;
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, rows_kernel_for<true>(d), kProbeThreads, 0);
+  return err == cudaSuccess ? blocks : 0;
 }
 
 // r (d, n), delta (n,), m_inv (d, d), s (d,); eta, threshold, can_tx (1,)

@@ -15,7 +15,9 @@ a build takes seconds, not minutes).
 
 Every launch goes through `launch`: pointers from `Tensor.data_ptr()`, the
 stream from `torch.cuda.current_stream()`, and the C function's return code
-— `cudaGetLastError()` after its launches — checked and raised on.
+— `cudaGetLastError()` after its launches — checked and raised on.  The C
+prototype of each (symbol, argument types) is set once and kept, so a launch
+costs the host one pass over its arguments.
 
 `LAUNCHES` counts kernel launches by wrapper name.  Each ops wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
@@ -36,8 +38,9 @@ from typing import Dict, List
 
 import torch
 
-__all__ = ["LAUNCHES", "KernelBuildError", "as_f32", "build_all", "build_log",
-           "check_cuda_tensor", "launch", "on_cpu", "query", "reset_launches"]
+__all__ = ["LAUNCHES", "KernelBuildError", "arrivals", "as_f32", "build_all",
+           "build_log", "check_cuda_tensor", "launch", "on_cpu", "query",
+           "reset_launches", "sm_count"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -167,16 +170,27 @@ def check_cuda_tensor(name: str, t: torch.Tensor, shape=None) -> None:
                          f"got {tuple(t.shape)}")
 
 
-def _ctype(arg):
-    if isinstance(arg, torch.Tensor):
-        return ctypes.c_void_p, ctypes.c_void_p(arg.data_ptr())
-    if isinstance(arg, bool):
-        raise TypeError("pass kernel flags as int or float, not bool")
-    if isinstance(arg, int):
-        return ctypes.c_int, ctypes.c_int(arg)
-    if isinstance(arg, float):
-        return ctypes.c_float, ctypes.c_float(arg)
-    raise TypeError(f"unsupported kernel argument type {type(arg).__name__}")
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_ARRIVALS: Dict = {}
+
+
+def arrivals(device: torch.device, count: int) -> torch.Tensor:
+    """At least `count` zeroed int32 arrival counters for the kernels whose
+    last-arriving block sums the others' partials (row_gram, probe_sweep),
+    kept per device and current stream and grown on demand.  Every launch
+    leaves them zero, and launches on one stream run one after another, so
+    those kernels share them."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    have = _ARRIVALS.get(key)
+    if have is None or have.numel() < count:
+        have = torch.zeros(max(count, 64), dtype=torch.int32, device=device)
+        _ARRIVALS[key] = have
+    return have
 
 
 def query(source: str, symbol: str, *args: int) -> int:
@@ -188,23 +202,46 @@ def query(source: str, symbol: str, *args: int) -> int:
     return fn(*args)
 
 
+@functools.lru_cache(maxsize=None)
+def _function(source: str, symbol: str, types: tuple):
+    """`symbol` of csrc/<source>.cu as a C function of `types` and then the
+    stream, returning int: a function object of its own per prototype."""
+    fn = _libraries()[source][symbol]
+    fn.argtypes = [*types, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def launch(source: str, symbol: str, *args) -> None:
     """Call `symbol` of the library built from csrc/<source>.cu with `args`
     (tensors by device pointer, ints, floats) on the current CUDA stream,
     and raise if the launch reports an error."""
-    lib = _libraries()[source]
-    devices = {a.device for a in args if isinstance(a, torch.Tensor)}
-    if devices != {torch.device("cuda", 0)} or torch.cuda.current_device() != 0:
-        # the libraries' own CUDA runtime launches on device 0
-        raise ValueError(f"{source}.{symbol}: the kernels run on cuda:0, got "
-                         f"tensors on {sorted(map(str, devices))}")
-    fn = getattr(lib, symbol)
-    types, values = zip(*(_ctype(a) for a in args))
-    fn.argtypes = [*types, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*values, ctypes.c_void_p(stream))
+    values, types = [], []
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            if a.get_device() != 0:
+                # the libraries' own CUDA runtime launches on device 0
+                raise ValueError(f"{source}.{symbol}: the kernels run on cuda:0, got a "
+                                 f"tensor on {a.device}")
+            values.append(a.data_ptr())
+            types.append(ctypes.c_void_p)
+        elif isinstance(a, bool):
+            raise TypeError("pass kernel flags as int or float, not bool")
+        elif isinstance(a, int):
+            values.append(a)
+            types.append(ctypes.c_int)
+        elif isinstance(a, float):
+            values.append(a)
+            types.append(ctypes.c_float)
+        else:
+            raise TypeError(f"unsupported kernel argument type {type(a).__name__}")
+    if torch.cuda.current_device() != 0:
+        raise ValueError(f"{source}.{symbol}: the kernels run on cuda:0, the current "
+                         f"device is {torch.cuda.current_device()}")
+    fn = _function(source, symbol, tuple(types))
+    rc = fn(*values, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
+        lib = _libraries()[source]
         lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         msg = lib.repro_error_string(rc).decode()

@@ -89,11 +89,6 @@ def _workspace(device: torch.device, stream: int, pairs: int, n_part: int):
     return arrivals, part
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sm(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def flash_decode(q, k, v, idx, *, window: int = 0) -> torch.Tensor:
     """q (B,Hq,dh); k,v (B,S,Hkv,dh); idx the fill position (inclusive) ->
     (B,Hq,dh) in q's dtype."""
@@ -121,7 +116,7 @@ def flash_decode(q, k, v, idx, *, window: int = 0) -> torch.Tensor:
     if b == 0 or lo >= hi:
         raise ValueError(f"flash_decode: no cache position to attend "
                          f"(B={b}, S={s}, idx={idx}, window={window})")
-    chunk, nsplit = decode_geometry(hi - lo, b * hkv, tile, _n_sm(q.device.index or 0))
+    chunk, nsplit = decode_geometry(hi - lo, b * hkv, tile, _build.sm_count(q.device.index or 0))
     arrivals, part = _workspace(q.device, torch.cuda.current_stream(q.device).cuda_stream,
                                 b * hkv, partial_floats(b * hkv, nsplit, g, dh))
     out = torch.empty_like(q)

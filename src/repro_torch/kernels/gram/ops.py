@@ -23,7 +23,7 @@ functions the CPU tests hold:
   grid is whole waves.  The sum over strips happens in the same launch:
   the last block of a trial to arrive adds them in block order, picked by
   an integer counter that lives in a workspace kept per device and stream
-  (`_arrivals`), zeroed once and left zero by every call.
+  (`_build.arrivals`), zeroed once and left zero by every call.
 
 Blocks per SM come from the kernels' library (occupancy at their
 registers and shared memory), so they need the card.  The 16-byte load
@@ -128,11 +128,6 @@ def row_gram_partial_floats(d: int, blocks: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _n_sm(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def blocks_per_sm(kind: str, threads: int = 0, kg: int = 0, smem: int = 0) -> int:
     """Blocks of the gram ("gram", with its threads, groups and shared memory) or
     row_gram ("row_gram") kernel that one SM holds, from the library's
@@ -151,20 +146,6 @@ def aligned16(n: int, *tensors: torch.Tensor) -> int:
     return int(n % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors))
 
 
-_ARRIVALS = {}
-
-
-def _arrivals(device: torch.device, stream: int, count: int) -> torch.Tensor:
-    """At least `count` zeroed int32 arrival counters for row_gram calls on
-    (device, stream), grown on demand; every launch leaves them zero."""
-    key = (str(device), stream)
-    have = _ARRIVALS.get(key)
-    if have is None or have.numel() < count:
-        have = torch.zeros(max(count, 64), dtype=torch.int32, device=device)
-        _ARRIVALS[key] = have
-    return have
-
-
 def gram(r: torch.Tensor) -> torch.Tensor:
     """(D, N) -> fp32 (D, D) = R @ R^T with fp32 accumulation; (B, D, N) ->
     fp32 (B, D, D), one product per trial."""
@@ -179,7 +160,7 @@ def gram(r: torch.Tensor) -> torch.Tensor:
     r32 = as_f32(r)
     threads, kg, smem = gram_block(d)
     # the single-trial geometry for every trial, never shrunk for the batch
-    chunk, splits = gram_geometry(d, n, _n_sm(r.device.index or 0),
+    chunk, splits = gram_geometry(d, n, _build.sm_count(r.device.index or 0),
                                   blocks_per_sm("gram", threads, kg, smem))
     b = r.shape[0] if batched else 1
     f32 = dict(dtype=torch.float32, device=r.device)
@@ -213,10 +194,10 @@ def row_gram(v: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     _build.check_cuda_tensor("row_gram: r", r)
     _build.check_cuda_tensor("row_gram: v", v, None if batched else (n,))
     r32, v32 = as_f32(r), as_f32(v)
-    strip, blocks = row_gram_geometry(n, _n_sm(r.device.index or 0),
+    strip, blocks = row_gram_geometry(n, _build.sm_count(r.device.index or 0),
                                       blocks_per_sm("row_gram"))
     b = r.shape[0] if batched else 1
-    arrivals = _arrivals(r.device, torch.cuda.current_stream(r.device).cuda_stream, b)
+    arrivals = _build.arrivals(r.device, b)
     part = torch.empty((b, row_gram_partial_floats(d, blocks)), dtype=torch.float32,
                        device=r.device)
     out = torch.empty((b, d) if batched else (d,), dtype=torch.float32, device=r.device)

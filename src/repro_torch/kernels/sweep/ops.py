@@ -3,10 +3,15 @@
 
 Twins of repro.kernels.sweep.ops.  Numerical contract of the TPU kernels:
 inputs read as fp32, fp32 accumulation, the closed-form epilogue algebra in
-fp32, outputs cast back to the input dtype.  The TPU packing — D padded to
-128, (Dp, 8) column packs, (8, Np) row packs, the (8, 128) parameter plate —
-is gone: vectors travel as (D,) and (N,), and eta / threshold / can_tx as
-one-element device tensors, so a commit needs no host round trip.
+fp32, outputs cast back to the input dtype.  The probe kernel keeps it for
+its streaming sums over N but takes ||cross||^2 and the closed form in
+float64: near a pole of the step schedule the fp32 algebra alone moves an
+eta by ~1e-4 of the largest (the plain version's own distance from float64
+there), so the kernel is the more accurate of the two.  The TPU packing —
+D padded to 128, (Dp, 8) column packs, (8, Np) row packs, the (8, 128)
+parameter plate — is gone: vectors travel as (D,) and (N,), and eta /
+threshold / can_tx as one-element device tensors, so a commit needs no host
+round trip.
 
 Both take an optional leading Monte-Carlo trial axis: with r of shape
 (B, D, N), every operand carries the trial axis (eta, threshold and can_tx
@@ -16,37 +21,112 @@ package's custom_vmap rules (repro/kernels/sweep/ops.py).  Trial b gets the
 single-trial kernel's blocks and summation order, so slice b equals the
 single-trial result bit for bit.
 
+The probe has two routes, chosen by D (`probe_route`; csrc/sweep.cu's
+header has the designs): up to D = 128 the register route, one launch whose
+last-arriving block per trial sums the chunks' partials and runs the closed
+form; above it the shared-memory route, a (D, BN) tile per block and a
+second, one-block finish launch.  `probe_geometry(d, n, batch, n_sm,
+blocks_per_sm)` holds the launch shape as a pure function the CPU tests pin:
+on the register route N is cut into 128-column strips and the strips into
+about one wave of chunks, from (D, N) and the card only, so the batch adds
+a grid dimension and nothing else.  Blocks per SM come from the kernel's
+library (`probe_blocks_per_sm`, needs the card).  The 16-byte load path
+runs where N % 4 == 0 and r starts on 16 bytes; else the same kernel loads 4
+bytes at a time (same sums, same bits).
+
 A CPU tensor runs the plain version (ref.py, in fp32); a CUDA tensor
 launches the kernel or raises.
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Union
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import as_f32
+from repro_torch.kernels.gram.ops import aligned16
 from repro_torch.kernels.sweep import ref
 
-__all__ = ["probe_sweep", "commit_sweep", "probe_block_n", "COMMIT_BN"]
+__all__ = ["probe_sweep", "commit_sweep", "probe_block_n", "probe_route",
+           "probe_rows_per_warp", "probe_geometry", "probe_blocks_per_sm",
+           "ProbeGeometry", "COMMIT_BN", "PROBE_REGISTER_MAX_D"]
 
 COMMIT_BN = 1024               # columns per commit block (kCommitBn in sweep.cu)
 _SMEM_FLOATS = 232448 // 4     # 227 KB: the most shared memory a block may use
+PROBE_WARPS = 8                # register route: warps a block (kProbeThreads / 32)
+PROBE_STRIP = 128              # columns a block takes at once, 4 a lane (kProbeStrip)
+PROBE_MAX_ROWS = 16            # rows a warp holds in registers (kProbeMaxRows)
+PROBE_REGISTER_MAX_D = PROBE_WARPS * PROBE_MAX_ROWS   # 128
+ROUTES = ("registers", "shared")   # the kernel's route codes 0 and 1
 
 Scalar = Union[float, torch.Tensor]
 
 
 def probe_block_n(d: int) -> int:
-    """Columns per probe block: the widest multiple of 32 (at most 256) whose
-    (d, bn) residual tile, cross strip, s and scratch fit shared memory."""
+    """Columns per block on the shared-memory route: the widest multiple of
+    32 (at most 256) whose (d, bn) residual tile, cross strip, s and scratch
+    fit shared memory."""
     bn = min(256, (_SMEM_FLOATS - d - 33) // (d + 1) // 32 * 32)
     if bn < 32:
         raise ValueError(
             f"probe_sweep keeps a (D, 32) residual tile in shared memory; "
             f"D={d} is too large for the kernel")
     return bn
+
+
+def probe_route(d: int) -> str:
+    """"registers" while each warp's rows fit its registers (D <= 128), else
+    "shared"."""
+    return "registers" if d <= PROBE_REGISTER_MAX_D else "shared"
+
+
+def probe_rows_per_warp(d: int) -> int:
+    """Rows of R a warp holds on the register route: rows w, w + 8, ..."""
+    return -(-d // PROBE_WARPS)
+
+
+class ProbeGeometry(NamedTuple):
+    route: str                # "registers" or "shared"
+    chunk: int                # columns of N a block takes
+    blocks: int               # blocks a trial, ceil(n / chunk)
+    grid: Tuple[int, int]     # (blocks, batch)
+    part_p: int               # fp32 scratch a trial: the row partials
+    part_gg: int              # fp32 scratch a trial: the ||cross||^2 partials
+
+
+def probe_geometry(d: int, n: int, batch: int = 1, n_sm: int = 132,
+                   blocks_per_sm: int = 2) -> ProbeGeometry:
+    """The probe's launch for (d, n) and `batch` trials.  Register route:
+    the fewest 128-column strips a chunk at which one wave of n_sm x
+    blocks_per_sm blocks covers N, one block a chunk, partials (d, blocks
+    rounded up to 4) and (blocks rounded up to 4).  Shared route: BN-column
+    blocks (`probe_block_n`), partials (blocks, d) and (blocks,).  Only the
+    grid's second entry depends on the batch."""
+    if probe_route(d) == "registers":
+        strips = -(-n // PROBE_STRIP)
+        chunk = PROBE_STRIP * -(-strips // (n_sm * blocks_per_sm))
+        blocks = -(-n // chunk)
+        padded = -(-blocks // 4) * 4
+        return ProbeGeometry("registers", chunk, blocks, (blocks, batch),
+                             d * padded, padded)
+    chunk = probe_block_n(d)
+    blocks = -(-n // chunk)
+    return ProbeGeometry("shared", chunk, blocks, (blocks, batch), blocks * d,
+                         blocks)
+
+
+@functools.lru_cache(maxsize=None)
+def probe_blocks_per_sm(d: int) -> int:
+    """Blocks of the register route's kernel for d rows that one SM holds,
+    from the library's occupancy query.  Needs the card."""
+    got = _build.query("sweep", "repro_probe_blocks_per_sm", d)
+    if got < 1:
+        raise RuntimeError(f"probe_sweep: the card holds no block of the register "
+                           f"route at D={d}")
+    return got
 
 
 def _device_scalar(x, device: torch.device) -> torch.Tensor:
@@ -112,21 +192,38 @@ def probe_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
     _build.check_cuda_tensor("probe_sweep: m_inv", m_inv, (d, d))
     _build.check_cuda_tensor("probe_sweep: s", s, (d,))
     _build.check_cuda_tensor("probe_sweep: steps", steps, (k,))
-    bn = probe_block_n(d)
-    nb = math.ceil(n / bn)
-    dev = r.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    cross = torch.empty((n,), **f32)
-    part_p = torch.empty((nb, d), **f32)
-    part_gg = torch.empty((nb,), **f32)
-    etas = torch.empty((k,), **f32)
-    p = torch.empty((d,), **f32)
-    gnorm = torch.empty((1,), **f32)
-    _build.launch("sweep", "repro_probe_sweep", as_f32(r), as_f32(m_inv),
-                  as_f32(s), _device_scalar(eta, dev), as_f32(steps), cross,
-                  part_p, part_gg, etas, p, gnorm, d, n, bn, k, i)
+    etas, cross, p, gnorm = _launch_probe(r, m_inv, s,
+                                          _device_scalar(eta, r.device), i,
+                                          steps, None)
     _build.LAUNCHES["probe_sweep"] += 1
     return etas.to(dt), cross.to(dt), p.to(dt), gnorm[0].to(dt)
+
+
+def _launch_probe(r, m_inv, s, eta, i, steps, batch):
+    """The probe kernel on checked CUDA operands (eta a device tensor);
+    batch None for one trial, else the trial count of r's leading axis."""
+    d, n = r.shape[-2:]
+    k = steps.shape[0]
+    b = batch or 1
+    dev = r.device
+    r32 = as_f32(r)
+    bps = probe_blocks_per_sm(d) if probe_route(d) == "registers" else 1
+    geo = probe_geometry(d, n, b, _build.sm_count(dev.index or 0), bps)
+    lead = (batch,) if batch else ()
+    f32 = dict(dtype=torch.float32, device=dev)
+    cross = torch.empty(lead + (n,), **f32)
+    etas = torch.empty(lead + (k,), **f32)
+    p = torch.empty(lead + (d,), **f32)
+    gnorm = torch.empty((b,), **f32)
+    scratch = torch.empty((b * (geo.part_p + geo.part_gg),), **f32)   # the partials
+    args = (r32, as_f32(m_inv), as_f32(s), eta, as_f32(steps), cross, scratch,
+            _build.arrivals(dev, b), etas, p, gnorm, d, n, k, i,
+            ROUTES.index(geo.route), geo.chunk, aligned16(n, r32))
+    if batch:
+        _build.launch("sweep", "repro_probe_sweep_batched", *args, batch)
+    else:
+        _build.launch("sweep", "repro_probe_sweep", *args)
+    return etas, cross, p, gnorm
 
 
 def commit_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
@@ -195,20 +292,9 @@ def _probe_sweep_batched(r, m_inv, s, eta, i, steps):
     _build.check_cuda_tensor("probe_sweep: m_inv", m_inv)
     _build.check_cuda_tensor("probe_sweep: s", s)
     _build.check_cuda_tensor("probe_sweep: steps", steps, (k,))
-    bn = probe_block_n(d)                      # the single-trial launch's
-    nb = math.ceil(n / bn)
-    dev = r.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    cross = torch.empty((b, n), **f32)
-    part_p = torch.empty((b, nb, d), **f32)
-    part_gg = torch.empty((b, nb), **f32)
-    etas = torch.empty((b, k), **f32)
-    p = torch.empty((b, d), **f32)
-    gnorm = torch.empty((b,), **f32)
-    _build.launch("sweep", "repro_probe_sweep_batched", as_f32(r),
-                  as_f32(m_inv), as_f32(s), _device_vector(eta, b, dev),
-                  as_f32(steps), cross, part_p, part_gg, etas, p, gnorm, d, n,
-                  bn, k, i, b)
+    etas, cross, p, gnorm = _launch_probe(r, m_inv, s,
+                                          _device_vector(eta, b, r.device), i,
+                                          steps, b)
     _build.LAUNCHES["probe_sweep_batched"] += 1
     return etas.to(dt), cross.to(dt), p.to(dt), gnorm.to(dt)
 

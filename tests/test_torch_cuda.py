@@ -10,7 +10,11 @@ also runs where only PyTorch is installed:
 
 Tolerances are normwise (max |kernel - plain| <= tol * max |plain|): 1e-5
 for the Gram products, 1e-4 for the sweep kernels, whose closed-form
-epilogue divides by SMW pivots (both sides fp32).  The batched kernels
+epilogue divides by SMW pivots.  The probe kernel evaluates that epilogue
+(and ||cross||^2) in float64, so its plain version is evaluated in float64
+on the same fp32 inputs: near a pole of the step schedule the fp32 plain
+version is itself more than 1e-4 (normwise) from the float64 value on the
+card (test_batched_kernels_match_plain_and_single[100-20000-3]).  The batched kernels
 must give trial b exactly the single-trial kernel's bits (torch.equal).
 The LM kernels (flash attention, flash decode, WKV) are held to 1e-5 in
 fp32 and to 8e-3 in bf16 (about two bf16 roundings of the output: both
@@ -65,6 +69,11 @@ def _scene(d, n, seed, device):
             for k, a in out.items()}
 
 
+def _f64(args):
+    """The operands in float64, for the probe's plain version (see above)."""
+    return tuple(a.double() if isinstance(a, torch.Tensor) else a for a in args)
+
+
 def _close(got, want, tol, what):
     err = float((got.double() - want.double()).abs().max())
     scale = max(float(want.double().abs().max()), 1e-30)
@@ -89,10 +98,11 @@ def _unaligned_copy(x):
 
 @pytest.mark.parametrize("d,n", GRAM_CASES)
 def test_kernels_match_plain(card, d, n):
-    """Each kernel against its plain version; gram and row_gram also give
-    the same bits twice, on a copy that starts off 16-byte alignment (the
-    4-byte load path), and after a call of another geometry (row_gram's
-    arrival counters are left zero); gram is exactly symmetric."""
+    """Each kernel against its plain version; gram, row_gram and the probe
+    also give the same bits twice, on a copy that starts off 16-byte
+    alignment (the 4-byte load path), and after a call of another geometry
+    (row_gram's and the probe's arrival counters are left zero); gram is
+    exactly symmetric."""
     sc = _scene(d, n, seed=d, device=card)
     i = d // 2
     before = dict(_build.LAUNCHES)
@@ -113,8 +123,16 @@ def test_kernels_match_plain(card, d, n):
     assert torch.equal(rg, gram_ops.row_gram(sc["v"], sc["r"]))
     assert torch.equal(got, gram_ops.gram(sc["r"]))
     args = (sc["r"], sc["m_inv"], sc["s"], sc["eta"], i, sc["steps"])
-    for g, w in zip(sweep_ops.probe_sweep(*args), sweep_ref.probe_sweep_ref(*args)):
+    probe = sweep_ops.probe_sweep(*args)
+    for g, w in zip(probe, sweep_ref.probe_sweep_ref(*_f64(args))):
         _close(g, w, 1e-4, "probe")
+    assert all(map(torch.equal, probe, sweep_ops.probe_sweep(*args)))
+    assert all(map(torch.equal, probe,
+                   sweep_ops.probe_sweep(_unaligned_copy(sc["r"]), *args[1:])))
+    oargs = (other["r"], other["m_inv"], other["s"], other["eta"], i, other["steps"])
+    for g, w in zip(sweep_ops.probe_sweep(*oargs), sweep_ref.probe_sweep_ref(*_f64(oargs))):
+        _close(g, w, 1e-4, "probe (other)")
+    assert all(map(torch.equal, probe, sweep_ops.probe_sweep(*args)))
     for thr in (float("-inf"), float("inf")):
         cargs = (sc["r"], sc["m_inv"], sc["s"], sc["eta"], i, sc["delta"],
                  1.0, 0.0, thr, True)
@@ -125,9 +143,9 @@ def test_kernels_match_plain(card, d, n):
         if thr > 0:    # a reject is a bitwise no-op
             assert torch.equal(got[0], sc["m_inv"]) and torch.equal(got[1], sc["s"])
     torch.cuda.synchronize()
-    # one launch per call: gram 5 calls, row_gram 5
+    # one launch per call: gram 5 calls, row_gram 5, probe 5
     assert {k: _build.LAUNCHES[k] - before[k] for k in before} == {
-        "gram": 5, "row_gram": 5, "probe_sweep": 1, "commit_sweep": 2,
+        "gram": 5, "row_gram": 5, "probe_sweep": 5, "commit_sweep": 2,
         "gram_batched": 0, "row_gram_batched": 0, "probe_sweep_batched": 0,
         "commit_sweep_batched": 0, "flash_attention": 0, "flash_attention_tc": 0,
         "flash_decode": 0, "wkv": 0}
@@ -184,7 +202,7 @@ def test_batched_kernels_match_plain_and_single(card, d, n, b):
     against the single-trial kernel on trial t, bit for bit (at N % 4 != 0
     the slices start off 16-byte alignment); a commit batch with mixed
     accept and reject keeps the rejected trials bitwise; the batched Gram
-    products give the same bits twice and on unaligned copies."""
+    products and probe give the same bits twice and on unaligned copies."""
     sc = _batch(d, n, b, card)
     i = d // 2
     _build.reset_launches()
@@ -197,7 +215,7 @@ def test_batched_kernels_match_plain_and_single(card, d, n, b):
     rg_shared = gram_ops.row_gram(sc["v"][0], sc["r"])
     args = (sc["r"], sc["m_inv"], sc["s"], sc["eta"], i, sc["steps"])
     probe = sweep_ops.probe_sweep(*args)
-    for g, w in zip(probe, sweep_ref.probe_sweep_batched_ref(*args)):
+    for g, w in zip(probe, sweep_ref.probe_sweep_batched_ref(*_f64(args))):
         _close(g, w, 1e-4, "probe_sweep_batched")
     thr = torch.tensor([-((-1.0) ** t) * math.inf for t in range(b)],
                        device=card)                  # accept, reject, accept
@@ -234,6 +252,31 @@ def test_batched_kernels_match_plain_and_single(card, d, n, b):
     assert torch.equal(got, gram_ops.gram(_unaligned_copy(sc["r"])))
     assert torch.equal(rg, gram_ops.row_gram(_unaligned_copy(sc["v"]),
                                              _unaligned_copy(sc["r"])))
+    assert all(map(torch.equal, probe, sweep_ops.probe_sweep(*args)))
+    assert all(map(torch.equal, probe,
+                   sweep_ops.probe_sweep(_unaligned_copy(sc["r"]), *args[1:])))
+
+
+@pytest.mark.parametrize("k", [1, 3, 16])
+@pytest.mark.parametrize("d,n", [(100, 20001), (300, 2002)])
+def test_probe_step_counts_match_plain(card, d, n, k):
+    """The closed-form epilogue at K = 1, 3 and 16 steps, on both routes
+    (D=100 registers, D=300 shared memory), one trial and a batch of 2,
+    against the plain versions; slice t equals the single-trial launch."""
+    sc = _batch(d, n, 2, card)
+    steps = sc["steps"][:k].contiguous()
+    i = d // 3
+    args = (sc["r"], sc["m_inv"], sc["s"], sc["eta"], i, steps)
+    probe = sweep_ops.probe_sweep(*args)
+    assert probe[0].shape == (2, k)
+    for g, w in zip(probe, sweep_ref.probe_sweep_batched_ref(*_f64(args))):
+        _close(g, w, 1e-4, f"probe_sweep_batched K={k}")
+    for t in range(2):
+        targs = (sc["r"][t], sc["m_inv"][t], sc["s"][t], sc["eta"][t], i, steps)
+        single = sweep_ops.probe_sweep(*targs)
+        for g, w in zip(single, sweep_ref.probe_sweep_ref(*_f64(targs))):
+            _close(g, w, 1e-4, f"probe_sweep K={k}")
+        assert all(torch.equal(x[t], y) for x, y in zip(probe, single))
 
 
 @pytest.mark.parametrize("engine", ["incremental", "fused"])

@@ -142,3 +142,78 @@ def test_config_rejects_unported():
         ticoa.ICOAConfig(delta=0.1).validate()
     with pytest.raises(NotImplementedError, match="A4"):
         ticoa.ICOAConfig(engine="dense").validate()
+
+
+# ------------------------------------------------------------ solver knobs
+
+KNOBS = {"accept_reject_off": dict(accept_reject=False),
+         "max_probes_1": dict(max_probes=1), "max_probes_2": dict(max_probes=2),
+         "max_probes_3": dict(max_probes=3), "backtrack_0.3": dict(backtrack=0.3),
+         "step0_0.05": dict(step0=0.05), "step0_20": dict(step0=20.0),
+         "eps_1e-3": dict(eps=1e-3), "n_sweeps_1": dict(n_sweeps=1)}
+
+
+@pytest.fixture(scope="module")
+def f64_arrays():
+    with jax.enable_x64(True):
+        return [a.astype(np.float64) for a in _friedman()]
+
+
+@pytest.fixture(scope="module")
+def jax_knob_runs(single_thread, f64_arrays):
+    """{(knob case, engine): JAX f64 history}, each run made once."""
+    cache = {}
+
+    def get(case, engine):
+        if (case, engine) not in cache:
+            cfg = {"n_sweeps": 10, "engine": engine, **KNOBS[case]}
+            with jax.enable_x64(True):
+                cache[(case, engine)] = jicoa.run(
+                    JPoly(1, 4), jicoa.ICOAConfig(**cfg),
+                    *map(jnp.asarray, f64_arrays))[2]
+        return cache[(case, engine)]
+    return get
+
+
+def _max_rel(a, b):
+    return max(float(np.max(np.abs(np.subtract(a[k], b[k])) / np.abs(b[k])))
+               for k in KEYS)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+@pytest.mark.parametrize("case", list(KNOBS))
+def test_solver_knobs_match_jax_f64(jax_knob_runs, f64_arrays, case, engine):
+    """The knobs that set the back-search schedule and the stopping rule,
+    one at a time, in float64 on both sides from the same numpy arrays:
+    histories within rtol 1e-10, bytes equal.  At step0=20 the schedule's
+    first steps are large and the closed-form pivots cancel: there the JAX
+    package's own two engines differ by up to ~1.7e-10 on this data, so the
+    bound is the larger of 1e-10 and that gap (elsewhere the gap is below
+    1e-12 and the bound is 1e-10)."""
+    hj = jax_knob_runs(case, engine)
+    cfg = {"n_sweeps": 10, "engine": engine, **KNOBS[case]}
+    ht = ticoa.run(TPoly(1, 4), ticoa.ICOAConfig(**cfg),
+                   *map(torch.from_numpy, f64_arrays))[2]
+    gap = _max_rel(jax_knob_runs(case, "fused"), jax_knob_runs(case, "incremental"))
+    _assert_history(hj, ht, rtol=max(1e-10, gap))
+    assert len(ht["eta"]) == {"n_sweeps_1": 2}.get(case, len(hj["eta"]))
+
+
+# ------------------------------------------------------------- TF32 scope
+
+
+@pytest.mark.parametrize("flag", [True, False])
+def test_run_leaves_tf32_flag_as_found(flag):
+    """run and run_scan switch TF32 off for their own products only: the
+    caller's torch.backends.cuda.matmul.allow_tf32 is the same after."""
+    xc, y, xt, yt = [torch.from_numpy(a) for a in _friedman(n=60)]
+    cfg = ticoa.ICOAConfig(n_sweeps=1)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+        ticoa.run(TPoly(1, 4), cfg, xc, y, xt, yt)
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+        ticoa.run_scan(TPoly(1, 4), cfg, xc[None], y[None], xt[None], yt[None])
+        assert torch.backends.cuda.matmul.allow_tf32 is flag
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved

@@ -286,6 +286,48 @@ def test_row_gram_geometry_covers_n(n, blocks_per_sm):
         assert (strip, blocks) == (1024, 256)           # 97% of one wave
 
 
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("blocks_per_sm", [1, 2, 3])
+@pytest.mark.parametrize("d,n", GEOMETRY_CASES)
+def test_probe_geometry_covers_n(d, n, blocks_per_sm, batch):
+    """The probe's chunks cover N with no empty chunk; only the grid's
+    trial entry depends on the batch; the register route (D <= 128) holds
+    at most 16 rows a warp in whole 128-column strips, in at most one wave
+    of 132 SMs, and its partials are padded to 4 for 16-byte loads; above
+    D = 128 the shared-memory route keeps probe_block_n's tile."""
+    geo = sweep_ops.probe_geometry(d, n, batch, 132, blocks_per_sm)
+    one = sweep_ops.probe_geometry(d, n, 1, 132, blocks_per_sm)
+    assert geo._replace(grid=None) == one._replace(grid=None)
+    assert geo.grid == (geo.blocks, batch)
+    assert (geo.blocks - 1) * geo.chunk < n <= geo.blocks * geo.chunk
+    assert geo.route == sweep_ops.probe_route(d)
+    assert geo.route == ("registers" if d <= 128 else "shared")
+    if geo.route == "registers":
+        rpw = sweep_ops.probe_rows_per_warp(d)
+        assert 1 <= rpw <= 16 and 8 * rpw >= d > 8 * (rpw - 1)
+        assert geo.chunk % 128 == 0
+        assert geo.blocks <= 132 * blocks_per_sm
+        strips = -(-n // 128)
+        assert -(-strips // (geo.chunk // 128)) == geo.blocks
+        padded = -(-geo.blocks // 4) * 4
+        assert (geo.part_p, geo.part_gg) == (d * padded, padded)
+    else:
+        assert geo.chunk == sweep_ops.probe_block_n(d)
+        assert (geo.part_p, geo.part_gg) == (geo.blocks * d, geo.blocks)
+
+
+def test_probe_route_switches_above_128_rows():
+    """The route switches where a warp would need more than 16 rows of
+    float4 registers; at the deployment shape one wave of 256 chunks of 1024
+    columns (two blocks on each of 132 SMs)."""
+    assert sweep_ops.PROBE_REGISTER_MAX_D == 128
+    assert [sweep_ops.probe_route(d) for d in (1, 100, 128, 129, 300)] == [
+        "registers", "registers", "registers", "shared", "shared"]
+    assert sweep_ops.probe_rows_per_warp(100) == 13
+    geo = sweep_ops.probe_geometry(100, 262144, 8, 132, 2)
+    assert (geo.chunk, geo.blocks, geo.grid) == (1024, 256, (256, 8))
+
+
 def test_probe_block_fits_shared_memory():
     for d in (1, 5, 100, 300, 1000, 1500):
         bn = sweep_ops.probe_block_n(d)
