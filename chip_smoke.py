@@ -13,22 +13,28 @@ Phases, each fatal on failure (nothing is caught):
               the stated tolerance, and timed (CUDA events around runs of 20
               launches, median of 5 runs) beside its plain version, the one
               PyTorch call that computes the same function where there is
-              one, and its bound on the card; gram, row_gram and the probe
-              also log their launch geometry (here and in 3b), ten calls
-              under torch.profiler split by kernel, and the host time to
-              enqueue a call beside their library call's (the probe's: the
-              pair s @ r, r @ cross, also timed on the device, and the
-              probe at one chunk of N=128, its launch and epilogue); the
-              probe is held also to its plain version in float64 (its
-              closed form runs in float64), on both routes (D=100 in
-              registers, D=300 in shared memory, N=20001), and on a copy of
-              R off 16-byte alignment (the 4-byte load path: the same bits);
+              one, and its bound on the card; gram, row_gram, the probe
+              and the commit also log their launch geometry (here and in
+              3b), ten calls under torch.profiler split by kernel, and the
+              host time to enqueue a call beside their library call's (the
+              probe's: the pair s @ r, r @ cross; the commit's: the pair
+              r @ delta, delta @ delta; each pair also timed on the device,
+              and the probe at one chunk of N=128, its launch and
+              epilogue); the probe is held also to its plain version in
+              float64 (its closed form runs in float64), on both routes
+              (D=100 in registers, D=300 in shared memory, N=20001), and on
+              a copy of R off 16-byte alignment (the 4-byte load path: the
+              same bits); the commit gives the same bits twice, on that
+              copy, and after a probe and a row_gram (the arrival counters
+              they share come back to zero), and holds at D=100, 129 and
+              300, N=20001, its accept flags equal to the plain version's,
+              a reject a bitwise no-op and m_inv' exactly symmetric;
   3b. batched the four batched kernels at B=8 trials of the same shapes: each
               against its batched plain version, slices 0 and 7 against the
               single-trial kernel on that trial bit for bit (torch.equal), a
               commit batch with mixed accept and reject (rejected trials
-              bitwise unchanged), the probe's routes and load paths as in
-              phase 3, timed as in phase 3;
+              bitwise unchanged), the probe's and the commit's paths as in
+              phase 3 (odd trials rejected), timed as in phase 3;
   4. paper    `repro_torch.api.fit` on the default ExperimentSpec (Friedman-1,
               D=5, N=2000, degree-4 agents, 10 sweeps) with use_kernel=True,
               both engines, on the card and on the CPU from the same data:
@@ -37,7 +43,10 @@ Phases, each fatal on failure (nothing is caught):
   5. deploy   the same entry point at 100 agents (correlated_linear,
               n_train=262144, n_test=65536): fused 3 sweeps, incremental 1;
               eta finite and non-increasing, ledger bytes per sweep equal to
-              the analytic count, launch counts as in phase 4;
+              the analytic count, launch counts as in phase 4; then the
+              first fused sweep from the warm start again with every
+              commit also evaluated by its plain version in float64: the
+              kernel's accept flags equal wherever the margin is clear;
   6. paper batch  `repro_torch.api.batch_fit` on the default spec, 32 trials
               (the paper's Monte Carlo), use_kernel=True, both engines: trials
               0 and 31 against `fit(trial_spec(spec, t))` on the card, the
@@ -270,16 +279,18 @@ def log_gram_geometry(gram_ops, r, v, batch: int = 1) -> None:
         f"{bool(gram_ops.aligned16(n, r, v))}; the strips summed in the same launch")
 
 
-def probe_evidence(tag: str, call, pair) -> str:
-    """Ten probe calls under torch.profiler (the device time split between
-    the probe's kernels), the host time to enqueue one call, and the device
-    time of the library pair that forms the same two products (cross = s @ r,
-    then r @ cross): two calls, so a note in the row, not its library_ms."""
+def evidence(tag: str, call, pair, pair_name: str) -> str:
+    """Ten calls of a sweep kernel under torch.profiler (the device time
+    split between its kernels), the host time to enqueue one call, and the
+    device time of the library pair that forms the same streaming products
+    (the probe: cross = s @ r, then r @ cross; the commit: r @ delta and
+    delta @ delta): two calls and no epilogue, so a note in the row, not its
+    library_ms."""
     profile_window(tag, "calls", lambda: [call() for _ in range(10)], 10)
     pair_ms = time_ms(pair)
     log(f"[kernel] {tag} host enqueue {host_us(call):.1f} us a call; library pair "
         f"{host_us(pair):.1f} us; library pair device time {pair_ms:.4f} ms")
-    return f"library pair s @ r, r @ cross (two calls): {pair_ms:.4f} ms"
+    return f"library pair {pair_name} (two calls): {pair_ms:.4f} ms"
 
 
 def unaligned_copy(x):
@@ -353,6 +364,82 @@ def check_probe_routes(sweep_ops, sweep_ref, gen, dev, got, args, batch: int) ->
         f"every call the same bits twice")
 
 
+def log_commit_geometry(sweep_ops, d: int, n: int, batch: int) -> None:
+    """The commit's launch geometry for (d, n) on a [kernel] line."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    bps = sweep_ops.commit_blocks_per_sm(d)
+    geo = sweep_ops.commit_geometry(d, n, batch, n_sm, bps)
+    log(f"[kernel] commit geometry D={d} N={n} B={batch}: {geo.blocks} strips of "
+        f"{geo.strip} columns x {batch} trial(s) = {geo.blocks * batch} blocks of 256 "
+        f"threads, {bps} per SM ({geo.blocks / (n_sm * bps):.3f} waves per trial); the "
+        f"strips folded and the epilogue run in the same launch")
+
+
+COMMIT_OUT = ("m_inv", "s", "u_eff", "obj_post")
+
+
+def check_commit(name, got, want, m_inv, s, flags):
+    """A commit against its plain version (1e-4 normwise), its accept flags
+    equal to the plain version's and to `flags` (one per trial), accepted
+    trials' m_inv' exactly symmetric, rejected ones bitwise unchanged with
+    u_eff = 0.  Returns the errors."""
+    require(got[3].dtype == torch.bool, f"{name}: accept is {got[3].dtype}")
+    require(got[3].reshape(-1).tolist() == want[3].reshape(-1).tolist() == flags,
+            f"{name}: accept flags {got[3].tolist()} (plain {want[3].tolist()}) != {flags}")
+    errs = [compare(f"{name}.{nm}", got[k], want[k], 1e-4)
+            for nm, k in zip(COMMIT_OUT, (0, 1, 2, 4))]
+    d = m_inv.shape[-1]
+    mg, sg, ug = got[0].reshape(-1, d, d), got[1].reshape(-1, d), got[2].reshape(-1, d)
+    m0, s0 = m_inv.reshape(-1, d, d), s.reshape(-1, d)
+    for t, accepted in enumerate(flags):
+        if accepted:
+            require(torch.equal(mg[t], mg[t].T), f"{name}: trial {t} m_inv' not symmetric")
+        else:
+            require(torch.equal(mg[t], m0[t]) and torch.equal(sg[t], s0[t])
+                    and not bool(ug[t].any()), f"{name}: trial {t} rejected but changed")
+    return errs
+
+
+def check_commit_paths(sweep_ops, sweep_ref, gen, dev, got, args, batch: int, others) -> None:
+    """The commit's other paths, each against its plain version as in
+    check_commit and giving the same bits twice: the main call again on
+    copies of r and delta 4 bytes off alignment (the 4-byte load path: the
+    same bits as `got`); D=100, 129 and 300 at N=20001, where N % 4 != 0
+    takes the 4-byte path (a batch with its odd trials rejected, one trial
+    rejected at D=129); then the main call right after others() (a probe
+    and a row_gram on the same stream, which share the arrival counters:
+    the same bits again)."""
+    r, m_inv, s, eta, i, delta, *rest = args
+    again = sweep_ops.commit_sweep(unaligned_copy(r), m_inv, s, eta, i,
+                                   unaligned_copy(delta), *rest)
+    require(all(map(torch.equal, got, again)),
+            f"commit_sweep (B={batch}): the 4-byte load path gave other bits")
+    plain = sweep_ref.commit_sweep_batched_ref if batch > 1 else sweep_ref.commit_sweep_ref
+    lead = (batch,) if batch > 1 else ()
+    for d in (100, 129, 300):
+        n = 20001
+        log_commit_geometry(sweep_ops, d, n, batch)
+        scenes = [spd_scene(d, gen, dev) for _ in range(batch)]
+        mi, ss, ee = (torch.stack(x).reshape(lead + tuple(x[0].shape)).contiguous()
+                      for x in zip(*scenes))
+        rr = torch.randn(lead + (d, n), generator=gen, device=dev)
+        dl = 0.05 * torch.randn(lead + (n,), generator=gen, device=dev)
+        flags = [t % 2 == 0 for t in range(batch)] if batch > 1 else [d != 129]
+        thr = torch.tensor([-math.inf if f else math.inf for f in flags],
+                           device=dev).reshape(lead)
+        call = (rr, mi, ss, ee, d // 3, dl, 1.0, 0.0, thr, True)
+        out = sweep_ops.commit_sweep(*call)
+        check_commit(f"commit_sweep D={d} N={n} B={batch}", out, plain(*call), mi, ss, flags)
+        require(all(map(torch.equal, out, sweep_ops.commit_sweep(*call))),
+                f"commit_sweep D={d} N={n} B={batch}: not the same bits twice")
+    others()
+    require(all(map(torch.equal, got, sweep_ops.commit_sweep(*args))),
+            f"commit_sweep (B={batch}): other bits after a probe and a row_gram")
+    log(f"[kernel] commit_sweep B={batch}: the 4-byte load path gives the same bits; "
+        f"D=100, 129, 300 at N=20001 hold; the same bits after a probe and a row_gram; "
+        f"every call the same bits twice")
+
+
 def spd_scene(d, gen, dev):
     """An SPD m_inv with s = m_inv 1 and eta = sum s."""
     mm = torch.randn((d, 2 * d), generator=gen, device=dev)
@@ -418,9 +505,9 @@ def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
             "probe_sweep: not the same bits twice")
     log_probe_geometry(sweep_ops, d, n, 1)
     check_probe_routes(sweep_ops, sweep_ref, gen, dev, got, (r, m_inv, s, eta, i, steps), 1)
-    note = probe_evidence("probe_sweep",
-                          lambda: sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps),
-                          lambda: r @ (s @ r))
+    note = evidence("probe_sweep",
+                    lambda: sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps),
+                    lambda: r @ (s @ r), "s @ r, r @ cross")
     r1 = r[:, :128].contiguous()     # one strip: the launch and the epilogue
     log(f"[kernel] probe_sweep D={d} N=128 (one chunk: launch and epilogue) "
         f"{time_ms(lambda: sweep_ops.probe_sweep(r1, m_inv, s, eta, i, steps)):.4f} ms")
@@ -434,23 +521,21 @@ def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
 
     # --- commit_sweep (B7): w = R delta / m, SMW accept probe, rank-2 update.
     errs = []
-    for label, thr in (("accept", float("-inf")), ("reject", float("inf"))):
-        got = sweep_ops.commit_sweep(r, m_inv, s, eta, i, delta, 1.0, 0.0, thr, True)
-        want = sweep_ref.commit_sweep_ref(r, m_inv, s, eta, i, delta, 1.0, 0.0,
-                                          thr, True)
-        require(bool(got[3]) == bool(want[3]) == (label == "accept"),
-                f"commit_sweep ({label}): accept flag {bool(got[3])}")
-        for nm, g, w in zip(("m_inv", "s", "u_eff", "obj_post"),
-                            (got[0], got[1], got[2], got[4]),
-                            (want[0], want[1], want[2], want[4])):
-            errs.append(compare(f"commit_sweep.{label}.{nm}", g, w, 1e-4))
-        if label == "reject":
-            require(torch.equal(got[0], m_inv) and torch.equal(got[1], s)
-                    and not bool(got[2].any()),
-                    "commit_sweep: a reject is not a bitwise no-op")
-        else:
-            require(torch.equal(got[0], got[0].T),
-                    "commit_sweep: updated m_inv not exactly symmetric")
+    for label, thr in (("reject", float("inf")), ("accept", float("-inf"))):
+        call = (r, m_inv, s, eta, i, delta, 1.0, 0.0, thr, True)
+        got = sweep_ops.commit_sweep(*call)
+        errs += check_commit(f"commit_sweep.{label}", got, sweep_ref.commit_sweep_ref(*call),
+                             m_inv, s, [label == "accept"])
+        require(all(map(torch.equal, got, sweep_ops.commit_sweep(*call))),
+                "commit_sweep: not the same bits twice")
+    log_commit_geometry(sweep_ops, d, n, 1)
+    check_commit_paths(sweep_ops, sweep_ref, gen, dev, got, call, 1,
+                       lambda: (sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps),
+                                gram_ops.row_gram(v, r)))
+    note = evidence("commit_sweep",
+                    lambda: sweep_ops.commit_sweep(r, m_inv, s, eta, i, delta, 1.0, 0.0,
+                                                   eta, True),
+                    lambda: (r @ delta, delta @ delta), "r @ delta, delta @ delta")
     record_row("commit_sweep", "src/repro_torch/csrc/sweep.cu",
                "src/repro/kernels/sweep/kernel.py:306", errs,
                time_ms(lambda: sweep_ops.commit_sweep(r, m_inv, s, eta, i, delta,
@@ -459,7 +544,7 @@ def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
                                                           delta, 1.0, 0.0, eta, True)),
                None,
                4.0 * (d * n + n + d * d + d + 3) + 4.0 * (d * d + 2 * d + 2),
-               2.0 * d * n + 2.0 * n + 12.0 * d * d)
+               2.0 * d * n + 2.0 * n + 12.0 * d * d, note=note)
     del r, v, delta
     return rows
 
@@ -560,9 +645,9 @@ def phase_kernels_batched(gram_ops, gram_ref, sweep_ops, sweep_ref):
             "probe_sweep_batched: not the same bits twice")
     log_probe_geometry(sweep_ops, d, n, b)
     check_probe_routes(sweep_ops, sweep_ref, gen, dev, got, (r, m_inv, s, eta, i, steps), b)
-    note = probe_evidence("probe_sweep_batched",
-                          lambda: sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps),
-                          lambda: torch.bmm(r, torch.bmm(s[:, None, :], r).mT))
+    note = evidence("probe_sweep_batched",
+                    lambda: sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps),
+                    lambda: torch.bmm(r, torch.bmm(s[:, None, :], r).mT), "s @ r, r @ cross")
     r1 = r[..., :128].contiguous()
     log(f"[kernel] probe_sweep_batched D={d} N=128 B={b} (one chunk a trial: launch "
         f"and epilogues) "
@@ -579,28 +664,27 @@ def phase_kernels_batched(gram_ops, gram_ref, sweep_ops, sweep_ref):
     # --- commit_sweep_batched (B8): odd trials rejected, even ones committed
     thr = torch.tensor([math.inf if t % 2 else -math.inf for t in range(b)],
                        device=dev)
-    got = sweep_ops.commit_sweep(r, m_inv, s, eta, i, delta, 1.0, 0.0, thr, True)
-    want = sweep_ref.commit_sweep_batched_ref(r, m_inv, s, eta, i, delta, 1.0,
-                                              0.0, thr, True)
-    flags = [t % 2 == 0 for t in range(b)]
-    require(got[3].tolist() == want[3].tolist() == flags,
-            f"commit_sweep_batched: accept flags {got[3].tolist()} != {flags}")
-    errs = [compare(f"commit_sweep_batched.{nm}", g, w, 1e-4)
-            for nm, g, w in zip(("m_inv", "s", "u_eff", "obj_post"),
-                                (got[0], got[1], got[2], got[4]),
-                                (want[0], want[1], want[2], want[4]))]
-    for t in range(b):
-        if t % 2:
-            require(torch.equal(got[0][t], m_inv[t]) and torch.equal(got[1][t], s[t])
-                    and not bool(got[2][t].any()),
-                    f"commit_sweep_batched: rejected trial {t} changed")
-        else:
-            require(torch.equal(got[0][t], got[0][t].T),
-                    f"commit_sweep_batched: trial {t} m_inv not exactly symmetric")
+    call = (r, m_inv, s, eta, i, delta, 1.0, 0.0, thr, True)
+    got = sweep_ops.commit_sweep(*call)
+    errs = check_commit("commit_sweep_batched", got,
+                        sweep_ref.commit_sweep_batched_ref(*call), m_inv, s,
+                        [t % 2 == 0 for t in range(b)])
+    require(all(map(torch.equal, got, sweep_ops.commit_sweep(*call))),
+            "commit_sweep_batched: not the same bits twice")
     log("[batched] commit_sweep_batched: rejected trials bitwise unchanged, "
         "committed trials exactly symmetric")
     same_as_single("commit_sweep_batched", got, lambda t: sweep_ops.commit_sweep(
         r[t], m_inv[t], s[t], eta[t], i, delta[t], 1.0, 0.0, thr[t], True))
+    log_commit_geometry(sweep_ops, d, n, b)
+    check_commit_paths(sweep_ops, sweep_ref, gen, dev, got, call, b,
+                       lambda: (sweep_ops.probe_sweep(r, m_inv, s, eta, i, steps),
+                                gram_ops.row_gram(v, r)))
+    note = evidence("commit_sweep_batched",
+                    lambda: sweep_ops.commit_sweep(r, m_inv, s, eta, i, delta, 1.0, 0.0,
+                                                   eta, True),
+                    lambda: (torch.bmm(r, delta[..., None]),
+                             torch.bmm(delta[:, None, :], delta[..., None])),
+                    "r @ delta, delta @ delta")
     record_row("commit_sweep_batched", "src/repro_torch/csrc/sweep.cu",
                "src/repro/kernels/sweep/kernel.py:369", errs,
                time_ms(lambda: sweep_ops.commit_sweep(r, m_inv, s, eta, i, delta,
@@ -609,7 +693,7 @@ def phase_kernels_batched(gram_ops, gram_ref, sweep_ops, sweep_ref):
                    r, m_inv, s, eta, i, delta, 1.0, 0.0, eta, True)),
                None,
                4.0 * b * (d * n + n + d * d + d + 3) + 4.0 * b * (d * d + 2 * d + 2),
-               b * (2.0 * d * n + 2.0 * n + 12.0 * d * d))
+               b * (2.0 * d * n + 2.0 * n + 12.0 * d * d), note=note)
     del r, v, delta
     return rows
 
@@ -727,6 +811,60 @@ def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str) -> None:
                                            row_limit=25))
 
 
+def commit_decisions(icoa, family, cfg, xcols, y) -> None:
+    """The first fused sweep from the warm start again, each commit_sweep
+    call also evaluated by its plain version in float64 and in fp32 on the
+    same inputs: the kernel's accept flags must equal the float64 ones
+    wherever the float64 margin obj_post - threshold exceeds 1e-5 of the
+    threshold (fp32's resolution of eta, with room); logged, the
+    disagreements left and, over the accepted calls, the normwise error of
+    the kernel's m_inv' and of the fp32 plain version's against float64
+    (at D = 100 a few SMW pivots per sweep nearly cancel, so the fp32
+    update is far from float64 there, in both)."""
+    from repro_torch.kernels.sweep import ops as sweep_ops
+    from repro_torch.kernels.sweep import ref as sweep_ref
+
+    def f64(x):
+        return x.double() if isinstance(x, torch.Tensor) else x
+
+    def err(a, b):
+        return float((a.double() - b).abs().max() / b.abs().max())
+
+    kernel, rows = sweep_ops.commit_sweep, []
+
+    def checked(*args):
+        got = kernel(*args)
+        want = sweep_ref.commit_sweep_ref(*map(f64, args))
+        thr = float(args[8])
+        row = [bool(got[3]), bool(want[3]), float(want[4]) - thr, abs(thr), 0.0, 0.0]
+        if row[1]:
+            row[4] = err(got[0], want[0])
+            row[5] = err(sweep_ref.commit_sweep_ref(*args)[0], want[0])
+        rows.append(row)
+        return got
+
+    state = icoa.init_state(family, xcols, y)
+    sweep_ops.commit_sweep = checked
+    try:
+        icoa.sweep(family, cfg, state.params, state.f, xcols, y)
+    finally:
+        sweep_ops.commit_sweep = kernel
+    differ = [r for r in rows if r[0] != r[1]]
+    clear = [r for r in differ if abs(r[2]) > 1e-5 * r[3]]
+    require(not clear, f"deploy fused: {len(clear)} commit decisions differ from "
+            f"float64 at a clear margin: {clear[:3]}")
+    acc = [r for r in rows if r[1]]
+    require(acc, "deploy fused: no commit accepted in float64 from the warm start")
+    k_err = sorted(r[4] for r in acc)
+    p_err = sorted(r[5] for r in acc)
+    log(f"[deploy] fused: commit decisions of one sweep from the warm start: "
+        f"{len(rows)} calls, {sum(r[0] for r in rows)} accepted by the kernel, "
+        f"{len(acc)} in float64, {len(differ)} differ (all within 1e-5 of eta); "
+        f"m_inv' normwise error vs float64 over the accepted calls: kernel median "
+        f"{k_err[len(k_err) // 2]:.3e} max {k_err[-1]:.3e}, fp32 plain version median "
+        f"{p_err[len(p_err) // 2]:.3e} max {p_err[-1]:.3e}")
+
+
 def phase_deploy(api, _build, icoa):
     totals, sweep_ms_by_engine = {}, {}
     dspec = api.DataSpec(source="correlated_linear", n_attrs=D_DEPLOY,
@@ -757,6 +895,8 @@ def phase_deploy(api, _build, icoa):
         sweep_ms_by_engine[engine] = sweep_ms
         profile_sweep(icoa, res.family, cfg, res.params, res.f, data.xcols,
                       data.y, engine)
+        if engine == "fused":
+            commit_decisions(icoa, res.family, cfg, data.xcols, data.y)
         log(f"[deploy] {engine}: eta {h.eta}; test_mse {h.test_mse}; "
             f"bytes/sweep {per_sweep}; fit {secs:.3f} s ({len(h.eta) - 1} "
             f"sweeps, {len(h.eta)} records); one sweep {sweep_ms:.1f} ms; peak memory "

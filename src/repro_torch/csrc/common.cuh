@@ -164,6 +164,69 @@ __device__ __forceinline__ void fold_rows(const float* __restrict__ part, int nb
   }
 }
 
+
+// ------------------------------------------------- streaming row products
+// The stream of row_gram (B3/B4) and of the commit (B7/B8): the row sums of
+// R v over one strip of N, one partial per (row, strip).  A block of
+// kStreamWarps warps takes the strip; lane l owns its 16-byte column slices
+// col + 128 s (col = strip start + 4 l, s < slices = strip / 128, at most
+// kStreamSlices) and holds its slices of v in registers (load_strip, once a
+// strip).  Each warp then reads all slices of one row at once (4 KB in
+// flight a warp), sums them against v in slice order and then over the
+// warp, and lane 0 writes part[row * nbp + blockIdx.x].  Rows go to the
+// warps round-robin.  No shared memory and no barrier before the stream.
+constexpr int kStreamThreads = 256;
+constexpr int kStreamWarps = kStreamThreads / 32;
+constexpr int kStreamSlices = 8;
+
+template <bool ALIGNED>
+__device__ __forceinline__ void load_strip(const float* __restrict__ v, int col, int slices,
+                                           int n, float4 (&vr)[kStreamSlices]) {
+#pragma unroll
+  for (int q = 0; q < kStreamSlices; ++q)
+    vr[q] = q < slices ? load4<ALIGNED, false>(v, col + 128 * q, n)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+template <bool ALIGNED>
+__device__ __forceinline__ void stream_rows(const float* __restrict__ r,
+                                            const float4 (&vr)[kStreamSlices], int col,
+                                            int slices, int d, int n,
+                                            float* __restrict__ part, int nbp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int row = warp; row < d; row += kStreamWarps) {
+    const float* src = r + (size_t)row * n;
+    float4 x[kStreamSlices];
+#pragma unroll
+    for (int q = 0; q < kStreamSlices; ++q)
+      x[q] = q < slices ? load4<ALIGNED, true>(src, col + 128 * q, n)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    float acc = 0.f;
+#pragma unroll
+    for (int q = 0; q < kStreamSlices; ++q)
+      if (q < slices) acc = dot4(x[q], vr[q], acc);
+    acc = warp_sum(acc);
+    if (lane == 0) part[(size_t)row * nbp + blockIdx.x] = acc;
+  }
+}
+
+// True in every thread of the block that is the last of `total` blocks to
+// arrive at `counter` (an int in device memory, zero before the first
+// arrival), false in the others; the writes of every arrived block are then
+// visible to it.  Called by the whole block.  The atomic only picks that
+// block, so the sums it goes on to take keep a fixed order; the block resets
+// the counter when it is done.
+__device__ __forceinline__ bool last_to_arrive(int* counter, int total) {
+  __shared__ int s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) s_last = atomicAdd(counter, 1) == total - 1;
+  __syncthreads();
+  if (!s_last) return false;
+  __threadfence();
+  return true;
+}
+
 }  // namespace repro
 
 extern "C" const char* repro_error_string(int code) {

@@ -54,7 +54,10 @@
 //   stream; a warp reads all slices of a row at once (4 KB in flight per
 //   warp, ~64 KB per SM at two blocks) and sums the row over the warp once,
 //   after the strip.  The wrapper sizes the strip so that the grid is whole
-//   waves.  The same unaligned-load rule as gram applies.  Block b writes
+//   waves.  The same unaligned-load rule as gram applies.  The stream loop
+//   lives in common.cuh (repro::stream_rows), shared with the commit
+//   kernel of sweep.cu (B7/B8), which streams R against delta the same
+//   way.  Block b writes
 //   the row sums of its strip; the last block to arrive (an integer counter
 //   per trial, in a workspace the wrapper keeps zeroed; it resets it) sums
 //   them in block order in the same launch, with 16-byte loads of 4 rows at
@@ -79,8 +82,6 @@ namespace {
 using repro::cp_async16;
 using repro::cp_async_commit;
 using repro::cp_async_wait;
-using repro::dot4;
-using repro::load4;
 
 constexpr int kTile = 128;        // gram tile edge
 constexpr int kMicro = 8;         // micro-tile edge (outputs per thread: 8 x 8)
@@ -89,9 +90,8 @@ constexpr int kBk = 32;           // instances per thread group per step
 constexpr int kStages = 3;        // cp.async ring depth
 constexpr int kGramMaxThreads = 384;
 constexpr int kGramMaxShared = 232448;   // an H100 block's shared-memory limit
-constexpr int kRowThreads = 256;  // row_gram: 8 warps
-constexpr int kRowWarps = kRowThreads / 32;
-constexpr int kRowSlices = 8;     // most 16-byte slices per lane per row
+constexpr int kRowThreads = repro::kStreamThreads;   // row_gram: 8 warps
+constexpr int kRowSlices = repro::kStreamSlices;     // most 16-byte slices per lane per row
 
 // 4-byte copy into shared memory (cp.async.ca); valid == false writes zero.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
@@ -316,36 +316,15 @@ row_gram_kernel(const float* __restrict__ r, const float* __restrict__ v,
   v += (size_t)trial * v_stride;   // 0: one v shared by every trial
   part += (size_t)trial * d * nbp;
   out += (size_t)trial * d;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int col = blockIdx.x * strip + 4 * lane;   // this lane's first column
-  const int cs = strip / 128;                      // slices per lane
-  __shared__ int s_last;
+  const int col = blockIdx.x * strip + 4 * (threadIdx.x & 31);   // this lane's first column
+  const int slices = strip / 128;
 
   float4 vr[kRowSlices];
-#pragma unroll
-  for (int s = 0; s < kRowSlices; ++s)
-    vr[s] = s < cs ? load4<ALIGNED, false>(v, col + 128 * s, n) : make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int row = warp; row < d; row += kRowWarps) {
-    const float* src = r + (size_t)row * n;
-    float4 x[kRowSlices];
-#pragma unroll
-    for (int s = 0; s < kRowSlices; ++s)
-      x[s] = s < cs ? load4<ALIGNED, true>(src, col + 128 * s, n) : make_float4(0.f, 0.f, 0.f, 0.f);
-    float acc = 0.f;
-#pragma unroll
-    for (int s = 0; s < kRowSlices; ++s)
-      if (s < cs) acc = dot4(x[s], vr[s], acc);
-    acc = repro::warp_sum(acc);
-    if (lane == 0) part[(size_t)row * nbp + blockIdx.x] = acc;
-  }
+  repro::load_strip<ALIGNED>(v, col, slices, n, vr);
+  repro::stream_rows<ALIGNED>(r, vr, col, slices, d, n, part, nbp);
 
   // the last block of this trial to arrive sums the strips in block order
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(arrivals + trial, 1) == nb - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
+  if (!repro::last_to_arrive(arrivals + trial, nb)) return;
   repro::fold_rows(part, nbp, nb, d, out);
   if (threadIdx.x == 0) arrivals[trial] = 0;   // ready for the next call
 }

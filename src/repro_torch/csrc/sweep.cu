@@ -35,24 +35,37 @@
 //
 // repro_commit_sweep replaces kernel.py commit_sweep_pallas (B7) and its
 // epilogue _commit_finalize:
-//   w = R delta / m and <delta, delta> in one streaming pass (the row_gram
-//   scheme), then u, z1 = m_inv[i], z2 = m_inv u, the SMW pivots, obj_post,
-//   accept = (obj_post > threshold) && can_tx, and the rank-2 m_inv / s update
-//   selected by accept, so a reject leaves m_inv and s bitwise unchanged.
-//   Bound: the one read of R.  eta, threshold and can_tx are read from device
-//   memory, so the agent loop commits without a host round trip.
+//   w = R delta / m and <delta, delta>, then u, z1 = m_inv[i], z2 = m_inv u,
+//   the SMW pivots, obj_post, accept = (obj_post > threshold) && can_tx, and
+//   the rank-2 m_inv / s update selected by accept, so a reject leaves m_inv
+//   and s bitwise unchanged.  Bound: the one read of R.  One launch on
+//   row_gram's streaming scheme (common.cuh, repro::stream_rows, the same
+//   loop): a block of 8 warps streams a strip of N (the geometry of
+//   row_gram_geometry, one wave of 1024-column strips at N = 262144), each
+//   lane holding its 16-byte slices of delta in registers, and warp 0 forms
+//   the strip's <delta, delta> from those registers.  Each row is an
+//   independent dot product, so one kernel serves every D (rows round-robin
+//   over the warps).  The partials go to a (d + 1, strips) scratch; the last
+//   block of the trial to arrive folds them in strip order (repro::fold_rows)
+//   and runs the epilogue in the same launch, in fp32 as the TPU kernel
+//   does: z2 one warp per 8 rows, k22 and t2 by one warp, then the d^2
+//   update or, on a reject, a 16-byte copy.  eta, threshold and can_tx come
+//   as device tensors or by value (a Python number in the wrapper), so a
+//   commit needs no host round trip and no fill launch; accept is written
+//   as one byte (a torch.bool).
 //
 // repro_probe_sweep_batched and repro_commit_sweep_batched replace
 // probe_sweep_pallas_batched (B6) and commit_sweep_pallas_batched (B8): the
 // same agent update for B independent Monte-Carlo trials, every operand with
 // a leading trial axis (R (B, D, N), m_inv (B, D, D), s (B, D); eta,
-// threshold and can_tx (B,) device tensors) while agent i, the step schedule
-// and the diagonal constants are shared by the batch.  The trial is one more
-// grid dimension of the same pass kernels (blockIdx.y), with its own partial
-// rows (and, on the probe's register route, its own arrival counter), and a
-// one-block epilogue runs per trial (the last arrival of the trial, or
-// blockIdx.x of the finish launch) against that trial's m_inv, s and eta.
-// A trial therefore sums the same blocks in the same order as the
+// threshold and can_tx (B,) device tensors, or one value for all) while
+// agent i, the step schedule and the diagonal constants are shared by the
+// batch.  The trial is one more grid dimension of the same kernels
+// (blockIdx.y), with its own partial rows (and, on the probe's register
+// route and in the commit, its own arrival counter), and a one-block
+// epilogue runs per trial (the last arrival of the trial, or blockIdx.x of
+// the probe's finish launch) against that trial's m_inv, s and eta.  The
+// geometry depends on (D, N) and the card only.  A trial therefore sums the same blocks in the same order as the
 // single-trial launch: slice b of a batched launch equals the single-trial
 // launch on trial b bit for bit, and a rejected trial keeps its m_inv and s
 // bitwise while its neighbours commit.  Bound: B times the one read of R.
@@ -73,8 +86,6 @@
 
 namespace {
 
-constexpr int kCommitBn = 1024;
-constexpr int kCommitThreads = 256;
 constexpr int kFinishThreads = 512;
 constexpr int kProbeThreads = 256;      // register route: 8 warps
 constexpr int kProbeWarps = kProbeThreads / 32;
@@ -202,7 +213,6 @@ probe_rows_kernel(const float* __restrict__ r, const float* __restrict__ minv,
   __shared__ double q_s[kProbeMaxD];
   __shared__ double red[33];
   __shared__ double gg_s;
-  __shared__ int s_last;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
@@ -265,12 +275,7 @@ probe_rows_kernel(const float* __restrict__ r, const float* __restrict__ minv,
   }
 
   // the last block of this trial to arrive sums the chunks in chunk order
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) s_last = atomicAdd(arrivals + trial, 1) == nc - 1;
-  __syncthreads();
-  if (!s_last) return;
-  __threadfence();
+  if (!repro::last_to_arrive(arrivals + trial, nc)) return;
   repro::fold_rows(part_p, ncp, nc, d, p_s);
   if (warp == 0) {
     const double tot = fold_f64(part_gg, nc);
@@ -379,132 +384,194 @@ probe_finish_kernel(const float* __restrict__ part_p,
                     gnorm_out + b_);
 }
 
-// --------------------------------------------------------------- commit pass
-__global__ void __launch_bounds__(kCommitThreads)
-commit_pass_kernel(const float* __restrict__ r,
-                   const float* __restrict__ delta,
-                   float* __restrict__ part_w, float* __restrict__ part_dd,
-                   int d, int n) {
-  // blockIdx.y is the trial: its own R, delta and partial rows
-  r += (size_t)blockIdx.y * d * n;
-  delta += (size_t)blockIdx.y * n;
-  part_w += (size_t)blockIdx.y * gridDim.x * d;
-  part_dd += (size_t)blockIdx.y * gridDim.x;
-  __shared__ float ds[kCommitBn];
-  __shared__ float red[33];
-  const int n0 = blockIdx.x * kCommitBn;
-  const int cols = min(kCommitBn, n - n0);
-  float dd = 0.f;
-  for (int t = threadIdx.x; t < kCommitBn; t += kCommitThreads) {
-    const float x = t < cols ? delta[n0 + t] : 0.f;
-    ds[t] = x;
-    dd = fmaf(x, x, dd);
-  }
-  dd = repro::block_sum(dd, red);                           // syncs ds too
-  if (threadIdx.x == 0) part_dd[blockIdx.x] = dd;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int row = warp; row < d; row += kCommitThreads / 32) {
-    const float* rr = r + (size_t)row * n + n0;
-    float acc = 0.f;
-#pragma unroll 8
-    for (int c = lane; c < cols; c += 32) acc = fmaf(rr[c], ds[c], acc);
-    acc = repro::warp_sum(acc);
-    if (lane == 0) part_w[(size_t)blockIdx.x * d + row] = acc;
-  }
-}
+// ------------------------------------------------------------------ commit
+// Dynamic shared memory of the commit kernel for d rows: u (d + 1 floats:
+// the folded w, then <delta, delta>), z1 (d) and z2 (d).
+size_t commit_shared_bytes(int d) { return (3 * (size_t)d + 1) * sizeof(float); }
 
-// One block of kFinishThreads per trial (blockIdx.x).  Dynamic shared
-// memory: u (d), z2 (d), red (33).
-__global__ void __launch_bounds__(kFinishThreads)
-commit_finish_kernel(const float* __restrict__ part_w,
-                     const float* __restrict__ part_dd, int nb,
-                     const float* __restrict__ minv,
-                     const float* __restrict__ s,
-                     const float* __restrict__ eta_p,
-                     const float* __restrict__ threshold_p,
-                     const float* __restrict__ can_tx_p, int d, int i,
-                     float m, float diag_keep, float diag_add,
-                     float* __restrict__ minv_out, float* __restrict__ s_out,
-                     float* __restrict__ u_out, float* __restrict__ stats) {
+// The commit's pivots, formed by warp 0 of the epilogue and read by the block.
+struct CommitPivots {
+  float k11, k12, k22, det, t1, t2;
+  bool accept;
+};
+
+// The commit epilogue of one trial, by the whole block, once the strips'
+// partials are complete: part (d + 1, nbp), rows k < d the partial w_k of
+// each strip, row d the partial <delta, delta>.  minv, s and the outputs
+// are the trial's own.
+__device__ __noinline__ void commit_epilogue(
+    const float* __restrict__ part, int nbp, int nb, const float* __restrict__ minv,
+    const float* __restrict__ s, float eta, float threshold, bool can_tx, int d, int i,
+    float m, float diag_keep, float diag_add, float* __restrict__ minv_out,
+    float* __restrict__ s_out, float* __restrict__ u_out, bool* __restrict__ accept_out,
+    float* __restrict__ obj_out) {
   extern __shared__ float smem[];
-  const size_t b_ = blockIdx.x;                             // the trial
-  part_w += b_ * nb * d;
-  part_dd += b_ * nb;
-  minv += b_ * d * d;
-  s += b_ * d;
-  eta_p += b_;
-  threshold_p += b_;
-  can_tx_p += b_;
-  minv_out += b_ * d * d;
-  s_out += b_ * d;
-  u_out += b_ * d;
-  stats += 2 * b_;
-  float* u = smem;
-  float* z2 = u + d;
-  float* red = z2 + d;
-  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int nw = kFinishThreads >> 5;
+  float* u = smem;          // d + 1
+  float* z1 = u + d + 1;    // d
+  float* z2 = z1 + d;       // d
+  __shared__ CommitPivots pv;
+  const int t = threadIdx.x, nt = blockDim.x, warp = t >> 5, lane = t & 31, nw = nt >> 5;
 
-  repro::reduce_partials(part_w, nb, d, m, u, warp, nw);    // w = R delta / m
-  float g = 0.f;
-  for (int b = t; b < nb; b += kFinishThreads) g += part_dd[b];
-  const float dd_auto = repro::block_sum(g, red) / (2.0f * m);  // syncs u
-  if (t == 0) u[i] = diag_keep * (u[i] + dd_auto) + diag_add;
+  repro::fold_rows(part, nbp, nb, d + 1, u);                // R delta, <delta, delta>
+  for (int k = t; k < d; k += nt) z1[k] = minv[(size_t)i * d + k];   // m_inv e_i (symmetric)
   __syncthreads();
-
-  for (int row = warp; row < d; row += nw) {                // z2 = m_inv u
-    const float* mr = minv + (size_t)row * d;
-    float acc = 0.f;
-    for (int c = lane; c < d; c += 32) acc = fmaf(mr[c], u[c], acc);
-    acc = repro::warp_sum(acc);
-    if (lane == 0) z2[row] = acc;
+  const float dd_auto = u[d] / (2.0f * m);
+  for (int k = t; k < d; k += nt) {
+    const float w = u[k] / m;
+    u[k] = k == i ? diag_keep * (w + dd_auto) + diag_add : w;
   }
   __syncthreads();
-  float p22 = 0.f, pt2 = 0.f;
-  for (int k = t; k < d; k += kFinishThreads) {
-    p22 = fmaf(u[k], z2[k], p22);
-    pt2 = fmaf(u[k], s[k], pt2);
-  }
-  const float k22 = repro::block_sum(p22, red);
-  const float t2 = repro::block_sum(pt2, red);
-  const float* z1 = minv + (size_t)i * d;                   // m_inv e_i (symmetric)
-  const float k11 = z1[i];
-  const float k12 = 1.0f + z2[i];
-  const float det = k11 * k22 - k12 * k12;
-  const float t1 = s[i];
-  const float obj_post =
-      eta_p[0] - (k22 * t1 * t1 - 2.0f * k12 * t1 * t2 + k11 * t2 * t2) / det;
-  const bool accept = (obj_post > threshold_p[0]) && (can_tx_p[0] > 0.5f);
-
-  if (accept) {
-    const float c1 = (k22 * t1 - k12 * t2) / det;
-    const float c2 = (k11 * t2 - k12 * t1) / det;
-    for (int idx = t; idx < d * d; idx += kFinishThreads) {
-      const int ra = idx / d, cb = idx % d;
-      // each product formed alone (no FMA contraction), so entry (a, b)
-      // and entry (b, a) get the same bits
-      const float o11 = __fmul_rn(z1[ra], z1[cb]);
-      const float o12 = __fadd_rn(__fmul_rn(z1[ra], z2[cb]),
-                                  __fmul_rn(z2[ra], z1[cb]));
-      const float o22 = __fmul_rn(z2[ra], z2[cb]);
-      const float corr = (k22 * o11 - k12 * o12 + k11 * o22) / det;
-      minv_out[idx] = minv[idx] - corr;
+  // z2 = m_inv u: a warp takes 8 rows at once, lanes over columns, so the
+  // loads of 8 rows are in flight together
+  constexpr int kRows = 8;
+  for (int row0 = warp; row0 < d; row0 += nw * kRows) {
+    float acc[kRows];
+#pragma unroll
+    for (int g = 0; g < kRows; ++g) acc[g] = 0.f;
+#pragma unroll 4
+    for (int c = lane; c < d; c += 32) {
+      const float uc = u[c];
+#pragma unroll
+      for (int g = 0; g < kRows; ++g) {
+        const int row = row0 + nw * g;
+        acc[g] = fmaf(row < d ? __ldg(minv + (size_t)row * d + c) : 0.f, uc, acc[g]);
+      }
     }
-    for (int k = t; k < d; k += kFinishThreads) {
+#pragma unroll
+    for (int g = 0; g < kRows; ++g) {
+      const float tot = repro::warp_sum(acc[g]);
+      if (lane == 0 && row0 + nw * g < d) z2[row0 + nw * g] = tot;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {              // k22 = <u, z2> and t2 = <u, s> in one pass of one warp
+    float p22 = 0.f, pt2 = 0.f;
+    for (int k = lane; k < d; k += 32) {
+      p22 = fmaf(u[k], z2[k], p22);
+      pt2 = fmaf(u[k], s[k], pt2);
+    }
+    const float k22 = repro::warp_sum(p22), t2 = repro::warp_sum(pt2);
+    if (lane == 0) {
+      const float k11 = z1[i], k12 = 1.0f + z2[i], t1 = s[i];
+      const float det = k11 * k22 - k12 * k12;
+      const float obj = eta - (k22 * t1 * t1 - 2.0f * k12 * t1 * t2 + k11 * t2 * t2) / det;
+      const bool accept = obj > threshold && can_tx;
+      pv = {k11, k12, k22, det, t1, t2, accept};
+      *obj_out = obj;
+      *accept_out = accept;
+    }
+  }
+  __syncthreads();
+
+  const CommitPivots p = pv;
+  const int dd = d * d;
+  const bool vec = (dd & 3) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(minv) | reinterpret_cast<uintptr_t>(minv_out)) &
+                    15) == 0;
+  const float4* in4 = reinterpret_cast<const float4*>(minv);
+  float4* out4 = reinterpret_cast<float4*>(minv_out);
+  if (p.accept) {
+    // m_inv' = m_inv - corr, each product of an outer-product term formed
+    // alone (no FMA contraction), so that entry (a, b) and entry (b, a) get
+    // the same bits
+    auto updated = [&](int idx, float x) {
+      const int ra = idx / d, cb = idx - ra * d;
+      const float o11 = __fmul_rn(z1[ra], z1[cb]);
+      const float o12 = __fadd_rn(__fmul_rn(z1[ra], z2[cb]), __fmul_rn(z2[ra], z1[cb]));
+      const float o22 = __fmul_rn(z2[ra], z2[cb]);
+      return x - (p.k22 * o11 - p.k12 * o12 + p.k11 * o22) / p.det;
+    };
+    if (vec) {
+#pragma unroll 4
+      for (int q = t; q < dd / 4; q += nt) {
+        float4 x = __ldg(in4 + q);
+        x.x = updated(4 * q, x.x);
+        x.y = updated(4 * q + 1, x.y);
+        x.z = updated(4 * q + 2, x.z);
+        x.w = updated(4 * q + 3, x.w);
+        out4[q] = x;
+      }
+    } else {
+      for (int idx = t; idx < dd; idx += nt) minv_out[idx] = updated(idx, __ldg(minv + idx));
+    }
+    const float c1 = (p.k22 * p.t1 - p.k12 * p.t2) / p.det;
+    const float c2 = (p.k11 * p.t2 - p.k12 * p.t1) / p.det;
+    for (int k = t; k < d; k += nt) {
       s_out[k] = s[k] - c1 * z1[k] - c2 * z2[k];
       u_out[k] = u[k];
     }
-  } else {
-    for (int idx = t; idx < d * d; idx += kFinishThreads) minv_out[idx] = minv[idx];
-    for (int k = t; k < d; k += kFinishThreads) {
+  } else {                      // a reject: m_inv and s copied bit for bit
+    if (vec) {
+#pragma unroll 4
+      for (int q = t; q < dd / 4; q += nt) out4[q] = __ldg(in4 + q);
+    } else {
+      for (int idx = t; idx < dd; idx += nt) minv_out[idx] = __ldg(minv + idx);
+    }
+    for (int k = t; k < d; k += nt) {
       s_out[k] = s[k];
       u_out[k] = 0.f;
     }
   }
-  if (t == 0) {
-    stats[0] = obj_post;
-    stats[1] = accept ? 1.f : 0.f;
+}
+
+// Grid (strips, trials), block repro::kStreamThreads, dynamic shared memory
+// commit_shared_bytes(d).  strip: columns a block streams, a multiple of 128
+// of at most 1024.  part: (trial, d + 1, nbp) scratch, nbp = strips rounded
+// up to 4; arrivals: one int per trial, zero on entry and on exit.  A null
+// eta_p / threshold_p / can_tx_p means the value after it, for every trial.
+template <bool ALIGNED>
+__global__ void __launch_bounds__(repro::kStreamThreads, 2)
+commit_kernel(const float* __restrict__ r, const float* __restrict__ delta,
+              const float* __restrict__ minv, const float* __restrict__ s,
+              const float* __restrict__ eta_p, float eta,
+              const float* __restrict__ threshold_p, float threshold,
+              const float* __restrict__ can_tx_p, int can_tx, float* __restrict__ part,
+              int* __restrict__ arrivals, float* __restrict__ minv_out,
+              float* __restrict__ s_out, float* __restrict__ u_out,
+              bool* __restrict__ accept_out, float* __restrict__ obj_out, int d, int n,
+              int strip, int i, float diag_keep, float diag_add) {
+  const int trial = blockIdx.y, nb = gridDim.x, nbp = (nb + 3) & ~3;
+  r += (size_t)trial * d * n;
+  delta += (size_t)trial * n;
+  part += (size_t)trial * (d + 1) * nbp;
+  const int lane = threadIdx.x & 31;
+  const int col = blockIdx.x * strip + 4 * lane;            // this lane's first column
+  const int slices = strip / 128;
+
+  float4 dr[repro::kStreamSlices];
+  repro::load_strip<ALIGNED>(delta, col, slices, n, dr);
+  repro::stream_rows<ALIGNED>(r, dr, col, slices, d, n, part, nbp);   // R delta
+  if (threadIdx.x < 32) {       // <delta, delta> from the registers, no extra read
+    float dd = 0.f;
+#pragma unroll
+    for (int q = 0; q < repro::kStreamSlices; ++q) dd = repro::dot4(dr[q], dr[q], dd);
+    dd = repro::warp_sum(dd);
+    if (lane == 0) part[(size_t)d * nbp + blockIdx.x] = dd;
   }
+
+  // the last block of this trial to arrive folds the strips in strip order
+  // and runs the epilogue
+  if (!repro::last_to_arrive(arrivals + trial, nb)) return;
+  const size_t dsq = (size_t)d * d;
+  commit_epilogue(part, nbp, nb, minv + trial * dsq, s + (size_t)trial * d,
+                  eta_p ? eta_p[trial] : eta, threshold_p ? threshold_p[trial] : threshold,
+                  can_tx_p ? can_tx_p[trial] != 0.f : can_tx != 0, d, i, (float)n, diag_keep,
+                  diag_add, minv_out + trial * dsq, s_out + (size_t)trial * d,
+                  u_out + (size_t)trial * d, accept_out + trial, obj_out + trial);
+  if (threadIdx.x == 0) arrivals[trial] = 0;                // ready for the next call
+}
+
+using CommitKernel = decltype(&commit_kernel<true>);
+
+// commit_kernel for one load path, allowed the shared memory of d rows
+// (above the 48 KB default only on request).
+CommitKernel commit_kernel_for(bool aligned, int d, cudaError_t* err) {
+  const CommitKernel kernel = aligned ? commit_kernel<true> : commit_kernel<false>;
+  const size_t smem = commit_shared_bytes(d);
+  *err = smem > 48 * 1024 ? cudaFuncSetAttribute(
+                                kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+                          : cudaSuccess;
+  return kernel;
 }
 
 // route 0 (registers): chunk columns a block, a multiple of kProbeStrip;
@@ -545,21 +612,21 @@ int launch_probe(const float* r, const float* minv, const float* s,
   return cudaGetLastError();
 }
 
-int launch_commit(const float* r, const float* delta, const float* minv,
-                  const float* s, const float* eta, const float* threshold,
-                  const float* can_tx, float* part_w, float* part_dd,
-                  float* minv_out, float* s_out, float* u_out, float* stats,
-                  int d, int n, int i, float diag_keep, float diag_add,
-                  int batch, cudaStream_t st) {
-  const int nb = (n + kCommitBn - 1) / kCommitBn;
-  commit_pass_kernel<<<dim3(nb, batch), kCommitThreads, 0, st>>>(
-      r, delta, part_w, part_dd, d, n);
-  cudaError_t err = cudaGetLastError();
+int launch_commit(const float* r, const float* delta, const float* minv, const float* s,
+                  const float* eta_p, float eta, const float* threshold_p, float threshold,
+                  const float* can_tx_p, int can_tx, float* scratch, int* arrivals,
+                  float* minv_out, float* s_out, float* u_out, bool* accept, float* obj_post,
+                  int d, int n, int i, float diag_keep, float diag_add, int strip,
+                  int aligned, int batch, cudaStream_t st) {
+  if (strip % 128 || strip < 128 || strip > 128 * repro::kStreamSlices)
+    return cudaErrorInvalidValue;
+  cudaError_t err;
+  const CommitKernel kernel = commit_kernel_for(aligned != 0, d, &err);
   if (err != cudaSuccess) return err;
-  const size_t smem2 = ((size_t)2 * d + 33) * sizeof(float);
-  commit_finish_kernel<<<batch, kFinishThreads, smem2, st>>>(
-      part_w, part_dd, nb, minv, s, eta, threshold, can_tx, d, i, (float)n,
-      diag_keep, diag_add, minv_out, s_out, u_out, stats);
+  kernel<<<dim3((n + strip - 1) / strip, batch), repro::kStreamThreads, commit_shared_bytes(d),
+           st>>>(r, delta, minv, s, eta_p, eta, threshold_p, threshold, can_tx_p, can_tx,
+                 scratch, arrivals, minv_out, s_out, u_out, accept, obj_post, d, n, strip, i,
+                 diag_keep, diag_add);
   return cudaGetLastError();
 }
 
@@ -604,33 +671,55 @@ extern "C" int repro_probe_blocks_per_sm(int d) {
   return err == cudaSuccess ? blocks : 0;
 }
 
-// r (d, n), delta (n,), m_inv (d, d), s (d,); eta, threshold, can_tx (1,)
-// device scalars.  Scratch: part_w (nb, d), part_dd (nb,), nb = ceil(n/1024).
-// Outputs: m_inv' (d, d), s' (d,), u_eff (d,), stats (2,) = (obj_post, accept).
-extern "C" int repro_commit_sweep(const float* r, const float* delta,
-                                  const float* minv, const float* s,
-                                  const float* eta, const float* threshold,
-                                  const float* can_tx, float* part_w,
-                                  float* part_dd, float* minv_out,
-                                  float* s_out, float* u_out, float* stats,
-                                  int d, int n, int i, float diag_keep,
-                                  float diag_add, void* stream) {
-  return launch_commit(r, delta, minv, s, eta, threshold, can_tx, part_w,
-                       part_dd, minv_out, s_out, u_out, stats, d, n, i,
-                       diag_keep, diag_add, 1, static_cast<cudaStream_t>(stream));
+// Blocks of the commit kernel for d rows that one SM holds at once, for the
+// wrapper's geometry; 0 on error.
+extern "C" int repro_commit_blocks_per_sm(int d) {
+  if (d < 1) return 0;
+  cudaError_t err;
+  const CommitKernel kernel = commit_kernel_for(true, d, &err);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, repro::kStreamThreads,
+                                                        commit_shared_bytes(d));
+  return err == cudaSuccess ? blocks : 0;
 }
 
-// Every operand of repro_commit_sweep with a leading trial axis of `batch`:
-// delta (batch, n); eta, threshold, can_tx (batch,); stats (batch, 2).
-// diag_keep and diag_add are shared by the batch.
+// Every operand with a leading trial axis of `batch`: r (batch, d, n),
+// delta (batch, n), m_inv (batch, d, d), s (batch, d).  eta, threshold and
+// can_tx each come as a device vector (batch,) or, with a null pointer, as
+// the value after it for every trial (can_tx != 0: may transmit).  Scratch
+// (batch, d + 1, ceil(n / strip) rounded up to 4); arrivals >= batch zeroed
+// ints.  Outputs: m_inv' (batch, d, d), s' (batch, d), u_eff (batch, d),
+// accept (batch,) bytes (a torch.bool), obj_post (batch,).  diag_keep and
+// diag_add are shared by the batch.  strip: a multiple of 128 columns, at
+// most 1024, picked by the wrapper from n and the card, never from the
+// batch; aligned != 0 only if n % 4 == 0 and r and delta are 16-byte
+// aligned.
 extern "C" int repro_commit_sweep_batched(
-    const float* r, const float* delta, const float* minv, const float* s,
-    const float* eta, const float* threshold, const float* can_tx,
-    float* part_w, float* part_dd, float* minv_out, float* s_out,
-    float* u_out, float* stats, int d, int n, int i, float diag_keep,
-    float diag_add, int batch, void* stream) {
-  return launch_commit(r, delta, minv, s, eta, threshold, can_tx, part_w,
-                       part_dd, minv_out, s_out, u_out, stats, d, n, i,
-                       diag_keep, diag_add, batch,
+    const float* r, const float* delta, const float* minv, const float* s, const float* eta_p,
+    float eta, const float* threshold_p, float threshold, const float* can_tx_p, int can_tx,
+    float* scratch, int* arrivals, float* minv_out, float* s_out, float* u_out, bool* accept,
+    float* obj_post, int d, int n, int i, float diag_keep, float diag_add, int strip,
+    int aligned, int batch, void* stream) {
+  return launch_commit(r, delta, minv, s, eta_p, eta, threshold_p, threshold, can_tx_p, can_tx,
+                       scratch, arrivals, minv_out, s_out, u_out, accept, obj_post, d, n, i,
+                       diag_keep, diag_add, strip, aligned, batch,
                        static_cast<cudaStream_t>(stream));
+}
+
+// The same for one trial: r (d, n), delta (n,), m_inv (d, d), s (d,);
+// eta, threshold, can_tx as one-element device tensors or by value;
+// accept (1,), obj_post (1,).
+extern "C" int repro_commit_sweep(const float* r, const float* delta, const float* minv,
+                                  const float* s, const float* eta_p, float eta,
+                                  const float* threshold_p, float threshold,
+                                  const float* can_tx_p, int can_tx, float* scratch,
+                                  int* arrivals, float* minv_out, float* s_out, float* u_out,
+                                  bool* accept, float* obj_post, int d, int n, int i,
+                                  float diag_keep, float diag_add, int strip, int aligned,
+                                  void* stream) {
+  return repro_commit_sweep_batched(r, delta, minv, s, eta_p, eta, threshold_p, threshold,
+                                    can_tx_p, can_tx, scratch, arrivals, minv_out, s_out,
+                                    u_out, accept, obj_post, d, n, i, diag_keep, diag_add,
+                                    strip, aligned, 1, stream);
 }

@@ -181,10 +181,10 @@ _ARRIVALS: Dict = {}
 
 def arrivals(device: torch.device, count: int) -> torch.Tensor:
     """At least `count` zeroed int32 arrival counters for the kernels whose
-    last-arriving block sums the others' partials (row_gram, probe_sweep),
-    kept per device and current stream and grown on demand.  Every launch
-    leaves them zero, and launches on one stream run one after another, so
-    those kernels share them."""
+    last-arriving block sums the others' partials (row_gram, probe_sweep on
+    its register route, commit_sweep), kept per device and current stream
+    and grown on demand.  Every launch leaves them zero, and launches on one
+    stream run one after another, so those kernels share them."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     have = _ARRIVALS.get(key)
     if have is None or have.numel() < count:
@@ -214,11 +214,14 @@ def _function(source: str, symbol: str, types: tuple):
 
 def launch(source: str, symbol: str, *args) -> None:
     """Call `symbol` of the library built from csrc/<source>.cu with `args`
-    (tensors by device pointer, ints, floats) on the current CUDA stream,
-    and raise if the launch reports an error."""
+    (tensors by device pointer, None as a null pointer, ints, floats) on the
+    current CUDA stream, and raise if the launch reports an error."""
     values, types = [], []
     for a in args:
-        if isinstance(a, torch.Tensor):
+        if a is None:
+            values.append(None)
+            types.append(ctypes.c_void_p)
+        elif isinstance(a, torch.Tensor):
             if a.get_device() != 0:
                 # the libraries' own CUDA runtime launches on device 0
                 raise ValueError(f"{source}.{symbol}: the kernels run on cuda:0, got a "

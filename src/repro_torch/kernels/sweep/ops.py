@@ -10,8 +10,9 @@ eta by ~1e-4 of the largest (the plain version's own distance from float64
 there), so the kernel is the more accurate of the two.  The TPU packing —
 D padded to 128, (Dp, 8) column packs, (8, Np) row packs, the (8, 128)
 parameter plate — is gone: vectors travel as (D,) and (N,), and eta /
-threshold / can_tx as one-element device tensors, so a commit needs no host
-round trip.
+threshold / can_tx as one-element device tensors or, in the commit, as
+Python numbers passed by value, so a commit needs no host round trip and
+no fill launch.
 
 Both take an optional leading Monte-Carlo trial axis: with r of shape
 (B, D, N), every operand carries the trial axis (eta, threshold and can_tx
@@ -34,27 +35,34 @@ library (`probe_blocks_per_sm`, needs the card).  The 16-byte load path
 runs where N % 4 == 0 and r starts on 16 bytes; else the same kernel loads 4
 bytes at a time (same sums, same bits).
 
+The commit is one launch on row_gram's stream loop (the same device code,
+csrc/common.cuh): `commit_geometry(d, n, batch, n_sm, blocks_per_sm)` takes
+row_gram's strips and sizes the partials;
+the last-arriving block of each trial folds the strips and runs the SMW
+epilogue, and writes accept straight into a torch.bool.  One kernel serves
+every D (each row is its own dot product).  Blocks per SM:
+`commit_blocks_per_sm` (needs the card).
+
 A CPU tensor runs the plain version (ref.py, in fp32); a CUDA tensor
 launches the kernel or raises.
 """
 from __future__ import annotations
 
 import functools
-import math
 from typing import NamedTuple, Tuple, Union
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import as_f32
-from repro_torch.kernels.gram.ops import aligned16
+from repro_torch.kernels.gram.ops import aligned16, row_gram_geometry
 from repro_torch.kernels.sweep import ref
 
 __all__ = ["probe_sweep", "commit_sweep", "probe_block_n", "probe_route",
            "probe_rows_per_warp", "probe_geometry", "probe_blocks_per_sm",
-           "ProbeGeometry", "COMMIT_BN", "PROBE_REGISTER_MAX_D"]
+           "ProbeGeometry", "commit_geometry", "commit_blocks_per_sm",
+           "CommitGeometry", "PROBE_REGISTER_MAX_D"]
 
-COMMIT_BN = 1024               # columns per commit block (kCommitBn in sweep.cu)
 _SMEM_FLOATS = 232448 // 4     # 227 KB: the most shared memory a block may use
 PROBE_WARPS = 8                # register route: warps a block (kProbeThreads / 32)
 PROBE_STRIP = 128              # columns a block takes at once, 4 a lane (kProbeStrip)
@@ -126,6 +134,35 @@ def probe_blocks_per_sm(d: int) -> int:
     if got < 1:
         raise RuntimeError(f"probe_sweep: the card holds no block of the register "
                            f"route at D={d}")
+    return got
+
+
+class CommitGeometry(NamedTuple):
+    strip: int                # columns of N a block streams
+    blocks: int               # strips a trial, ceil(n / strip)
+    grid: Tuple[int, int]     # (blocks, batch)
+    part: int                 # fp32 scratch a trial: (d + 1) rows of partials
+
+
+def commit_geometry(d: int, n: int, batch: int = 1, n_sm: int = 132,
+                    blocks_per_sm: int = 2) -> CommitGeometry:
+    """The commit's launch for (d, n) and `batch` trials: row_gram's strips
+    (`row_gram_geometry`, the same stream loop), one block a strip; a
+    scratch row per row of R plus one for <delta, delta>, each padded to 4
+    strips for 16-byte loads.  Only the grid's second entry depends on the
+    batch."""
+    strip, blocks = row_gram_geometry(n, n_sm, blocks_per_sm)
+    padded = -(-blocks // 4) * 4
+    return CommitGeometry(strip, blocks, (blocks, batch), (d + 1) * padded)
+
+
+@functools.lru_cache(maxsize=None)
+def commit_blocks_per_sm(d: int) -> int:
+    """Blocks of the commit kernel for d rows that one SM holds, from the
+    library's occupancy query.  Needs the card."""
+    got = _build.query("sweep", "repro_commit_blocks_per_sm", d)
+    if got < 1:
+        raise RuntimeError(f"commit_sweep: the card holds no block at D={d}")
     return got
 
 
@@ -256,24 +293,55 @@ def commit_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
     _build.check_cuda_tensor("commit_sweep: delta", delta, (n,))
     _build.check_cuda_tensor("commit_sweep: m_inv", m_inv, (d, d))
     _build.check_cuda_tensor("commit_sweep: s", s, (d,))
-    nb = math.ceil(n / COMMIT_BN)
-    dev = r.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    part_w = torch.empty((nb, d), **f32)
-    part_dd = torch.empty((nb,), **f32)
-    m_new = torch.empty((d, d), **f32)
-    s_new = torch.empty((d,), **f32)
-    u_eff = torch.empty((d,), **f32)
-    stats = torch.empty((2,), **f32)
-    _build.launch("sweep", "repro_commit_sweep", as_f32(r), as_f32(delta),
-                  as_f32(m_inv), as_f32(s), _device_scalar(eta, dev),
-                  _device_scalar(threshold, dev),
-                  _device_scalar(can_tx, dev), part_w, part_dd, m_new,
-                  s_new, u_eff, stats, d, n, i, float(diag_keep),
-                  float(diag_add))
+    m_new, s_new, u_eff, accept, obj_post = _launch_commit(
+        r, m_inv, s, eta, i, delta, diag_keep, diag_add, threshold, can_tx, None)
     _build.LAUNCHES["commit_sweep"] += 1
     return (m_new.to(m_inv.dtype), s_new.to(s.dtype), u_eff.to(s.dtype),
-            stats[1] > 0.5, stats[0].to(s.dtype))
+            accept[0], obj_post[0].to(s.dtype))
+
+
+def _by_value_or_tensor(x, b: int, device: torch.device, batched: bool):
+    """A scalar operand of the commit kernel as (pointer, value): a Python
+    number goes by value (no fill launch), a tensor as a device vector of
+    the kernel's trials, which the kernel reads."""
+    if isinstance(x, torch.Tensor):
+        return (_device_vector(x, b, device) if batched
+                else _device_scalar(x, device)), 0.0
+    return None, float(x)
+
+
+def _launch_commit(r, m_inv, s, eta, i, delta, diag_keep, diag_add, threshold,
+                   can_tx, batch):
+    """The commit kernel on checked CUDA operands; batch None for one
+    trial, else the trial count of r's leading axis.  Returns fp32 m_inv',
+    s', u_eff, accept (b,) bool and obj_post (b,)."""
+    d, n = r.shape[-2:]
+    b = batch or 1
+    dev = r.device
+    r32, d32 = as_f32(r), as_f32(delta)
+    geo = commit_geometry(d, n, b, _build.sm_count(dev.index or 0),
+                          commit_blocks_per_sm(d))
+    lead = (batch,) if batch else ()
+    f32 = dict(dtype=torch.float32, device=dev)
+    m_new = torch.empty(lead + (d, d), **f32)
+    s_new = torch.empty(lead + (d,), **f32)
+    u_eff = torch.empty(lead + (d,), **f32)
+    accept = torch.empty((b,), dtype=torch.bool, device=dev)
+    obj_post = torch.empty((b,), **f32)
+    scratch = torch.empty((b * geo.part,), **f32)   # the strips' partials
+    batched = batch is not None
+    can_ptr, can_val = _by_value_or_tensor(can_tx, b, dev, batched)
+    args = (r32, d32, as_f32(m_inv), as_f32(s),
+            *_by_value_or_tensor(eta, b, dev, batched),
+            *_by_value_or_tensor(threshold, b, dev, batched),
+            can_ptr, int(can_val != 0.0), scratch, _build.arrivals(dev, b), m_new,
+            s_new, u_eff, accept, obj_post, d, n, i, float(diag_keep),
+            float(diag_add), geo.strip, aligned16(n, r32, d32))
+    if batched:
+        _build.launch("sweep", "repro_commit_sweep_batched", *args, batch)
+    else:
+        _build.launch("sweep", "repro_commit_sweep", *args)
+    return m_new, s_new, u_eff, accept, obj_post
 
 
 def _probe_sweep_batched(r, m_inv, s, eta, i, steps):
@@ -318,22 +386,8 @@ def _commit_sweep_batched(r, m_inv, s, eta, i, delta, diag_keep, diag_add,
     _build.check_cuda_tensor("commit_sweep: delta", delta)
     _build.check_cuda_tensor("commit_sweep: m_inv", m_inv)
     _build.check_cuda_tensor("commit_sweep: s", s)
-    nb = math.ceil(n / COMMIT_BN)
-    dev = r.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    part_w = torch.empty((b, nb, d), **f32)
-    part_dd = torch.empty((b, nb), **f32)
-    m_new = torch.empty((b, d, d), **f32)
-    s_new = torch.empty((b, d), **f32)
-    u_eff = torch.empty((b, d), **f32)
-    stats = torch.empty((b, 2), **f32)
-    _build.launch("sweep", "repro_commit_sweep_batched", as_f32(r),
-                  as_f32(delta), as_f32(m_inv), as_f32(s),
-                  _device_vector(eta, b, dev),
-                  _device_vector(threshold, b, dev),
-                  _device_vector(can_tx, b, dev), part_w, part_dd, m_new,
-                  s_new, u_eff, stats, d, n, i, float(diag_keep),
-                  float(diag_add), b)
+    m_new, s_new, u_eff, accept, obj_post = _launch_commit(
+        r, m_inv, s, eta, i, delta, diag_keep, diag_add, threshold, can_tx, b)
     _build.LAUNCHES["commit_sweep_batched"] += 1
     return (m_new.to(m_inv.dtype), s_new.to(s.dtype), u_eff.to(s.dtype),
-            stats[:, 1] > 0.5, stats[:, 0].to(s.dtype))
+            accept, obj_post.to(s.dtype))

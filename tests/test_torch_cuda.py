@@ -19,8 +19,13 @@ must give trial b exactly the single-trial kernel's bits (torch.equal).
 The LM kernels (flash attention, flash decode, WKV) are held to 1e-5 in
 fp32 and to 8e-3 in bf16 (about two bf16 roundings of the output: both
 sides accumulate in fp32 and round once to bf16); the serving path's
-logits on the card to the CPU's at 1e-4 (fp32, a few layers).
+logits on the card to the CPU's at 1e-4 (fp32, a few layers), and in
+bf16 at head dim 64 (B9's tensor-core route) within twice the CPU's own
+bf16-vs-fp32 gap.  The commit is held at 1e-4 with equal accept flags, on
+its 4-byte load path, with Python-number and tensor operands, and right
+after the other kernels that share its arrival counters.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -43,6 +48,7 @@ from repro_torch.kernels.wkv.ref import wkv_ref
 from repro_torch.launch.serve import build_prompt
 from repro_torch.models import build_model, layers
 from repro_torch.serve import ServeEngine
+from repro_torch.serve.engine import _pad_cache
 
 pytestmark = pytest.mark.cuda
 
@@ -149,6 +155,83 @@ def test_kernels_match_plain(card, d, n):
         "gram_batched": 0, "row_gram_batched": 0, "probe_sweep_batched": 0,
         "commit_sweep_batched": 0, "flash_attention": 0, "flash_attention_tc": 0,
         "flash_decode": 0, "wkv": 0}
+
+
+COMMIT_CASES = [(100, 262144), (100, 20001), (129, 4096), (300, 20001), (5, 600)]
+
+
+@pytest.mark.parametrize("d,n", COMMIT_CASES)
+def test_commit_paths_match_plain(card, d, n):
+    """The one-launch commit against its plain version (1e-4) on its paths:
+    accept and reject, the same bits twice and on copies of r and delta 4
+    bytes off alignment (the 4-byte load path; N % 4 != 0 takes it too),
+    threshold / can_tx as Python numbers and as device tensors, accept a
+    0-d torch.bool, a reject a bitwise no-op, m_inv' exactly symmetric; one
+    launch a call."""
+    sc = _scene(d, n, seed=7 * d, device=card)
+    i = d // 2
+    base = (sc["r"], sc["m_inv"], sc["s"], sc["eta"], i, sc["delta"], 1.0, 0.0)
+    before = _build.LAUNCHES["commit_sweep"]
+    for thr in (float("-inf"), float("inf")):
+        got = sweep_ops.commit_sweep(*base, thr, True)
+        want = sweep_ref.commit_sweep_ref(*base, thr, True)
+        assert got[3].dtype == torch.bool and got[3].shape == ()
+        assert bool(got[3]) == bool(want[3]) == (thr < 0)
+        for k in (0, 1, 2, 4):
+            _close(got[k], want[k], 1e-4, f"commit D={d} N={n} thr={thr}")
+        for again in (sweep_ops.commit_sweep(*base, thr, True),
+                      sweep_ops.commit_sweep(_unaligned_copy(sc["r"]), *base[1:5],
+                                             _unaligned_copy(sc["delta"]), 1.0, 0.0,
+                                             thr, True),
+                      sweep_ops.commit_sweep(*base, torch.tensor(thr, device=card),
+                                             torch.tensor(1.0, device=card))):
+            assert all(map(torch.equal, got, again))
+        if thr > 0:
+            assert torch.equal(got[0], sc["m_inv"]) and torch.equal(got[1], sc["s"])
+            assert not bool(got[2].any())
+        else:
+            assert torch.equal(got[0], got[0].T)
+    gated = sweep_ops.commit_sweep(*base, float("-inf"), False)     # the transport gate
+    assert not bool(gated[3]) and torch.equal(gated[0], sc["m_inv"])
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["commit_sweep"] == before + 9
+
+
+def test_commit_after_probe_and_row_gram(card):
+    """A commit right after a probe and a row_gram on the same stream, all
+    sharing the arrival counters: each still matches its plain version and
+    the commit gives the bits it gave before (the counters came back to
+    zero), single and batched."""
+    sc = _scene(100, 20001, seed=3, device=card)
+    i = 40
+    cargs = (sc["r"], sc["m_inv"], sc["s"], sc["eta"], i, sc["delta"], 1.0, 0.0,
+             float("-inf"), True)
+    first = sweep_ops.commit_sweep(*cargs)
+    pargs = (sc["r"], sc["m_inv"], sc["s"], sc["eta"], i, sc["steps"])
+    for g, w in zip(sweep_ops.probe_sweep(*pargs), sweep_ref.probe_sweep_ref(*_f64(pargs))):
+        _close(g, w, 1e-4, "probe")
+    _close(gram_ops.row_gram(sc["v"], sc["r"]), gram_ref.row_gram_ref(sc["v"], sc["r"]),
+           1e-5, "row_gram")
+    assert all(map(torch.equal, first, sweep_ops.commit_sweep(*cargs)))
+    bt = _batch(129, 3001, 4, card)
+    bargs = (bt["r"], bt["m_inv"], bt["s"], bt["eta"], 64, bt["delta"], 1.0, 0.0,
+             torch.tensor([-math.inf, math.inf] * 2, device=card), True)
+    batched = sweep_ops.commit_sweep(*bargs)
+    sweep_ops.probe_sweep(bt["r"], bt["m_inv"], bt["s"], bt["eta"], 64, bt["steps"])
+    gram_ops.row_gram(bt["v"], bt["r"])
+    again = sweep_ops.commit_sweep(*bargs)
+    assert all(map(torch.equal, batched, again))
+    assert batched[3].dtype == torch.bool and batched[3].tolist() == [True, False] * 2
+    want = sweep_ref.commit_sweep_batched_ref(*bargs)
+    for k in (0, 1, 2, 4):
+        _close(batched[k], want[k], 1e-4, "commit_sweep_batched D=129")
+    for t in range(4):
+        single = sweep_ops.commit_sweep(bt["r"][t], bt["m_inv"][t], bt["s"][t],
+                                        bt["eta"][t], 64, bt["delta"][t], 1.0, 0.0,
+                                        bargs[8][t], True)
+        assert all(torch.equal(x[t], y) for x, y in zip(batched, single))
+        if t % 2:
+            assert torch.equal(batched[0][t], bt["m_inv"][t])
 
 
 @pytest.mark.parametrize("engine", ["incremental", "fused"])
@@ -500,6 +583,58 @@ def test_serve_smoke_on_card_matches_cpu(card, arch):
     assert {k: v for k, v in launched.items() if v} == want
 
 
+def _forced_logits(model, params, prompt, forced):
+    """Prefill logits, then one decode step per column of `forced` (B, K)
+    fed those tokens, as fp32 CPU tensors."""
+    logits, cache = model.prefill(params, {"tokens": prompt})
+    s0 = prompt.shape[1]
+    cache = _pad_cache(cache, s0 + forced.shape[1])
+    out = [logits]
+    for j in range(forced.shape[1]):
+        logits, cache = model.decode_step(params, {"tokens": forced[:, j:j + 1],
+                                                   "idx": s0 + j}, cache)
+        out.append(logits)
+    return [x.float().cpu() for x in out]
+
+
+def _normwise(got, want):
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def test_serve_bf16_tensor_core_route_matches_cpu(card):
+    """bf16 serving end to end through B9's tensor-core kernel: the smollm
+    smoke config at head dim 64 (bf16 at dh 64 takes the wgmma kernel; at
+    the smoke config's dh 80 the FMA one) served in bf16 on the card, every
+    prefill layer on the tensor-core route.  Its prefill and decode logits
+    (the CPU fed the card's greedy tokens) lie within 2x the port's own CPU
+    bf16-vs-fp32 gap of the port's CPU bf16 logits: the card rounds P to
+    bf16 and sums in other orders, which the CPU's bf16 run does not, so
+    the bound is the size of a bf16 error on these inputs."""
+    cfg32 = dataclasses.replace(get_config("smollm-360m", smoke=True), head_dim=64)
+    cfg16 = dataclasses.replace(cfg32, param_dtype="bfloat16", compute_dtype="bfloat16")
+    model16, model32 = build_model(cfg16), build_model(cfg32)
+    params16 = model16.init(seed=0, device="cpu")
+    params32 = _to(params16, torch.float32)            # the same values, exactly
+    prompt = build_prompt(cfg16, 2, 24, "cpu")["tokens"]
+    params_card = _to(params16, card)
+    _build.reset_launches()
+    forced, _ = ServeEngine(model16).generate(params_card, {"tokens": prompt.to(card)}, 4)
+    torch.cuda.synchronize()
+    n = cfg16.n_layers
+    assert _build.LAUNCHES["flash_attention_tc"] == _build.LAUNCHES["flash_attention"] == n
+    assert _build.LAUNCHES["flash_decode"] == 4 * n
+    on_card = _forced_logits(model16, params_card, prompt.to(card), forced)
+    forced = forced.cpu()
+    cpu16 = _forced_logits(model16, params16, prompt, forced)
+    cpu32 = _forced_logits(model32, params32, prompt, forced)
+    for k, (g, w16, w32) in enumerate(zip(on_card, cpu16, cpu32)):
+        assert bool(torch.isfinite(g).all())
+        gap = _normwise(w16, w32)
+        assert 0.0 < gap < 0.1, (k, gap)
+        err = _normwise(g, w16)
+        assert err <= 2 * gap, f"step {k}: card vs cpu bf16 {err:.3e} > 2 x gap {gap:.3e}"
+
+
 class _LogitRecorder:
     """The model, recording the logits of its prefill and decode steps."""
 
@@ -518,6 +653,7 @@ class _LogitRecorder:
 
 
 def _to(tree, device):
+    """The tree on `device`, or cast to a floating dtype."""
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     if isinstance(tree, dict):

@@ -337,6 +337,56 @@ def test_probe_block_fits_shared_memory():
         sweep_ops.probe_block_n(5000)
 
 
+@pytest.mark.parametrize("batch", [1, 8])
+@pytest.mark.parametrize("d,n", GEOMETRY_CASES)
+def test_commit_geometry_follows_row_gram(d, n, batch):
+    """The commit streams row_gram's strips, one block a strip; its scratch
+    holds d + 1 rows (w and <delta, delta>) of strips padded to 4; only the
+    grid's trial entry depends on the batch."""
+    geo = sweep_ops.commit_geometry(d, n, batch, 132, 2)
+    strip, blocks = gram_ops.row_gram_geometry(n, 132, 2)
+    assert (geo.strip, geo.blocks, geo.grid) == (strip, blocks, (blocks, batch))
+    assert geo.part == (d + 1) * (-(-blocks // 4) * 4)
+    assert geo._replace(grid=None) == sweep_ops.commit_geometry(d, n, 1, 132, 2)._replace(
+        grid=None)
+
+
+def test_commit_geometry_hand_worked():
+    """N = 262144 on 132 SMs at 2 blocks each: 256 strips of 1024 columns
+    (97% of one wave); N = 20001: 157 strips of 128 (one wave needs only 20
+    of 1024); a batch of 8 changes the grid's second entry only."""
+    g = sweep_ops.commit_geometry(100, 262144, 1, 132, 2)
+    assert g == (1024, 256, (256, 1), 101 * 256)
+    g = sweep_ops.commit_geometry(100, 20001, 1, 132, 2)
+    assert g == (128, 157, (157, 1), 101 * 160)
+    assert sweep_ops.commit_geometry(100, 262144, 8, 132, 2) == (1024, 256, (256, 8),
+                                                                  101 * 256)
+    assert not hasattr(sweep_ops, "COMMIT_BN")
+
+
+@pytest.mark.parametrize("thr", [-np.inf, np.inf, "eta0"])
+def test_commit_takes_numbers_and_tensors_alike(thr):
+    """threshold and can_tx as Python numbers (the kernel takes them by
+    value) and as tensors (the kernel reads them) give the same result;
+    accept is a torch.bool, 0-d for one trial and (B,) for a batch."""
+    sc = _scene(6, 300, seed=21)
+    thr = float(sc["eta"]) if thr == "eta0" else float(thr)
+    args = (_t(sc["r"]), _t(sc["m_inv"]), _t(sc["s"]), _t(sc["eta"]), 2, _t(sc["delta"]),
+            1.0, 0.0)
+    for can in (True, False):
+        by_value = sweep_ops.commit_sweep(*args, thr, can)
+        as_tensors = sweep_ops.commit_sweep(*args, torch.tensor(thr, dtype=torch.float32),
+                                            torch.tensor(can))
+        assert by_value[3].dtype == torch.bool and by_value[3].shape == ()
+        assert all(map(torch.equal, by_value, as_tensors))
+    b = 3
+    bargs = tuple(torch.stack([a] * b) if isinstance(a, torch.Tensor) else a for a in args)
+    batched = sweep_ops.commit_sweep(*bargs, thr, True)
+    assert batched[3].dtype == torch.bool and batched[3].shape == (b,)
+    per_trial = sweep_ops.commit_sweep(*bargs, torch.full((b,), thr), torch.ones(b))
+    assert all(map(torch.equal, batched, per_trial))
+
+
 def test_wrappers_raise_off_cpu_and_cuda():
     r = torch.empty((4, 10), device="meta")
     with pytest.raises(ValueError):
