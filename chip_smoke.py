@@ -76,7 +76,13 @@ Phases, each fatal on failure (nothing is caught):
               the FMA route, the long row B=1, S=8192, and dh 128 at
               phi3.5-moe's heads (32/8), B=4, S=2048; B10: B=8, cache
               1088, idx 1087 and the decode_32k row B=128, S=32768; B11:
-              B=8, S=1024, rwkv6 heads, output and final state);
+              B=8, S=1024, rwkv6 heads, output and final state, beside the
+              JAX model's chunked form in plain PyTorch, its bracketed
+              yardstick).  B11 is also held at S = 1, 5, 15, 17 (a single
+              partial chunk and a ragged tail), strong decay (where the
+              chunked form overflows) and weak decay (w near 1), once
+              against its own algorithm in PyTorch, and its shared memory
+              against the Python layout;
   10. serve smollm  `ServeEngine.generate` on the full smollm-360m config
               (32 layers, d=960, bf16): batch 8, a 1024-token MarkovStream
               prompt, 64 greedy tokens; every logit finite, exactly 32 flash
@@ -89,7 +95,10 @@ Phases, each fatal on failure (nothing is caught):
               parameters (B=1, 128-token prompt, 8 greedy steps: logits
               within 1e-4 normwise, tokens equal);
   11. serve rwkv6  the same for the full rwkv6-1.6b config (24 layers,
-              d=2048, bf16) with exactly 24 WKV launches in the prefill;
+              d=2048, bf16) with exactly 24 WKV launches in the prefill, and
+              one more warm prefill under torch.profiler split into B11's
+              device time and its share of the busy time, beside B11's
+              launch geometry;
   12. the kernels line, the nvidia-smi line, and the result line
      {"ok": true, "device": {...}} last.
 
@@ -1079,6 +1088,12 @@ LM_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
 DH128_ARCH = "phi3.5-moe-42b-a6.6b"
 
 
+def wkv_decay(z, decay: str):
+    """w = exp(-exp(z + shift)) for z ~ N(0, 1): strong decay (+1: log w down
+    to about -e^4 a token), moderate (-1) or weak (-6: w near 1)."""
+    return torch.exp(-torch.exp(z + {"strong": 1.0, "moderate": -1.0, "weak": -6.0}[decay]))
+
+
 def sdpa_layout(q, k, v):
     """(B, S, H, dh) views as SDPA's (B, H, S, dh): no copy."""
     return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
@@ -1143,15 +1158,38 @@ def phase_lm_kernels(_build, fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref, g
             check("flash_decode", dt, (b, s, hq, hkv, dh, idx, window),
                   lambda: fd_ops.flash_decode(q, k, v, idx, window=window),
                   fd_ref.decode_ref(q, k, v, idx, window=window), note=f" [{nsplit} chunks]")
-    for b, s, h, dh in ((2, 333, 4, 64), (1, 77, 8, 32), (3, 50, 2, 64)):
+    # B11: ragged lengths (one partial chunk at S = 1, 5, C - 1; C + 1), B*H
+    # from 1 to 128, strong decay (where the JAX package's chunked form
+    # overflows) and weak decay (w near 1, where the state grows largest);
+    # one strong case also against the kernel's algorithm in PyTorch
+    c = wkv_ops.CHUNK
+    for b, s, h, dh, decay in ((2, 333, 4, 64, "moderate"), (1, 77, 8, 32, "moderate"),
+                               (3, 50, 2, 64, "moderate"), (1, 1, 1, 64, "strong"),
+                               (1, 5, 2, 32, "strong"), (2, c - 1, 3, 64, "strong"),
+                               (2, c + 1, 2, 32, "strong"), (2, 1024, 4, 64, "strong"),
+                               (4, 1024, 32, 64, "weak")):
         r, k, v = rn(b, s, h, dh), rn(b, s, h, dh), rn(b, s, h, dh)
-        w = torch.exp(-torch.exp(rn(b, s, h, dh) - 1.0))
+        w = wkv_decay(rn(b, s, h, dh), decay)
         u = 0.1 * rn(h, dh)
         out_ref, state_ref = wkv_ref.wkv_ref(r, k, v, w, u)
-        check("wkv", torch.float32, f"out {(b, s, h, dh)}",
+        what = f"{(b, s, h, dh)} {decay} decay"
+        check("wkv", torch.float32, f"out {what}",
               lambda: wkv_ops.wkv_chunked(r, k, v, w, u)[0], out_ref)
-        check("wkv", torch.float32, f"state {(b, s, h, dh)}",
+        check("wkv", torch.float32, f"state {what}",
               lambda: wkv_ops.wkv_chunked(r, k, v, w, u)[1], state_ref)
+        if (b, s) == (2, 1024):
+            safe_out, safe_state = wkv_ref.wkv_safe_chunked_ref(r, k, v, w, u, c)
+            check("wkv", torch.float32, f"out {what}",
+                  lambda: wkv_ops.wkv_chunked(r, k, v, w, u)[0], safe_out,
+                  note=" [against wkv_safe_chunked_ref]")
+            check("wkv", torch.float32, f"state {what}",
+                  lambda: wkv_ops.wkv_chunked(r, k, v, w, u)[1], safe_state,
+                  note=" [against wkv_safe_chunked_ref]")
+    for dh in wkv_ops.HEAD_DIMS:
+        smem = _build.query("wkv", "repro_wkv_smem", dh)
+        require(smem == wkv_ops.wkv_smem_bytes(dh),
+                f"wkv: the kernel takes {smem} bytes of shared memory at dh {dh}, "
+                f"wkv_smem_bytes says {wkv_ops.wkv_smem_bytes(dh)}")
     rows = []
     record_row = row_recorder(rows)
     bf = torch.bfloat16
@@ -1252,10 +1290,11 @@ def phase_lm_kernels(_build, fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref, g
     log(f"[lm-kernels] flash_decode long row {json.dumps(long_row)}")
     torch.cuda.empty_cache()
 
-    # --- B11 at the rwkv6 serving shape (no single PyTorch call computes it)
+    # --- B11 at the rwkv6 serving shape (no single PyTorch call computes it;
+    # the JAX model's chunked form in plain PyTorch is its bracketed yardstick)
     b, s, h, dh = 8, 1024, 32, 64
     r, k, v = rn(b, s, h, dh), rn(b, s, h, dh), rn(b, s, h, dh)
-    w = torch.exp(-torch.exp(rn(b, s, h, dh) - 1.0))
+    w = wkv_decay(rn(b, s, h, dh), "moderate")
     u = 0.1 * rn(h, dh)
     out_ref, state_ref = wkv_ref.wkv_ref(r, k, v, w, u)
     check("wkv", torch.float32, f"out, timed shape {(b, s, h, dh)}",
@@ -1266,12 +1305,18 @@ def phase_lm_kernels(_build, fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref, g
     for (name, dt), (e, tol) in sorted(worst.items()):
         log(f"[lm-kernels] {name} {dt}: worst normwise error against the plain "
             f"version {e:.3e} (held to {tol:g})")
+    chunked_ms = time_ms(lambda: wkv_ref.wkv_chunked_ref(r, k, v, w, u, 64), reps=3)
+    geometry = wkv_ops.wkv_geometry(b, s, h, dh)
+    log(f"[lm-kernels] wkv geometry at {(b, s, h, dh)}: {json.dumps(geometry)}")
     record_row("wkv", "src/repro_torch/csrc/wkv.cu", "src/repro/kernels/wkv/kernel.py:67",
                errs["wkv"],
                time_ms(lambda: wkv_ops.wkv_chunked(r, k, v, w, u)),
                time_ms(lambda: wkv_ref.wkv_ref(r, k, v, w, u), reps=2), None,
                4.0 * (5 * b * s * h * dh + h * dh + b * h * dh * dh),
-               4.0 * b * h * s * dh * dh)
+               4.0 * b * h * s * dh * dh,
+               note=f"chunked form wkv_chunked_ref(c=64), the JAX model's form in plain "
+                    f"PyTorch (overflows at strong decay): {chunked_ms:.4f} ms")
+    rows[-1].update(chunked_form_ms=chunked_ms, geometry=geometry)
     return rows
 
 
@@ -1371,6 +1416,35 @@ def profile_serving(model, params, prompt, tag: str, steps: int = 4) -> float:
     return profile_window(tag, "decode steps", decode, steps)
 
 
+def prefill_split(model, params, prompt, tag: str, geometry=None) -> dict:
+    """One warm prefill under torch.profiler: its wall time, the device's busy
+    time, and the device time, launches and share of that busy time of the
+    WKV kernel (B11), beside its launch geometry.  Logged and returned."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model.prefill(params, prompt)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, prompt)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = wkv = 0.0
+    launches = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            busy += e.time_range.elapsed_us()
+            if "wkv_kernel" in e.name:
+                wkv += e.time_range.elapsed_us()
+                launches += 1
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "wkv_ms": wkv / 1e3,
+           "wkv_launches": launches, "wkv_share_of_busy": wkv / busy if busy else 0.0,
+           "geometry": geometry}
+    log(f"[{tag}] prefill split: {json.dumps(out)}")
+    return out
+
+
 def serve_full(lm, _build, arch: str, expect: dict, batch=8, prompt_len=1024, new=64):
     """The main path: ServeEngine.generate on the full config, launch
     counts read just after it; then the timings and a profile."""
@@ -1420,6 +1494,14 @@ def serve_full(lm, _build, arch: str, expect: dict, batch=8, prompt_len=1024, ne
     require(torch.equal(again, out), f"{arch}: greedy tokens differ between two runs")
     decode_ms = (total_ms - prefill_ms) / new
     busy = profile_serving(model, params, prompt, arch.replace(".", "_"))
+    if "wkv" in expect:
+        from repro_torch.kernels.wkv import ops as wkv_ops
+
+        h, dh = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
+        split = prefill_split(model, params, prompt, arch,
+                              wkv_ops.wkv_geometry(batch, prompt_len, h, dh))
+        require(split["wkv_launches"] == expect["wkv"],
+                f"{arch}: {split['wkv_launches']} WKV kernels in the profiled prefill")
     log(f"[{arch}] batch {batch}, prompt {prompt_len}, {new} new tokens: prefill "
         f"{prefill_ms:.2f} ms ({batch * prompt_len / prefill_ms * 1e3:.0f} prompt tokens/s), "
         f"decode {decode_ms:.3f} ms per step ({batch / decode_ms * 1e3:.1f} tokens/s), "

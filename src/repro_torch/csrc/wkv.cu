@@ -1,31 +1,65 @@
-// The RWKV-6 WKV recurrence of the rwkv6 prefill, fp32 throughout.
+// The RWKV-6 WKV recurrence of the rwkv6 prefill, fp32 in and out.
 //
 // repro_wkv replaces src/repro/kernels/wkv/kernel.py wkv_chunked_pallas
 // (B11, body _wkv_kernel): per (batch, head), with the (dh, dh) state S
 //   out_t = r_t^T (S_{t-1} + diag(u) k_t v_t^T)
 //   S_t   = diag(w_t) S_{t-1} + k_t v_t^T
 //   for r, k, v, w (B, S, H, dh) and u (H, dh); it also writes the final
-//   state S_T (B, H, dh, dh), which the prefill hands to the decode cache
-//   (the JAX package replays the recurrence for it).
-//   The TPU kernel walked the chunks of the sequence as a sequential grid
-//   axis and kept S in VMEM scratch, in the chunked linear-attention form.
-//   Here one block owns a (batch, head) and walks the sequence itself with S
-//   in registers: thread (j, ks) holds S[i][j] for the dh/4 keys i = ks
-//   (mod 4), so a step costs each thread dh/4 fused updates and the block's
-//   dh x 4 threads cover the state once.  This is the exact per-token
-//   recurrence, which cannot overflow: the chunked form's exp(-log P) grows
-//   past the fp32 range once a chunk's summed log-decay passes about -88.
-//   r, k, v and w of 32 tokens at a time are staged in shared memory, so the
-//   loads are coalesced and a step reads them as broadcasts.
-// Bound on an H100: 4 B H S dh^2 fp32 operations against 20 B H S dh bytes
-//   (r, k, v, w read once, out written once), dh/5 operations per byte:
-//   12.8 at dh=64, below the card's 20 fp32 operations per byte, so the
-//   bytes bound it on paper.  In practice the recurrence is serial in t and
-//   the parallelism is B H blocks of dh x 4 threads (256 blocks of 256
-//   threads at the rwkv6 serving shape, two per SM), so the chain of
-//   dependent steps, not the memory, sets this kernel's time.  The sum over
-//   the 4 key slices of out_t is a fixed xor butterfly: the same bits on
-//   every run.
+//   state S_T (B, H, dh, dh), state[b, h, i, j] = S[i][j], which the prefill
+//   hands to the decode cache (the JAX package replays the recurrence for it).
+//
+// Bound on an H100: 20 B H S dh bytes (r, k, v, w read once, out written
+//   once) plus the final state, against 4 B H S dh^2 operations of the exact
+//   recurrence: the bytes bound it (0.1014 ms at the rwkv6 serving shape).
+//   The per-token recurrence cannot reach them: it needs at least 3 fp32
+//   instructions per state entry and token, 0.11-0.15 ms on the FP32 pipe
+//   before any load.  So this kernel leaves it, as the TPU kernel did.
+//
+// Design: the chunked form, overflow-safe, with its products on the tensor
+//   cores.
+//   - Chunks of kC = 16 tokens.  Every decay factor is a product of w's in
+//     (0, 1] formed by multiplication inside the chunk, never a quotient:
+//       Pex_t = prod_{u<t} w_u, Sfx_s = prod_{u>s} w_u, Pall = prod_u w_u,
+//       out_t = (r_t * Pex_t)^T S + sum_{s<=t} A[t][s] v_s,
+//       A[t][s] = sum_i r_t[i] k_s[i] prod_{s<u<t} w_u[i] (s < t),
+//       A[t][t] = sum_i r_t[i] u[i] k_t[i] (the bonus, once per token),
+//       S <- diag(Pall) S + sum_s (k_s * Sfx_s) v_s^T.
+//     Inside each half of a chunk A comes from a running product walked
+//     from s = t - 1 down; across the halves it is a dot of two factors
+//     taken through the midpoint, r_t prod_{8<=u<t} w_u and k_s
+//     prod_{s<u<8} w_u.  A factor can only underflow to 0, within 1e-38 of
+//     its true value; it cannot overflow, where the TPU kernel's exp(-log P)
+//     passes the fp32 range once a chunk's summed log-decay passes about
+//     -88.  No logarithm or exponential is taken, so no factor is the
+//     exponential of a difference of two long cumulative sums.
+//   - The three products of a chunk, (C x dh)(dh x dv), (dh x C)(C x dv) and
+//     (C x C)(C x dv), run as mma.sync m16n8k8 TF32 with the 3xTF32 split
+//     (x = big + small, both TF32; big*big + big*small + small*big), which
+//     keeps fp32 accuracy; the split is two integer operations and a
+//     subtraction, done as the fragments are loaded.  The MMA warps keep S
+//     transposed (value column j as the MMA row) in their accumulator
+//     registers for the whole sequence; the product r S reads those
+//     registers as its A operand by permuting the key index inside each
+//     8-wide k-step (its B operand is read under the same permutation), so S
+//     never goes through memory.
+//   - One block per (batch, head): dh/16 MMA warps, each owning 16 value
+//     columns, consume chunk c - 1 while dh/16 prep warps turn chunk c into
+//     operands, one __syncthreads a chunk.  The prep warps work in two
+//     halves side by side (the decay products of a column; the in-half
+//     scores, reduced across lanes in a fixed order), then together on the
+//     scores across the halves.  The value columns are split over warps, not
+//     over blocks, so that the scores and the decay products are formed once
+//     per chunk and head.
+//   - r, k, v, w arrive by cp.async (16-byte copies; 4-byte ones when an
+//     operand does not start on 16 bytes) into three raw stages: chunk c + 1
+//     loads, chunk c is prepared, and the MMA warps read chunk c - 1's V
+//     straight from its stage.  The prep warps issue chunk c + 1's copies
+//     once chunk c has landed, not before their wait: copies issued earlier
+//     stall them for as long as the copies take at the memory's rate.  A
+//     ragged tail is masked in shared memory (r = k = v = 0, w = 1: the
+//     state is left as it was).
+//   Every sum has a fixed order and no float atomics are used: the same bits
+//   on every run.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,91 +67,486 @@
 
 namespace {
 
-constexpr int kKs = 4;   // key slices per value column
+constexpr int kC = 16;      // tokens per chunk (the MMA row tile)
+constexpr int kH = kC / 2;  // tokens per half chunk
+constexpr int kPA = 20;     // padded row of the score tile (conflict-free B loads)
+constexpr int kAhead = 1;   // chunks loading ahead of the one being prepared
+constexpr int kRaw = kAhead + 2;   // raw stages: loading, prepared, V read by the MMAs
 
 template <int DH>
-struct WkvShape {
-  static constexpr int threads = DH * kKs;
-  static constexpr int steps = 32;                   // tokens staged at a time
-  static constexpr int keys = DH / kKs;              // state entries per thread
+struct Wkv {
+  static constexpr int warps = DH / 16;            // prep warps = MMA warps
+  static constexpr int prep = 32 * warps;          // prep threads (2 DH)
+  static constexpr int threads = 2 * prep;
+  static constexpr int lanes = DH / 8;             // lanes of a score group, 8 keys each
+  static constexpr int P = DH + 8;                 // padded row (conflict-free fragments)
+  static constexpr int tile = kC * P;              // one chunk tile (r, k, v, w, rd or kd)
+  static constexpr int raw_stage = 4 * tile;       // r, k, v, w
+  static constexpr int stage = 2 * tile + 2 * kC * kPA + DH;   // rd, kd, A big/small, Pall
+  static constexpr int cross = 2 * kH * P;         // r and k factors across the halves
+  static constexpr int floats = kRaw * raw_stage + 2 * stage + cross + DH;   // + u
+  static constexpr size_t bytes = sizeof(float) * floats;
 };
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+// x = big + small: big is x rounded to TF32 (10 fraction bits, ties away
+// from zero, as cvt.rna.tf32.f32 rounds, in two integer operations), small
+// = x - big exactly; the MMA reads small to TF32 precision, so big + small
+// holds x to about 2^-21 relative, and the dropped small x small term of a
+// product is below 2^-22 of it.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big));
+}
+
+// d += a b, one m16n8k8 TF32 product with fp32 accumulation.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: d += a b to fp32 accuracy, with a and b split into big + small and
+// the small x small term dropped; the correction terms go first.
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  mma(d, as, bb[0], bb[1]);
+  mma(d, ab, bs[0], bs[1]);
+  mma(d, ab, bb[0], bb[1]);
+}
+
+__device__ __forceinline__ void split2(float x0, float x1, uint32_t (&big)[2],
+                                       uint32_t (&small)[2]) {
+  split(x0, big[0], small[0]);
+  split(x1, big[1], small[1]);
+}
+
+__device__ __forceinline__ void bar_prep(int n) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(n) : "memory");
+}
+
+// Sum of x over the L lanes of an aligned lane group, on every lane.
+template <int L>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = L / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Sums of v[0..8) over the L lanes (4 or 8) of an aligned lane group,
+// scattered: afterwards lane li holds in v[m] the sum of entry li * (8 / L)
+// + m, for m < 8 / L.  Each level keeps half of the entries (7 shuffles at
+// L = 8 where 8 separate sums would take 24); the halves are swapped by an
+// xor of bit patterns, so no entry is indexed at run time.
+template <int L>
+__device__ __forceinline__ void reduce_scatter8(float (&v)[8], int li) {
+  static_assert(L == 4 || L == 8, "groups of 4 or 8 lanes");
+  constexpr int levels = L == 8 ? 3 : 2;
+#pragma unroll
+  for (int lvl = 0; lvl < levels; ++lvl) {
+    const int o = L >> (lvl + 1);
+    const int half = 4 >> lvl;
+    const uint32_t up = (li & o) ? 0xffffffffu : 0u;
+#pragma unroll
+    for (int m = 0; m < half; ++m) {
+      const uint32_t a = __float_as_uint(v[m]), b = __float_as_uint(v[m + half]);
+      const uint32_t x = (a ^ b) & up;                 // up: keep b, send a
+      v[m] = __uint_as_float(a ^ x) + __shfl_xor_sync(0xffffffffu, __uint_as_float(b ^ x), o);
+    }
+  }
+}
+
+// The operands one chunk's MMAs read: r * Pex and k * Sfx in fp32, the C x C
+// scores A (strict upper triangle zero) split into TF32 halves, and Pall.
 template <int DH>
-__global__ void __launch_bounds__(WkvShape<DH>::threads)
+struct Stage {
+  float *rd, *kd, *pall;
+  uint32_t *ab, *as;
+  __device__ explicit Stage(float* base) {
+    using W = Wkv<DH>;
+    rd = base;
+    kd = base + W::tile;
+    ab = reinterpret_cast<uint32_t*>(base + 2 * W::tile);
+    as = ab + kC * kPA;
+    pall = reinterpret_cast<float*>(as + kC * kPA);
+  }
+};
+
+// Chunk c's r, k, v, w into a raw stage (rows of P floats; rows past n
+// masked: r = k = v = 0, w = 1), issued by the prep threads as one group of
+// cp.async copies: 16-byte copies, or 4-byte ones on the unaligned path.
+template <int DH, bool ALIGNED>
+__device__ __forceinline__ void load_chunk(float* raw, const float* r, const float* k,
+                                           const float* v, const float* w, size_t head0,
+                                           size_t tok, int n, int pt) {
+  using W = Wkv<DH>;
+  constexpr int per = ALIGNED ? 4 : 1;             // floats a copy
+  constexpr int row = DH / per;                    // copies a row
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const float* src = a == 0 ? r : a == 1 ? k : a == 2 ? v : w;
+#pragma unroll
+    for (int e = pt; e < kC * row; e += W::prep) {
+      const int t = e / row, d = (e % row) * per;
+      float* to = raw + a * W::tile + t * W::P + d;
+      if (t < n) {
+        const float* from = src + head0 + (size_t)t * tok + d;
+        if constexpr (ALIGNED) repro::cp_async16(smem_addr(to), from);
+        else cp_async4(smem_addr(to), from);
+      } else {
+#pragma unroll
+        for (int q = 0; q < per; ++q) to[q] = a == 3 ? 1.f : 0.f;
+      }
+    }
+  }
+  repro::cp_async_commit();
+}
+
+// The prep warps: one raw chunk -> the operands of its MMAs, in two halves
+// that run side by side: the first DH threads form the decay products of
+// their column, the other DH the scores A[t][s] (s < t) inside each half of
+// the chunk (t, s < 8 or t, s >= 8) by a running product walked from s = t - 1
+// down.  Then all of them form the scores across the halves (t >= 8 > s)
+// through the midpoint, as dots of r_t prod_{8<=u<t} w_u and k_s
+// prod_{s<u<8} w_u, both factors <= 1.
+template <int DH>
+__device__ __forceinline__ void prep_chunk(const float* raw, Stage<DH> st, float* cross,
+                                           const float* su, int pt) {
+  using W = Wkv<DH>;
+  constexpr int P = W::P;
+  const float* R = raw;
+  const float* K = raw + W::tile;
+  const float* Wd = raw + 3 * W::tile;
+  float* R8 = cross;                                 // rows t = 8 .. 15
+  float* K8 = cross + kH * W::P;                    // rows s = 0 .. 7
+
+  if (pt < DH) {
+    // column i: r * Pex, Pall and r's cross factor running forward, k * Sfx
+    // and k's cross factor running backward, each a product of the column's w
+    const int i = pt;
+    float x[kC], y[kC], wt[kC];
+#pragma unroll
+    for (int t = 0; t < kC; ++t) {
+      x[t] = R[t * P + i];
+      y[t] = K[t * P + i];
+      wt[t] = Wd[t * P + i];
+    }
+    float run = 1.f, run8 = 1.f, back = 1.f, back8 = 1.f;
+#pragma unroll
+    for (int t = 0; t < kC; ++t) {
+      const int tb = kC - 1 - t;
+      st.rd[t * P + i] = x[t] * run;
+      st.kd[tb * P + i] = y[tb] * back;
+      if (t >= kH) {
+        R8[(t - kH) * W::P + i] = x[t] * run8;
+        run8 *= wt[t];
+      }
+      if (tb < kH) {
+        K8[tb * W::P + i] = y[tb] * back8;
+        back8 *= wt[tb];
+      }
+      run *= wt[t];
+      back *= wt[tb];
+    }
+    st.pall[i] = run;
+  } else {
+    // scores inside the halves: group g of L lanes (keys 4 li .. 4 li + 3 and
+    // the same DH / 2 on, on lane li) in half hf takes the rows tA = 8 hf + gg + 1 and tB = 8 hf +
+    // 7 - gg (8 entries in all; gg = 3 takes row 8 hf + 4 and the bonus of
+    // row 8 hf), walking s down from t - 1 with h = r_t prod_{s<u<t} w_u
+    constexpr int L = W::lanes;
+    const int q0 = pt - DH, g = q0 / L, li = q0 % L, hf = g / 4, gg = g % 4;
+    const int nA = gg < 3 ? gg + 1 : 4;              // entries of row tA
+    const int tA = kH * hf + nA;
+    const int tB = gg < 3 ? kH * hf + kH - 1 - gg : kH * hf;
+    auto ld8 = [&](const float* rowp, float4& a, float4& b) {
+      a = *reinterpret_cast<const float4*>(rowp + 4 * li);
+      b = *reinterpret_cast<const float4*>(rowp + 4 * li + DH / 2);
+    };
+    float4 u0, u1, rA0, rA1, rB0, rB1, kA0, kA1, kB0, kB1;
+    ld8(su, u0, u1);
+    ld8(R + tA * P, rA0, rA1);
+    ld8(R + tB * P, rB0, rB1);
+    ld8(K + tA * P, kA0, kA1);
+    ld8(K + tB * P, kB0, kB1);
+    auto mul4 = [](float4 a, float4 b) {
+      return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+    };
+    const float dA = group_sum<L>(
+        repro::dot4(rA1, mul4(u1, kA1), repro::dot4(rA0, mul4(u0, kA0), 0.f)));
+    const float dB = group_sum<L>(
+        repro::dot4(rB1, mul4(u1, kB1), repro::dot4(rB0, mul4(u0, kB0), 0.f)));
+    if (li == 0) split(dA, st.ab[tA * kPA + tA], st.as[tA * kPA + tA]);
+    if (li == 1) split(dB, st.ab[tB * kPA + tB], st.as[tB * kPA + tB]);
+
+    float vals[kH];
+    float4 h0 = rA0, h1 = rA1;
+#pragma unroll
+    for (int q = 0; q < kH; ++q) {
+      if (q == nA) {
+        h0 = rB0;
+        h1 = rB1;
+      }
+      const int s = q < nA ? tA - 1 - q : kH * hf + kH - 1 - q;
+      float4 k0, k1, w0, w1;
+      ld8(K + s * P, k0, k1);
+      ld8(Wd + s * P, w0, w1);
+      vals[q] = repro::dot4(h1, k1, repro::dot4(h0, k0, 0.f));
+      h0 = mul4(h0, w0);
+      h1 = mul4(h1, w1);
+    }
+    reduce_scatter8<L>(vals, li);
+#pragma unroll
+    for (int m = 0; m < kH / L; ++m) {
+      const int q = li * (kH / L) + m;
+      if (gg == 3 && q >= 4) continue;               // row 8 hf has no s < t
+      const int t = q < nA ? tA : tB;
+      const int s = q < nA ? tA - 1 - q : kH * hf + kH - 1 - q;
+      split(vals[m], st.ab[t * kPA + s], st.as[t * kPA + s]);
+    }
+  }
+  // scores across the halves, once every prep thread's factors are in:
+  // entry (t, s) = (8 + e / 8, e % 8) by two lanes (keys 8c + 4 hb .. + 3)
+  bar_prep(W::prep);
+#pragma unroll
+  for (int e2 = pt; e2 < 2 * kH * kH; e2 += W::prep) {
+    const int e = e2 >> 1, hb = e2 & 1;
+    const float* rr = R8 + (e / kH) * W::P + 4 * hb;
+    const float* kk = K8 + (e % kH) * W::P + 4 * hb;
+    float a0 = 0.f, a1 = 0.f;
+#pragma unroll
+    for (int c = 0; c < DH / 8; c += 2) {
+      a0 = repro::dot4(*reinterpret_cast<const float4*>(rr + 8 * c),
+                       *reinterpret_cast<const float4*>(kk + 8 * c), a0);
+      a1 = repro::dot4(*reinterpret_cast<const float4*>(rr + 8 * c + 8),
+                       *reinterpret_cast<const float4*>(kk + 8 * c + 8), a1);
+    }
+    float total = a0 + a1;
+    total += __shfl_xor_sync(0xffffffffu, total, 1);
+    if (hb == 0) {
+      const int t = kH + e / kH, s = e % kH;
+      split(total, st.ab[t * kPA + s], st.as[t * kPA + s]);
+    }
+  }
+}
+
+// One MMA warp: out of the chunk for its 16 value columns, then the state.
+// S[p] is the accumulator tile of S^T rows j0 .. j0 + 15 (value columns),
+// columns 8p .. 8p + 7 (keys): S[p][0] = S[8p + 2 tig][j0 + gid], [1] key + 1,
+// [2] value + 8, [3] both.  rd, kd and V are fp32 in shared memory and are
+// split into TF32 halves as their fragments are loaded.
+template <int DH>
+__device__ __forceinline__ void mma_chunk(Stage<DH> st, const float* V, float (&S)[DH / 8][4],
+                                          float* out, size_t tok, int n, int j0, int lane) {
+  using W = Wkv<DH>;
+  constexpr int P = W::P;
+  const int gid = lane >> 2, tig = lane & 3;
+
+  // V^T as the A operand (rows j, k-steps over s), both halves, both k-steps
+  uint32_t vb[2][4], vs[2][4];
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const float* v0 = V + (8 * kk + tig) * P + j0 + gid;
+    split(v0[0], vb[kk][0], vs[kk][0]);
+    split(v0[8], vb[kk][1], vs[kk][1]);
+    split(v0[4 * P], vb[kk][2], vs[kk][2]);
+    split(v0[4 * P + 8], vb[kk][3], vs[kk][3]);
+  }
+
+  // out^T (rows j, columns t) = S^T (r * Pex)^T + V^T A^T, the big part and
+  // the correction terms in separate accumulators
+  float ob[2][4] = {}, os[2][4] = {};
+#pragma unroll
+  for (int p = 0; p < DH / 8; ++p) {
+    // S^T's accumulator tile as an A operand: k = tig <-> key 8p + 2 tig,
+    // k = tig + 4 <-> key 8p + 2 tig + 1 (the B loads below follow it)
+    uint32_t sb[4], ss[4];
+    split(S[p][0], sb[0], ss[0]);
+    split(S[p][2], sb[1], ss[1]);
+    split(S[p][1], sb[2], ss[2]);
+    split(S[p][3], sb[3], ss[3]);
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const float2 x = *reinterpret_cast<const float2*>(st.rd + (8 * nt + gid) * P + 8 * p +
+                                                        2 * tig);
+      uint32_t rb[2], rs[2];
+      split2(x.x, x.y, rb, rs);
+      mma(os[nt], ss, rb[0], rb[1]);
+      mma(os[nt], sb, rs[0], rs[1]);
+      mma(ob[nt], sb, rb[0], rb[1]);
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      const int o = (8 * nt + gid) * kPA + 8 * kk + tig;
+      const uint32_t ab[2] = {st.ab[o], st.ab[o + 4]}, as[2] = {st.as[o], st.as[o + 4]};
+      mma(os[nt], vs[kk], ab[0], ab[1]);
+      mma(os[nt], vb[kk], as[0], as[1]);
+      mma(ob[nt], vb[kk], ab[0], ab[1]);
+    }
+  }
+#pragma unroll
+  for (int nt = 0; nt < 2; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = 8 * nt + 2 * tig + (e & 1), j = j0 + gid + 8 * (e >> 1);
+      if (t < n) out[(size_t)t * tok + j] = ob[nt][e] + os[nt][e];
+    }
+  }
+
+  // S^T <- S^T diag(Pall) + V^T (k * Sfx)
+#pragma unroll
+  for (int p = 0; p < DH / 8; ++p) {
+    const float2 pa = *reinterpret_cast<const float2*>(st.pall + 8 * p + 2 * tig);
+    S[p][0] *= pa.x; S[p][1] *= pa.y; S[p][2] *= pa.x; S[p][3] *= pa.y;
+  }
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+#pragma unroll
+    for (int p = 0; p < DH / 8; ++p) {
+      const float* k0 = st.kd + (8 * kk + tig) * P + 8 * p + gid;
+      uint32_t kb[2], ks[2];
+      split2(k0[0], k0[4 * P], kb, ks);
+      mma3(S[p], vb[kk], vs[kk], kb, ks);
+    }
+  }
+}
+
+template <int DH, bool ALIGNED>
+__global__ void __launch_bounds__(Wkv<DH>::threads, 2)
 wkv_kernel(const float* __restrict__ r, const float* __restrict__ k,
            const float* __restrict__ v, const float* __restrict__ w,
            const float* __restrict__ u, float* __restrict__ out,
            float* __restrict__ state_out, int s, int h) {
-  using Sh = WkvShape<DH>;
-  constexpr int T = Sh::steps;
-  __shared__ float sr[T][DH], sk[T][DH], sv[T][DH], sw[T][DH];
-  __shared__ float su[DH];
+  using W = Wkv<DH>;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* raw = sm;                                   // kRaw raw stages
+  float* der = sm + kRaw * W::raw_stage;             // 2 operand stages
+  float* cross = der + 2 * W::stage;                 // the cross factors (prep only)
+  float* su = cross + W::cross;
   const int hh = blockIdx.x, b = blockIdx.y;
-  const int j = threadIdx.x / kKs, ks = threadIdx.x % kKs;
-  if (threadIdx.x < DH) su[threadIdx.x] = u[(size_t)hh * DH + threadIdx.x];
-
-  float st[Sh::keys];
-#pragma unroll
-  for (int ii = 0; ii < Sh::keys; ++ii) st[ii] = 0.f;
-
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool is_prep = warp < W::warps;
+  const int nch = (s + kC - 1) / kC;
   const size_t tok = (size_t)h * DH;                 // stride of one token
   const size_t head0 = (size_t)b * s * tok + (size_t)hh * DH;
-  for (int t0 = 0; t0 < s; t0 += T) {
-    const int nt = min(T, s - t0);
-    __syncthreads();                                 // the last chunk is consumed
-    for (int e = threadIdx.x; e < nt * DH; e += Sh::threads) {
-      const int tt = e / DH, d = e % DH;
-      const size_t off = head0 + (size_t)(t0 + tt) * tok + d;
-      sr[tt][d] = r[off];
-      sk[tt][d] = k[off];
-      sv[tt][d] = v[off];
-      sw[tt][d] = w[off];
+
+  // the strict upper triangles of the score tiles stay zero
+  for (int e = threadIdx.x; e < 2 * kC * kPA; e += W::threads) {
+    Stage<DH> st(der + (e / (kC * kPA)) * W::stage);
+    st.ab[e % (kC * kPA)] = 0u;
+    st.as[e % (kC * kPA)] = 0u;
+  }
+  auto load = [&](int c) {                          // chunk c's copies, one group
+    if (c < nch)
+      load_chunk<DH, ALIGNED>(raw + (c % kRaw) * W::raw_stage, r, k, v, w,
+                              head0 + (size_t)c * kC * tok, tok, min(kC, s - c * kC),
+                              threadIdx.x);
+    else
+      repro::cp_async_commit();                    // an empty group keeps the count
+  };
+  if (is_prep) {
+    if (threadIdx.x < DH) su[threadIdx.x] = u[(size_t)hh * DH + threadIdx.x];
+#pragma unroll
+    for (int c = 0; c < kAhead; ++c) load(c);
+  }
+  __syncthreads();
+
+  float S[DH / 8][4];
+#pragma unroll
+  for (int p = 0; p < DH / 8; ++p) S[p][0] = S[p][1] = S[p][2] = S[p][3] = 0.f;
+  const int j0 = 16 * (warp - W::warps);
+
+  // iteration c: the prep warps issue chunk c + kAhead's copies and prepare
+  // chunk c, while the MMA warps consume chunk c - 1 (its operands and its
+  // raw V)
+  for (int c = 0; c <= nch; ++c) {
+    if (is_prep) {
+      if (c < nch) {
+        repro::cp_async_wait<kAhead - 1>();          // chunk c has landed (own copies)
+        bar_prep(W::prep);                           // ... and every prep thread's
+        load(c + kAhead);
+        prep_chunk<DH>(raw + (c % kRaw) * W::raw_stage, Stage<DH>(der + (c & 1) * W::stage),
+                       cross, su, threadIdx.x);
+      }
+    } else if (c > 0) {
+      const int c0 = c - 1;
+      mma_chunk<DH>(Stage<DH>(der + (c0 & 1) * W::stage),
+                    raw + (c0 % kRaw) * W::raw_stage + 2 * W::tile, S,
+                    out + head0 + (size_t)c0 * kC * tok, tok, min(kC, s - c0 * kC), j0, lane);
     }
     __syncthreads();
-    for (int tt = 0; tt < nt; ++tt) {
-      const float vj = sv[tt][j];
-      float o = 0.f;
-#pragma unroll
-      for (int ii = 0; ii < Sh::keys; ++ii) {
-        const int i = ii * kKs + ks;
-        const float kv = sk[tt][i] * vj;
-        o = fmaf(sr[tt][i], st[ii] + su[i] * kv, o);
-        st[ii] = fmaf(sw[tt][i], st[ii], kv);
-      }
-#pragma unroll
-      for (int off = kKs / 2; off > 0; off >>= 1)
-        o += __shfl_xor_sync(0xffffffffu, o, off);
-      if (ks == 0) out[head0 + (size_t)(t0 + tt) * tok + j] = o;
-    }
   }
 
-  float* dst = state_out + ((size_t)b * h + hh) * DH * DH;
+  if (!is_prep) {
+    float* dst = state_out + ((size_t)b * h + hh) * DH * DH;
+    const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
-  for (int ii = 0; ii < Sh::keys; ++ii) dst[(size_t)(ii * kKs + ks) * DH + j] = st[ii];
+    for (int p = 0; p < DH / 8; ++p) {
+      const int i = 8 * p + 2 * tig, j = j0 + gid;
+      dst[(size_t)i * DH + j] = S[p][0];
+      dst[(size_t)(i + 1) * DH + j] = S[p][1];
+      dst[(size_t)i * DH + j + 8] = S[p][2];
+      dst[(size_t)(i + 1) * DH + j + 8] = S[p][3];
+    }
+  }
+}
+
+template <int DH, bool ALIGNED>
+int launch(const float* r, const float* k, const float* v, const float* w, const float* u,
+           float* out, float* state, int b, int s, int h, cudaStream_t st) {
+  using W = Wkv<DH>;
+  auto kern = wkv_kernel<DH, ALIGNED>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W::bytes);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(h, b), W::threads, W::bytes, st>>>(r, k, v, w, u, out, state, s, h);
+  return cudaGetLastError();
 }
 
 template <int DH>
-int launch(const float* r, const float* k, const float* v, const float* w,
-           const float* u, float* out, float* state, int b, int s, int h,
-           cudaStream_t st) {
-  wkv_kernel<DH><<<dim3(h, b), WkvShape<DH>::threads, 0, st>>>(
-      r, k, v, w, u, out, state, s, h);
-  return cudaGetLastError();
+int launch_dh(const float* r, const float* k, const float* v, const float* w, const float* u,
+              float* out, float* state, int b, int s, int h, int aligned, cudaStream_t st) {
+  return aligned ? launch<DH, true>(r, k, v, w, u, out, state, b, s, h, st)
+                 : launch<DH, false>(r, k, v, w, u, out, state, b, s, h, st);
 }
 
 }  // namespace
 
 // r, k, v, w, out (b, s, h, dh); u (h, dh); state (b, h, dh, dh) with
 // state[b, h, i, j] = S[i][j] (key i, value j); all fp32 and contiguous.
-// dh in {32, 64} (the rwkv configs' head dims).
-extern "C" int repro_wkv(const float* r, const float* k, const float* v,
-                         const float* w, const float* u, float* out,
-                         float* state, int b, int s, int h, int dh,
-                         void* stream) {
+// dh in {32, 64} (the rwkv configs' head dims); aligned != 0 when r, k, v
+// and w all start on 16 bytes (the 16-byte copy path).  Grid (h, b), 4 dh
+// threads a block, repro_wkv_smem(dh) bytes of dynamic shared memory.
+extern "C" int repro_wkv(const float* r, const float* k, const float* v, const float* w,
+                         const float* u, float* out, float* state, int b, int s, int h,
+                         int dh, int aligned, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 32: return launch<32>(r, k, v, w, u, out, state, b, s, h, st);
-    case 64: return launch<64>(r, k, v, w, u, out, state, b, s, h, st);
+    case 32: return launch_dh<32>(r, k, v, w, u, out, state, b, s, h, aligned, st);
+    case 64: return launch_dh<64>(r, k, v, w, u, out, state, b, s, h, aligned, st);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// The kernel's dynamic shared memory per block at head dim dh (0: no kernel).
+extern "C" int repro_wkv_smem(int dh) {
+  switch (dh) {
+    case 32: return (int)Wkv<32>::bytes;
+    case 64: return (int)Wkv<64>::bytes;
+    default: return 0;
   }
 }

@@ -2,14 +2,17 @@
 
 `wkv_ref` is the twin of repro.kernels.wkv.ref.wkv_ref, the sequential
 RWKV-6 recurrence, and also returns the final state (B, H, dh, dh), which
-the CUDA kernel writes too.  `wkv_chunked_ref` is the twin of the JAX
-package's chunked linear-attention form (repro.models.rwkv._wkv_chunked),
-which that model takes for configs with rwkv_chunk > 0; like its twin it
-divides by the within-chunk cumulative decay, whose exp(-log P) overflows
-fp32 once a chunk's summed log-decay passes about -88.  The port runs the
-exact recurrence for every config (`wkv_ref` is the CPU path of
-kernels.wkv.ops and the yardstick of the kernel on the card); the chunked
-twin holds the port's recurrence to the JAX model's chunked form.
+the CUDA kernel writes too; it is the CPU path of kernels.wkv.ops and the
+yardstick of the kernel on the card.  `wkv_safe_chunked_ref` spells out the
+CUDA kernel's algorithm: chunks of c tokens whose decay factors are running
+products of w inside the chunk, never quotients, so that they can underflow
+but not overflow.  `wkv_chunked_ref` is the twin of the JAX package's
+chunked linear-attention form (repro.models.rwkv._wkv_chunked), which that
+model takes for configs with rwkv_chunk > 0; like its twin it divides by the
+within-chunk cumulative decay, whose exp(-log P) overflows fp32 once a
+chunk's summed log-decay passes about -88.  The port routes neither chunked
+form; they hold the kernel's algorithm and the port's recurrence to the JAX
+package.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["wkv_ref", "wkv_chunked_ref"]
+__all__ = ["wkv_ref", "wkv_safe_chunked_ref", "wkv_chunked_ref"]
 
 
 def wkv_ref(r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -37,6 +40,62 @@ def wkv_ref(r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
         state = wt[..., :, None] * state + kv
     out = torch.stack(outs, dim=1) if outs else torch.zeros_like(r)
     return out, state
+
+
+def _running(wc, reverse=False):
+    """Exclusive running products of wc (B,n,H,dh) along its token axis,
+    from the first token (or down from the last): prod_{u<t} w_u (prod_{u>t})."""
+    n = wc.shape[1]
+    run, out = torch.ones_like(wc[:, 0]), [None] * n
+    for t in (range(n - 1, -1, -1) if reverse else range(n)):
+        out[t] = run
+        run = run * wc[:, t]
+    return torch.stack(out, dim=1), run
+
+
+def wkv_safe_chunked_ref(r, k, v, w, u, c: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel's overflow-safe chunked WKV, in its order of
+    operations: r/k/v/w (B,S,H,dh) fp32, u (H,dh), any S >= 1 (the last
+    chunk may be short), c even -> (out (B,S,H,dh), final state (B,H,dh,dh)).
+
+    Per chunk of n <= c tokens, with every product of w's taken inside it
+    and none divided by another:
+        Pex_t = prod_{u<t} w_u,  Sfx_s = prod_{u>s} w_u,  Pall = prod_u w_u
+        A[t, t] = sum_i r_t u k_t (the bonus)
+        A[t, s] = sum_i h k_s, h = r_t prod_{s<u<t} w_u walked from s = t-1
+                  down, for s < t in the same half of the chunk,
+                = sum_i (r_t prod_{m<=u<t} w_u)(k_s prod_{s<u<m} w_u) across
+                  the halves (t >= m = c/2 > s)
+        out_t   = (r_t Pex_t)^T S + sum_{s<=t} A[t, s] v_s
+        S       <- diag(Pall) S + sum_s (k_s Sfx_s) v_s^T
+    """
+    b, s, h, dh = r.shape
+    m = c // 2
+    state = torch.zeros((b, h, dh, dh), dtype=torch.float32, device=r.device)
+    outs = []
+    for t0 in range(0, s, c):
+        rc, kc, vc, wc = (x[:, t0:t0 + c] for x in (r, k, v, w))      # (B,n,H,dh)
+        n = rc.shape[1]
+        pex, pall = _running(wc)
+        sfx, _ = _running(wc, reverse=True)
+        a = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
+        idx = torch.arange(n, device=r.device)
+        a[:, :, idx, idx] = (rc * u * kc).sum(-1).transpose(1, 2)
+        for lo in range(0, n, m):                                    # inside the halves
+            hi = min(lo + m, n)
+            hcur = rc[:, lo:hi].clone()                              # lag t - s = 1
+            for d in range(1, hi - lo):
+                a[:, :, idx[lo + d:hi], idx[lo:hi - d]] = (
+                    (hcur[:, d:] * kc[:, lo:hi - d]).sum(-1).transpose(1, 2))
+                hcur[:, d:] = hcur[:, d:] * wc[:, lo:hi - d]
+        if n > m:                                                    # across them
+            r8 = rc[:, m:] * _running(wc[:, m:])[0]
+            k8 = kc[:, :m] * _running(wc[:, :m], reverse=True)[0]
+            a[:, :, m:, :m] = torch.einsum("bthd,bshd->bhts", r8, k8)
+        outs.append(torch.einsum("bthk,bhkv->bthv", rc * pex, state)
+                    + torch.einsum("bhts,bshv->bthv", a, vc))
+        state = pall[..., None] * state + torch.einsum("bshk,bshv->bhkv", kc * sfx, vc)
+    return torch.cat(outs, dim=1), state
 
 
 def wkv_chunked_ref(r, k, v, w, u, c: int) -> Tuple[torch.Tensor, torch.Tensor]:

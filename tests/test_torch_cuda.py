@@ -43,8 +43,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.kernels.flash_decode.ref import decode_ref
-from repro_torch.kernels.wkv.ops import wkv_chunked
-from repro_torch.kernels.wkv.ref import wkv_ref
+from repro_torch.kernels.wkv.ops import CHUNK, HEAD_DIMS, wkv_chunked, wkv_smem_bytes
+from repro_torch.kernels.wkv.ref import wkv_ref, wkv_safe_chunked_ref
 from repro_torch.launch.serve import build_prompt
 from repro_torch.models import build_model, layers
 from repro_torch.serve import ServeEngine
@@ -527,6 +527,62 @@ def test_wkv_matches_plain(card, b, s, h, dh):
     _close(out, want, 1e-5, "wkv out")
     _close(state, want_state, 1e-5, "wkv state")
     assert torch.equal(out, wkv_chunked(r, k, v, w, u)[0])   # same bits again
+
+
+def _wkv_operands(seed, b, s, h, dh, decay, device):
+    """r, k, v, u and w = exp(-exp(z + shift)), z ~ N(0, 1): shift +1 is strong
+    decay (log w down to about -e^4 a token, where the JAX package's chunked
+    form overflows), -1 moderate, -6 weak (w near 1, rwkv6's slowest base
+    decay, where the state grows largest)."""
+    r, k, v, z = _lm(seed, *[(b, s, h, dh)] * 4, dtype=torch.float32, device=device)
+    w = torch.exp(-torch.exp(z + {"strong": 1.0, "moderate": -1.0, "weak": -6.0}[decay]))
+    u = 0.1 * _lm(seed + 1, (h, dh), dtype=torch.float32, device=device)[0]
+    return r, k, v, w, u
+
+
+# b, s, h, dh, decay: B*H from 1 to 256; S = 1, 5, C - 1, C + 1 and 1024
+# (C = CHUNK = 16), a single partial chunk up to 64 whole ones
+WKV_EDGE_CASES = [
+    (1, 1, 1, 64, "strong"),
+    (1, 5, 1, 32, "strong"),
+    (2, CHUNK - 1, 3, 64, "moderate"),
+    (2, CHUNK + 1, 2, 32, "strong"),
+    (1, 1024, 1, 32, "weak"),
+    (2, 1024, 4, 64, "strong"),
+    (8, 1024, 32, 64, "weak"),
+    (8, 1024, 32, 64, "strong"),
+]
+
+
+@pytest.mark.parametrize("b,s,h,dh,decay", WKV_EDGE_CASES)
+def test_wkv_edges_match_plain(card, b, s, h, dh, decay):
+    """Out and final state within 1e-5 of the exact recurrence and of the
+    kernel's own algorithm in PyTorch, every value finite, the same bits twice."""
+    r, k, v, w, u = _wkv_operands(b * s + dh, b, s, h, dh, decay, card)
+    out, state = wkv_chunked(r, k, v, w, u)
+    assert torch.isfinite(out).all() and torch.isfinite(state).all()
+    want, want_state = wkv_ref(r, k, v, w, u)
+    _close(out, want, 1e-5, "wkv out vs recurrence")
+    _close(state, want_state, 1e-5, "wkv state vs recurrence")
+    safe, safe_state = wkv_safe_chunked_ref(r, k, v, w, u, CHUNK)
+    _close(out, safe, 1e-5, "wkv out vs safe chunked")
+    _close(state, safe_state, 1e-5, "wkv state vs safe chunked")
+    again, again_state = wkv_chunked(r, k, v, w, u)
+    assert torch.equal(out, again) and torch.equal(state, again_state)
+
+
+def test_wkv_four_byte_path_gives_the_same_bits(card):
+    """Operands that start 4 bytes off 16-byte alignment take the 4-byte copy
+    path, which moves the same values: the same bits come back."""
+    r, k, v, w, u = _wkv_operands(3, 2, 77, 4, 64, "moderate", card)
+    out, state = wkv_chunked(r, k, v, w, u)
+    got, got_state = wkv_chunked(*map(_unaligned_copy, (r, k, v, w)), u)
+    assert torch.equal(out, got) and torch.equal(state, got_state)
+
+
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+def test_wkv_shared_memory_matches_python(card, dh):
+    assert _build.query("wkv", "repro_wkv_smem", dh) == wkv_smem_bytes(dh)
 
 
 def test_lm_wrappers_refuse_bad_card_inputs(card):
