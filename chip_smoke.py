@@ -60,6 +60,31 @@ Phases, each fatal on failure (nothing is caught):
               of phase 5), its fp32 etas equal to the batch's records, and
               every trial's eta non-increasing when evaluated in float64
               (see phase_deploy_batch for why not in fp32);
+  8. minimax  Minimax Protection, the baselines and the dense engine: the
+              threefry subsample on the card equal to the CPU's; the paper
+              cell's ICOA+MM (alpha=100, delta=0.01, 3 of its 10 sweeps)
+              through api.fit with the incremental and fused engines
+              (use_kernel) and the dense one (plain products), each against
+              the CPU within MM_TOL, its ledger 1,680 bytes a sweep (dense
+              4,200; alpha=1: 160,000), the eq. 28 bound beside the test
+              MSE; averaging and residual refitting card vs CPU within 1e-4;
+              B1, B3 and B7 at D=100 over the subsample's m=2622 columns
+              against their plain versions (the commit with diag_keep = 0
+              and a device diag_add), and B2, B4 and B8 at 8 trials of
+              those shapes (B8 with a different diag_add in every trial)
+              against their batched plain versions and, trial by trial,
+              against the single-trial kernels bit for bit, all timed
+              beside their bounds; the
+              deployment cell (D=100, N=262144) at alpha=100: one fused and
+              one incremental sweep (ledger exactly 4,196,800 bytes), each
+              host-timed and profiled beside phase 5's alpha=1 sweep, and
+              one incremental sweep at delta_opt (finite, weights summing to
+              1) with the time of its robust solves; batch_fit of 32 paper
+              trials at delta=0.01 (B2, B4) and of 8 deployment trials at
+              delta=0 (one fused batched sweep: B2, B4, B8), every trial's
+              subsample its single-trial one; the paper batch's trial 0
+              against its single fit, and every deployment trial against
+              its own single fit (DEPLOY_TRIAL_TOL);
   9. lm kernels  flash attention (B9), flash decode (B10) and WKV (B11)
               against their plain versions on the same card inputs (fp32:
               1e-5 normwise; bf16: 8e-3, about two bf16 roundings of the
@@ -710,17 +735,27 @@ def phase_kernels_batched(gram_ops, gram_ref, sweep_ops, sweep_ref):
 # ------------------------------------------------------- 4./5. main path
 
 
-def expected_launches(engine: str, d: int, sweeps: int,
-                      batched: bool = False) -> dict:
+def expected_launches(engine: str, d: int, sweeps: int, batched: bool = False,
+                      split: bool = False, protected: bool = False) -> dict:
     """Launches of each kernel by core/icoa.py for `sweeps` sweeps: gram at
     record 0 (weights + eta) and, per sweep, the CovState build plus the
     record; row_gram twice per agent (probe + commit) in the incremental
-    engine; probe and commit once per agent in the fused engine.  A batch
-    (run_scan) launches the batched kernels on the same schedule, one launch
-    for all trials, and no single-trial kernel.  No LM kernel runs."""
-    inc = engine == "incremental"
-    counts = [2 + 3 * sweeps, 2 * d * sweeps if inc else 0,
-              0 if inc else d * sweeps, 0 if inc else d * sweeps]
+    engine; probe and commit once per agent in the fused engine.  Under the
+    Sec 4.1 split (alpha > 1, `split`) the fused engine keeps its probe-side
+    row product (row_gram, not the probe kernel); at delta > 0
+    (`protected`) it runs the incremental engine.  A batch (run_scan)
+    launches the batched kernels on the same schedule, one launch for all
+    trials, and no single-trial kernel.  The dense engine launches none.
+    No LM kernel runs."""
+    inc = engine == "incremental" or protected
+    if engine == "dense":
+        counts = [0, 0, 0, 0]
+    elif inc:
+        counts = [2 + 3 * sweeps, 2 * d * sweeps, 0, 0]
+    elif split:
+        counts = [2 + 3 * sweeps, d * sweeps, 0, d * sweeps]
+    else:
+        counts = [2 + 3 * sweeps, 0, d * sweeps, d * sweeps]
     zeros = [0] * 4
     return dict(zip(SINGLE + BATCHED + LM,
                     (zeros + counts if batched else counts + zeros) + [0] * len(LM)))
@@ -738,7 +773,9 @@ def fit_on_card(api, _build, spec, data, tag: str):
     counts = dict(_build.LAUNCHES)
     d = data.xcols.shape[0]
     sweeps = len(res.history.eta) - 1
-    want = expected_launches(spec.solver.engine, d, sweeps)
+    want = expected_launches(spec.solver.engine, d, sweeps,
+                             split=spec.solver.alpha > 1.0,
+                             protected=spec.solver.delta > 0.0)
     log(f"[{tag}] engine={spec.solver.engine} sweeps={sweeps} fit {secs:.3f} s "
         f"launches={json.dumps(counts)} expected={json.dumps(want)}")
     require(counts == want, f"{tag}: launch counts {counts} != {want}")
@@ -771,19 +808,21 @@ def phase_paper(api, _build):
     return totals
 
 
-def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str) -> None:
+def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str,
+                  key=None) -> dict:
     """torch.profiler over one deployment sweep (one trial, or a batch of
-    trials): device busy time (sum of kernel durations; one stream, so they
-    do not overlap) against the wall clock, the kernels that take it, and the
-    host calls that wait on the device.  The full tables go to
-    chiprun_out/profile_<engine>.txt."""
+    trials; `key` draws an alpha > 1 sweep's subsample): device busy time
+    (sum of kernel durations; one stream, so they do not overlap) against
+    the wall clock, the kernels that take it, and the host calls that wait
+    on the device.  The full tables go to chiprun_out/profile_<engine>.txt.
+    Returns the wall and busy ms and the count of device operations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        icoa.sweep(family, cfg, params, f, xcols, y)
+        icoa.sweep(family, cfg, params, f, xcols, y, key)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
@@ -792,6 +831,7 @@ def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str) -> None:
         if e.device_type == DeviceType.CUDA:
             by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
     busy_ms = sum(by_kernel.values()) / 1e3
+    n_ops = sum(1 for e in events if e.device_type == DeviceType.CUDA)
     waits = {}
     for e in events:
         if "Synchronize" in e.name or e.name == "cudaMemcpy":
@@ -804,8 +844,7 @@ def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str) -> None:
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
     log(f"[profile] {engine}: sweep wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%), "
-        f"{sum(1 for e in events if e.device_type == DeviceType.CUDA)} "
-        f"device operations, {sum(waits.values())} host waits on the device")
+        f"{n_ops} device operations, {sum(waits.values())} host waits on the device")
     for name, us in top:
         log(f"[profile] {engine}:   {us / 1e3:8.2f} ms  {name[:90]}")
     for key, count in sorted(waits.items(), key=lambda kv: -kv[1])[:4]:
@@ -818,6 +857,7 @@ def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str) -> None:
         fh.write("\n")
         fh.write(prof.key_averages().table(sort_by="self_device_time_total",
                                            row_limit=25))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "ops": n_ops}
 
 
 def commit_decisions(icoa, family, cfg, xcols, y) -> None:
@@ -875,7 +915,7 @@ def commit_decisions(icoa, family, cfg, xcols, y) -> None:
 
 
 def phase_deploy(api, _build, icoa):
-    totals, sweep_ms_by_engine = {}, {}
+    totals, sweep_ms_by_engine, profiles = {}, {}, {}
     dspec = api.DataSpec(source="correlated_linear", n_attrs=D_DEPLOY,
                          n_train=N_DEPLOY, n_test=N_TEST_DEPLOY)
     t0 = time.perf_counter()
@@ -902,8 +942,9 @@ def phase_deploy(api, _build, icoa):
         torch.cuda.synchronize()
         sweep_ms = (time.perf_counter() - t1) * 1e3
         sweep_ms_by_engine[engine] = sweep_ms
-        profile_sweep(icoa, res.family, cfg, res.params, res.f, data.xcols,
-                      data.y, engine)
+        profiles[engine] = profile_sweep(icoa, res.family, cfg, res.params, res.f,
+                                         data.xcols, data.y, engine)
+        profiles[engine]["sweep_ms"] = sweep_ms
         if engine == "fused":
             commit_decisions(icoa, res.family, cfg, data.xcols, data.y)
         log(f"[deploy] {engine}: eta {h.eta}; test_mse {h.test_mse}; "
@@ -912,7 +953,7 @@ def phase_deploy(api, _build, icoa):
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         for k_, v_ in counts.items():
             totals[k_] = totals.get(k_, 0) + v_
-    return totals, sweep_ms_by_engine
+    return totals, sweep_ms_by_engine, profiles
 
 
 # ------------------------------------------------- 6./7. the batched path
@@ -929,7 +970,9 @@ def batch_on_card(api, _build, spec, n_trials: int, tag: str):
     secs = time.perf_counter() - t0
     counts = dict(_build.LAUNCHES)
     want = expected_launches(spec.solver.engine, spec.data.resolved_n_agents,
-                             spec.solver.n_sweeps, batched=True)
+                             spec.solver.n_sweeps, batched=True,
+                             split=spec.solver.alpha > 1.0,
+                             protected=spec.solver.delta > 0.0)
     log(f"[{tag}] engine={spec.solver.engine} trials={n_trials} "
         f"sweeps={spec.solver.n_sweeps} batch_fit {secs:.3f} s "
         f"launches={json.dumps(counts)} expected={json.dumps(want)}")
@@ -1078,6 +1121,368 @@ def phase_deploy_batch(api, _build, icoa, data_sources, single_sweep_ms):
         for k_, v_ in counts.items():
             totals[k_] = totals.get(k_, 0) + v_
     return totals
+
+
+# ------------------------------------------------- 8. Minimax Protection
+
+ALPHA_MM, DELTA_MM = 100.0, 0.01    # the quickstart's ICOA+MM
+MM_SWEEPS = 3                       # depth of the delta > 0 paper runs (of 10)
+# card vs CPU at delta > 0 (D = 5): the fp32 contract of the kernels.
+# On an NVIDIA H100 80GB HBM3 at 700 W: 7.9e-6 measured; with the exact
+# diagonal's change left out of the agent update on the card (a planted
+# fault) 0.21.
+MM_TOL = 1e-4
+# Deploy batch (D = 100, alpha = 100) against each trial's single fit: every
+# trial's full-data eta at records 0 and 1, its test MSE at record 0, and
+# trial 0's test MSE at record 1.  The batched and single-trial programs
+# solve in other orders (cuBLAS batched vs single), and the records' weights,
+# solved from 2622 instances at D = 100, amplify that: on an NVIDIA H100 80GB
+# HBM3 at 700 W the held values differ by at most 3.9e-3 (record 1's eta of
+# trial 3), while with B8 reading trial 0's diag_add in every trial (a planted
+# fault) record 1's eta moves by up to 0.18 (1.2e-2 or more in 5 of the 8
+# trials).  Record 1's test MSE of the other trials is logged, not held: it
+# differs by up to 0.26 between two sound programs (trial 5).
+DEPLOY_TRIAL_TOL = 1e-2
+
+
+def first_sweep_indices(prng, cov, seeds, n: int, alpha: float, device):
+    """The subsample the first sweep of a run (one seed) or of a batch (a
+    list of seeds) draws: PRNGKey(seed + 1), split in three, the sweep's key
+    split again (core/icoa.py's key discipline)."""
+    key = prng.PRNGKey([s + 1 for s in seeds] if isinstance(seeds, list) else seeds + 1,
+                       device=device)
+    k1 = prng.split(key, 3)[..., 1, :]
+    return cov.subsample_indices(prng.split(k1)[..., 1, :], n, alpha)
+
+
+def minimax_kernels_at_m(gram_ops, gram_ref, sweep_ops, sweep_ref, m: int) -> None:
+    """B1, B3 and B7 at the deployment width D=100 over the alpha = 100
+    subsample's m columns: each against its plain version (1e-5 / 1e-4), the
+    commit with diag_keep = 0 and a device diag_add, their geometry, and
+    their device time (as phase 3) beside the bound and the library call."""
+    d, dev = D_DEPLOY, torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    r = torch.randn((d, m), generator=gen, device=dev)
+    v = torch.randn((m,), generator=gen, device=dev)
+    m_inv, s, eta = spd_scene(d, gen, dev)
+    delta = 0.05 * torch.randn((m,), generator=gen, device=dev)
+    add = torch.full((), 0.02, device=dev)
+    i = d // 3
+    log_gram_geometry(gram_ops, r, v)
+    log_commit_geometry(sweep_ops, d, m, 1)
+    rows = []
+    for name, call, plain, lib, n_bytes, flops, tol in (
+            ("gram", lambda: gram_ops.gram(r), lambda: gram_ref.gram_ref(r),
+             lambda: r @ r.T, 4.0 * (d * m + d * d), float(d * (d + 1) * m), 1e-5),
+            ("row_gram", lambda: gram_ops.row_gram(v, r),
+             lambda: gram_ref.row_gram_ref(v, r), lambda: r @ v,
+             4.0 * (d * m + m + d), 2.0 * d * m, 1e-5),
+            ("commit_sweep",
+             lambda: sweep_ops.commit_sweep(r, m_inv, s, eta, i, delta, 0.0, add,
+                                            float("-inf"), True),
+             lambda: sweep_ref.commit_sweep_ref(r, m_inv, s, eta, i, delta, 0.0, add,
+                                                float("-inf"), True),
+             lambda: (r @ delta, delta @ delta),
+             4.0 * (d * m + m + d * d + d + 4) + 4.0 * (d * d + 2 * d + 2),
+             2.0 * d * m + 2.0 * m + 12.0 * d * d, 1e-4)):
+        got, want = call(), plain()
+        if name == "commit_sweep":
+            check_commit("commit_sweep split", got, want, m_inv, s, [True])
+            require(float(got[2][i]) == float(add), "commit split: u_i != diag_add")
+        else:
+            compare(name, got, want, tol)
+        again = call()
+        require(all(map(torch.equal, got, again)) if isinstance(got, tuple)
+                else torch.equal(got, again), f"{name} at m={m}: not the same bits twice")
+        b_ms, b_by = bound(n_bytes, flops)
+        ms = time_ms(call)
+        rows.append(f"{name} {ms:.4f} ms (bound {b_ms:.4f} by {b_by}, "
+                    f"{100 * b_ms / ms:.0f}% of it; plain {time_ms(plain):.4f}, "
+                    f"library {time_ms(lib):.4f})")
+    log(f"[minimax] kernels at D={d}, m={m} (alpha={ALPHA_MM:g} of N={N_DEPLOY}), "
+        f"each held to its plain version: " + "; ".join(rows))
+    minimax_batched_kernels_at_m(gram_ops, gram_ref, sweep_ops, sweep_ref, m)
+
+
+def minimax_batched_kernels_at_m(gram_ops, gram_ref, sweep_ops, sweep_ref,
+                                 m: int) -> None:
+    """B2, B4 and B8 at the deploy batch's shapes (B_DEPLOY, D=100, m), the
+    commit in the split's operand form: diag_keep = 0 and a (B,) device
+    diag_add with a different value in every trial, every trial committed.
+    Each against its batched plain version (1e-5 / 1e-5 / check_commit's
+    1e-4), each trial's u_i equal to its own diag_add, and every trial's
+    slice equal bit for bit to the single-trial kernel given that trial's
+    operands (diag_add[t] as a 0-d tensor); their device time as above."""
+    b, d, dev = B_DEPLOY, D_DEPLOY, torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    r = torch.randn((b, d, m), generator=gen, device=dev)
+    v = torch.randn((b, m), generator=gen, device=dev)
+    m_inv, s, eta = (torch.stack(x).contiguous()
+                     for x in zip(*[spd_scene(d, gen, dev) for _ in range(b)]))
+    delta = 0.05 * torch.randn((b, m), generator=gen, device=dev)
+    add = 0.01 * torch.arange(1, b + 1, device=dev, dtype=torch.float32)
+    thr = torch.full((b,), -math.inf, device=dev)
+    i = d // 3
+    log_gram_geometry(gram_ops, r, v, b)
+    log_commit_geometry(sweep_ops, d, m, b)
+    rows = []
+    for name, call, plain, single, lib, n_bytes, flops in (
+            ("gram_batched", lambda: gram_ops.gram(r),
+             lambda: gram_ref.gram_batched_ref(r), lambda t: gram_ops.gram(r[t]),
+             lambda: torch.bmm(r, r.mT), 4.0 * b * (d * m + d * d),
+             float(b * d * (d + 1) * m)),
+            ("row_gram_batched", lambda: gram_ops.row_gram(v, r),
+             lambda: gram_ref.row_gram_batched_ref(v, r),
+             lambda t: gram_ops.row_gram(v[t], r[t]),
+             lambda: torch.bmm(r, v[..., None]), 4.0 * b * (d * m + m + d),
+             2.0 * b * d * m),
+            ("commit_sweep_batched",
+             lambda: sweep_ops.commit_sweep(r, m_inv, s, eta, i, delta, 0.0, add, thr, True),
+             lambda: sweep_ref.commit_sweep_batched_ref(r, m_inv, s, eta, i, delta, 0.0,
+                                                        add, thr, True),
+             lambda t: sweep_ops.commit_sweep(r[t], m_inv[t], s[t], eta[t], i, delta[t],
+                                              0.0, add[t], thr[t], True),
+             lambda: (torch.bmm(r, delta[..., None]),
+                      torch.bmm(delta[:, None, :], delta[..., None])),
+             4.0 * b * (d * m + m + d * d + d + 4) + 4.0 * b * (d * d + 2 * d + 2),
+             b * (2.0 * d * m + 2.0 * m + 12.0 * d * d))):
+        got, want = call(), plain()
+        if name == "commit_sweep_batched":
+            check_commit(f"{name} split", got, want, m_inv, s, [True] * b)
+            require(torch.equal(got[2][:, i], add),
+                    f"{name} split: u_i {got[2][:, i].tolist()} != diag_add {add.tolist()}")
+        else:
+            compare(f"{name} at m={m}", got, want, 1e-5)
+        parts = got if isinstance(got, tuple) else (got,)
+        for t in range(b):
+            one = single(t)
+            one = one if isinstance(one, tuple) else (one,)
+            require(all(torch.equal(x[t], y) for x, y in zip(parts, one)),
+                    f"{name} at m={m}: trial {t} differs from the single-trial kernel")
+        again = call()
+        require(all(map(torch.equal, parts, again if isinstance(again, tuple) else (again,))),
+                f"{name} at m={m}: not the same bits twice")
+        b_ms, b_by = bound(n_bytes, flops)
+        ms = time_ms(call)
+        rows.append(f"{name} {ms:.4f} ms (bound {b_ms:.4f} by {b_by}, "
+                    f"{100 * b_ms / ms:.0f}% of it; plain {time_ms(plain):.4f}, "
+                    f"library {time_ms(lib):.4f})")
+    log(f"[minimax] batched kernels at B={b}, D={d}, m={m}, the commit with diag_keep=0 "
+        f"and diag_add {add.tolist()} per trial: each held to its plain version, each "
+        f"trial's u_i its own diag_add, every trial bit for bit the single-trial kernel "
+        f"on its operands: " + "; ".join(rows))
+
+
+def phase_minimax(api, _build, icoa, gram_ops, gram_ref, sweep_ops, sweep_ref,
+                  alpha1_profiles):
+    """Phase 8: Minimax Protection (alpha > 1, delta > 0), the paper's two
+    baselines and the dense oracle engine through api.fit / api.batch_fit."""
+    from repro_torch import prng
+    from repro_torch.core import covariance as cov
+    from repro_torch.core import minimax
+
+    totals = {}
+
+    def add(counts):
+        for k_, v_ in counts.items():
+            totals[k_] = totals.get(k_, 0) + v_
+
+    m_deploy = cov.subsample_size(N_DEPLOY, ALPHA_MM)
+    # --- the subsample drawn on the card is the CPU's, one seed and a batch
+    for n in (2000, N_DEPLOY):
+        for seeds in (0, list(range(B_PAPER))):
+            on_card = first_sweep_indices(prng, cov, seeds, n, ALPHA_MM, "cuda")
+            require(torch.equal(on_card.cpu(),
+                                first_sweep_indices(prng, cov, seeds, n, ALPHA_MM, "cpu")),
+                    f"minimax: subsample indices on the card differ from the CPU's (N={n})")
+    log(f"[minimax] threefry subsample indices on the card equal the CPU's "
+        f"(N=2000 and {N_DEPLOY}, alpha={ALPHA_MM:g}, one seed and {B_PAPER} seeds)")
+
+    # --- paper cell: ICOA+MM (alpha 100, delta 0.01) per engine, and baselines
+    base = api.ExperimentSpec(solver=api.SolverSpec(alpha=ALPHA_MM, delta=DELTA_MM,
+                                                    n_sweeps=MM_SWEEPS, eps=0.0))
+    data = base.data.build("cpu")
+    single = {}
+    per_alpha1 = api.comm_floats_per_sweep(api.SolverSpec(), 5, 2000) * 8
+    for engine, uk in (("incremental", True), ("fused", True), ("dense", False)):
+        spec = dataclasses.replace(base, solver=dataclasses.replace(
+            base.solver, engine=engine, use_kernel=uk))
+        res, counts, secs = fit_on_card(api, _build, spec, data, "minimax")
+        add(counts)
+        t0 = time.perf_counter()
+        cpu = api.fit(spec, device="cpu", data=data)
+        cpu_s = time.perf_counter() - t0
+        hg, hc = res.history, cpu.history
+        require(hg.bytes_transmitted == hc.bytes_transmitted,
+                f"minimax paper {engine}: bytes differ")
+        per = api.comm_floats_per_sweep(spec.solver, 5, 2000) * 8
+        require(per == (1680 if engine != "dense" else 4200)
+                and hg.bytes_transmitted[1:] == [float(per)] * MM_SWEEPS,
+                f"minimax paper {engine}: bytes {hg.bytes_transmitted}, {per}/sweep")
+        worst = {key: max_rel(getattr(hg, key), getattr(hc, key))
+                 for key in ("train_mse", "test_mse", "eta")}
+        require(max(worst.values()) <= MM_TOL,
+                f"minimax paper {engine}: card vs cpu {worst} > {MM_TOL}")
+        require(all(math.isfinite(x) for x in hg.eta + hg.test_mse)
+                and abs(float(res.weights.sum()) - 1.0) <= 1e-5,
+                f"minimax paper {engine}: weights {res.weights.tolist()}")
+        single[engine] = res
+        log(f"[minimax] paper {engine} (alpha={ALPHA_MM:g}, delta={DELTA_MM}, "
+            f"{MM_SWEEPS} sweeps, use_kernel={uk}): card vs cpu max rel diff "
+            f"{json.dumps(worst)} (bound {MM_TOL}); test MSE {hg.test_mse[-1]!r}, "
+            f"minimax upper bound (eq. 28) {res.minimax_upper_bound()!r}; bytes/sweep "
+            f"{per} (alpha=1: {per_alpha1}); fit {secs:.2f} s on the card, "
+            f"{cpu_s:.2f} s on the cpu")
+    for name in ("averaging", "residual_refitting"):
+        spec = api.ExperimentSpec(solver=api.SolverSpec(name=name))
+        res = api.fit(spec, device="cuda", data=data)
+        cpu = api.fit(spec, device="cpu", data=data)
+        require(res.history.bytes_transmitted == cpu.history.bytes_transmitted,
+                f"minimax {name}: bytes differ")
+        per = api.comm_floats_per_sweep(spec.solver, 5, 2000) * 8
+        want = [0.0] if name == "averaging" else [float(per)] * spec.solver.n_sweeps
+        require(res.history.bytes_transmitted == want, f"minimax {name}: bytes")
+        worst = {key: max_rel(getattr(res.history, key), getattr(cpu.history, key))
+                 for key in ("train_mse", "test_mse", "eta")}
+        require(max(worst.values()) <= 1e-4, f"minimax {name}: card vs cpu {worst}")
+        log(f"[minimax] {name}: test MSE card {res.test_mse!r} cpu {cpu.test_mse!r}; "
+            f"card vs cpu max rel diff {json.dumps(worst)}; bytes/cycle {per}")
+
+    # --- the kernels at the subsample's width
+    minimax_kernels_at_m(gram_ops, gram_ref, sweep_ops, sweep_ref, m_deploy)
+
+    # --- deploy cell at full width: alpha 100, one sweep a run
+    dspec = api.DataSpec(source="correlated_linear", n_attrs=D_DEPLOY,
+                         n_train=N_DEPLOY, n_test=N_TEST_DEPLOY)
+    ddata = dspec.build("cuda")
+    per_deploy = (2 * m_deploy * D_DEPLOY + 2 * D_DEPLOY) * 8
+    deploy = {}
+    for engine in ("fused", "incremental"):
+        spec = api.ExperimentSpec(data=dspec, solver=api.SolverSpec(
+            engine=engine, use_kernel=True, n_sweeps=1, alpha=ALPHA_MM))
+        res, counts, secs = fit_on_card(api, _build, spec, ddata, "minimax-deploy")
+        add(counts)
+        h = res.history
+        require(per_deploy == 4196800 and h.bytes_transmitted == [0.0, float(per_deploy)]
+                and api.comm_floats_per_sweep(spec.solver, D_DEPLOY, N_DEPLOY) * 8
+                == per_deploy, f"minimax deploy {engine}: bytes {h.bytes_transmitted}")
+        require(all(math.isfinite(e) for e in h.eta + h.test_mse),
+                f"minimax deploy {engine}: eta {h.eta}")
+        cfg = spec.solver.icoa_config(spec.resolved_transport())
+        key = prng.split(prng.PRNGKey(7, device="cuda"), 3)[1]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        icoa.sweep(res.family, cfg, res.params, res.f, ddata.xcols, ddata.y, key)
+        torch.cuda.synchronize()
+        sweep_ms = (time.perf_counter() - t1) * 1e3
+        prof = profile_sweep(icoa, res.family, cfg, res.params, res.f, ddata.xcols,
+                             ddata.y, f"alpha100-{engine}", key)
+        a1 = alpha1_profiles[engine]
+        deploy[engine] = res
+        log(f"[minimax] deploy {engine} alpha={ALPHA_MM:g} (m={m_deploy}): eta {h.eta}; "
+            f"test MSE {h.test_mse[-1]!r}; bytes/sweep {per_deploy} (alpha=1: "
+            f"{2 * N_DEPLOY * D_DEPLOY * 8}); one sweep {sweep_ms:.1f} ms host-timed "
+            f"(alpha=1: {a1['sweep_ms']:.1f}); profiled: device busy {prof['busy_ms']:.1f} "
+            f"ms of {prof['wall_ms']:.1f} ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%; "
+            f"alpha=1: {a1['busy_ms']:.1f} of {a1['wall_ms']:.1f}, "
+            f"{100 * a1['busy_ms'] / a1['wall_ms']:.1f}%), {prof['ops'] / D_DEPLOY:.1f} "
+            f"device ops per agent (alpha=1: {a1['ops'] / D_DEPLOY:.1f})")
+
+    # --- one incremental sweep at delta_opt(alpha, N, sigma_max^2)
+    state0 = icoa.init_state(deploy["fused"].family, ddata.xcols, ddata.y)
+    a_ini = cov.gram(ddata.y[None, :] - state0.f)
+    d_opt = minimax.delta_opt(ALPHA_MM, N_DEPLOY, float(torch.diagonal(a_ini).max()))
+    spec = api.ExperimentSpec(data=dspec, solver=api.SolverSpec(
+        engine="incremental", use_kernel=True, n_sweeps=1, alpha=ALPHA_MM,
+        delta=d_opt))
+    res, counts, secs = fit_on_card(api, _build, spec, ddata, "minimax-deploy")
+    add(counts)
+    h = res.history
+    require(all(math.isfinite(x) for x in h.eta + h.test_mse + h.train_mse)
+            and bool(torch.isfinite(res.weights).all()) and bool(torch.isfinite(res.f).all())
+            and abs(float(res.weights.sum()) - 1.0) <= 1e-5,
+            f"minimax deploy delta>0: eta {h.eta}, weights sum {float(res.weights.sum())}")
+    a0 = cov.gram(ddata.y[None, :] - res.f, use_kernel=True)
+    ms_one = host_ms(lambda: minimax.robust_weights(a0, d_opt))
+    a0k = a0.expand(K_STEPS, D_DEPLOY, D_DEPLOY).contiguous()
+    ms_k = host_ms(lambda: minimax.robust_weights(a0k, d_opt))
+    log(f"[minimax] deploy incremental delta=delta_opt={d_opt:.6g} (alpha={ALPHA_MM:g}, "
+        f"all {D_DEPLOY} agents): eta {h.eta}; test MSE {h.test_mse[-1]!r}; weights sum "
+        f"{float(res.weights.sum())!r}; fit {secs:.2f} s (records' two robust solves and "
+        f"one sweep); one robust_weights solve (300 steps, a CUDA graph replay) "
+        f"{ms_one:.1f} ms at (D,), {ms_k:.1f} ms at ({K_STEPS}, D), eager "
+        f"{host_ms(lambda: minimax._descend(a0, res.weights, d_opt, 300, 0.05)):.1f} ms at (D,): "
+        f"the sweep's {D_DEPLOY} x (2 + 1) solves come to "
+        f"{D_DEPLOY * (2 * ms_one + ms_k) / 1e3:.2f} s of it")
+
+    # --- batches: 32 paper trials at delta 0.01, 8 deploy trials at delta 0
+    spec = dataclasses.replace(base, solver=dataclasses.replace(
+        base.solver, engine="fused", use_kernel=True))
+    rs, counts, secs = batch_on_card(api, _build, spec, B_PAPER, "minimax-batch")
+    add(counts)
+    batch_idx = first_sweep_indices(prng, cov, list(range(B_PAPER)), 2000, ALPHA_MM, "cuda")
+    for t in range(B_PAPER):
+        require(torch.equal(batch_idx[t],
+                            first_sweep_indices(prng, cov, t, 2000, ALPHA_MM, "cuda")),
+                f"minimax batch: trial {t}'s subsample is not its single-trial one")
+    worst0 = {key: max_rel(getattr(rs[0].history, key), getattr(single["fused"].history, key))
+              for key in ("train_mse", "test_mse", "eta")}
+    require(max(worst0.values()) <= MM_TOL and rs[0].history.bytes_transmitted
+            == single["fused"].history.bytes_transmitted,
+            f"minimax batch: trial 0 vs the single fit {worst0}")
+    bytes_axis, mean, std = rs.curve("test_mse")
+    log(f"[minimax] paper batch fused (delta>0: the incremental engine) {B_PAPER} "
+        f"trials: batch_fit {secs:.2f} s ({B_PAPER / secs:.2f} trials/s); each trial's "
+        f"subsample its single-trial one; trial 0 vs the single fit max rel diff "
+        f"{json.dumps(worst0)}; test MSE mean {float(mean[-1])!r} std {float(std[-1])!r}")
+    spec = api.ExperimentSpec(data=dspec, solver=api.SolverSpec(
+        engine="fused", use_kernel=True, n_sweeps=1, alpha=ALPHA_MM))
+    rs, counts, secs = batch_on_card(api, _build, spec, B_DEPLOY, "minimax-deploy-batch")
+    add(counts)
+    for t, res in enumerate(rs):
+        require(all(math.isfinite(e) for e in res.history.eta)
+                and res.history.bytes_transmitted == [0.0, float(per_deploy)],
+                f"minimax deploy batch trial {t}: {res.history.eta}")
+    batch_idx = first_sweep_indices(prng, cov, list(range(B_DEPLOY)), N_DEPLOY,
+                                    ALPHA_MM, "cuda")
+    for t in range(B_DEPLOY):
+        require(torch.equal(batch_idx[t], first_sweep_indices(prng, cov, t, N_DEPLOY,
+                                                              ALPHA_MM, "cuda")),
+                f"minimax deploy batch: trial {t}'s subsample is not its own")
+    t1 = time.perf_counter()
+    held, mse1 = [], []
+    for t, res in enumerate(rs):
+        if t == 0:
+            hs = deploy["fused"].history
+        else:
+            tspec = api.trial_spec(spec, t)
+            hs = api.fit(tspec, device="cuda", data=tspec.data.build("cuda")).history
+        h0 = res.history
+        held.append(max_rel(h0.eta + h0.test_mse[:1], hs.eta + hs.test_mse[:1]))
+        mse1.append(max_rel(h0.test_mse[1:], hs.test_mse[1:]))
+    held[0] = max(held[0], mse1[0])
+    singles_s = time.perf_counter() - t1
+    require(max(held) <= DEPLOY_TRIAL_TOL,
+            f"minimax deploy batch: trials vs their single fits {held} > {DEPLOY_TRIAL_TOL}")
+    log(f"[minimax] deploy batch fused {B_DEPLOY} trials, 1 sweep: batch_fit {secs:.2f} s; "
+        f"bytes/sweep {per_deploy}; each trial's subsample its own; each trial vs its "
+        f"single fit ({B_DEPLOY - 1} more fits with their data, {singles_s:.2f} s), max rel "
+        f"diff of the held records (eta at records 0 and 1, test MSE at record 0, and "
+        f"trial 0's at record 1; bound {DEPLOY_TRIAL_TOL}): "
+        f"{', '.join(f'{x:.3e}' for x in held)}; record 1's test MSE (not held): "
+        f"{', '.join(f'{x:.3e}' for x in mse1)}")
+    return totals
+
+
+def host_ms(fn) -> float:
+    """Host-timed ms of one call of fn (after one warm-up), ended by a
+    synchronize: the time a host-bound loop of its launches takes."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 # ------------------------------------------------------------ 9. LM kernels
@@ -1597,7 +2002,7 @@ def main() -> None:
     stamp("kernels batched")
     launches = phase_paper(api, _build)
     stamp("paper")
-    deploy, single_sweep_ms = phase_deploy(api, _build, icoa)
+    deploy, single_sweep_ms, alpha1_profiles = phase_deploy(api, _build, icoa)
     stamp("deploy")
     for more in (deploy, phase_paper_batch(api, _build)):
         for k_, v_ in more.items():
@@ -1607,6 +2012,10 @@ def main() -> None:
                                      single_sweep_ms).items():
         launches[k_] += v_
     stamp("deploy batch")
+    for k_, v_ in phase_minimax(api, _build, icoa, gram_ops, gram_ref, sweep_ops,
+                                sweep_ref, alpha1_profiles).items():
+        launches[k_] += v_
+    stamp("minimax")
     rows += phase_lm_kernels(_build, fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref,
                              get_config)
     stamp("lm kernels")

@@ -11,12 +11,17 @@
     rs = api.batch_fit(spec, n_trials=32)   # Monte Carlo, one batched program
     bytes_axis, mean, std = rs.curve("test_mse")
 
+    mm = api.ExperimentSpec(solver=api.SolverSpec(alpha=100.0, delta=0.01))
+    api.fit(mm).minimax_upper_bound()       # Minimax Protection, eq. 28
+
 `fit` and `batch_fit` run on the card unless the caller asks for the CPU:
 with no CUDA device they raise instead of carrying on.  On the card,
 `use_kernel=True` sends every product the JAX package computes in a Pallas
 kernel through the hand-written CUDA kernels of repro_torch.kernels — the
-batched kernels for `batch_fit`.  `sweep(spec, grid, trials=k)` runs a grid
-of specs, each as k trials.
+batched kernels for `batch_fit`.  Every solver of the JAX package runs on
+its default transport: icoa on the dense, incremental and fused engines at
+any alpha and delta, and the averaging and residual-refitting baselines.
+`sweep(spec, grid, trials=k)` runs a grid of specs, each as k trials.
 """
 from __future__ import annotations
 

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch.api.specs import Dataset, ExperimentSpec
-from repro_torch.core import ensemble
+from repro_torch.core import covariance as cov
+from repro_torch.core import ensemble, icoa, minimax
 
 __all__ = ["History", "Result", "ResultSet"]
 
@@ -68,6 +69,23 @@ class Result:
 
     def mse(self, x: torch.Tensor, y: torch.Tensor) -> float:
         return float(torch.mean((y - self.predict(x)) ** 2))
+
+    def minimax_upper_bound(self, alpha: Optional[float] = None) -> float:
+        """Paper eq. 28: the high-probability test-error upper bound at
+        compression rate `alpha` (default: the rate this run used), from
+        the pre-cooperation residual covariance, with the run's own
+        inner-solver budget (SolverSpec.minimax_steps / minimax_lr)."""
+        if self.data is None:
+            raise ValueError("minimax_upper_bound needs the in-memory Dataset "
+                             "(batch results drop it; use fit or rebuild "
+                             "spec.data)")
+        if alpha is None:
+            alpha = self.spec.solver.alpha
+        state0 = icoa.init_state(self.family, self.data.xcols, self.data.y)
+        a_ini = cov.gram(self.data.y[None, :] - state0.f)
+        return minimax.upper_bound(a_ini, alpha, self.data.y.shape[0],
+                                   steps=self.spec.solver.minimax_steps,
+                                   lr=self.spec.solver.minimax_lr)
 
 
 @dataclasses.dataclass

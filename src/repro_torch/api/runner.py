@@ -9,10 +9,14 @@ that axis and, with `use_kernel`, every product is one launch of a batched
 kernel for all trials — the explicit counterpart of the JAX package's
 `jit(vmap(run_fn))`.
 
-Trial t of a spec is `fit(trial_spec(spec, t))`: the data seed and the
-solver seed are both offset by t.  The one difference, as in the JAX
-package: the batched schedule is static, so `solver.eps` stops nothing and
-`History.converged_at` records where fit's eps rule would have stopped.
+The paper's two baselines batch the same way (core.baselines with a
+leading trial axis).  Trial t of a spec is `fit(trial_spec(spec, t))`: the
+data seed and the solver seed are both offset by t, so trial t draws its
+subsamples from PRNGKey(spec.seed + t + 1), as in the JAX package.  The one
+difference, as in the JAX package: the batched schedule is static, so
+`solver.eps` stops nothing and `History.converged_at` records where fit's
+eps rule would have stopped.  The dense engine runs one trial at a time: a
+batched run of it raises NotPortedError naming ROADMAP A4b.
 
 BackendSpec's Monte-Carlo knobs: `trial_devices` of None or 1 runs on one
 card (more waits for ROADMAP A11); `compute_dtype` casts the generated data,
@@ -27,13 +31,14 @@ from typing import Optional
 import torch
 
 from repro_torch.api.result import History, Result, ResultSet
+from repro_torch.api.solvers import bytes_history
 from repro_torch.api.specs import ExperimentSpec, SpecError, _not_ported
-from repro_torch.core import icoa
+from repro_torch.core import baselines, icoa
 from repro_torch.data import sources as data_sources
 
 __all__ = ["batch_fit", "trial_spec", "resolve_device"]
 
-_COMPILED_SOLVERS = ("icoa",)
+_COMPILED_SOLVERS = ("icoa", "averaging", "residual_refitting")
 
 
 def resolve_device(device, entry: str = "repro_torch.api") -> torch.device:
@@ -81,11 +86,12 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
               compiled: Optional[bool] = None) -> ResultSet:
     """Run `n_trials` independent Monte-Carlo trials of one spec on `device`.
 
-    `compiled=None` runs every trial as one batched program (icoa, the only
-    solver of this slice); `compiled=False` runs `n_trials` serial `fit`
-    calls instead.  Trial t equals `fit(trial_spec(spec, t))` on the same
-    device up to the order of fp32 sums; the batched path ignores
-    `solver.eps` and reports fit's stopping record as History.converged_at."""
+    `compiled=None` runs every trial as one batched program (every built-in
+    solver); `compiled=False` runs `n_trials` serial `fit` calls instead.
+    Trial t equals `fit(trial_spec(spec, t))` on the same device up to the
+    order of fp32 sums; the batched icoa path ignores `solver.eps` and
+    reports fit's stopping record as History.converged_at.  A batched run of
+    the dense engine raises NotPortedError (ROADMAP A4b)."""
     dev = resolve_device(device, "repro_torch.api.batch_fit")
     spec.validate()
     if n_trials < 1:
@@ -100,6 +106,7 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
                                 for t in range(n_trials)])
     if not _can_compile(spec):
         raise SpecError(f"no batched runner for solver {spec.solver.name!r}")
+    spec.solver.validate_batch()
 
     dspec = spec.data
     groups = dspec.groups
@@ -112,19 +119,37 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
         n_attrs=dspec.n_attrs, options=dspec.source_options, dtype=dtype,
         device=dev)
     family = spec.agent.resolve(n_cols=xcols.shape[-1])
-    cfg = spec.solver.icoa_config(spec.resolved_transport())
-    params, f, weights, hist = icoa.run_scan(family, cfg, xcols, y,
-                                             xcols_test, y_test)
+    d, n = len(groups), dspec.n_train
+    solver = spec.solver
+    conv = None
+    if solver.name == "icoa":
+        cfg = solver.icoa_config(spec.resolved_transport())
+        params, f, weights, hist = icoa.run_scan(
+            family, cfg, xcols, y, xcols_test, y_test,
+            seeds=[spec.seed + t for t in range(n_trials)])
+        bytes_hist = list(hist["bytes"])
+        conv = hist["converged_at"].cpu().tolist()
+    elif solver.name == "averaging":
+        params, f, hist = baselines.averaging(family, xcols, y, xcols_test,
+                                              y_test)
+        hist = {k: v[:, None] for k, v in hist.items()}    # one record
+        weights = torch.full((n_trials, d), 1.0 / d, dtype=f.dtype, device=dev)
+        bytes_hist = bytes_history(spec, d, n, 1)
+    else:
+        params, f, hist = baselines.residual_refitting(
+            family, xcols, y, xcols_test, y_test, n_cycles=solver.n_sweeps)
+        # the ring ensemble is the SUM of the agents (see api.solvers)
+        weights = torch.ones((n_trials, d), dtype=f.dtype, device=dev)
+        bytes_hist = bytes_history(spec, d, n, solver.n_sweeps)
 
     # one device-to-host transfer per history field, not one per scalar
     host = {k: hist[k].cpu().tolist() for k in ("train_mse", "test_mse", "eta")}
-    conv = hist["converged_at"].cpu().tolist()
     results = []
     for t in range(n_trials):
         history = History(train_mse=host["train_mse"][t],
                           test_mse=host["test_mse"][t], eta=host["eta"][t],
-                          bytes_transmitted=list(hist["bytes"]),
-                          converged_at=int(conv[t]))
+                          bytes_transmitted=list(bytes_hist),
+                          converged_at=None if conv is None else int(conv[t]))
         results.append(Result(spec=trial_spec(spec, t), family=family,
                               params=params[t], weights=weights[t], f=f[t],
                               history=history, data=None))

@@ -1,15 +1,18 @@
 """Solver registry: one `run_solver(spec, data, family) -> Result` per
-algorithm (twin of repro.api.solvers).  This slice registers `icoa` on the
-local backend; averaging and residual refitting wait for ROADMAP A8.
+algorithm (twin of repro.api.solvers): `icoa` and the paper's two
+baselines, `averaging` and `residual_refitting`, on the local backend.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, List
+
+import torch
 
 from repro_torch.api.result import History, Result
 from repro_torch.api.specs import Dataset, ExperimentSpec, SolverSpec, SpecError
+from repro_torch.core import baselines, icoa
 from repro_torch.core import covariance as cov
-from repro_torch.core import icoa
+from repro_torch.transport import ledger as ledger_mod
 
 __all__ = ["SOLVERS", "register_solver", "comm_floats_per_sweep", "run_solver"]
 
@@ -49,13 +52,55 @@ def comm_floats_per_sweep(solver: SolverSpec, d: int, n: int) -> int:
     return m * d * d + diag
 
 
+def bytes_history(spec: ExperimentSpec, d: int, n: int, n_records: int) -> List[float]:
+    """Byte history of the solvers without a sweep ledger: averaging moves
+    nothing (one record, 0); residual refitting charges one ensemble sum per
+    agent update, every cycle (no initial record)."""
+    if spec.solver.name == "averaging":
+        return [0.0] * n_records
+    per_cycle = ledger_mod.refit_cycle_bytes(spec.resolved_transport(), d, n)
+    return [float(per_cycle)] * n_records
+
+
 @register_solver("icoa")
 def _fit_icoa(spec: ExperimentSpec, data: Dataset, family) -> Result:
     cfg = spec.solver.icoa_config(spec.resolved_transport())
     state, weights, hist = icoa.run(family, cfg, data.xcols, data.y,
-                                    data.xcols_test, data.y_test)
+                                    data.xcols_test, data.y_test,
+                                    seed=spec.seed)
     history = History(train_mse=hist["train_mse"], test_mse=hist["test_mse"],
                       eta=hist["eta"], bytes_transmitted=list(hist["bytes"]),
                       converged_at=len(hist["train_mse"]) - 1)
     return Result(spec=spec, family=family, params=state.params,
                   weights=weights, f=state.f, history=history, data=data)
+
+
+@register_solver("averaging")
+def _fit_averaging(spec: ExperimentSpec, data: Dataset, family) -> Result:
+    d = data.xcols.shape[0]
+    params, f, hist = baselines.averaging(family, data.xcols, data.y,
+                                          data.xcols_test, data.y_test)
+    history = History(train_mse=[hist["train_mse"]], eta=[hist["eta"]],
+                      bytes_transmitted=bytes_history(spec, d, data.y.shape[0], 1))
+    if "test_mse" in hist:
+        history.test_mse.append(hist["test_mse"])
+    weights = torch.ones((d,), dtype=f.dtype, device=f.device) / d
+    return Result(spec=spec, family=family, params=params, weights=weights,
+                  f=f, history=history, data=data)
+
+
+@register_solver("residual_refitting")
+def _fit_refit(spec: ExperimentSpec, data: Dataset, family) -> Result:
+    d, n = data.xcols.shape[0], data.y.shape[0]
+    params, f, hist = baselines.residual_refitting(
+        family, data.xcols, data.y, data.xcols_test, data.y_test,
+        n_cycles=spec.solver.n_sweeps)
+    history = History(train_mse=hist["train_mse"],
+                      test_mse=hist.get("test_mse", []), eta=hist["eta"],
+                      bytes_transmitted=bytes_history(spec, d, n,
+                                                      len(hist["train_mse"])))
+    # the ring ensemble is the SUM of the agents: literal ones keep
+    # `weights @ f` the combination rule of every solver
+    weights = torch.ones((d,), dtype=f.dtype, device=f.device)
+    return Result(spec=spec, family=family, params=params, weights=weights,
+                  f=f, history=history, data=data)

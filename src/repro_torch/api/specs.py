@@ -209,21 +209,22 @@ class SolverSpec:
         if self.engine not in ("dense", "incremental", "fused"):
             raise SpecError(f"unknown engine {self.engine!r}; pick 'dense', "
                             f"'incremental' or 'fused'")
-        if self.name != "icoa":
-            raise _not_ported(f"solver {self.name!r}", "A8")
-        if self.alpha > 1.0:
-            raise _not_ported(f"alpha={self.alpha} (compressed exchange)", "A8")
-        if self.delta > 0.0:
-            raise _not_ported(f"delta={self.delta} (Minimax Protection)", "A8")
-        if self.engine == "dense":
-            raise _not_ported("engine='dense'", "A4")
+
+    def validate_batch(self) -> None:
+        """What a batched run (api.batch_fit's one program) adds: the dense
+        engine runs one trial at a time."""
+        if self.name == "icoa" and self.engine == "dense":
+            raise _not_ported("engine='dense' in a batched run (a batched "
+                              "dense engine)", "A4b")
 
     def icoa_config(self, transport=None) -> ICOAConfig:
         return ICOAConfig(
             n_sweeps=self.n_sweeps, eps=self.eps, step0=self.step0,
             backtrack=self.backtrack, max_probes=self.max_probes,
-            alpha=self.alpha, delta=self.delta, use_kernel=self.use_kernel,
-            accept_reject=self.accept_reject, engine=self.engine,
+            alpha=self.alpha, delta=self.delta,
+            minimax_steps=self.minimax_steps, minimax_lr=self.minimax_lr,
+            use_kernel=self.use_kernel, accept_reject=self.accept_reject,
+            row_broadcast=self.row_broadcast, engine=self.engine,
             transport=transport)
 
 

@@ -9,8 +9,10 @@ runs the 6-point product grid and returns one Result per spec (in product
 order, last axis fastest). `grid_specs` exposes the spec enumeration alone so
 callers that need per-run timing or custom scheduling can drive `fit`
 themselves. `zip_specs` varies several fields TOGETHER (paired, not crossed).
-A grid point this port does not run yet (solver.alpha > 1, say) raises its
-NotPortedError when it is fitted.
+The paper's trade-off grids run: `{"solver.alpha": [1, 20, 100],
+"solver.delta": [0, 0.01]}`, or the solver names themselves.  A grid point
+this port does not run yet (a lossy codec, say) raises its NotPortedError
+when it is fitted.
 """
 from __future__ import annotations
 

@@ -1,0 +1,97 @@
+"""The paper's two comparison algorithms (Table 1): averaging and residual
+refitting (twin of repro.core.baselines).
+
+Averaging: every agent fits y once, non-cooperatively; the ensemble is the
+uniform mean (no residual traffic).
+
+Residual refitting (ICEA): the residual is passed around the ring; agent i
+refits whatever residual agents 1..i-1 left, greedily driving the training
+error to zero — which is why it overtrains (paper Fig. 1).
+
+Both take an optional leading Monte-Carlo trial axis — xcols (B, D, N, C),
+y (B, N) — in place of the JAX package's `averaging_scan` /
+`residual_refitting_scan` under vmap: the same math on every trial at once,
+the records then (B,) tensors.  Only the default (exact) codec is ported, so
+an agent receives the leave-me-out ensemble sum as it was sent.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import covariance as cov
+from repro_torch.core import ensemble
+
+__all__ = ["averaging", "residual_refitting"]
+
+
+def _fit_all(family, xcols: torch.Tensor, y: torch.Tensor):
+    """Every agent fits y directly: params (..., D, P), f (..., D, N)."""
+    d, n = xcols.shape[-3], xcols.shape[-2]
+    params = family.fit(None, xcols, y[..., None, :].expand(*y.shape[:-1], d, n))
+    return params, family.predict(params, xcols)
+
+
+def _eta(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The MSE an optimal re-weighting of the agents would reach (a
+    diagnostic beside ICOA's records), per trial."""
+    return ensemble.eta(cov.gram(y[..., None, :] - f))
+
+
+def averaging(family, xcols: torch.Tensor, y: torch.Tensor,
+              xcols_test: Optional[torch.Tensor] = None,
+              y_test: Optional[torch.Tensor] = None):
+    """Non-cooperative uniform ensemble.  Returns (params, f, hist): hist
+    holds one record of train_mse and eta, and of test_mse when test data
+    is given — floats for one trial, (B,) tensors for a batch."""
+    params, f = _fit_all(family, xcols, y)
+    batched = y.dim() == 2
+
+    def out(t):
+        return t if batched else float(t)
+
+    hist = {"train_mse": out(torch.mean((y - f.mean(dim=-2)) ** 2, dim=-1)),
+            "eta": out(_eta(f, y))}
+    if xcols_test is not None:
+        ft = family.predict(params, xcols_test)
+        hist["test_mse"] = out(torch.mean((y_test - ft.mean(dim=-2)) ** 2,
+                                          dim=-1))
+    return params, f, hist
+
+
+def residual_refitting(family, xcols: torch.Tensor, y: torch.Tensor,
+                       xcols_test: Optional[torch.Tensor] = None,
+                       y_test: Optional[torch.Tensor] = None,
+                       n_cycles: int = 30):
+    """ICEA ring: the ensemble prediction is the SUM of the agents; each
+    agent in turn refits y minus the others' sum.  Returns (params, f, hist)
+    with one record per cycle of train_mse, eta and (with test data)
+    test_mse: lists of floats for one trial, (B, n_cycles) tensors for a
+    batch.  Nothing in the loop waits for the device."""
+    d, n = xcols.shape[-3], xcols.shape[-2]
+    lead = y.shape[:-1]
+    params = None
+    f = torch.zeros((*lead, d, n), dtype=y.dtype, device=y.device)
+    recs = {"train_mse": [], "test_mse": [], "eta": []}
+    for _ in range(n_cycles):
+        for i in range(d):
+            # the leave-agent-i-out sum is what crosses the wire to agent i
+            residual = y - f.sum(dim=-2) + f[..., i, :]
+            p_i = family.fit(None, xcols[..., i, :, :], residual)
+            if params is None:
+                params = torch.zeros((*lead, d, p_i.shape[-1]), dtype=p_i.dtype,
+                                     device=p_i.device)
+            params[..., i, :] = p_i
+            f[..., i, :] = family.predict(p_i, xcols[..., i, :, :])
+        recs["train_mse"].append(torch.mean((y - f.sum(dim=-2)) ** 2, dim=-1))
+        if xcols_test is not None:
+            ft = family.predict(params, xcols_test)
+            recs["test_mse"].append(torch.mean((y_test - ft.sum(dim=-2)) ** 2,
+                                               dim=-1))
+        recs["eta"].append(_eta(f, y))
+    if len(lead):
+        hist = {k: torch.stack(v, dim=-1) for k, v in recs.items() if v}
+    else:
+        hist = {k: [float(t) for t in v] for k, v in recs.items() if v}
+    return params, f, hist

@@ -20,25 +20,30 @@ per probe and per commit runs through kernels.gram.row_gram when
 A CovState may also carry a leading Monte-Carlo trial axis: r_sub (B, D, m),
 a0 and m_inv (B, D, D), s (B, D), eta_tilde (B,) — the twin of the JAX
 package's covstate under the trial vmap.  `build`, `row_product`,
-`row_update_vector`, `eta_probe` and `apply_inverse_update` take such a
-state, with agent i shared by the batch (every trial updates the same agent
-at the same time) and u of shape (B, D), or (B, K, D) for a step schedule.
+`row_update_vector`, `eta_probe`, `s_probe`, `robust_eta_probe` and
+`apply_inverse_update` take such a state, with agent i shared by the batch
+(every trial updates the same agent at the same time) and u of shape
+(B, D), or (B, K, D) for a step schedule.
 
-Twin of repro.core.covstate for the alpha = 1 slice:
-the Sec 4.1 exact-diagonal split (`exact_diag`, `ddiag`) and the streaming
-column swaps wait for ROADMAP A8 and A14.
+Under Minimax Protection (alpha > 1) `build(exact_diag=)` splices the exact
+local variances into the subsample's Gram (Sec 4.1) and
+`row_update_vector(ddiag=)` moves that diagonal by its exact change;
+`robust_eta_probe` is the protected twin of `eta_probe`.  Twin of
+repro.core.covstate; the streaming column swaps wait for ROADMAP A14.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import covariance as cov
+from repro_torch.core import minimax
 from repro_torch.core.ensemble import _JITTER
 
 __all__ = ["CovState", "build", "refresh", "row_product", "row_update_vector",
-           "eta_probe", "s_probe", "apply_inverse_update", "apply_row_update"]
+           "eta_probe", "s_probe", "robust_eta_probe", "apply_inverse_update",
+           "apply_row_update"]
 
 
 class CovState(NamedTuple):
@@ -75,9 +80,17 @@ def _with_solve(r_sub: torch.Tensor, a0: torch.Tensor) -> CovState:
                     eta_tilde=torch.sum(s, dim=-1))
 
 
-def build(r_sub: torch.Tensor, use_kernel: bool = False) -> CovState:
-    """Full O(N*D^2 + D^3) construction — the once-per-sweep refresh."""
-    return _with_solve(r_sub, cov.gram(r_sub, use_kernel=use_kernel))
+def build(r_sub: torch.Tensor, exact_diag: Optional[torch.Tensor] = None,
+          use_kernel: bool = False) -> CovState:
+    """Full O(N*D^2 + D^3) construction — the once-per-sweep refresh.
+    `exact_diag` (sum(r_i^2)/N over the FULL residuals, (D,) or (B, D))
+    activates the Sec 4.1 split: off-diagonals from the transmitted
+    subsample, diagonal exact."""
+    if exact_diag is not None:
+        a0 = cov.spliced_gram(r_sub, exact_diag, use_kernel=use_kernel)
+    else:
+        a0 = cov.gram(r_sub, use_kernel=use_kernel)
+    return _with_solve(r_sub, a0)
 
 
 def refresh(state: CovState) -> CovState:
@@ -86,13 +99,18 @@ def refresh(state: CovState) -> CovState:
 
 
 def row_update_vector(state: CovState, i: int, delta_sub: torch.Tensor,
+                      ddiag: Optional[torch.Tensor] = None,
                       use_kernel: bool = False) -> torch.Tensor:
     """u with A0' = A0 + e_i u^T + u e_i^T after row i's residual moves by
-    delta_sub (alpha = 1: the diagonal comes from the same Gram).  One
-    row_gram product — O(N*D).  Per trial: delta_sub (B, m) -> u (B, D)."""
+    delta_sub.  `ddiag=None` means the diagonal comes from the same Gram as
+    the off-diagonals (alpha = 1); otherwise it is the change of the exact
+    local diagonal (Sec 4.1 split).  One row_gram product — O(N*D).  Per
+    trial: delta_sub (B, m), ddiag (B,) -> u (B, D)."""
     m = state.r_sub.shape[-1]
     w = row_product(delta_sub, state.r_sub, use_kernel=use_kernel) / m
-    if delta_sub.dim() == 2:
+    if ddiag is not None:
+        w[..., i] = 0.5 * ddiag
+    elif delta_sub.dim() == 2:
         w[:, i] += torch.sum(delta_sub * delta_sub, dim=-1) / (2.0 * m)
     else:
         w[i] += torch.dot(delta_sub, delta_sub) / (2.0 * m)
@@ -148,12 +166,43 @@ def eta_probe(state: CovState, i: int, u: torch.Tensor) -> torch.Tensor:
 
 
 def s_probe(state: CovState, i: int, u: torch.Tensor) -> torch.Tensor:
-    """(A0' + jitter I)^{-1} 1 after a hypothetical row-i update u (D,)."""
-    z1, z2, k11, k12, k22, det = _smw_pieces(state, i, u)
-    t1, t2 = state.s[i], torch.dot(u, state.s)
+    """(A0' + jitter I)^{-1} 1 after a hypothetical row-i update u (..., D)
+    -> (..., D); a batched state takes u (B, D) or (B, K, D)."""
+    if state.m_inv.dim() == 3:
+        u3 = u if u.dim() == 3 else u[:, None, :]
+        z1, z2, k11, k12, k22, det = _smw_pieces_batched(state, i, u3)
+        t1 = state.s[:, i, None]
+        t2 = (u3 @ state.s[..., None])[..., 0]
+        z1 = z1[:, None, :]
+        s = state.s[:, None, :]
+    else:
+        z1, z2, k11, k12, k22, det = _smw_pieces(state, i, u)
+        t1, t2 = state.s[i], u @ state.s
+        s = state.s
     c1 = (k22 * t1 - k12 * t2) / det
     c2 = (k11 * t2 - k12 * t1) / det
-    return state.s - c1 * z1 - c2 * z2
+    sp = s - c1[..., None] * z1 - c2[..., None] * z2
+    return sp if state.m_inv.dim() == 2 or u.dim() == 3 else sp[:, 0]
+
+
+def robust_eta_probe(state: CovState, i: int, u: torch.Tensor, delta: float,
+                     steps: int, lr: float) -> torch.Tensor:
+    """Minimax-protected objective (-zeta, paper eq. 24) after a
+    hypothetical row-i update u — the protected twin of `eta_probe`, for u
+    (..., D) of a single state or (B, D) / (B, K, D) of a batched one: a*
+    is re-solved on each perturbed A0, warm-started from the SMW solve
+    instead of a fresh O(D^3) factorisation, all probes in one
+    robust_weights call."""
+    a0 = state.a0
+    if a0.dim() == 3 and u.dim() == 3:
+        a0 = a0[:, None]
+    a0p = a0.expand(*u.shape[:-1], *a0.shape[-2:]).clone()
+    a0p[..., i, :] += u
+    a0p[..., :, i] += u                   # (i, i) gains 2 u_i, as in JAX
+    sp = s_probe(state, i, u)
+    ap = minimax.robust_weights(a0p, delta, steps=steps, lr=lr,
+                                a_init=sp / torch.sum(sp, dim=-1, keepdim=True))
+    return -minimax.robust_objective(ap, a0p, delta)
 
 
 def _apply_inverse_update_batched(state: CovState, i: int, u: torch.Tensor):

@@ -12,7 +12,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["optimal_weights", "eta", "eta_tilde", "combine", "solve_vec"]
+__all__ = ["optimal_weights", "eta", "eta_tilde", "eta_tilde_from_predictions",
+           "combine", "solve_vec"]
 
 _JITTER = 1e-10
 
@@ -40,6 +41,14 @@ def eta_tilde(a_mat: torch.Tensor) -> torch.Tensor:
 def eta(a_mat: torch.Tensor) -> torch.Tensor:
     """Minimum ensemble training MSE = 1 / (1^T A^{-1} 1)  (paper eq. 11)."""
     return 1.0 / eta_tilde(a_mat)
+
+
+def eta_tilde_from_predictions(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """eta_tilde as a differentiable function of the agents' predictions
+    f (D, N) against y (N,): what autodiff differentiates for the dense
+    engine's gradient."""
+    r = y[None, :] - f
+    return eta_tilde((r @ r.T) / f.shape[1])
 
 
 def combine(weights: torch.Tensor, predictions: torch.Tensor) -> torch.Tensor:

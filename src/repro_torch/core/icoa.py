@@ -9,35 +9,52 @@ One sweep (the paper's inner `for i = 1..D`):
     5. accept the new row only if it improves the objective, and commit it
        before moving to agent i+1
 
-Twin of repro.core.icoa for the alpha = 1, delta = 0 slice, in PyTorch's
-idiom: the agent loop is a Python loop, the back-search evaluates its whole
-step schedule as one batch and takes the first improving step (the step the
-JAX while_loop stops at: each probe is a pure function of its step), and
-accept/reject selects with torch.where on device booleans, so the loop never
-waits for the device.  Two engines compute the same sweep:
+Twin of repro.core.icoa, in PyTorch's idiom: the agent loop is a Python
+loop, the back-search evaluates its whole step schedule as one batch and
+takes the first improving step (the step the JAX while_loop stops at: each
+probe is a pure function of its step), and accept/reject selects with
+torch.where on device booleans, so the loop never waits for the device.
+
+Minimax Protection (Sec 4.2) changes two things, via `alpha` / `delta`:
+the covariance feeding the gradient is assembled from an N/alpha subsample
+(fresh each sweep, drawn from the sweep's key exactly as the JAX package
+draws it: core.covariance, prng), with the exact local diagonal (Sec 4.1);
+and at delta > 0 the objective is the robust one (core.minimax), each agent
+descending the Danskin surrogate a*^T A0(f) a* with a* held fixed.
+
+Three engines compute the same sweep:
 
   * "incremental" (default): carries a core.covstate.CovState through the
-    agent loop — closed-form gradient off the cached (A0+jitter)^{-1} 1,
-    O(D^2) rank-2 SMW probes, one row-Gram product per probe and one per
-    commit (kernels.gram.row_gram with use_kernel).
+    agent loop — closed-form gradient off the cached (A0+jitter)^{-1} 1 (or
+    the robust weights), O(D^2) rank-2 SMW probes (robust ones at
+    delta > 0), one row-Gram product per probe and one per commit
+    (kernels.gram.row_gram with use_kernel).
   * "fused": the back-search collapses to a closed-form schedule off one
     matvec, accept/commit to one fused evaluation with accept selecting the
-    update; with use_kernel these two passes are kernels.sweep's probe and
-    commit kernels.
+    update; with use_kernel the commit is kernels.sweep's commit kernel,
+    and the probe its probe kernel at alpha = 1 or the row product on the
+    subsample at alpha > 1.  At delta > 0 it delegates to the incremental
+    engine, as the JAX package does.
+  * "dense": the oracle — every objective evaluation rebuilds the Gram and
+    re-solves from scratch, the gradient by torch.autograd.  It runs the
+    plain products only: the JAX package cannot differentiate through its
+    Pallas Gram, so it has no dense engine on a kernel for this one to
+    match, and `use_kernel=True` is refused.
 
 `run_scan` is the Monte-Carlo building block (api.batch_fit): B independent
 trials as one batched program.  Every tensor carries a leading trial axis
 (B, ...) — the explicit counterpart of the JAX package's vmap over its
-run_scan — and `sweep` sends such a state to the batched twins of the two
-engines, where all trials update agent i together (i stays a host int) and
-eta, the chosen step, accept/reject and the solve state are per trial.  With
-use_kernel every product goes to the batched kernels, one launch per agent
-for the whole batch.
+run_scan — and `sweep` sends such a state to the batched twins of the
+incremental and fused engines, where all trials update agent i together (i
+stays a host int) and eta, the chosen step, accept/reject, the subsample
+and the solve state are per trial.  With use_kernel every product goes to
+the batched kernels, one launch per agent for the whole batch.  The dense
+engine runs one trial at a time (a batched one is ROADMAP A4b).
 
-The dense oracle engine waits for ROADMAP A4; Minimax Protection (alpha > 1,
-delta > 0) for A8.  At alpha = 1 no random draw reaches the math, so `run`
-carries no generator: the JAX package's per-sweep key splits feed only the
-alpha > 1 subsample.
+Keys follow the JAX package: `run` starts from PRNGKey(seed + 1), records
+with it, then per sweep splits (key, k1, k2), sweeps with k1 and records
+with k2; `run_scan` does so per trial.  At alpha = 1 no draw reaches the
+math, so the key stream is not computed there.
 """
 from __future__ import annotations
 
@@ -49,10 +66,11 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch import transport as transport_lib
 from repro_torch.agents.polynomial import PolynomialFamily, _features
 from repro_torch.core import covariance as cov
-from repro_torch.core import covstate, ensemble, gradient
+from repro_torch.core import covstate, ensemble, gradient, minimax
 from repro_torch.transport import Ledger, icoa_sweep_cost
 
 __all__ = ["ICOAConfig", "ICOAState", "init_state", "sweep", "run",
@@ -65,6 +83,14 @@ class NotPortedError(NotImplementedError):
     the message names the ROADMAP item it waits for."""
 
 
+_DENSE_KERNEL = (
+    "engine='dense' runs the plain products only: the JAX package cannot "
+    "differentiate through its Pallas Gram (jax.grad of the dense objective "
+    "with use_kernel=True fails in pallas_call's JVP rule, ROADMAP C6), so "
+    "there is no dense engine on a kernel to match; the port's dense engine "
+    "is the plain-PyTorch oracle — pass use_kernel=False")
+
+
 @dataclasses.dataclass(frozen=True)
 class ICOAConfig:
     n_sweeps: int = 30
@@ -72,25 +98,29 @@ class ICOAConfig:
     step0: float = 1.0          # initial back-search step (scaled by sqrt(N))
     backtrack: float = 0.5      # step shrink factor
     max_probes: int = 16        # back-search budget
-    alpha: float = 1.0          # compression rate (only 1 in this slice)
-    delta: float = 0.0          # Minimax Protection half-width (only 0)
+    alpha: float = 1.0          # compression rate (1 = full residual exchange)
+    delta: float = 0.0          # Minimax Protection box half-width (0 = off)
+    minimax_steps: int = 300    # inner robust-weight solver budget
+    minimax_lr: float = 0.05
     use_kernel: bool = False    # route the products through kernels/
     accept_reject: bool = True  # reject projections that worsen the objective
-    engine: str = "incremental"  # "incremental" | "fused"
+    row_broadcast: bool = False  # dense engine: gather once a sweep, then
+                                # broadcast each updated row (the row-wise
+                                # price); incremental/fused are row-wise
+    engine: str = "incremental"  # "incremental" | "fused" | "dense"
     transport: Optional[transport_lib.Transport] = None  # None = default
 
     def validate(self) -> None:
-        if self.alpha != 1.0 or self.delta != 0.0:
-            raise NotPortedError(
-                f"alpha={self.alpha}, delta={self.delta}: Minimax Protection "
-                f"(alpha > 1, delta > 0) waits for ROADMAP A8")
-        if self.engine == "dense":
-            raise NotPortedError("engine='dense' waits for ROADMAP A4")
-        if self.engine not in ("incremental", "fused"):
+        if self.engine not in ("incremental", "fused", "dense"):
             raise ValueError(f"unknown engine {self.engine!r}; pick "
-                             f"'incremental' or 'fused'")
+                             f"'incremental', 'fused' or 'dense'")
+        if self.engine == "dense" and self.use_kernel:
+            raise ValueError(_DENSE_KERNEL)
         if self.max_probes < 1:
             raise ValueError("need max_probes >= 1")
+        if self.alpha < 1.0 or self.delta < 0.0:
+            raise ValueError(f"need alpha >= 1 and delta >= 0 (got alpha="
+                             f"{self.alpha}, delta={self.delta})")
 
 
 @dataclasses.dataclass
@@ -142,56 +172,217 @@ def _first_improving_batched(etas: torch.Tensor, eta0: torch.Tensor,
 
 def sweep(family, cfg: ICOAConfig, params: torch.Tensor, f: torch.Tensor,
           xcols: torch.Tensor, y: torch.Tensor,
+          key: Optional[torch.Tensor] = None,
           ledger: Optional[Ledger] = None):
     """One full round-robin sweep over all D agents; returns
-    (params, f, ledger).  The inputs are not modified.  The ledger is
-    charged the row-wise schedule's bytes: the sweep-start gather plus one
-    candidate-row broadcast per agent.
+    (params, f, ledger).  The inputs are not modified.
+
+    At alpha > 1 the sweep splits `key` and draws its subsample of
+    m = ceil(N / alpha) instances from the second half, as the JAX package
+    does; at alpha = 1 the key is not read.  The ledger is charged the
+    schedule's bytes: the row-wise price (the sweep-start gather plus one
+    candidate-row broadcast per agent) for the incremental and fused
+    engines and for the dense one with `row_broadcast`, else the paper's
+    re-gather per agent update; each payload carries the agent's exact
+    diagonal scalar at alpha > 1.
 
     A batched state — params (B, D, P), f (B, D, N), xcols (B, D, N, C),
-    y (B, N) — runs all B trials through the batched engine.  Every trial
-    transmits the same rows, so the ledger is charged one trial's price,
-    which each trial pays alike."""
+    y (B, N), key (B, 2) — runs all B trials through the batched engine,
+    each with its own subsample.  Every trial transmits the same number of
+    values, so the ledger is charged one trial's price, which each trial
+    pays alike."""
     cfg.validate()
     d, n = f.shape[-2:]
+    batched = f.dim() == 3
+    if batched and cfg.engine == "dense":
+        raise NotPortedError("engine='dense' on a batched (B, D, N) state: a "
+                             "batched dense engine waits for ROADMAP A4b")
     tp = (cfg.transport or transport_lib.default_transport(d)).validate_for(d)
+    split = cfg.alpha > 1.0
+    m = cov.subsample_size(n, cfg.alpha) if split else n
+    row_wise = cfg.engine in ("incremental", "fused") or cfg.row_broadcast
     ledger = (ledger or Ledger()).charge(
-        icoa_sweep_cost(tp, n, split=False, row_wise=True))
-    if f.dim() == 3:
-        engine = (_sweep_fused_batched if cfg.engine == "fused"
-                  else _sweep_incremental_batched)
+        icoa_sweep_cost(tp, m, split=split, row_wise=row_wise))
+    idx = None
+    if split:
+        if key is None:
+            raise ValueError(f"alpha={cfg.alpha}: the sweep draws its "
+                             f"subsample from a key; pass key")
+        idx = cov.subsample_indices(prng.split(key)[..., 1, :], n, cfg.alpha)
+    fused = cfg.engine == "fused" and cfg.delta == 0.0
+    if batched:
+        engine = _sweep_fused_batched if fused else _sweep_incremental_batched
+    elif cfg.engine == "dense":
+        engine = _sweep_dense
     else:
-        engine = _sweep_fused if cfg.engine == "fused" else _sweep_incremental
-    params, f = engine(family, cfg, tp, params.clone(), f.clone(), xcols, y)
+        engine = _sweep_fused if fused else _sweep_incremental
+    params, f = engine(family, cfg, tp, params.clone(), f.clone(), xcols, y,
+                       idx)
     return params, f, ledger
 
 
-def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y):
+def _add_at(g: torch.Tensor, idx: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """g with c added at the distinct positions idx of its last axis (one
+    addition per position, no atomics): idx (m,) shared, or (B, m) per
+    trial for g (B, N)."""
+    if idx.dim() == 1:
+        g[..., idx] = g[..., idx] + c
+        return g
+    return g.scatter(-1, idx, torch.gather(g, -1, idx) + c)
+
+
+def _split_gradient(v: torch.Tensor, r_sub: torch.Tensor, r_i: torch.Tensor,
+                    idx: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """The Sec 4.1 gradient of agent i over all N positions: the exact
+    diagonal's term (2/N) v_i^2 r_i everywhere, plus the subsample's
+    off-diagonal terms at the transmitted positions.  Single (v (D,), r_i
+    (N,)) or per trial (v (B, D), r_i (B, N), idx (B, m))."""
+    vi = v[..., i]
+    g = ((2.0 / n) * (vi * vi))[..., None] * r_i
+    return _add_at(g, idx, gradient.cached_row_gradient(v, r_sub, i,
+                                                        exclude_self=True))
+
+
+def _gathered_state(tp, r0: torch.Tensor, idx: Optional[torch.Tensor],
+                    use_kernel: bool):
+    """The sweep-start gather as the CovState it builds, and the width m of
+    its rows: every row as delivered (its subsample at alpha > 1, with the
+    exact local variances spliced in as the diagonal, Sec 4.1).  Single
+    (r0 (D, N)) or per trial (r0 (B, D, N), idx (B, m))."""
+    if idx is None:
+        return covstate.build(tp.relay_rows(r0), use_kernel=use_kernel), r0.shape[-1]
+    exact = tp.relay_scalars(torch.sum(r0 * r0, dim=-1) / r0.shape[-1])
+    return covstate.build(tp.relay_rows(cov.take_cols(r0, idx)), exact_diag=exact,
+                          use_kernel=use_kernel), idx.shape[-1]
+
+
+def _delivered(tp, r_new: torch.Tensor, idx: Optional[torch.Tensor], i: int,
+               a0_ii: torch.Tensor):
+    """What agent i's candidate residual puts on the wire: the row (its
+    subsample at alpha > 1) after the relay, and under the Sec 4.1 split the
+    change of its exact diagonal from a0_ii (None at alpha = 1)."""
+    if idx is None:
+        return tp.relay_row(r_new, i), None
+    sq = (torch.dot(r_new, r_new) if r_new.dim() == 1        # the JAX vdot
+          else torch.sum(r_new * r_new, dim=-1))
+    exact = tp.relay_scalar(sq / r_new.shape[-1], i)
+    return tp.relay_row(cov.take_cols(r_new, idx), i), exact - a0_ii
+
+
+def _transported_a0(tp, cfg: ICOAConfig, f: torch.Tensor, y: torch.Tensor,
+                    idx: Optional[torch.Tensor]) -> torch.Tensor:
+    """A0 as the agents receive it, differentiable in f (..., D, N): every
+    transmitted row (and, under the Sec 4.1 split, every exact-diagonal
+    scalar) passes the codec relay with straight-through gradients."""
+    r = y - f
+    if idx is None:
+        return cov.gram(tp.relay_rows_st(r), use_kernel=cfg.use_kernel)
+    exact_diag = tp.relay_scalars_st(torch.sum(r * r, dim=-1) / r.shape[-1])
+    return cov.spliced_gram(tp.relay_rows_st(cov.take_cols(r, idx)),
+                            exact_diag, use_kernel=cfg.use_kernel)
+
+
+def _sweep_dense(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
+    """Recompute-from-scratch engine: every objective evaluation pays the
+    full Gram and solve, the gradient comes from torch.autograd through
+    them, and at delta > 0 the robust weights are re-solved at each
+    evaluation and held fixed for the gradient (the JAX package's
+    stop_gradient).  The back-search evaluates the K candidate prediction
+    matrices of the schedule as one batch."""
+    d, n = f.shape
+    steps = _step_schedule(cfg, n, f.dtype, f.device)
+
+    def obj(ff):
+        a0 = _transported_a0(tp, cfg, ff, y, idx)
+        if cfg.delta > 0.0:
+            a = minimax.robust_weights(a0.detach(), cfg.delta,
+                                       steps=cfg.minimax_steps,
+                                       lr=cfg.minimax_lr)
+            return -minimax.robust_objective(a, a0, cfg.delta)
+        return ensemble.eta_tilde(a0)
+
+    for i in range(d):
+        with torch.enable_grad():
+            fi = f[i].clone().requires_grad_(True)
+            val = obj(torch.cat([f[:i], fi[None], f[i + 1:]]))
+            g = torch.autograd.grad(val, fi)[0]
+        eta0 = val.detach()
+        gnorm = torch.linalg.norm(g) + 1e-30
+        g_unit = g / gnorm
+
+        cand = f.expand(steps.shape[0], d, n).clone()
+        cand[:, i] = f[i] + steps[:, None] * g_unit
+        step = _first_improving(obj(cand), eta0, steps)
+
+        f_hat = f[i] + step * g_unit
+        p_new = family.fit(params[i], xcols[i], f_hat)
+        f_new = family.predict(p_new, xcols[i])
+        if cfg.accept_reject:
+            f_acc = f.clone()
+            f_acc[i] = f_new
+            accept = obj(f_acc) > eta0
+        else:
+            accept = torch.ones((), dtype=torch.bool, device=f.device)
+        params[i] = torch.where(accept, p_new, params[i])
+        f[i] = torch.where(accept, f_new, f[i])
+    return params, f
+
+
+def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
     """Rank-2 CovState engine: O(N*D + D^2) per agent update.  The CovState
     is rebuilt from f at sweep start (the once-per-sweep refresh bounding SMW
     drift); every probe and commit inside is a rank-2 update.  `params` and
-    `f` are this sweep's own copies and are updated row by row."""
+    `f` are this sweep's own copies and are updated row by row.
+
+    At alpha > 1 the state holds the subsample's rows with the exact
+    diagonal spliced in, the gradient is the split one (`_split_gradient`)
+    and every update moves the diagonal by its exact change.  At delta > 0
+    the objective is the robust one: the weights a* are solved warm from the
+    cached s / sum(s), the gradient is the Danskin term at a*, and every
+    probe re-solves a* on its perturbed A0 (covstate.robust_eta_probe, the
+    whole schedule in one call)."""
     d, n = f.shape
-    m = n
     uk = cfg.use_kernel
-    cs = covstate.build(tp.relay_rows(y[None, :] - f), use_kernel=uk)
+    protected = cfg.delta > 0.0
+    cs, m = _gathered_state(tp, y[None, :] - f, idx, uk)
     steps = _step_schedule(cfg, n, f.dtype, f.device)
     r_sub = cs.r_sub        # the sweep's own buffer: committed rows land in place
 
+    def probe(state, u):
+        if protected:
+            return covstate.robust_eta_probe(state, i, u, cfg.delta,
+                                             cfg.minimax_steps, cfg.minimax_lr)
+        return covstate.eta_probe(state, i, u)
+
     for i in range(d):
-        eta0 = cs.eta_tilde
-        g = gradient.cached_row_gradient(cs.s, r_sub, i)
+        if protected:
+            v = minimax.robust_weights(cs.a0, cfg.delta, steps=cfg.minimax_steps,
+                                       lr=cfg.minimax_lr,
+                                       a_init=cs.s / torch.sum(cs.s))
+            eta0 = -minimax.robust_objective(v, cs.a0, cfg.delta)
+        else:
+            v, eta0 = cs.s, cs.eta_tilde
+        r_i = y - f[i]
+        if idx is None:
+            g = gradient.cached_row_gradient(v, r_sub, i)
+        else:
+            g = _split_gradient(v, r_sub, r_i, idx, i, n)
         gnorm = torch.linalg.norm(g) + 1e-30
         g_unit = g / gnorm
 
         # back-search: one row-Gram product, then the O(D^2) SMW probe of
         # every step of the schedule at once — the residual delta of probing
         # `step` is -step * g_unit
-        p = covstate.row_product(g_unit, r_sub, use_kernel=uk) / m
-        gg = torch.dot(g_unit, g_unit)
+        g_sub = g_unit if idx is None else cov.take_cols(g_unit, idx)
+        p = covstate.row_product(g_sub, r_sub, use_kernel=uk) / m
         u = -steps[:, None] * p[None, :]
-        u[:, i] += steps * steps * gg / (2.0 * m)
-        step = _first_improving(covstate.eta_probe(cs, i, u), eta0, steps)
+        if idx is None:
+            gg = torch.dot(g_sub, g_sub)
+            u[:, i] += steps * steps * gg / (2.0 * m)
+        else:
+            c1 = torch.dot(r_i, g_unit)           # exact-diagonal cross term
+            u[:, i] = 0.5 * ((steps * steps - 2.0 * steps * c1) / n)
+        step = _first_improving(probe(cs, u), eta0, steps)
 
         f_hat = f[i] + step * g_unit
         p_new = family.fit(params[i], xcols[i], f_hat)
@@ -199,11 +390,11 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y):
 
         # accept/reject and commit share one rank-2 row update; the candidate
         # row passes the codec relay before it touches the shared state
-        r_new_sub = tp.relay_row(y - f_new, i)
+        r_new_sub, ddiag = _delivered(tp, y - f_new, idx, i, cs.a0[i, i])
         u_acc = covstate.row_update_vector(cs, i, r_new_sub - r_sub[i],
-                                           use_kernel=uk)
+                                           ddiag=ddiag, use_kernel=uk)
         if cfg.accept_reject:
-            accept = covstate.eta_probe(cs, i, u_acc) > eta0
+            accept = probe(cs, u_acc) > eta0
         else:
             accept = torch.ones((), dtype=torch.bool, device=f.device)
 
@@ -223,39 +414,62 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y):
 
 
 def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
-                               xcols, y):
+                               xcols, y, idx):
     """`_sweep_incremental` for B trials at once: one batched CovState, every
-    trial updating agent i together; the step, accept/reject and the commit
-    are per trial (torch.where on (B,) booleans, no host wait)."""
+    trial updating agent i together, each with its own subsample idx
+    (B, m); the step, accept/reject and the commit are per trial
+    (torch.where on (B,) booleans, no host wait)."""
     d, n = f.shape[-2:]
-    m = n
     uk = cfg.use_kernel
-    cs = covstate.build(tp.relay_rows(y[:, None, :] - f), use_kernel=uk)
+    protected = cfg.delta > 0.0
+    cs, m = _gathered_state(tp, y[:, None, :] - f, idx, uk)
     steps = _step_schedule(cfg, n, f.dtype, f.device)
     r_sub = cs.r_sub
 
+    def probe(state, u):
+        if protected:
+            return covstate.robust_eta_probe(state, i, u, cfg.delta,
+                                             cfg.minimax_steps, cfg.minimax_lr)
+        return covstate.eta_probe(state, i, u)
+
     for i in range(d):
-        eta0 = cs.eta_tilde                                       # (B,)
-        g = gradient.cached_row_gradient(cs.s, r_sub, i)          # (B, m)
+        if protected:
+            v = minimax.robust_weights(cs.a0, cfg.delta, steps=cfg.minimax_steps,
+                                       lr=cfg.minimax_lr,
+                                       a_init=cs.s / torch.sum(cs.s, dim=-1,
+                                                               keepdim=True))
+            eta0 = -minimax.robust_objective(v, cs.a0, cfg.delta)   # (B,)
+        else:
+            v, eta0 = cs.s, cs.eta_tilde
+        r_i = y - f[:, i]                                         # (B, N)
+        if idx is None:
+            g = gradient.cached_row_gradient(v, r_sub, i)         # (B, m)
+        else:
+            g = _split_gradient(v, r_sub, r_i, idx, i, n)         # (B, N)
         gnorm = torch.linalg.norm(g, dim=-1) + 1e-30
         g_unit = g / gnorm[:, None]
 
-        p = covstate.row_product(g_unit, r_sub, use_kernel=uk) / m  # (B, D)
-        gg = torch.sum(g_unit * g_unit, dim=-1)
+        g_sub = g_unit if idx is None else cov.take_cols(g_unit, idx)
+        p = covstate.row_product(g_sub, r_sub, use_kernel=uk) / m  # (B, D)
         u = -steps[None, :, None] * p[:, None, :]                 # (B, K, D)
-        u[:, :, i] += steps[None, :] * steps[None, :] * gg[:, None] / (2.0 * m)
-        step = _first_improving_batched(covstate.eta_probe(cs, i, u), eta0,
-                                        steps)
+        if idx is None:
+            gg = torch.sum(g_sub * g_sub, dim=-1)
+            u[:, :, i] += steps[None, :] * steps[None, :] * gg[:, None] / (2.0 * m)
+        else:
+            c1 = torch.sum(r_i * g_unit, dim=-1)
+            st = steps[None, :]
+            u[:, :, i] = 0.5 * ((st * st - 2.0 * st * c1[:, None]) / n)
+        step = _first_improving_batched(probe(cs, u), eta0, steps)
 
         f_hat = f[:, i] + step[:, None] * g_unit
         p_new = family.fit(params[:, i], xcols[:, i], f_hat)
         f_new = family.predict(p_new, xcols[:, i])
 
-        r_new_sub = tp.relay_row(y - f_new, i)
+        r_new_sub, ddiag = _delivered(tp, y - f_new, idx, i, cs.a0[:, i, i])
         u_acc = covstate.row_update_vector(cs, i, r_new_sub - r_sub[:, i],
-                                           use_kernel=uk)
+                                           ddiag=ddiag, use_kernel=uk)
         if cfg.accept_reject:
-            accept = covstate.eta_probe(cs, i, u_acc) > eta0
+            accept = probe(cs, u_acc) > eta0
         else:
             accept = torch.ones(eta0.shape, dtype=torch.bool, device=f.device)
 
@@ -305,27 +519,32 @@ def _poly_projector(xcols: torch.Tensor, degree: int, ridge: float):
     return phi_t, _small_inv(torch.stack(rows, -2) + ridge * eye)
 
 
-def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y):
+def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
     """Fused engine: the incremental sweep with its back-search in closed
     form (kernels.sweep.ref.probe_etas_closed) and accept/commit as one
     evaluation with accept selecting the rank-2 update.
 
-    With use_kernel the probe pass (cross, p, ||g||, schedule) and the commit
-    pass are kernels.sweep's kernels.  Without it the probe product needs no
-    pass over R at all: R @ g_unit = (2 s_i / (m gnorm)) * (A0 @ s) on the
-    carried Gram.  Both branches mirror the JAX engine exactly (the kernel
-    branch runs its algebra in fp32 whatever the data dtype)."""
+    At alpha = 1, with use_kernel the probe pass (cross, p, ||g||, schedule)
+    and the commit pass are kernels.sweep's kernels; without it the probe
+    product needs no pass over R at all: R @ g_unit = (2 s_i / (m gnorm)) *
+    (A0 @ s) on the carried Gram.  At alpha > 1 the spliced diagonal breaks
+    that identity, so the probe keeps its row product on the subsample
+    (kernels.gram.row_gram with use_kernel), and the commit takes
+    diag_keep = 0 and diag_add = half the exact diagonal's change, a device
+    value.  Both branches mirror the JAX engine exactly (the kernel branch
+    runs its algebra in fp32 whatever the data dtype)."""
     from repro_torch.kernels.sweep import ops as sweep_ops
     from repro_torch.kernels.sweep import ref as sweep_ref
 
     d, n = f.shape
-    m = n
     uk = cfg.use_kernel
     dt, dev = f.dtype, f.device
-    cs0 = covstate.build(tp.relay_rows(y[None, :] - f), use_kernel=uk)
+    cs0, m = _gathered_state(tp, y[None, :] - f, idx, uk)
     rs, a0, m_inv, s, eta = cs0.r_sub, cs0.a0, cs0.m_inv, cs0.s, cs0.eta_tilde
     steps = _step_schedule(cfg, n, dt, dev)
     zero = torch.zeros((), dtype=dt, device=dev)
+    half_n = 0.5 / torch.full((), n, dtype=dt, device=dev)
+    commit = sweep_ops.commit_sweep if uk else sweep_ref.commit_sweep_ref
 
     if isinstance(family, PolynomialFamily):
         phi_t, ginv = _poly_projector(xcols, family.degree, family.ridge)
@@ -342,7 +561,18 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y):
     for i in range(d):
         eta0 = eta
         # --- probe: gradient + the whole back-search schedule ---
-        if uk:
+        if idx is not None:
+            r_i = y - f[i]
+            g = _split_gradient(s, rs, r_i, idx, i, n)
+            gnorm = torch.linalg.norm(g) + 1e-30
+            g_unit = g / gnorm
+            p = covstate.row_product(cov.take_cols(g_unit, idx), rs,
+                                     use_kernel=uk) / m
+            p[i].zero_()          # a device fill: no host copy
+            c1 = torch.dot(r_i, g_unit)           # exact-diagonal cross term
+            etas = sweep_ref.probe_etas_closed(m_inv, s, eta, i, steps, p,
+                                               -c1 / n, half_n)
+        elif uk:
             etas, cross, _, gnorm = sweep_ops.probe_sweep(rs, m_inv, s, eta, i,
                                                           steps)
             g_unit = ((2.0 / m) * s[i] / gnorm) * cross
@@ -361,15 +591,12 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y):
         p_new, f_new = project(i, params[i], f_hat)
 
         # --- fused accept/commit ---
-        r_new_sub = tp.relay_row(y - f_new, i)
-        delta = r_new_sub - rs[i]
+        r_new_sub, ddiag = _delivered(tp, y - f_new, idx, i, a0[i, i])
+        diag_keep, diag_add = (1.0, 0.0) if ddiag is None else (0.0, 0.5 * ddiag)
         threshold = eta0 if cfg.accept_reject else threshold_off
-        if uk:
-            m_inv, s, u_eff, accept, _ = sweep_ops.commit_sweep(
-                rs, m_inv, s, eta, i, delta, 1.0, 0.0, threshold, True)
-        else:
-            m_inv, s, u_eff, accept, _ = sweep_ref.commit_sweep_ref(
-                rs, m_inv, s, eta, i, delta, 1.0, 0.0, threshold, True)
+        m_inv, s, u_eff, accept, _ = commit(rs, m_inv, s, eta, i,
+                                            r_new_sub - rs[i], diag_keep,
+                                            diag_add, threshold, True)
         eta = torch.sum(s)
 
         params[i] = torch.where(accept, p_new, params[i])
@@ -380,21 +607,24 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y):
     return params, f
 
 
-def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y):
-    """`_sweep_fused` for B trials at once: one batched probe launch and one
-    batched commit launch per agent with use_kernel, eta / threshold / the
-    accept flags per trial as (B,) device tensors."""
+def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
+                         idx):
+    """`_sweep_fused` for B trials at once: one batched probe (or row
+    product) launch and one batched commit launch per agent with
+    use_kernel; eta, threshold, the accept flags, the subsample and the
+    commit's diag_add per trial as (B,) device tensors."""
     from repro_torch.kernels.sweep import ops as sweep_ops
     from repro_torch.kernels.sweep import ref as sweep_ref
 
     d, n = f.shape[-2:]
-    m = n
     uk = cfg.use_kernel
     dt, dev = f.dtype, f.device
-    cs0 = covstate.build(tp.relay_rows(y[:, None, :] - f), use_kernel=uk)
+    cs0, m = _gathered_state(tp, y[:, None, :] - f, idx, uk)
     rs, a0, m_inv, s, eta = cs0.r_sub, cs0.a0, cs0.m_inv, cs0.s, cs0.eta_tilde
     steps = _step_schedule(cfg, n, dt, dev)
     zero = torch.zeros((), dtype=dt, device=dev)
+    half_n = 0.5 / torch.full((), n, dtype=dt, device=dev)
+    commit = sweep_ops.commit_sweep if uk else sweep_ref.commit_sweep_batched_ref
 
     if isinstance(family, PolynomialFamily):
         phi_t, ginv = _poly_projector(xcols, family.degree, family.ridge)
@@ -410,7 +640,18 @@ def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y):
     threshold_off = float("-inf")
     for i in range(d):
         eta0 = eta                                                # (B,)
-        if uk:
+        if idx is not None:
+            r_i = y - f[:, i]
+            g = _split_gradient(s, rs, r_i, idx, i, n)
+            gnorm = torch.linalg.norm(g, dim=-1) + 1e-30
+            g_unit = g / gnorm[:, None]
+            p = covstate.row_product(cov.take_cols(g_unit, idx), rs,
+                                     use_kernel=uk) / m
+            p[:, i].zero_()
+            c1 = torch.sum(r_i * g_unit, dim=-1)
+            etas = sweep_ref.probe_etas_closed_batched(
+                m_inv, s, eta, i, steps, p, -c1 / n, half_n)
+        elif uk:
             etas, cross, _, gnorm = sweep_ops.probe_sweep(rs, m_inv, s, eta, i,
                                                           steps)
             g_unit = ((2.0 / m) * s[:, i] / gnorm)[:, None] * cross
@@ -427,12 +668,12 @@ def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y):
         f_hat = f[:, i] + step[:, None] * g_unit
         p_new, f_new = project(i, params[:, i], f_hat)
 
-        r_new_sub = tp.relay_row(y - f_new, i)
-        delta = r_new_sub - rs[:, i]
+        r_new_sub, ddiag = _delivered(tp, y - f_new, idx, i, a0[:, i, i])
+        diag_keep, diag_add = (1.0, 0.0) if ddiag is None else (0.0, 0.5 * ddiag)
         threshold = eta0 if cfg.accept_reject else threshold_off
-        commit = sweep_ops.commit_sweep if uk else sweep_ref.commit_sweep_batched_ref
-        m_inv, s, u_eff, accept, _ = commit(rs, m_inv, s, eta, i, delta, 1.0,
-                                            0.0, threshold, True)
+        m_inv, s, u_eff, accept, _ = commit(rs, m_inv, s, eta, i,
+                                            r_new_sub - rs[:, i], diag_keep,
+                                            diag_add, threshold, True)
         eta = torch.sum(s, dim=-1)
 
         params[:, i] = torch.where(accept[:, None], p_new, params[:, i])
@@ -443,11 +684,22 @@ def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y):
     return params, f
 
 
-def _weights(f: torch.Tensor, y: torch.Tensor, cfg: ICOAConfig) -> torch.Tensor:
-    """Closed-form ensemble weights from the full residual covariance
-    (per trial for a batched f (B, D, N), y (B, N))."""
-    return ensemble.optimal_weights(cov.gram(y[..., None, :] - f,
-                                             use_kernel=cfg.use_kernel))
+def _weights(f: torch.Tensor, y: torch.Tensor, cfg: ICOAConfig,
+             key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Ensemble weights from what the agents can see (per trial for a
+    batched f (B, D, N), y (B, N), key (B, 2)): at alpha > 1 the covariance
+    of a subsample drawn from `key` with the exact diagonal, the robust
+    weights at delta > 0, else the closed form."""
+    r = y[..., None, :] - f
+    if cfg.alpha > 1.0:
+        a0 = cov.subsampled_covariance(key, r, cfg.alpha,
+                                       use_kernel=cfg.use_kernel)
+    else:
+        a0 = cov.gram(r, use_kernel=cfg.use_kernel)
+    if cfg.delta > 0.0:
+        return minimax.robust_weights(a0, cfg.delta, steps=cfg.minimax_steps,
+                                      lr=cfg.minimax_lr)
+    return ensemble.optimal_weights(a0)
 
 
 def ensemble_predict(family, params: torch.Tensor, weights: torch.Tensor,
@@ -494,25 +746,47 @@ def _full_fp32(fn):
     return call
 
 
+def _first_key(cfg: ICOAConfig, seed, device) -> Optional[torch.Tensor]:
+    """PRNGKey(seed + 1) — one key per trial for a sequence of seeds — the
+    record-0 key of a run; None at alpha = 1, where no draw reaches the
+    math."""
+    if cfg.alpha == 1.0:
+        return None
+    return prng.PRNGKey(np.asarray(seed) + 1, device=device)
+
+
+def _split3(key: Optional[torch.Tensor]):
+    """A sweep's `key, k1, k2 = split(key, 3)`: the next key, the sweep's
+    and the record's (all None at alpha = 1)."""
+    if key is None:
+        return None, None, None
+    return prng.split(key, 3).unbind(-2)
+
+
 @_full_fp32
 def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
         xcols_test: Optional[torch.Tensor] = None,
-        y_test: Optional[torch.Tensor] = None):
+        y_test: Optional[torch.Tensor] = None, seed: int = 0):
     """Full ICOA run; returns (state, weights, history dict).
 
     The history holds one record per sweep plus record 0 (the
     non-cooperative init): train_mse, test_mse, eta (= 1/eta_tilde of the
-    record-time residual covariance) and the bytes the sweep put on the wire
-    (record 0: 0).  The run stops after a sweep whose eta moved less than
-    cfg.eps from the previous sweep's.  Plain float32 matrix products on the
-    card stay full fp32: TF32 is off for the call (PyTorch's default) and the
-    caller's setting is restored after it."""
+    record-time full-data residual covariance) and the bytes the sweep put
+    on the wire (record 0: 0).  The weights of each record come from what
+    the agents can see (`_weights`: the subsample drawn from the record's
+    key at alpha > 1, robust at delta > 0).  The run stops after a sweep
+    whose eta moved less than cfg.eps from the previous sweep's.  `seed`
+    seeds the key stream (PRNGKey(seed + 1), as in the JAX package).
+    Plain float32 matrix products on the card stay full fp32: TF32 is off
+    for the call (PyTorch's default) and the caller's setting is restored
+    after it."""
     cfg.validate()
     state = init_state(family, xcols, y)
     hist = {"train_mse": [], "test_mse": [], "eta": [], "bytes": [0.0]}
+    key = _first_key(cfg, seed, y.device)
 
-    def record(params, f):
-        w = _weights(f, y, cfg)
+    def record(params, f, key):
+        w = _weights(f, y, cfg, key)
         hist["train_mse"].append(float(torch.mean((y - ensemble.combine(w, f)) ** 2)))
         if xcols_test is not None:
             pred = ensemble_predict(family, params, w, xcols_test)
@@ -521,16 +795,17 @@ def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
         hist["eta"].append(float(1.0 / ensemble.eta_tilde(a0)))
         return w
 
-    weights = record(state.params, state.f)
+    weights = record(state.params, state.f, key)
     eta_prev = math.inf
     ledger = Ledger()
     for _ in range(cfg.n_sweeps):
+        key, k1, k2 = _split3(key)
         params, f, led2 = sweep(family, cfg, state.params, state.f, xcols, y,
-                                ledger)
+                                k1, ledger)
         hist["bytes"].append(float(led2.spent - ledger.spent))
         ledger = led2
         state = ICOAState(params=params, f=f)
-        weights = record(params, f)
+        weights = record(params, f, k2)
         eta_now = hist["eta"][-1]
         if abs(eta_prev - eta_now) < cfg.eps:
             break
@@ -540,30 +815,38 @@ def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
 
 @_full_fp32
 def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
-             xcols_test: torch.Tensor, y_test: torch.Tensor):
+             xcols_test: torch.Tensor, y_test: torch.Tensor,
+             seeds: Optional[List[int]] = None):
     """B independent ICOA runs as one batched program — the Monte-Carlo
     building block (api.batch_fit), twin of the JAX package's
     `jax.vmap(run_scan)`.
 
     xcols (B, D, N, C), y (B, N), xcols_test (B, D, N_test, C), y_test
-    (B, N_test).  Same math as `run`, but the schedule is static: exactly
-    cfg.n_sweeps sweeps run and eps stops nothing.  Returns (params (B, D, P),
-    f (B, D, N), weights (B, D), hist) with hist["train_mse"], ["test_mse"]
-    and ["eta"] (B, n_sweeps + 1) tensors in the data dtype (record 0 is the
-    non-cooperative init), hist["converged_at"] (B,) — the record where
-    `run`'s eps rule would have stopped — and hist["bytes"], the host
-    ledger's bytes per record (record 0: 0), the same for every trial.
-    Nothing in the loop waits for the device.  TF32 is off for the call, as
-    in `run`."""
+    (B, N_test); trial b's key stream starts from PRNGKey(seeds[b] + 1)
+    (seeds default to 0 .. B-1).  Same math as `run`, but the schedule is
+    static: exactly cfg.n_sweeps sweeps run and eps stops nothing.  Returns
+    (params (B, D, P), f (B, D, N), weights (B, D), hist) with
+    hist["train_mse"], ["test_mse"] and ["eta"] (B, n_sweeps + 1) tensors
+    in the data dtype (record 0 is the non-cooperative init),
+    hist["converged_at"] (B,) — the record where `run`'s eps rule would
+    have stopped — and hist["bytes"], the host ledger's bytes per record
+    (record 0: 0), the same for every trial.  Nothing in the loop waits for
+    the device.  TF32 is off for the call, as in `run`.  The dense engine
+    runs one trial at a time: a batched one waits for ROADMAP A4b."""
     cfg.validate()
     if xcols.dim() != 4 or y.dim() != 2:
         raise ValueError(f"run_scan: expected xcols (B, D, N, C) and y (B, N), "
                          f"got {tuple(xcols.shape)} and {tuple(y.shape)}")
+    if seeds is None:
+        seeds = list(range(y.shape[0]))
+    if len(seeds) != y.shape[0]:
+        raise ValueError(f"run_scan: {len(seeds)} seeds for {y.shape[0]} trials")
     state = init_state(family, xcols, y)
     recs = {"train_mse": [], "test_mse": [], "eta": []}
+    key = _first_key(cfg, seeds, y.device)
 
-    def record(params, f):
-        w = _weights(f, y, cfg)
+    def record(params, f, key):
+        w = _weights(f, y, cfg, key)
         recs["train_mse"].append(
             torch.mean((y - ensemble.combine(w, f)) ** 2, dim=-1))
         pred = ensemble_predict(family, params, w, xcols_test)
@@ -574,14 +857,15 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
         return w
 
     params, f = state.params, state.f
-    weights = record(params, f)
+    weights = record(params, f, key)
     ledger = Ledger()
     bytes_hist = [0.0]
     for _ in range(cfg.n_sweeps):
-        params, f, led2 = sweep(family, cfg, params, f, xcols, y, ledger)
+        key, k1, k2 = _split3(key)
+        params, f, led2 = sweep(family, cfg, params, f, xcols, y, k1, ledger)
         bytes_hist.append(float(led2.spent - ledger.spent))
         ledger = led2
-        weights = record(params, f)
+        weights = record(params, f, k2)
     hist = {k: torch.stack(v, dim=-1) for k, v in recs.items()}
     hist["converged_at"] = converged_record(hist["eta"], cfg.eps)
     hist["bytes"] = bytes_hist

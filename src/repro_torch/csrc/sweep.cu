@@ -518,7 +518,8 @@ __device__ __noinline__ void commit_epilogue(
 // commit_shared_bytes(d).  strip: columns a block streams, a multiple of 128
 // of at most 1024.  part: (trial, d + 1, nbp) scratch, nbp = strips rounded
 // up to 4; arrivals: one int per trial, zero on entry and on exit.  A null
-// eta_p / threshold_p / can_tx_p means the value after it, for every trial.
+// eta_p / threshold_p / can_tx_p / diag_keep_p / diag_add_p means the value
+// after it, for every trial.
 template <bool ALIGNED>
 __global__ void __launch_bounds__(repro::kStreamThreads, 2)
 commit_kernel(const float* __restrict__ r, const float* __restrict__ delta,
@@ -529,7 +530,8 @@ commit_kernel(const float* __restrict__ r, const float* __restrict__ delta,
               int* __restrict__ arrivals, float* __restrict__ minv_out,
               float* __restrict__ s_out, float* __restrict__ u_out,
               bool* __restrict__ accept_out, float* __restrict__ obj_out, int d, int n,
-              int strip, int i, float diag_keep, float diag_add) {
+              int strip, int i, const float* __restrict__ diag_keep_p, float diag_keep,
+              const float* __restrict__ diag_add_p, float diag_add) {
   const int trial = blockIdx.y, nb = gridDim.x, nbp = (nb + 3) & ~3;
   r += (size_t)trial * d * n;
   delta += (size_t)trial * n;
@@ -555,8 +557,10 @@ commit_kernel(const float* __restrict__ r, const float* __restrict__ delta,
   const size_t dsq = (size_t)d * d;
   commit_epilogue(part, nbp, nb, minv + trial * dsq, s + (size_t)trial * d,
                   eta_p ? eta_p[trial] : eta, threshold_p ? threshold_p[trial] : threshold,
-                  can_tx_p ? can_tx_p[trial] != 0.f : can_tx != 0, d, i, (float)n, diag_keep,
-                  diag_add, minv_out + trial * dsq, s_out + (size_t)trial * d,
+                  can_tx_p ? can_tx_p[trial] != 0.f : can_tx != 0, d, i, (float)n,
+                  diag_keep_p ? diag_keep_p[trial] : diag_keep,
+                  diag_add_p ? diag_add_p[trial] : diag_add, minv_out + trial * dsq,
+                  s_out + (size_t)trial * d,
                   u_out + (size_t)trial * d, accept_out + trial, obj_out + trial);
   if (threadIdx.x == 0) arrivals[trial] = 0;                // ready for the next call
 }
@@ -616,8 +620,9 @@ int launch_commit(const float* r, const float* delta, const float* minv, const f
                   const float* eta_p, float eta, const float* threshold_p, float threshold,
                   const float* can_tx_p, int can_tx, float* scratch, int* arrivals,
                   float* minv_out, float* s_out, float* u_out, bool* accept, float* obj_post,
-                  int d, int n, int i, float diag_keep, float diag_add, int strip,
-                  int aligned, int batch, cudaStream_t st) {
+                  int d, int n, int i, const float* diag_keep_p, float diag_keep,
+                  const float* diag_add_p, float diag_add, int strip, int aligned, int batch,
+                  cudaStream_t st) {
   if (strip % 128 || strip < 128 || strip > 128 * repro::kStreamSlices)
     return cudaErrorInvalidValue;
   cudaError_t err;
@@ -626,7 +631,7 @@ int launch_commit(const float* r, const float* delta, const float* minv, const f
   kernel<<<dim3((n + strip - 1) / strip, batch), repro::kStreamThreads, commit_shared_bytes(d),
            st>>>(r, delta, minv, s, eta_p, eta, threshold_p, threshold, can_tx_p, can_tx,
                  scratch, arrivals, minv_out, s_out, u_out, accept, obj_post, d, n, strip, i,
-                 diag_keep, diag_add);
+                 diag_keep_p, diag_keep, diag_add_p, diag_add);
   return cudaGetLastError();
 }
 
@@ -691,35 +696,36 @@ extern "C" int repro_commit_blocks_per_sm(int d) {
 // (batch, d + 1, ceil(n / strip) rounded up to 4); arrivals >= batch zeroed
 // ints.  Outputs: m_inv' (batch, d, d), s' (batch, d), u_eff (batch, d),
 // accept (batch,) bytes (a torch.bool), obj_post (batch,).  diag_keep and
-// diag_add are shared by the batch.  strip: a multiple of 128 columns, at
-// most 1024, picked by the wrapper from n and the card, never from the
-// batch; aligned != 0 only if n % 4 == 0 and r and delta are 16-byte
-// aligned.
+// diag_add (u_i = diag_keep * (w_i + <delta, delta> / 2n) + diag_add) come
+// the same way as eta.  strip: a multiple of 128 columns, at most 1024,
+// picked by the wrapper from n and the card, never from the batch;
+// aligned != 0 only if n % 4 == 0 and r and delta are 16-byte aligned.
 extern "C" int repro_commit_sweep_batched(
     const float* r, const float* delta, const float* minv, const float* s, const float* eta_p,
     float eta, const float* threshold_p, float threshold, const float* can_tx_p, int can_tx,
     float* scratch, int* arrivals, float* minv_out, float* s_out, float* u_out, bool* accept,
-    float* obj_post, int d, int n, int i, float diag_keep, float diag_add, int strip,
-    int aligned, int batch, void* stream) {
+    float* obj_post, int d, int n, int i, const float* diag_keep_p, float diag_keep,
+    const float* diag_add_p, float diag_add, int strip, int aligned, int batch, void* stream) {
   return launch_commit(r, delta, minv, s, eta_p, eta, threshold_p, threshold, can_tx_p, can_tx,
                        scratch, arrivals, minv_out, s_out, u_out, accept, obj_post, d, n, i,
-                       diag_keep, diag_add, strip, aligned, batch,
+                       diag_keep_p, diag_keep, diag_add_p, diag_add, strip, aligned, batch,
                        static_cast<cudaStream_t>(stream));
 }
 
 // The same for one trial: r (d, n), delta (n,), m_inv (d, d), s (d,);
-// eta, threshold, can_tx as one-element device tensors or by value;
-// accept (1,), obj_post (1,).
+// eta, threshold, can_tx, diag_keep, diag_add as one-element device
+// tensors or by value; accept (1,), obj_post (1,).
 extern "C" int repro_commit_sweep(const float* r, const float* delta, const float* minv,
                                   const float* s, const float* eta_p, float eta,
                                   const float* threshold_p, float threshold,
                                   const float* can_tx_p, int can_tx, float* scratch,
                                   int* arrivals, float* minv_out, float* s_out, float* u_out,
                                   bool* accept, float* obj_post, int d, int n, int i,
-                                  float diag_keep, float diag_add, int strip, int aligned,
-                                  void* stream) {
+                                  const float* diag_keep_p, float diag_keep,
+                                  const float* diag_add_p, float diag_add, int strip,
+                                  int aligned, void* stream) {
   return repro_commit_sweep_batched(r, delta, minv, s, eta_p, eta, threshold_p, threshold,
                                     can_tx_p, can_tx, scratch, arrivals, minv_out, s_out,
-                                    u_out, accept, obj_post, d, n, i, diag_keep, diag_add,
-                                    strip, aligned, 1, stream);
+                                    u_out, accept, obj_post, d, n, i, diag_keep_p, diag_keep,
+                                    diag_add_p, diag_add, strip, aligned, 1, stream);
 }

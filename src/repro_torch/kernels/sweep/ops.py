@@ -10,13 +10,14 @@ eta by ~1e-4 of the largest (the plain version's own distance from float64
 there), so the kernel is the more accurate of the two.  The TPU packing —
 D padded to 128, (Dp, 8) column packs, (8, Np) row packs, the (8, 128)
 parameter plate — is gone: vectors travel as (D,) and (N,), and eta /
-threshold / can_tx as one-element device tensors or, in the commit, as
-Python numbers passed by value, so a commit needs no host round trip and
-no fill launch.
+threshold / can_tx (and the commit's diag_keep / diag_add) as one-element
+device tensors or, in the commit, as Python numbers passed by value, so a
+commit needs no host round trip and no fill launch.
 
 Both take an optional leading Monte-Carlo trial axis: with r of shape
-(B, D, N), every operand carries the trial axis (eta, threshold and can_tx
-as (B,) tensors, or one number for all trials), agent i and the step
+(B, D, N), every operand carries the trial axis (eta, threshold, can_tx,
+diag_keep and diag_add as (B,) tensors, or one number for all trials),
+agent i and the step
 schedule are shared, and the batched kernel runs — the twin of the JAX
 package's custom_vmap rules (repro/kernels/sweep/ops.py).  Trial b gets the
 single-trial kernel's blocks and summation order, so slice b equals the
@@ -264,16 +265,20 @@ def _launch_probe(r, m_inv, s, eta, i, steps, batch):
 
 
 def commit_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
-                 eta: Scalar, i: int, delta: torch.Tensor, diag_keep: float,
-                 diag_add: float, threshold: Scalar,
+                 eta: Scalar, i: int, delta: torch.Tensor, diag_keep: Scalar,
+                 diag_add: Scalar, threshold: Scalar,
                  can_tx: Union[bool, torch.Tensor]):
     """Fused accept/commit for agent i after its residual row moves by delta:
     one pass over r (D, N) yields (m_inv' (D, D), s' (D,), u_eff (D,),
     accept (bool), obj_post ()) with accept/reject folded in (a reject is an
     exact no-op).  See kernels.sweep.ref.commit_sweep_ref for semantics.
-    diag_keep / diag_add are host numbers (1.0 / 0.0 at alpha = 1).  With r
-    (B, D, N), delta (B, N) and per-trial eta, threshold and can_tx (B,):
-    every output gains the leading trial axis, accept is (B,) bool."""
+    The new diagonal entry is diag_keep * (w_i + <delta, delta>/2N) +
+    diag_add: 1.0 and 0.0 at alpha = 1, passed as Python numbers by value;
+    under the Sec 4.1 split diag_keep = 0 and diag_add = half the exact
+    diagonal's change, a device value the kernel reads without a host sync.
+    With r (B, D, N), delta (B, N) and per-trial eta, threshold, can_tx and
+    diag_add (B,): every output gains the leading trial axis, accept is (B,)
+    bool."""
     if r.dim() == 3:
         return _commit_sweep_batched(r, m_inv, s, eta, i, delta, diag_keep,
                                      diag_add, threshold, can_tx)
@@ -335,8 +340,10 @@ def _launch_commit(r, m_inv, s, eta, i, delta, diag_keep, diag_add, threshold,
             *_by_value_or_tensor(eta, b, dev, batched),
             *_by_value_or_tensor(threshold, b, dev, batched),
             can_ptr, int(can_val != 0.0), scratch, _build.arrivals(dev, b), m_new,
-            s_new, u_eff, accept, obj_post, d, n, i, float(diag_keep),
-            float(diag_add), geo.strip, aligned16(n, r32, d32))
+            s_new, u_eff, accept, obj_post, d, n, i,
+            *_by_value_or_tensor(diag_keep, b, dev, batched),
+            *_by_value_or_tensor(diag_add, b, dev, batched),
+            geo.strip, aligned16(n, r32, d32))
     if batched:
         _build.launch("sweep", "repro_commit_sweep_batched", *args, batch)
     else:

@@ -5,8 +5,10 @@ codecs and the host-side byte ledger.  `Transport` bundles one topology and
 codec and provides the relays the sweeps call: a broadcast from agent i
 reaches the farthest agent after ecc[i] decode/re-encode hops, so the shared
 covariance state holds the roundtrip^ecc view of each row — the identity for
-an exact codec that holds the data dtype.  Byte budgets, budget policies and
-faults wait for ROADMAP A9 and A12.
+an exact codec that holds the data dtype.  The `_st` relays pass gradients
+straight through the codec (the dense engine differentiates its objective
+through the payload).  Byte budgets, budget policies and faults wait for
+ROADMAP A9 and A12.
 """
 from __future__ import annotations
 
@@ -18,7 +20,8 @@ import torch
 from repro_torch.transport.codecs import (CODECS, Codec, ExactCodec,
                                           build_codec, register_codec)
 from repro_torch.transport.ledger import (Ledger, agent_broadcast_cost,
-                                          gather_cost, icoa_sweep_cost)
+                                          gather_cost, icoa_sweep_cost,
+                                          refit_cycle_bytes)
 from repro_torch.transport.topology import (TOPOLOGIES, Topology,
                                             TransportError, build_topology,
                                             register_topology)
@@ -27,7 +30,7 @@ __all__ = [
     "CODECS", "Codec", "ExactCodec", "Ledger", "TOPOLOGIES", "Topology",
     "Transport", "TransportError", "agent_broadcast_cost", "build_codec",
     "build_topology", "default_transport", "gather_cost", "icoa_sweep_cost",
-    "register_codec", "register_topology",
+    "refit_cycle_bytes", "register_codec", "register_topology",
 ]
 
 
@@ -55,13 +58,35 @@ class Transport:
         """(D, m) -> (D, m): row i as received after ecc[i] relay hops."""
         return self._relay(r, self.topology.ecc)
 
+    def relay_rows_st(self, r: torch.Tensor) -> torch.Tensor:
+        """`relay_rows` with straight-through gradients: the delivered
+        value, the identity's gradient."""
+        if self.codec.is_identity_for(r.dtype):
+            return r
+        return r + (self.relay_rows(r) - r).detach()
+
+    def relay_scalars(self, v: torch.Tensor) -> torch.Tensor:
+        """(..., D) per-agent scalars, each flooded from its own agent."""
+        if self.codec.is_identity_for(v.dtype):
+            return v
+        return self.relay_rows(v[..., None])[..., 0]
+
+    def relay_scalars_st(self, v: torch.Tensor) -> torch.Tensor:
+        """`relay_scalars` with straight-through gradients."""
+        if self.codec.is_identity_for(v.dtype):
+            return v
+        return self.relay_rows_st(v[..., None])[..., 0]
+
     def relay_row(self, row: torch.Tensor, i: int) -> torch.Tensor:
         """One row broadcast from agent i."""
         return self._relay(row, self.topology.ecc[i])
 
     def relay_scalar(self, v: torch.Tensor, i: int) -> torch.Tensor:
-        """A per-row scalar rides the same relay as its row."""
-        return self.relay_row(v.reshape(1), i)[0]
+        """A per-row scalar (or one per trial, (B,)) rides the same relay as
+        its row, as a payload of its own."""
+        if self.codec.is_identity_for(v.dtype):
+            return v
+        return self.relay_row(v[..., None], i)[..., 0]
 
     def validate_for(self, n_agents: int) -> "Transport":
         if self.topology.n_agents != n_agents:

@@ -13,13 +13,17 @@ sweep (m = transmitted instances):
                                                    one candidate per agent)
     paper-dense   = D * gather                    (re-gather per update)
 
-On `full` with an exact codec this is comm_floats_per_sweep x itemsize.
+Under the Sec 4.1 split (alpha > 1) each payload also carries the agent's
+exact diagonal scalar.  The residual-refitting ring charges one ensemble
+sum per agent update (`refit_cycle_bytes`); averaging charges nothing.  On
+`full` with an exact codec each is comm_floats_per_sweep x itemsize.
 """
 from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["Ledger", "agent_broadcast_cost", "gather_cost", "icoa_sweep_cost"]
+__all__ = ["Ledger", "agent_broadcast_cost", "gather_cost", "icoa_sweep_cost",
+           "refit_cycle_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,3 +58,9 @@ def icoa_sweep_cost(transport, m: int, split: bool, row_wise: bool) -> int:
     if row_wise:
         return 2 * g
     return transport.topology.n_agents * g
+
+
+def refit_cycle_bytes(transport, d: int, n: int) -> float:
+    """Residual-refitting ring: one ensemble sum of n values per agent
+    update (the collective's delivered payload)."""
+    return d * transport.codec.nbytes(n)

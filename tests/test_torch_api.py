@@ -5,8 +5,13 @@
     arrays: histories at 1e-10, bytes exactly equal;
   * a spec JSON written by `repro` loads in `repro_torch`, and back;
   * `fit(spec)` with no CUDA device raises instead of running on the CPU;
-  * each spec field the slice does not implement raises NotPortedError
+  * each spec field the port does not implement raises NotPortedError
     naming its ROADMAP item;
+  * Minimax Protection through the api: fit, batch_fit and sweep over the
+    grid {"solver.alpha": [1, 20], "solver.delta": [0, 0.01]} against
+    repro.api on the same float64 arrays (1e-10, bytes equal), the eq. 28
+    bound against repro's (1e-12), and the ledger equal to
+    comm_floats_per_sweep x 8 for all three solvers;
   * `Result.predict` with the JAX package's fitted params carried across
     agrees with the JAX package's;
   * src/repro_torch and chip_smoke.py import neither jax nor repro, and the
@@ -127,10 +132,10 @@ def test_fit_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(solver=tapi.SolverSpec(alpha=20.0)), "A8"),
-    (dict(solver=tapi.SolverSpec(delta=0.05)), "A8"),
-    (dict(solver=tapi.SolverSpec(name="averaging")), "A8"),
-    (dict(solver=tapi.SolverSpec(engine="dense")), "A4"),
+    (dict(transport=tapi.TransportSpec(codec="topk_sparse")), "A9"),
+    (dict(transport=tapi.TransportSpec(topology="star")), "A9"),
+    (dict(agent=tapi.AgentSpec(family="rff")), "A16"),
+    (dict(faults=tapi.FaultSpec(crash=((0, 1, 2),))), "A12"),
     (dict(transport=tapi.TransportSpec(codec="int8_affine")), "A9"),
     (dict(transport=tapi.TransportSpec(topology="ring")), "A9"),
     (dict(transport=tapi.TransportSpec(byte_budget=1e6)), "A9"),
@@ -149,6 +154,122 @@ def test_unported_fields_raise_with_roadmap_item(change, item):
         spec.validate()
     with pytest.raises(tapi.NotPortedError, match=rf"ROADMAP {item}\b"):
         tapi.fit(spec, device="cpu")
+
+
+# ------------------------------------------------------- Minimax Protection
+
+MM_GRID = {"solver.alpha": [1.0, 20.0], "solver.delta": [0.0, 0.01]}
+MM_SOLVER = dict(n_sweeps=3, minimax_steps=60, eps=0.0)
+
+
+def _mm_base(engine="incremental"):
+    return tapi.ExperimentSpec(data=tapi.DataSpec(n_train=400, n_test=300, seed=2),
+                               solver=tapi.SolverSpec(engine=engine, **MM_SOLVER),
+                               seed=4)
+
+
+def _jax_spec(tspec):
+    """The same spec in the JAX package (the JSON layouts are one)."""
+    return japi.spec_from_dict(json.loads(json.dumps(tapi.spec_to_dict(tspec))))
+
+
+def _f64(data):
+    return data._replace(**{k: getattr(data, k).double()
+                            for k in ("xcols", "y", "xcols_test", "y_test")})
+
+
+def _jax_result(tspec, tdata):
+    """repro.api's run of `tspec` on the port's float64 data."""
+    arrays = [a.cpu().numpy() for a in tdata[:4]]
+    with jax.enable_x64(True):
+        return run_solver(_jax_spec(tspec),
+                          JDataset(*map(jnp.asarray, arrays), tdata.groups),
+                          JPoly(n_cols=1, degree=4))
+
+
+def _same_history(tres, jres, rtol=1e-10):
+    for key in ("train_mse", "test_mse", "eta"):
+        np.testing.assert_allclose(getattr(tres.history, key),
+                                   getattr(jres.history, key), rtol=rtol,
+                                   err_msg=key)
+    assert tres.history.bytes_transmitted == jres.history.bytes_transmitted
+
+
+@pytest.mark.parametrize("engine", ["dense", "incremental", "fused"])
+def test_fit_minimax_grid_matches_jax(engine):
+    """Every grid point through api.fit against repro.api.solvers.run_solver
+    on the same float64 arrays; the eq. 28 bound of each against repro's."""
+    base = _mm_base(engine)
+    data = _f64(base.data.build("cpu"))
+    for tspec in tapi.grid_specs(base, MM_GRID):
+        tres = tapi.fit(tspec, device="cpu", data=data)
+        jres = _jax_result(tspec, data)
+        _same_history(tres, jres)
+        np.testing.assert_allclose(tres.weights.numpy(), np.asarray(jres.weights),
+                                   rtol=1e-9, atol=1e-12)
+        with jax.enable_x64(True):
+            want = jres.minimax_upper_bound()
+            want_100 = jres.minimax_upper_bound(alpha=100.0)
+        assert abs(tres.minimax_upper_bound() - want) <= 1e-12 * abs(want)
+        assert abs(tres.minimax_upper_bound(alpha=100.0) - want_100) <= (
+            1e-12 * abs(want_100))
+
+
+def test_batch_fit_and_sweep_minimax_grid_match_jax():
+    """batch_fit (2 trials) and sweep over the grid: each trial against
+    repro.api on that trial's data and spec (seed + t: the same subsamples)."""
+    dt = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        base = _mm_base("fused")
+        rsets = tapi.sweep(base, MM_GRID, trials=2, device="cpu")
+        singles = tapi.sweep(base, MM_GRID, device="cpu")
+        assert len(rsets) == len(singles) == 4
+        for rs, one in zip(rsets, singles):
+            _same_history(one, _jax_result(one.spec, one.data))
+            for t, res in enumerate(rs):
+                tspec = tapi.trial_spec(rs.spec, t)
+                _same_history(res, _jax_result(tspec, tspec.data.build("cpu")))
+    finally:
+        torch.set_default_dtype(dt)
+
+
+def test_dense_engine_on_a_kernel_and_in_a_batch_raise():
+    spec = tapi.ExperimentSpec(data=tapi.DataSpec(n_train=100, n_test=50),
+                               solver=tapi.SolverSpec(engine="dense",
+                                                      use_kernel=True))
+    with pytest.raises(ValueError, match="plain-PyTorch oracle"):
+        tapi.fit(spec, device="cpu")
+    batch = tapi.ExperimentSpec(solver=tapi.SolverSpec(engine="dense"))
+    with pytest.raises(tapi.NotPortedError, match=r"ROADMAP A4b\b"):
+        tapi.batch_fit(batch, 2, device="cpu")
+
+
+@pytest.mark.parametrize("solver", [
+    dict(name="averaging"), dict(name="residual_refitting"),
+    dict(engine="incremental"), dict(engine="fused"), dict(engine="dense"),
+    dict(engine="dense", row_broadcast=True),
+    dict(engine="incremental", alpha=20.0), dict(engine="fused", alpha=100.0),
+    dict(engine="dense", alpha=20.0),
+    dict(engine="dense", alpha=20.0, row_broadcast=True),
+])
+def test_comm_floats_equal_the_measured_ledger(solver):
+    """comm_floats_per_sweep x 8 is every sweep's (or cycle's) measured
+    bytes, for all three solvers, and repro's table says the same."""
+    spec = tapi.ExperimentSpec(data=tapi.DataSpec(n_train=200, n_test=50),
+                               solver=tapi.SolverSpec(n_sweeps=2, eps=0.0,
+                                                      **solver))
+    res = tapi.fit(spec, device="cpu")
+    per = tapi.comm_floats_per_sweep(spec.solver, 5, 200) * 8
+    assert per == japi.comm_floats_per_sweep(japi.SolverSpec(n_sweeps=2,
+                                                             **solver), 5, 200) * 8
+    got = res.history.bytes_transmitted
+    if spec.solver.name == "icoa":
+        assert got == [0.0] + [float(per)] * 2
+    elif spec.solver.name == "averaging":
+        assert got == [0.0] and per == 0
+    else:
+        assert got == [float(per)] * 2
 
 
 def test_invalid_fields_raise_spec_error():

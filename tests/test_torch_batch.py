@@ -465,12 +465,59 @@ def test_batch_fit_needs_a_card_unless_asked(single_thread):
 
 @pytest.mark.parametrize("spec,item", [
     (tapi.ExperimentSpec(backend=tapi.BackendSpec(trial_devices=2)), "A11"),
-    (tapi.ExperimentSpec(solver=tapi.SolverSpec(alpha=20.0)), "A8"),
-    (tapi.ExperimentSpec(solver=tapi.SolverSpec(name="averaging")), "A8"),
+    (tapi.ExperimentSpec(solver=tapi.SolverSpec(engine="dense")), "A4b"),
+    (tapi.ExperimentSpec(data=tapi.DataSpec(source="cosine")), "A7"),
 ])
 def test_batch_fit_raises_not_ported(spec, item):
     with pytest.raises(tapi.NotPortedError, match=rf"ROADMAP {item}\b"):
         tapi.batch_fit(spec, 2, device="cpu")
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_run_scan_minimax_matches_jax_vmap_f64(single_thread, engine):
+    """alpha = 20, delta = 0.01: every trial draws its own subsample from its
+    own key (seeds 5, 6, 7), as jax.vmap(run_scan) over the seeds does."""
+    arrays = _trial_arrays(400, np.float64)
+    kw = dict(n_sweeps=3, engine=engine, alpha=20.0, delta=0.01,
+              minimax_steps=80)
+    with jax.enable_x64(True):
+        cfg = jicoa.ICOAConfig(**kw)
+        _, fj, wj, hj = jax.vmap(lambda x, y, xt, yt, seed: jicoa.run_scan(
+            JPoly(1, 4), cfg, x, y, xt, yt, seed))(
+                *map(jnp.asarray, arrays), jnp.arange(B) + 5)
+        hj = {k: np.asarray(v) for k, v in hj.items() if k != "taps"}
+        fj, wj = np.asarray(fj), np.asarray(wj)
+    _, ft, wt, ht = ticoa.run_scan(TPoly(1, 4), ticoa.ICOAConfig(**kw),
+                                   *convert.batch_from_numpy(*arrays),
+                                   seeds=[5, 6, 7])
+    for key in KEYS:
+        np.testing.assert_allclose(ht[key].numpy(), hj[key], rtol=1e-10,
+                                   err_msg=key)
+    assert ht["converged_at"].tolist() == hj["converged_at"].tolist()
+    np.testing.assert_array_equal(np.broadcast_to(ht["bytes"], (B, 4)),
+                                  hj["bytes"])
+    assert ht["bytes"][1:] == [2.0 * 5 * (20 * 8 + 8)] * 3
+    np.testing.assert_allclose(ft.numpy(), fj, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(wt.numpy(), wj, rtol=1e-10, atol=1e-12)
+
+
+@pytest.mark.parametrize("engine", ENGINES)
+def test_batch_fit_minimax_trial_equals_fit_f64(single_thread, default_f64,
+                                                engine):
+    """alpha = 20, delta = 0.01: batch_fit's trial t is
+    fit(trial_spec(spec, t)) — the same subsamples, from seed + t + 1."""
+    spec = _spec(engine, eps=0.0, n_sweeps=2, alpha=20.0, delta=0.01,
+                 minimax_steps=60)
+    rs = tapi.batch_fit(spec, B, device="cpu")
+    for t, res in enumerate(rs):
+        one = tapi.fit(tapi.trial_spec(spec, t), device="cpu")
+        for key in KEYS:
+            np.testing.assert_allclose(getattr(res.history, key),
+                                       getattr(one.history, key), rtol=1e-10,
+                                       err_msg=f"trial {t} {key}")
+        assert res.history.bytes_transmitted == one.history.bytes_transmitted
+        np.testing.assert_allclose(res.weights.numpy(), one.weights.numpy(),
+                                   rtol=1e-9, atol=1e-12)
 
 
 def test_trial_devices_beyond_the_host_is_a_spec_error():
@@ -572,5 +619,8 @@ def test_sweep_over_a_grid(single_thread):
     assert all(len(rs) == 2 and rs.curve()[0].shape == (3,) for rs in rsets)
     results = tapi.sweep(base, {"solver.n_sweeps": [1, 2]}, device="cpu")
     assert [len(r.history.eta) for r in results] == [2, 3]
-    with pytest.raises(tapi.NotPortedError, match=r"ROADMAP A8\b"):
-        tapi.sweep(base, {"solver.alpha": [1.0, 10.0]}, trials=2, device="cpu")
+    # the paper's trade-off grid runs: fewer bytes at the higher rate
+    grid = tapi.sweep(base, {"solver.alpha": [1.0, 10.0]}, trials=2,
+                      device="cpu")
+    assert [rs.spec.solver.alpha for rs in grid] == [1.0, 10.0]
+    assert grid[1].cumulative_bytes[-1] < grid[0].cumulative_bytes[-1] / 9

@@ -22,6 +22,7 @@ from repro.core import ensemble as jens
 from repro.core import gradient as jgrad
 from repro.core import icoa as jicoa
 from repro import transport as jtransport
+from repro_torch import prng
 from repro_torch.agents import PolynomialFamily as TPoly
 from repro_torch.core import covariance as tcov
 from repro_torch.core import covstate as tcs
@@ -83,8 +84,31 @@ def test_covariance_matches_jax():
     _close(tcov.subsampled_gram(tr, None), jcov.subsampled_gram(jr, None))
     for n, alpha in [(2000, 1.0), (2000, 7.0), (10, 100.0), (600, 3.5)]:
         assert tcov.subsample_size(n, alpha) == jcov.subsample_size(n, alpha)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tcov.subsampled_gram(tr, torch.arange(10))
+    # a subsample idx now splices the exact diagonal into its Gram
+    idx = np.random.default_rng(1).permutation(333)[:40]
+    _close(tcov.subsampled_gram(tr, torch.from_numpy(idx)),
+           jcov.subsampled_gram(jr, jnp.asarray(idx)))
+
+
+@pytest.mark.parametrize("alpha", [3.5, 20.0, 100.0])
+def test_subsampled_covariance_matches_jax(alpha):
+    """From the same key: the same subsample, the same A0; a key per trial
+    gives each trial its own."""
+    r = _residuals(5, 600, seed=21)
+    jkey, tkey = jax.random.PRNGKey(11), prng.PRNGKey(11)
+    got = tcov.subsampled_covariance(tkey, torch.from_numpy(r), alpha)
+    _close(got, jcov.subsampled_covariance(jkey, jnp.asarray(r), alpha))
+    sub = tcov.take_cols(torch.from_numpy(r), tcov.subsample_indices(tkey, 600, alpha))
+    _close(tcov.spliced_gram(sub, torch.from_numpy((r * r).sum(1) / 600)),
+           jcov.spliced_gram(jnp.asarray(r)[:, jcov.subsample_indices(jkey, 600, alpha)],
+                             jnp.asarray((r * r).sum(1) / 600)))
+    rb = np.stack([r, _residuals(5, 600, seed=22)])
+    keys = prng.PRNGKey([11, 12])
+    both = tcov.subsampled_covariance(keys, torch.from_numpy(rb), alpha)
+    assert both.shape == (2, 5, 5)
+    _close(both[0], got)
+    _close(both[1], jcov.subsampled_covariance(jax.random.PRNGKey(12),
+                                                jnp.asarray(rb[1]), alpha))
 
 
 def test_covariance_kernel_path_is_fp32_cast_back():
@@ -166,6 +190,82 @@ def test_covstate_commit_matches_jax():
     _close(tn.eta_tilde, rebuilt.eta_tilde, rtol=1e-9)
 
 
+def _split_states(seed=7, alpha=20.0, batch=False):
+    """(port state, JAX state, full residuals, idx) of the Sec 4.1 split: the
+    subsample rows with the exact diagonal spliced in."""
+    r = _residuals(6, 600, seed=seed)
+    idx = np.asarray(jcov.subsample_indices(jax.random.PRNGKey(seed), 600, alpha))
+    diag = (r * r).sum(1) / 600
+    js = jcs.build(jnp.asarray(r[:, idx]), exact_diag=jnp.asarray(diag))
+    ts = tcs.build(torch.from_numpy(r[:, idx]), exact_diag=torch.from_numpy(diag))
+    return ts, js, r, idx
+
+
+def test_covstate_split_build_and_update_match_jax():
+    ts, js, r, idx = _split_states()
+    for name in ("r_sub", "a0", "m_inv", "s", "eta_tilde"):
+        _close(getattr(ts, name), getattr(js, name))
+    _close(torch.diagonal(ts.a0), (r * r).sum(1) / 600)
+    rng = np.random.default_rng(8)
+    r_new = r[4] + 0.05 * rng.standard_normal(600)
+    ddiag = float(r_new @ r_new / 600 - np.asarray(js.a0)[4, 4])
+    delta = r_new[idx] - r[4, idx]
+    tu = tcs.row_update_vector(ts, 4, torch.from_numpy(delta),
+                               ddiag=torch.tensor(ddiag, dtype=torch.float64))
+    ju = jcs.row_update_vector(js, 4, jnp.asarray(delta), ddiag=jnp.asarray(ddiag))
+    _close(tu, ju)
+    assert float(tu[4]) == 0.5 * ddiag
+    tn = tcs.apply_row_update(ts, 4, torch.from_numpy(r_new[idx]), tu)
+    jn = jcs.apply_row_update(js, 4, jnp.asarray(r_new[idx]), ju)
+    for name in ("a0", "m_inv", "s", "eta_tilde"):
+        _close(getattr(tn, name), getattr(jn, name))
+
+
+@pytest.mark.parametrize("delta", [0.01, 0.2])
+def test_robust_eta_probe_matches_jax(delta):
+    """Single probes, a schedule of K probes in one call, and the same on a
+    batched state of B trials: each the JAX package's probe one by one."""
+    ts, js, _, _ = _split_states(seed=9)
+    rng = np.random.default_rng(10)
+    us = 0.01 * rng.standard_normal((4, 6))
+    want = [float(jcs.robust_eta_probe(js, 2, jnp.asarray(u), delta, 80, 0.05))
+            for u in us]
+    _close(tcs.robust_eta_probe(ts, 2, torch.from_numpy(us[0]), delta, 80, 0.05),
+           want[0])
+    _close(tcs.robust_eta_probe(ts, 2, torch.from_numpy(us), delta, 80, 0.05),
+           np.asarray(want))
+    _close(tcs.s_probe(ts, 2, torch.from_numpy(us)),
+           np.stack([np.asarray(jcs.s_probe(js, 2, jnp.asarray(u))) for u in us]))
+    ts2, js2, _, _ = _split_states(seed=12)
+    batched = tcs.CovState(*(torch.stack([a, b]) for a, b in zip(ts, ts2)))
+    ub = torch.from_numpy(np.stack([us, 0.5 * us]))
+    got = tcs.robust_eta_probe(batched, 2, ub, delta, 80, 0.05)
+    assert got.shape == (2, 4)
+    _close(got[0], np.asarray(want))
+    _close(got[1], np.asarray([float(jcs.robust_eta_probe(
+        js2, 2, jnp.asarray(0.5 * u), delta, 80, 0.05)) for u in us]))
+    one = tcs.robust_eta_probe(batched, 2, ub[:, 1], delta, 80, 0.05)
+    _close(one, got[:, 1])
+
+
+# ------------------------------------------------------ autodiff gradients
+
+
+def test_autodiff_gradients_match_jax_and_closed_form():
+    rng = np.random.default_rng(15)
+    y = rng.standard_normal(200)
+    f = y[None, :] + 0.3 * rng.standard_normal((5, 200))
+    tf_, ty = torch.from_numpy(f), torch.from_numpy(y)
+    jf, jy = jnp.asarray(f), jnp.asarray(y)
+    for i in (0, 3):
+        _close(tgrad.agent_gradient(tf_, ty, i), jgrad.agent_gradient(jf, jy, i))
+    every = tgrad.all_agent_gradients(tf_, ty)
+    _close(every, jgrad.all_agent_gradients(jf, jy))
+    _close(tgrad.closed_form_gradient(tf_, ty), jgrad.closed_form_gradient(jf, jy))
+    _close(every, tgrad.closed_form_gradient(tf_, ty), rtol=1e-8)
+    assert not tf_.requires_grad
+
+
 # ------------------------------------------------- agents and the projector
 
 
@@ -227,6 +327,11 @@ def test_transport_prices_match_jax(d):
         for i in range(d):
             assert (ttransport.agent_broadcast_cost(tt, i, m, True)
                     == jtransport.agent_broadcast_cost(jt, i, m, True))
+        for row_wise in (False, True):        # the Sec 4.1 split payload
+            assert (ttransport.icoa_sweep_cost(tt, m, True, row_wise)
+                    == jtransport.icoa_sweep_cost(jt, m, True, row_wise))
+        assert (ttransport.refit_cycle_bytes(tt, d, m)
+                == jtransport.refit_cycle_bytes(jt, d, m))
 
 
 def test_exact_codecs_match_jax():
@@ -245,8 +350,16 @@ def test_exact_codecs_match_jax():
     row = torch.from_numpy(x[1])
     assert torch.equal(tp.relay_row(row, 1), row.float().double())
     assert torch.equal(tp.relay_scalar(row[0], 1), row[:1].float().double()[0])
+    _close(tp.relay_scalars(torch.from_numpy(x[:, 0])),
+           np.asarray(x[:, 0], np.float32).astype(np.float64), rtol=0.0)
+    _close(tp.relay_scalars(torch.from_numpy(x[:2, :3])),        # per trial
+           np.asarray(x[:2, :3], np.float32).astype(np.float64), rtol=0.0)
+    xg = torch.from_numpy(x).requires_grad_(True)               # straight through
+    (tp.relay_rows_st(xg) * 3.0).sum().backward()
+    assert torch.equal(xg.grad, torch.full_like(xg, 3.0))
     xt = torch.from_numpy(x)
     assert ttransport.default_transport(3).relay_rows(xt) is xt   # identity
+    assert ttransport.default_transport(3).relay_rows_st(xt) is xt
     with pytest.raises(ttransport.TransportError):
         ttransport.build_topology("ring", 3)
 

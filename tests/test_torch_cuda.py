@@ -23,7 +23,12 @@ logits on the card to the CPU's at 1e-4 (fp32, a few layers), and in
 bf16 at head dim 64 (B9's tensor-core route) within twice the CPU's own
 bf16-vs-fp32 gap.  The commit is held at 1e-4 with equal accept flags, on
 its 4-byte load path, with Python-number and tensor operands, and right
-after the other kernels that share its arrival counters.
+after the other kernels that share its arrival counters; under Minimax
+Protection's split it reads diag_keep = 0 and a device diag_add (one per
+trial in the batch), held to the plain version at D = 5 and 100 and the
+subsample widths m = 20 and 2622.  The threefry subsample drawn on the card
+equals the CPU's, and Minimax Protection's fits (alpha = 20, delta = 0 and
+0.01) on the card match the CPU's.
 """
 import dataclasses
 import math
@@ -32,7 +37,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import api
+from repro_torch import api, prng
+from repro_torch.core import covariance as cov
+from repro_torch.core import minimax
 from repro_torch.kernels import _build
 from repro_torch.kernels.gram import ops as gram_ops
 from repro_torch.kernels.gram import ref as gram_ref
@@ -409,6 +416,152 @@ def test_batched_wrappers_refuse_bad_card_inputs(card):
         sweep_ops.commit_sweep(r, m_inv, s, 1.0, 4,
                                torch.zeros((2, 64), device=card), 1.0, 0.0,
                                0.0, True)
+
+
+# ------------------------------------------------------ Minimax Protection
+
+
+@pytest.mark.parametrize("m", [20, 2622])
+@pytest.mark.parametrize("d", [5, 100])
+def test_commit_device_diag_operands_match_plain(card, d, m):
+    """The split's commit: diag_keep = 0 and diag_add a 0-d device tensor
+    (B7), or one per trial (B8), against the plain versions (1e-4, accept
+    flags equal); a Python number and a 0-d tensor of the same value give
+    the same bits; slice t of the batch is the single launch with
+    diag_add[t]."""
+    sc = _scene(d, m, seed=11 * d + m, device=card)
+    i = d // 2
+    add = torch.tensor(0.037, device=card)
+    keep = torch.zeros((), device=card)
+    base = (sc["r"], sc["m_inv"], sc["s"], sc["eta"], i, sc["delta"])
+    for thr in (float("-inf"), float("inf")):
+        got = sweep_ops.commit_sweep(*base, 0.0, add, thr, True)
+        want = sweep_ref.commit_sweep_ref(*base, 0.0, add, thr, True)
+        assert bool(got[3]) == bool(want[3]) == (thr < 0)
+        for k in (0, 1, 2, 4):
+            _close(got[k], want[k], 1e-4, f"commit split D={d} m={m}")
+        if thr < 0:
+            assert float(got[2][i]) == float(add)          # u_i = diag_add
+        for same in (sweep_ops.commit_sweep(*base, 0.0, float(add), thr, True),
+                     sweep_ops.commit_sweep(*base, keep, add, thr, True)):
+            assert all(map(torch.equal, got, same))
+    bt = _batch(d, m, 3, card)
+    adds = torch.tensor([0.01, -0.02, 0.05], device=card)
+    thr = torch.tensor([-math.inf, math.inf, -math.inf], device=card)
+    bargs = (bt["r"], bt["m_inv"], bt["s"], bt["eta"], i, bt["delta"], 0.0, adds,
+             thr, True)
+    before = _build.LAUNCHES["commit_sweep_batched"]
+    batched = sweep_ops.commit_sweep(*bargs)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["commit_sweep_batched"] == before + 1
+    want = sweep_ref.commit_sweep_batched_ref(*bargs)
+    assert batched[3].tolist() == want[3].tolist() == [True, False, True]
+    for k in (0, 1, 2, 4):
+        _close(batched[k], want[k], 1e-4, f"commit_sweep_batched split D={d} m={m}")
+    for t in range(3):
+        single = sweep_ops.commit_sweep(bt["r"][t], bt["m_inv"][t], bt["s"][t],
+                                        bt["eta"][t], i, bt["delta"][t], 0.0,
+                                        adds[t], thr[t], True)
+        assert all(torch.equal(x[t], y) for x, y in zip(batched, single))
+
+
+def test_alpha_one_commit_same_bits_by_value_and_tensor(card):
+    """At alpha = 1 the commit takes 1.0 and 0.0 by value, as before the
+    diag operands could live on the device; passing them as device tensors
+    reads the same values and gives the same bits, single and batched."""
+    sc = _scene(100, 20001, seed=5, device=card)
+    base = (sc["r"], sc["m_inv"], sc["s"], sc["eta"], 30, sc["delta"])
+    one, zero = torch.ones((), device=card), torch.zeros((), device=card)
+    by_value = sweep_ops.commit_sweep(*base, 1.0, 0.0, float("-inf"), True)
+    assert all(map(torch.equal, by_value,
+                   sweep_ops.commit_sweep(*base, one, zero, float("-inf"), True)))
+    bt = _batch(100, 3001, 2, card)
+    bbase = (bt["r"], bt["m_inv"], bt["s"], bt["eta"], 30, bt["delta"])
+    by_value = sweep_ops.commit_sweep(*bbase, 1.0, 0.0, float("-inf"), True)
+    assert all(map(torch.equal, by_value, sweep_ops.commit_sweep(
+        *bbase, one.expand(2).contiguous(), zero.expand(2).contiguous(),
+        float("-inf"), True)))
+
+
+@pytest.mark.parametrize("n", [2000, 262144])
+def test_permutation_on_card_equals_cpu(card, n):
+    keys = prng.split(prng.PRNGKey([1, 101]), 3)[:, 1]
+    on_card = prng.permutation(keys.to(card), n)
+    assert on_card.device.type == "cuda"
+    assert torch.equal(on_card.cpu(), prng.permutation(keys, n))
+    idx = cov.subsample_indices(keys.to(card), n, 100.0)
+    assert torch.equal(idx.cpu(), cov.subsample_indices(keys, n, 100.0))
+
+
+@pytest.mark.parametrize("shape", [(5,), (16, 5), (3, 16, 100)])
+def test_robust_weights_graph_matches_eager(card, shape):
+    """On the card the robust solver's iterations replay as a CUDA graph:
+    the same result as running them eagerly, on a first call (recorded) and
+    a second with other inputs (replayed)."""
+    gen = torch.Generator(device=card).manual_seed(len(shape))
+    d = shape[-1]
+    for _ in range(2):
+        r = torch.randn(shape[:-1] + (d, 4 * d), generator=gen, device=card)
+        a0 = r @ r.mT / (4 * d) + 0.1 * torch.eye(d, device=card)
+        a = torch.softmax(torch.randn(shape, generator=gen, device=card), dim=-1)
+        got = minimax.robust_weights(a0, 0.02, steps=120, a_init=a)
+        want = minimax._descend(a0, a, 0.02, 120, 0.05)
+        _close(got, want, 1e-6, f"robust_weights graph {shape}")
+    assert any(k[0] == tuple(shape[:-1]) + (d, d) for k in minimax._GRAPHS)
+
+
+@pytest.mark.parametrize("allow_tf32", [True, False])
+def test_robust_weights_graph_keyed_by_tf32(card, allow_tf32):
+    """A graph recorded under one TF32 setting is not replayed under the
+    other: after a call with the other setting, this setting's call still
+    equals the eager iterations run under it."""
+    gen = torch.Generator(device=card).manual_seed(11)
+    r = torch.randn((100, 400), generator=gen, device=card)
+    a0 = r @ r.T / 400 + 0.1 * torch.eye(100, device=card)
+    a = torch.softmax(torch.randn((100,), generator=gen, device=card), dim=-1)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = not allow_tf32
+        minimax.robust_weights(a0, 0.02, steps=60, a_init=a)
+        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+        got = minimax.robust_weights(a0, 0.02, steps=60, a_init=a)
+        want = minimax._descend(a0, a, 0.02, 60, 0.05)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    _close(got, want, 1e-6, f"robust_weights graph, allow_tf32={allow_tf32}")
+    assert {k[-1] for k in minimax._GRAPHS if k[0] == (100, 100)} >= {True, False}
+
+
+@pytest.mark.parametrize("delta", [0.0, 0.01])
+@pytest.mark.parametrize("engine", ["incremental", "fused"])
+def test_minimax_fit_on_card_matches_cpu(card, engine, delta):
+    """alpha = 20 at D = 5 with kernels on the card against the plain
+    versions on the CPU, the same data: fp32 histories within 5e-4 at
+    delta = 0 and 1e-3 at delta > 0, bytes equal; the batch likewise.  At
+    alpha = 20 a record's weights come from 50 instances and cancel,
+    amplifying fp32 differences in the MSE (tests/test_torch_icoa.py
+    F32_TOL).  On an NVIDIA H100 80GB HBM3 at 700 W: delta = 0 1.2e-4
+    (incremental) and 2.6e-4 (fused), delta = 0.01 3.6e-4; planted faults
+    on the card side fail both bounds: the commit's diag_add left out
+    1.8e-3, the exact diagonal's change left out of the incremental update
+    1.9e-3 (delta = 0) and 2.6 (delta = 0.01), a batch trial reading trial
+    0's diagonal change 3.9e-3 and 0.75."""
+    spec = api.ExperimentSpec(data=api.DataSpec(n_train=1000, n_test=500),
+                              solver=api.SolverSpec(engine=engine, n_sweeps=3,
+                                                    alpha=20.0, delta=delta,
+                                                    minimax_steps=100,
+                                                    use_kernel=True))
+    tol = 5e-4 if delta == 0.0 else 1e-3
+    data = spec.data.build("cpu")
+    pairs = [(api.fit(spec, device="cuda", data=data),
+              api.fit(spec, device="cpu", data=data))]
+    pairs += list(zip(api.batch_fit(spec, 2, device="cuda"),
+                      api.batch_fit(spec, 2, device="cpu")))
+    for on_card, on_cpu in pairs:
+        assert on_card.history.bytes_transmitted == on_cpu.history.bytes_transmitted
+        for key in ("train_mse", "test_mse", "eta"):
+            np.testing.assert_allclose(getattr(on_card.history, key),
+                                       getattr(on_cpu.history, key), rtol=tol)
 
 
 # ------------------------------------------------------------- LM kernels
