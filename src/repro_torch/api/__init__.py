@@ -14,6 +14,9 @@
     mm = api.ExperimentSpec(solver=api.SolverSpec(alpha=100.0, delta=0.01))
     api.fit(mm).minimax_upper_bound()       # Minimax Protection, eq. 28
 
+    result.save("run/")                     # the JAX package's layout
+    again = api.load("run/")                # either package's results
+
 `fit` and `batch_fit` run on the card unless the caller asks for the CPU:
 with no CUDA device they raise instead of carrying on.  On the card,
 `use_kernel=True` sends every product the JAX package computes in a Pallas
@@ -22,11 +25,15 @@ batched kernels for `batch_fit`.  Every solver of the JAX package runs on
 its default transport: icoa on the dense, incremental and fused engines at
 any alpha and delta, and the averaging and residual-refitting baselines.
 `sweep(spec, grid, trials=k)` runs a grid of specs, each as k trials.
+Data are drawn on the device from the JAX package's key stream, so
+`fit(spec)` reproduces `repro.api.fit(spec)` from the seed on.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.api.io import load_result as load
+from repro_torch.api.io import save_result
 from repro_torch.api.result import History, Result, ResultSet
 from repro_torch.api.runner import batch_fit, resolve_device, trial_spec
 from repro_torch.api.solvers import (SOLVERS, comm_floats_per_sweep,
@@ -41,8 +48,9 @@ __all__ = [
     "AgentSpec", "BackendSpec", "DataSpec", "Dataset", "ExperimentSpec",
     "FaultSpec", "History", "NotPortedError", "ObsSpec", "Result",
     "ResultSet", "SOLVERS", "SolverSpec", "SpecError", "TransportSpec",
-    "batch_fit", "comm_floats_per_sweep", "fit", "grid_specs",
-    "register_solver", "run_solver", "spec_from_dict", "spec_to_dict",
+    "batch_fit", "comm_floats_per_sweep", "fit", "grid_specs", "load",
+    "register_solver", "run_solver", "save_result", "spec_from_dict",
+    "spec_to_dict",
     "spec_with", "sweep", "trial_spec", "zip_specs",
 ]
 

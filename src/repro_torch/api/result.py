@@ -9,7 +9,7 @@ one spec, with mean/std trade-off curves over the trial axis.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,16 @@ class History:
     @property
     def total_bytes(self) -> float:
         return float(sum(self.bytes_transmitted))
+
+    def as_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "History":
+        series = {f.name: list(d.get(f.name, []))
+                  for f in dataclasses.fields(cls) if f.name != "converged_at"}
+        conv = d.get("converged_at")
+        return cls(converged_at=None if conv is None else int(conv), **series)
 
 
 @dataclasses.dataclass
@@ -86,6 +96,14 @@ class Result:
         return minimax.upper_bound(a_ini, alpha, self.data.y.shape[0],
                                    steps=self.spec.solver.minimax_steps,
                                    lr=self.spec.solver.minimax_lr)
+
+    def save(self, directory: str) -> str:
+        """Checkpoint params / weights / f with the spec and the history as
+        JSON; restore with `repro_torch.api.load(directory)` (or the JAX
+        package's `repro.api.load`)."""
+        from repro_torch.api import io  # io imports this module
+
+        return io.save_result(directory, self)
 
 
 @dataclasses.dataclass

@@ -15,12 +15,13 @@ data seed and the solver seed are both offset by t, so trial t draws its
 subsamples from PRNGKey(spec.seed + t + 1), as in the JAX package.  The one
 difference, as in the JAX package: the batched schedule is static, so
 `solver.eps` stops nothing and `History.converged_at` records where fit's
-eps rule would have stopped.  The dense engine runs one trial at a time: a
-batched run of it raises NotPortedError naming ROADMAP A4b.
+eps rule would have stopped.  The trials' data are drawn on the device in
+one pass from the stack of their keys (data.sources.make_trial_batch).
 
 BackendSpec's Monte-Carlo knobs: `trial_devices` of None or 1 runs on one
 card (more waits for ROADMAP A11); `compute_dtype` casts the generated data,
-and so the whole solve; `donate` is accepted and has no effect (PyTorch runs
+and so the whole solve (the draw is in torch's default float dtype, as
+`fit`'s); `donate` is accepted and has no effect (PyTorch runs
 eagerly: there is no compiled program whose input buffer could be donated).
 """
 from __future__ import annotations
@@ -90,8 +91,7 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
     solver); `compiled=False` runs `n_trials` serial `fit` calls instead.
     Trial t equals `fit(trial_spec(spec, t))` on the same device up to the
     order of fp32 sums; the batched icoa path ignores `solver.eps` and
-    reports fit's stopping record as History.converged_at.  A batched run of
-    the dense engine raises NotPortedError (ROADMAP A4b)."""
+    reports fit's stopping record as History.converged_at."""
     dev = resolve_device(device, "repro_torch.api.batch_fit")
     spec.validate()
     if n_trials < 1:
@@ -106,18 +106,18 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
                                 for t in range(n_trials)])
     if not _can_compile(spec):
         raise SpecError(f"no batched runner for solver {spec.solver.name!r}")
-    spec.solver.validate_batch()
 
     dspec = spec.data
     groups = dspec.groups
-    # validate() admits only bfloat16 / float32 / float64: torch's own names
-    dtype = (None if spec.backend.compute_dtype is None
-             else getattr(torch, spec.backend.compute_dtype))
     xcols, y, xcols_test, y_test = data_sources.make_trial_batch(
         dspec.source, dspec.n_train, dspec.n_test,
         [dspec.seed + t for t in range(n_trials)], groups, noise=dspec.noise,
-        n_attrs=dspec.n_attrs, options=dspec.source_options, dtype=dtype,
-        device=dev)
+        n_attrs=dspec.n_attrs, options=dspec.source_options, device=dev)
+    if spec.backend.compute_dtype is not None:
+        # validate() admits only bfloat16 / float32 / float64: torch's names
+        dt = getattr(torch, spec.backend.compute_dtype)
+        xcols, y, xcols_test, y_test = (a.to(dt) for a in (xcols, y,
+                                                           xcols_test, y_test))
     family = spec.agent.resolve(n_cols=xcols.shape[-1])
     d, n = len(groups), dspec.n_train
     solver = spec.solver

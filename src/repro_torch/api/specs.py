@@ -26,9 +26,7 @@ from repro_torch.agents import FAMILIES
 from repro_torch.agents import NOT_PORTED as FAMILIES_NOT_PORTED
 from repro_torch.core.icoa import ICOAConfig, NotPortedError
 from repro_torch.data import sources as data_sources
-from repro_torch.data.partition import NOT_PORTED as PARTITIONS_NOT_PORTED
 from repro_torch.data.partition import PARTITIONS, make_groups, validate_partition
-from repro_torch.data.sources import NOT_PORTED as SOURCES_NOT_PORTED
 from repro_torch.data.sources import SOURCES
 from repro_torch.transport import default_transport
 
@@ -85,9 +83,6 @@ class DataSpec:
     partition_options: Tuple[Tuple[str, Any], ...] = ()
 
     def _source(self):
-        if self.source in SOURCES_NOT_PORTED:
-            raise _not_ported(f"data source {self.source!r}",
-                              SOURCES_NOT_PORTED[self.source])
         src = SOURCES.get(self.source)
         if src is None:
             raise SpecError(f"unknown data source {self.source!r}; "
@@ -109,9 +104,6 @@ class DataSpec:
 
     def validate(self) -> None:
         src = self._source()
-        if self.partition in PARTITIONS_NOT_PORTED:
-            raise _not_ported(f"partition {self.partition!r}",
-                              PARTITIONS_NOT_PORTED[self.partition])
         if self.partition not in PARTITIONS:
             raise SpecError(f"unknown partition {self.partition!r}; "
                             f"registered: {sorted(PARTITIONS)}")
@@ -125,8 +117,16 @@ class DataSpec:
                                     f"option {name!r}; valid: {sorted(known)}")
         if self.n_train < 2 or self.n_test < 1:
             raise SpecError("need n_train >= 2 and n_test >= 1")
+        groups = self.groups
+        if len({len(g) for g in groups}) > 1:
+            raise SpecError(
+                f"partition {self.partition!r} with n_attrs="
+                f"{self.resolved_n_attrs}, n_agents={self.resolved_n_agents} "
+                f"gives unequal group sizes {[len(g) for g in groups]}; the "
+                f"stacked runtime needs every agent to hold the same number "
+                f"of columns — pick n_agents dividing n_attrs")
         try:
-            validate_partition(self.groups, self.resolved_n_attrs)
+            validate_partition(groups, self.resolved_n_attrs)
         except ValueError as e:
             raise SpecError(str(e)) from None
 
@@ -142,18 +142,17 @@ class DataSpec:
             raise SpecError(f"partition {self.partition!r}: {e}") from None
 
     def build(self, device="cpu") -> Dataset:
-        """Generate (on the CPU, from `seed`), standardise, partition, and
-        move to `device`."""
+        """Draw on `device` from `seed` (the JAX package's key stream, in
+        torch's default float dtype), standardise and partition."""
         self.validate()
-        xtr, ytr, xte, yte = data_sources.make_dataset(
-            self.source, n_train=self.n_train, n_test=self.n_test,
-            seed=self.seed, noise=self.noise, n_attrs=self.n_attrs,
-            options=self.source_options)
         groups = self.groups
-        xcols = torch.stack([xtr[:, g] for g in groups])
-        xcols_test = torch.stack([xte[:, g] for g in groups])
-        return Dataset(xcols.to(device), ytr.to(device), xcols_test.to(device),
-                       yte.to(device), groups)
+        xtr, ytr, xte, yte = data_sources.make_dataset(
+            self.source, self.n_train, self.n_test, self.seed,
+            noise=self.noise, n_attrs=self.n_attrs,
+            options=self.source_options, device=device)
+        return Dataset(data_sources.partition_columns(xtr, groups), ytr,
+                       data_sources.partition_columns(xte, groups), yte,
+                       groups)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,13 +208,6 @@ class SolverSpec:
         if self.engine not in ("dense", "incremental", "fused"):
             raise SpecError(f"unknown engine {self.engine!r}; pick 'dense', "
                             f"'incremental' or 'fused'")
-
-    def validate_batch(self) -> None:
-        """What a batched run (api.batch_fit's one program) adds: the dense
-        engine runs one trial at a time."""
-        if self.name == "icoa" and self.engine == "dense":
-            raise _not_ported("engine='dense' in a batched run (a batched "
-                              "dense engine)", "A4b")
 
     def icoa_config(self, transport=None) -> ICOAConfig:
         return ICOAConfig(

@@ -1,0 +1,112 @@
+"""Host-gather numpy checkpointing (twin of repro.checkpoint.io).
+
+A tree of dicts, lists and tuples of tensors is flattened with its paths
+into one compressed .npz per step plus a small JSON manifest, in the JAX
+package's layout, so either package reads the other's files:
+
+    ckpt_%08d.npz    one array per leaf, keyed by its path: dict keys in
+                     sorted order and list / tuple positions, joined by "|"
+    ckpt_%08d.json   {"step", "keys" (sorted), "treedef"}: the tree's
+                     structure written as jax.tree_util writes it
+
+bfloat16 leaves are stored as float32 (numpy has no bfloat16) and cast back
+on restore.  No pytree library: the tree walk is written out below.
+"""
+from __future__ import annotations
+
+import json
+import os
+import re
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
+           "tree_keys", "stored_keys"]
+
+_SEP = "|"
+
+
+def _leaves(tree: Any, path=()):
+    """(path, leaf) for every leaf, in jax's order (dict keys sorted)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (str(i),))
+    else:
+        yield path, tree
+
+
+def _treedef(tree: Any) -> str:
+    if isinstance(tree, dict):
+        inner = ", ".join(f"{k!r}: {_treedef(tree[k])}" for k in sorted(tree))
+        return "{" + inner + "}"
+    if isinstance(tree, list):
+        return "[" + ", ".join(_treedef(v) for v in tree) + "]"
+    if isinstance(tree, tuple):
+        inner = ", ".join(_treedef(v) for v in tree)
+        return "(" + inner + ("," if len(tree) == 1 else "") + ")"
+    return "*"
+
+
+def tree_keys(tree: Any) -> List[str]:
+    """The flat npz key of every leaf of `tree`, in leaf order."""
+    return [_SEP.join(p) for p, _ in _leaves(tree)]
+
+
+def stored_keys(directory: str, step: int) -> List[str]:
+    """Keys actually present in the step's npz archive."""
+    with np.load(os.path.join(directory, f"ckpt_{step:08d}.npz")) as data:
+        return sorted(data.files)
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.cpu().numpy()
+    return np.asarray(leaf)
+
+
+def save_checkpoint(directory: str, step: int, tree: Any) -> str:
+    os.makedirs(directory, exist_ok=True)
+    flat = {_SEP.join(p): _to_numpy(leaf) for p, leaf in _leaves(tree)}
+    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    np.savez_compressed(path, **flat)
+    manifest = {"step": step, "keys": sorted(flat),
+                "treedef": f"PyTreeDef({_treedef(tree)})"}
+    with open(os.path.join(directory, f"ckpt_{step:08d}.json"), "w") as fh:
+        json.dump(manifest, fh)
+    return path
+
+
+def _rebuild(like: Any, leaves) -> Any:
+    if isinstance(like, dict):
+        return {k: _rebuild(like[k], leaves) for k in sorted(like)}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_rebuild(v, leaves) for v in like)
+    return next(leaves)
+
+
+def restore_checkpoint(directory: str, step: int, like: Any) -> Any:
+    """Restore into the structure of `like`: each leaf cast to the dtype of
+    its tensor in `like`, on that tensor's device."""
+    path = os.path.join(directory, f"ckpt_{step:08d}.npz")
+    out = []
+    with np.load(path) as data:
+        for p, leaf in _leaves(like):
+            t = torch.from_numpy(np.array(data[_SEP.join(p)]))
+            out.append(t.to(device=leaf.device, dtype=leaf.dtype))
+    return _rebuild(like, iter(out))
+
+
+def latest_step(directory: str) -> Optional[int]:
+    if not os.path.isdir(directory):
+        return None
+    steps = [int(m.group(1)) for f in os.listdir(directory)
+             if (m := re.match(r"ckpt_(\d+)\.npz$", f))]
+    return max(steps) if steps else None

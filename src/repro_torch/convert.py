@@ -41,7 +41,8 @@ def dataset_from_numpy(xcols, y, xcols_test, y_test,
 
 
 def params_from_numpy(params, device="cpu") -> torch.Tensor:
-    """The JAX package's `Result.params` — (D, P) polynomial coefficients."""
+    """The JAX package's `Result.params` — (D, P) polynomial (or linear,
+    the degree-1 case) coefficients."""
     p = _tensor(params, device)
     if p.dim() != 2:
         raise ValueError(f"expected (D, P) stacked params, got {tuple(p.shape)}")

@@ -49,7 +49,7 @@ incremental and fused engines, where all trials update agent i together (i
 stays a host int) and eta, the chosen step, accept/reject, the subsample
 and the solve state are per trial.  With use_kernel every product goes to
 the batched kernels, one launch per agent for the whole batch.  The dense
-engine runs one trial at a time (a batched one is ROADMAP A4b).
+engine takes the batch as it is: it runs one trial as a batch of one.
 
 Keys follow the JAX package: `run` starts from PRNGKey(seed + 1), records
 with it, then per sweep splits (key, k1, k2), sweeps with k1 and records
@@ -194,9 +194,6 @@ def sweep(family, cfg: ICOAConfig, params: torch.Tensor, f: torch.Tensor,
     cfg.validate()
     d, n = f.shape[-2:]
     batched = f.dim() == 3
-    if batched and cfg.engine == "dense":
-        raise NotPortedError("engine='dense' on a batched (B, D, N) state: a "
-                             "batched dense engine waits for ROADMAP A4b")
     tp = (cfg.transport or transport_lib.default_transport(d)).validate_for(d)
     split = cfg.alpha > 1.0
     m = cov.subsample_size(n, cfg.alpha) if split else n
@@ -210,10 +207,10 @@ def sweep(family, cfg: ICOAConfig, params: torch.Tensor, f: torch.Tensor,
                              f"subsample from a key; pass key")
         idx = cov.subsample_indices(prng.split(key)[..., 1, :], n, cfg.alpha)
     fused = cfg.engine == "fused" and cfg.delta == 0.0
-    if batched:
-        engine = _sweep_fused_batched if fused else _sweep_incremental_batched
-    elif cfg.engine == "dense":
+    if cfg.engine == "dense":
         engine = _sweep_dense
+    elif batched:
+        engine = _sweep_fused_batched if fused else _sweep_incremental_batched
     else:
         engine = _sweep_fused if fused else _sweep_incremental
     params, f = engine(family, cfg, tp, params.clone(), f.clone(), xcols, y,
@@ -288,12 +285,26 @@ def _sweep_dense(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
     them, and at delta > 0 the robust weights are re-solved at each
     evaluation and held fixed for the gradient (the JAX package's
     stop_gradient).  The back-search evaluates the K candidate prediction
-    matrices of the schedule as one batch."""
-    d, n = f.shape
+    matrices of the schedule as one batch.
+
+    It runs B trials at once — params (B, D, P), f (B, D, N), xcols
+    (B, D, N, C), y (B, N), idx (B, m) — and one trial as a batch of one.
+    The gradient is autograd's of the sum of the trials' objectives: each
+    trial's term depends on its own row only, so every trial gets its own
+    gradient; the candidates are (B, K, D, N), and the step, the robust
+    weights and accept/reject are per trial."""
+    if f.dim() == 2:
+        p, ff = _sweep_dense(family, cfg, tp, params[None], f[None],
+                             xcols[None], y[None],
+                             None if idx is None else idx[None])
+        return p[0], ff[0]
+    b, d, n = f.shape
     steps = _step_schedule(cfg, n, f.dtype, f.device)
 
     def obj(ff):
-        a0 = _transported_a0(tp, cfg, ff, y, idx)
+        """Each trial's objective at ff (B, ..., D, N): (B, ...)."""
+        yy = y.reshape(b, *([1] * (ff.dim() - 2)), n)
+        a0 = _transported_a0(tp, cfg, ff, yy, idx)
         if cfg.delta > 0.0:
             a = minimax.robust_weights(a0.detach(), cfg.delta,
                                        steps=cfg.minimax_steps,
@@ -303,28 +314,28 @@ def _sweep_dense(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
 
     for i in range(d):
         with torch.enable_grad():
-            fi = f[i].clone().requires_grad_(True)
-            val = obj(torch.cat([f[:i], fi[None], f[i + 1:]]))
-            g = torch.autograd.grad(val, fi)[0]
+            fi = f[:, i].clone().requires_grad_(True)
+            val = obj(torch.cat([f[:, :i], fi[:, None], f[:, i + 1:]], dim=1))
+            g = torch.autograd.grad(val.sum(), fi)[0]
         eta0 = val.detach()
-        gnorm = torch.linalg.norm(g) + 1e-30
+        gnorm = torch.linalg.norm(g, dim=-1, keepdim=True) + 1e-30
         g_unit = g / gnorm
 
-        cand = f.expand(steps.shape[0], d, n).clone()
-        cand[:, i] = f[i] + steps[:, None] * g_unit
-        step = _first_improving(obj(cand), eta0, steps)
+        cand = f[:, None].expand(b, steps.shape[0], d, n).clone()
+        cand[:, :, i] = f[:, None, i] + steps[None, :, None] * g_unit[:, None]
+        step = _first_improving_batched(obj(cand), eta0, steps)
 
-        f_hat = f[i] + step * g_unit
-        p_new = family.fit(params[i], xcols[i], f_hat)
-        f_new = family.predict(p_new, xcols[i])
+        f_hat = f[:, i] + step[:, None] * g_unit
+        p_new = family.fit(params[:, i], xcols[:, i], f_hat)
+        f_new = family.predict(p_new, xcols[:, i])
         if cfg.accept_reject:
             f_acc = f.clone()
-            f_acc[i] = f_new
+            f_acc[:, i] = f_new
             accept = obj(f_acc) > eta0
         else:
-            accept = torch.ones((), dtype=torch.bool, device=f.device)
-        params[i] = torch.where(accept, p_new, params[i])
-        f[i] = torch.where(accept, f_new, f[i])
+            accept = torch.ones((b,), dtype=torch.bool, device=f.device)
+        params[:, i] = torch.where(accept[:, None], p_new, params[:, i])
+        f[:, i] = torch.where(accept[:, None], f_new, f[:, i])
     return params, f
 
 
@@ -831,8 +842,7 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     hist["converged_at"] (B,) — the record where `run`'s eps rule would
     have stopped — and hist["bytes"], the host ledger's bytes per record
     (record 0: 0), the same for every trial.  Nothing in the loop waits for
-    the device.  TF32 is off for the call, as in `run`.  The dense engine
-    runs one trial at a time: a batched one waits for ROADMAP A4b."""
+    the device.  TF32 is off for the call, as in `run`."""
     cfg.validate()
     if xcols.dim() != 4 or y.dim() != 2:
         raise ValueError(f"run_scan: expected xcols (B, D, N, C) and y (B, N), "

@@ -1,74 +1,103 @@
 """Friedman-1/2/3 synthetic regression data, as used in the paper (Sec 3.2).
 
-Twin of repro.data.friedman.  Draws come from a `torch.Generator`, so the
-numbers differ from jax.random's threefry streams for the same seed until
-ROADMAP A7 (a bit-exact threefry port) lands: the distributions and the
-formulas are the same, the samples are not.  Tests that compare the two
-packages hand both the same numpy arrays instead.
+Twin of repro.data.friedman, drawn from the same threefry stream
+(repro_torch.prng): the same seed gives the JAX package's covariates bit for
+bit (float32, or float64 as under jax_enable_x64) and its outcomes within
+the ulp bounds of its normals and of the libraries' sin / sqrt / atan.
+
+A key (..., 2) draws one dataset per key: x (..., n, 5), y (..., n), so a
+(B, 2) key stack draws B Monte-Carlo trials in one pass, on the key's
+device.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
-__all__ = ["friedman1", "friedman2", "friedman3", "standardise"]
+from repro_torch import prng
+
+__all__ = ["friedman1", "friedman2", "friedman3", "make_dataset",
+           "standardise", "FRIEDMAN_FNS"]
 
 
 def _normalise(y: torch.Tensor) -> torch.Tensor:
-    lo, hi = torch.min(y), torch.max(y)
+    """Outcomes mapped onto [0, 1] per dataset (over the last axis)."""
+    lo = torch.amin(y, dim=-1, keepdim=True)
+    hi = torch.amax(y, dim=-1, keepdim=True)
     return (y - lo) / torch.clamp(hi - lo, min=1e-12)
 
 
-def _uniform(gen: torch.Generator, shape, lo: float = 0.0, hi: float = 1.0):
-    return lo + (hi - lo) * torch.rand(shape, generator=gen)
-
-
-def _normal(gen: torch.Generator, shape):
-    return torch.randn(shape, generator=gen)
-
-
-def friedman1(gen: torch.Generator, n: int, noise: float = 0.0):
+def friedman1(key: torch.Tensor, n: int, noise: float = 0.0,
+              dtype: torch.dtype = torch.float32):
     """phi(x) = 10 sin(pi x1 x2) + 20 (x3 - 1/2)^2 + 10 x4 + 5 x5,  x_j ~ U[0,1]."""
-    x = _uniform(gen, (n, 5))
-    y = (10.0 * torch.sin(math.pi * x[:, 0] * x[:, 1])
-         + 20.0 * (x[:, 2] - 0.5) ** 2
-         + 10.0 * x[:, 3]
-         + 5.0 * x[:, 4])
-    y = y + noise * _normal(gen, (n,))
+    kx, kw = prng.split(key).unbind(-2)
+    x = prng.uniform(kx, (n, 5), dtype)
+    y = (10.0 * torch.sin(math.pi * x[..., 0] * x[..., 1])
+         + 20.0 * (x[..., 2] - 0.5) ** 2
+         + 10.0 * x[..., 3]
+         + 5.0 * x[..., 4])
+    y = y + noise * prng.normal(kw, (n,), dtype)
     return x, _normalise(y)
 
 
-def _friedman23_covariates(gen: torch.Generator, n: int) -> torch.Tensor:
-    x1 = _uniform(gen, (n,), 1.0, 100.0)
-    x2 = _uniform(gen, (n,), 40.0 * math.pi, 560.0 * math.pi)
-    x3 = _uniform(gen, (n,))
-    x4 = _uniform(gen, (n,), 1.0, 11.0)
-    x5 = _uniform(gen, (n,))  # nuisance attribute
-    return torch.stack([x1, x2, x3, x4, x5], dim=1)
+def _friedman23_covariates(key: torch.Tensor, n: int,
+                           dtype: torch.dtype) -> torch.Tensor:
+    ks = prng.split(key, 5).unbind(-2)
+    x1 = prng.uniform(ks[0], (n,), dtype, 1.0, 100.0)
+    x2 = prng.uniform(ks[1], (n,), dtype, 40.0 * math.pi, 560.0 * math.pi)
+    x3 = prng.uniform(ks[2], (n,), dtype)
+    x4 = prng.uniform(ks[3], (n,), dtype, 1.0, 11.0)
+    x5 = prng.uniform(ks[4], (n,), dtype)  # nuisance attribute
+    return torch.stack([x1, x2, x3, x4, x5], dim=-1)
 
 
-def friedman2(gen: torch.Generator, n: int, noise: float = 0.0):
+def friedman2(key: torch.Tensor, n: int, noise: float = 0.0,
+              dtype: torch.dtype = torch.float32):
     """phi(x) = sqrt(x1^2 + (x2 x3 - 1/(x2 x4))^2); X5 is a nuisance variable."""
-    x = _friedman23_covariates(gen, n)
-    y = torch.sqrt(x[:, 0] ** 2
-                   + (x[:, 1] * x[:, 2] - 1.0 / (x[:, 1] * x[:, 3])) ** 2)
-    y = y + noise * _normal(gen, (n,))
+    kx, kw = prng.split(key).unbind(-2)
+    x = _friedman23_covariates(kx, n, dtype)
+    y = torch.sqrt(x[..., 0] ** 2
+                   + (x[..., 1] * x[..., 2] - 1.0 / (x[..., 1] * x[..., 3])) ** 2)
+    y = y + noise * prng.normal(kw, (n,), dtype)
     return x, _normalise(y)
 
 
-def friedman3(gen: torch.Generator, n: int, noise: float = 0.0):
+def friedman3(key: torch.Tensor, n: int, noise: float = 0.0,
+              dtype: torch.dtype = torch.float32):
     """phi(x) = atan((x2 x3 - 1/(x2 x4)) / x1); X5 is a nuisance variable."""
-    x = _friedman23_covariates(gen, n)
-    y = torch.atan((x[:, 1] * x[:, 2] - 1.0 / (x[:, 1] * x[:, 3])) / x[:, 0])
-    y = y + noise * _normal(gen, (n,))
+    kx, kw = prng.split(key).unbind(-2)
+    x = _friedman23_covariates(kx, n, dtype)
+    y = torch.atan((x[..., 1] * x[..., 2] - 1.0 / (x[..., 1] * x[..., 3]))
+                   / x[..., 0])
+    y = y + noise * prng.normal(kw, (n,), dtype)
     return x, _normalise(y)
+
+
+FRIEDMAN_FNS = {1: friedman1, 2: friedman2, 3: friedman3}
 
 
 def standardise(xtr: torch.Tensor, xte: torch.Tensor):
     """Standardise both splits with the train split's mean and (population)
-    standard deviation, as the JAX package does."""
-    mu = xtr.mean(dim=0)
-    sd = xtr.std(dim=0, correction=0) + 1e-12
+    standard deviation over its instances (axis -2), as the JAX package
+    does."""
+    mu = xtr.mean(dim=-2, keepdim=True)
+    sd = xtr.std(dim=-2, correction=0, keepdim=True) + 1e-12
     return (xtr - mu) / sd, (xte - mu) / sd
 
+
+def make_dataset(which: int, n_train: int = 4000, n_test: int = 4000,
+                 seed: int = 0, noise: float = 0.0,
+                 dtype: Optional[torch.dtype] = None, device="cpu"):
+    """Train/test split with standardised covariates (fit on train), drawn
+    on `device` in `dtype` (None: torch's default float dtype):
+    split(PRNGKey(seed)) gives the train and test streams."""
+    if dtype is None:
+        dtype = torch.get_default_dtype()
+    fn = FRIEDMAN_FNS[which]
+    k1, k2 = prng.split(prng.PRNGKey(seed, device=device)).unbind(-2)
+    xtr, ytr = fn(k1, n_train, noise, dtype)
+    xte, yte = fn(k2, n_test, noise, dtype)
+    xtr, xte = standardise(xtr, xte)
+    return xtr, ytr, xte, yte

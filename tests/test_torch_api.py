@@ -3,6 +3,17 @@
   * `repro_torch.api.fit(spec, device="cpu", data=...)` against
     `repro.api.solvers.run_solver(spec, data, family)` on the same float64
     arrays: histories at 1e-10, bytes exactly equal;
+  * `repro_torch.api.fit(spec, device="cpu")` against `repro.api.fit(spec)`
+    from the spec alone (both draw the data from the seed): in float64
+    (torch's default dtype float64, jax.enable_x64) histories at 1e-10 and
+    bytes equal, for the default spec, `cosine`, `correlated_linear` under
+    `blocks` (two columns an agent) and `overlapping`, `round_robin`,
+    `random` and the `linear` family (whose test MSE record, and the
+    float32 runs, are held to the JAX package's own spread under a one-ulp
+    change of its data, or to 1e-10 / F32_TOL where that is larger);
+  * a Result saved by either package loads in the other (float32, as both
+    load): params, weights, f and the history equal, the data drawn again
+    from the spec within the dataset bound of tests/test_torch_data.py;
   * a spec JSON written by `repro` loads in `repro_torch`, and back;
   * `fit(spec)` with no CUDA device raises instead of running on the CPU;
   * each spec field the port does not implement raises NotPortedError
@@ -143,10 +154,8 @@ def test_fit_without_cuda_raises(monkeypatch):
     (dict(obs=tapi.ObsSpec(taps=("eta",))), "A13"),
     (dict(backend=tapi.BackendSpec(checks="raise")), "A15"),
     (dict(backend=tapi.BackendSpec(name="shard_map")), "A11"),
-    (dict(agent=tapi.AgentSpec(family="linear")), "A2"),
+    (dict(transport=tapi.TransportSpec(codec="exact_bf16")), "A9"),
     (dict(agent=tapi.AgentSpec(family="mlp")), "A16"),
-    (dict(data=tapi.DataSpec(source="cosine")), "A7"),
-    (dict(data=tapi.DataSpec(partition="round_robin", n_agents=5)), "A7"),
 ])
 def test_unported_fields_raise_with_roadmap_item(change, item):
     spec = tapi.ExperimentSpec(**change)
@@ -235,14 +244,22 @@ def test_batch_fit_and_sweep_minimax_grid_match_jax():
 
 
 def test_dense_engine_on_a_kernel_and_in_a_batch_raise():
+    """The dense engine on a kernel raises (the reference has none, C6); in
+    a batch it runs (the batched dense engine), trial t equal to
+    fit(trial_spec(spec, t))."""
     spec = tapi.ExperimentSpec(data=tapi.DataSpec(n_train=100, n_test=50),
                                solver=tapi.SolverSpec(engine="dense",
                                                       use_kernel=True))
     with pytest.raises(ValueError, match="plain-PyTorch oracle"):
         tapi.fit(spec, device="cpu")
-    batch = tapi.ExperimentSpec(solver=tapi.SolverSpec(engine="dense"))
-    with pytest.raises(tapi.NotPortedError, match=r"ROADMAP A4b\b"):
-        tapi.batch_fit(batch, 2, device="cpu")
+    batch = tapi.ExperimentSpec(data=tapi.DataSpec(n_train=100, n_test=50),
+                                solver=tapi.SolverSpec(engine="dense",
+                                                       n_sweeps=2, eps=0.0))
+    rs = tapi.batch_fit(batch, 2, device="cpu")
+    for t, res in enumerate(rs):
+        one = tapi.fit(tapi.trial_spec(batch, t), device="cpu")
+        np.testing.assert_allclose(res.history.eta, one.history.eta, rtol=1e-5)
+        assert res.history.bytes_transmitted == one.history.bytes_transmitted
 
 
 @pytest.mark.parametrize("solver", [
@@ -291,6 +308,200 @@ def test_fit_builds_data_from_spec():
     assert np.isfinite(res.test_mse) and res.test_mse < 0.05
     again = tapi.fit(spec, device="cpu")
     assert again.history.eta == res.history.eta          # same seed, same run
+
+
+# ------------------------------------------------- from the spec, both sides
+
+FROM_SPEC = {
+    "default": {},
+    "cosine": dict(data=dict(source="cosine", n_attrs=6,
+                             source_options=[["freq", 1.5]])),
+    "correlated_blocks": dict(data=dict(source="correlated_linear", n_attrs=10,
+                                        n_agents=5, partition="blocks")),
+    "correlated_overlapping": dict(data=dict(
+        source="correlated_linear", n_attrs=6, n_agents=3,
+        partition="overlapping", partition_options=[["overlap", 1]],
+        source_options=[["rho", 0.8]])),
+    "friedman2_round_robin": dict(data=dict(source="friedman2", n_agents=5,
+                                            partition="round_robin",
+                                            noise=0.05)),
+    "friedman3_random": dict(data=dict(source="friedman3", n_agents=5,
+                                       partition="random",
+                                       partition_options=[["seed", 3]])),
+    "linear_family": dict(agent=dict(family="linear"),
+                          solver=dict(engine="fused")),
+}
+# fp32: the kernel-path contract at alpha = 1 (test_torch_icoa.F32_TOL)
+F32_TOL = 1e-5
+
+
+def _from_spec_pair(case, **solver):
+    d = json.loads(json.dumps(FROM_SPEC[case]))
+    d.setdefault("data", {}).update(n_train=300, n_test=200, seed=3)
+    d.setdefault("solver", {}).update(n_sweeps=3, **solver)
+    d["seed"] = 2
+    return tapi.spec_from_dict(d), japi.spec_from_dict(d)
+
+
+def _jax_fit(jspec, x64):
+    japi.clear_dataset_cache()
+    try:
+        with jax.enable_x64(x64):
+            return japi.fit(jspec)
+    finally:
+        japi.clear_dataset_cache()
+
+
+@pytest.mark.parametrize("case", list(FROM_SPEC))
+def test_fit_from_spec_matches_jax_f64(case):
+    tspec, jspec = _from_spec_pair(case)
+    dt = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        tres = tapi.fit(tspec, device="cpu")
+    finally:
+        torch.set_default_dtype(dt)
+    jres = _jax_fit(jspec, True)
+    assert tres.f.dtype == torch.float64 and tres.data.groups == jres.data.groups
+    if case == "linear_family":
+        _within_reference_spread(tres, jres, jspec, True, 1e-10)
+    else:
+        _same_history(tres, jres)
+    assert tres.history.converged_at == jres.history.converged_at
+    np.testing.assert_allclose(tres.weights.numpy(), np.asarray(jres.weights),
+                               rtol=1e-9, atol=1e-12)
+    np.testing.assert_allclose(tres.params.numpy(), np.asarray(jres.params),
+                               rtol=1e-8, atol=1e-10)
+
+
+def _within_reference_spread(tres, jres, jspec, x64, floor):
+    """Each history within max(floor, 4x the JAX package's own spread): how
+    far its records move, at most, when its data move by one ulp: all
+    scaled by 1 + eps, or each value by a seeded 1 + k eps, k in
+    {-1, 0, 1} (three draws; the port's data differ from the JAX
+    package's in such element-wise last bits), with eps = 1e-15 in
+    float64 and 2**-23 in float32; bytes equal.  Where the records are
+    well conditioned the floor holds them; where the records amplify the
+    data's last bits (linear agents on Friedman-1 combine with weights up
+    to -2.5; float32 runs), the reference's own spread is the yardstick."""
+    eps, dt = (1e-15, np.float64) if x64 else (2.0 ** -23, np.float32)
+    data = [np.asarray(a) for a in jres.data[:4]]
+    moves = [[a * dt(1 + eps) for a in data]]
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        moves.append([a * (1 + dt(eps) * rng.integers(-1, 2, a.shape).astype(dt))
+                      for a in data])
+    with jax.enable_x64(x64):
+        perts = [run_solver(jspec, JDataset(*map(jnp.asarray, arrays),
+                                            jres.data.groups), jres.family)
+                 for arrays in moves]
+    for key in ("train_mse", "test_mse", "eta"):
+        want = np.asarray(getattr(jres.history, key))
+        spread = max(np.max(np.abs(np.asarray(getattr(p.history, key)) - want)
+                            / want) for p in perts)
+        gap = np.max(np.abs(np.asarray(getattr(tres.history, key)) - want)
+                     / want)
+        print(f"\n{jspec.data.source} {jspec.agent.family} x64={x64} {key}: the "
+              f"port's gap {gap:.3e}, the JAX package's one-ulp spread {spread:.3e}")
+        assert spread > 0 and gap <= max(floor, 4 * spread), (key, gap, spread)
+    assert tres.history.bytes_transmitted == jres.history.bytes_transmitted
+
+
+@pytest.mark.parametrize("case", ["default", "cosine", "correlated_blocks",
+                                  "linear_family"])
+def test_fit_from_spec_matches_jax_f32(case):
+    tspec, jspec = _from_spec_pair(case)
+    tres = tapi.fit(tspec, device="cpu")
+    jres = _jax_fit(jspec, False)
+    assert tres.f.dtype == torch.float32
+    _within_reference_spread(tres, jres, jspec, False, F32_TOL)
+
+
+def test_alpha100_deploy_width_blows_up_alike_f64():
+    """The deployment width (correlated_linear, D = 100) at alpha = 100,
+    one incremental sweep, N cut to 32768: seed 12 gives weights that blow
+    up on the test split, as the card's deployment cell does at N = 262144
+    (test MSE far above eta, sum |w| in the thousands).  Both packages,
+    from the spec alone in float64, reach the same weights and records, so
+    the blow-up is the configuration's and the data's, not the port's."""
+    d = dict(data=dict(source="correlated_linear", n_attrs=100, n_train=32768,
+                       n_test=8192, seed=12),
+             solver=dict(engine="incremental", n_sweeps=1, alpha=100.0))
+    dt = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        tres = tapi.fit(tapi.spec_from_dict(d), device="cpu")
+    finally:
+        torch.set_default_dtype(dt)
+    jres = _jax_fit(japi.spec_from_dict(d), True)
+    _same_history(tres, jres, rtol=1e-9)      # 1e-10 of the weights x sum |w|
+    w, jw = tres.weights.numpy(), np.asarray(jres.weights)
+    np.testing.assert_allclose(w, jw, rtol=1e-9, atol=1e-10 * np.abs(jw).max())
+    assert np.abs(jw).sum() > 1000 and jres.history.test_mse[-1] > 1000 * jres.history.eta[-1]
+    print(f"\nalpha=100 at D=100, N=32768, seed 12 (float64): the JAX package's "
+          f"eta {jres.history.eta}, test MSE {jres.history.test_mse}, sum |w| "
+          f"{np.abs(jw).sum()!r}; the port's test MSE {tres.history.test_mse}")
+
+
+def _equal_results(got_params, got_weights, got_f, got_hist, want):
+    np.testing.assert_array_equal(np.asarray(got_params), np.asarray(want.params))
+    np.testing.assert_array_equal(np.asarray(got_weights), np.asarray(want.weights))
+    np.testing.assert_array_equal(np.asarray(got_f), np.asarray(want.f))
+    assert got_hist.as_dict() == want.history.as_dict()
+
+
+@pytest.mark.parametrize("case", ["default", "correlated_blocks"])
+def test_result_saved_by_port_loads_in_jax(tmp_path, case):
+    tspec, _ = _from_spec_pair(case, engine="fused")
+    tres = tapi.fit(tspec, device="cpu")
+    tres.save(str(tmp_path))
+    japi.clear_dataset_cache()
+    jback = japi.load(str(tmp_path))
+    assert jback.spec == japi.spec_from_dict(tapi.spec_to_dict(tspec))
+    _equal_results(jback.params, jback.weights, jback.f, jback.history, tres)
+    back = tapi.load(str(tmp_path), device="cpu")
+    _equal_results(back.params, back.weights, back.f, back.history, tres)
+    assert back.spec == tspec and back.family == tres.family
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (50, tspec.data.resolved_n_attrs)).astype(np.float32))
+    assert torch.equal(back.predict(x), tres.predict(x))
+    _data_close(back.data, jback.data)
+    japi.clear_dataset_cache()
+
+
+@pytest.mark.parametrize("case", ["default", "linear_family"])
+def test_result_saved_by_jax_loads_in_port(tmp_path, case):
+    _, jspec = _from_spec_pair(case)
+    jres = _jax_fit(jspec, False)
+    jres.save(str(tmp_path))
+    back = tapi.load(str(tmp_path), device="cpu")
+    assert tapi.spec_to_dict(back.spec) == japi.spec_to_dict(jspec)
+    _equal_results(back.params, back.weights, back.f, back.history, jres)
+    assert type(back.family).__name__ == type(jres.family).__name__
+    _data_close(back.data, jres.data)
+    assert tapi.load(str(tmp_path), with_data=False, device="cpu").data is None
+    x = np.random.default_rng(1).standard_normal((50, 5)).astype(np.float32)
+    np.testing.assert_allclose(back.predict(torch.from_numpy(x)).numpy(),
+                               np.asarray(jres.predict(jnp.asarray(x))),
+                               rtol=1e-5, atol=1e-6)
+
+
+def _data_close(tdata, jdata, tol=2e-6):
+    """The dataset bound of tests/test_torch_data.py (float32)."""
+    for name in ("xcols", "y", "xcols_test", "y_test"):
+        a = getattr(tdata, name).numpy()
+        b = np.asarray(getattr(jdata, name))
+        assert a.shape == b.shape and np.max(np.abs(a - b)) <= tol, name
+
+
+def test_load_needs_a_card_unless_asked(tmp_path, monkeypatch):
+    tres = tapi.fit(tapi.ExperimentSpec(data=tapi.DataSpec(n_train=50, n_test=20),
+                                        solver=tapi.SolverSpec(n_sweeps=1)),
+                    device="cpu")
+    tres.save(str(tmp_path))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tapi.load(str(tmp_path))
 
 
 # ----------------------------------------------------------------- hygiene

@@ -25,9 +25,17 @@ Small sizes throughout: D=5 agents, N in {160, 400}, B=3 trials, 2-3 sweeps.
     `converged_at` equal;
   * batch_fit trial t vs fit(trial_spec(spec, t)) on the CPU: float64
     1e-10, float32 1e-4 (the fp32 contract of the card checks);
+  * the batched dense engine: port `run_scan(engine="dense")` vs
+    `jax.vmap(repro.core.icoa.run_scan)` in float64 at 1e-10 over
+    (alpha, delta) in {(1, 0), (20, 0), (1, 0.02), (20, 0.01)}, with
+    row_broadcast off and on, and each trial's slice vs the port's
+    single-trial dense `run` on that trial at 1e-10;
+  * batch_fit of the dense engine and of the cosine source (once raised
+    as not ported): trial t vs fit(trial_spec(spec, t)), float64 1e-10;
   * ResultSet aggregates vs the JAX ResultSet over the same histories, the
     grid enumerations, and the NotPortedError of what waits for later items.
 """
+import dataclasses
 import math
 
 import jax
@@ -465,12 +473,78 @@ def test_batch_fit_needs_a_card_unless_asked(single_thread):
 
 @pytest.mark.parametrize("spec,item", [
     (tapi.ExperimentSpec(backend=tapi.BackendSpec(trial_devices=2)), "A11"),
-    (tapi.ExperimentSpec(solver=tapi.SolverSpec(engine="dense")), "A4b"),
-    (tapi.ExperimentSpec(data=tapi.DataSpec(source="cosine")), "A7"),
 ])
 def test_batch_fit_raises_not_ported(spec, item):
     with pytest.raises(tapi.NotPortedError, match=rf"ROADMAP {item}\b"):
         tapi.batch_fit(spec, 2, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(solver=dict(engine="dense", row_broadcast=True)),
+    dict(solver=dict(engine="dense", alpha=20.0, delta=0.01, minimax_steps=40)),
+    dict(data=dict(source="cosine", n_attrs=4)),
+    dict(data=dict(source="correlated_linear", n_attrs=8, n_agents=4,
+                   partition="blocks"), solver=dict(engine="fused")),
+], ids=["dense-row-broadcast", "dense-minimax", "cosine", "blocks-fused"])
+def test_batch_fit_of_formerly_unported_specs_equals_fit_f64(
+        single_thread, default_f64, change):
+    """What batch_fit used to refuse (the dense engine, ROADMAP A4b; the
+    cosine source and the partitions, A7) runs as one batch, trial t
+    equal to fit(trial_spec(spec, t))."""
+    d = {"data": dict(n_train=160, n_test=80, **change.get("data", {})),
+         "solver": dict(n_sweeps=2, eps=0.0, **change.get("solver", {})),
+         "seed": 1}
+    spec = tapi.spec_from_dict(d)
+    rs = tapi.batch_fit(spec, B, device="cpu")
+    for t, res in enumerate(rs):
+        one = tapi.fit(tapi.trial_spec(spec, t), device="cpu")
+        for key in KEYS:
+            np.testing.assert_allclose(getattr(res.history, key),
+                                       getattr(one.history, key), rtol=1e-10,
+                                       err_msg=f"trial {t} {key}")
+        assert res.history.bytes_transmitted == one.history.bytes_transmitted
+
+
+DENSE_GRID = [(1.0, 0.0), (20.0, 0.0), (1.0, 0.02), (20.0, 0.01)]
+
+
+@pytest.mark.parametrize("row_broadcast", [False, True], ids=["gather", "rows"])
+@pytest.mark.parametrize("alpha,delta", DENSE_GRID,
+                         ids=[f"a{a:g}-d{d:g}" for a, d in DENSE_GRID])
+def test_run_scan_dense_matches_jax_vmap_f64(single_thread, alpha, delta,
+                                             row_broadcast):
+    """The batched dense engine against jax.vmap over the JAX package's
+    dense run_scan (seeds 5, 6, 7: each trial its own subsamples), and
+    each trial's slice against the port's single-trial dense run."""
+    arrays = _trial_arrays(160, np.float64)
+    kw = dict(n_sweeps=2, engine="dense", alpha=alpha, delta=delta,
+              minimax_steps=40, row_broadcast=row_broadcast)
+    with jax.enable_x64(True):
+        cfg = jicoa.ICOAConfig(**kw)
+        _, fj, wj, hj = jax.vmap(lambda x, y, xt, yt, seed: jicoa.run_scan(
+            JPoly(1, 4), cfg, x, y, xt, yt, seed))(
+                *map(jnp.asarray, arrays), jnp.arange(B) + 5)
+        hj = {k: np.asarray(v) for k, v in hj.items() if k != "taps"}
+    tcfg = ticoa.ICOAConfig(**kw)
+    _, ft, wt, ht = ticoa.run_scan(TPoly(1, 4), tcfg,
+                                   *convert.batch_from_numpy(*arrays),
+                                   seeds=[5, 6, 7])
+    for key in KEYS:
+        np.testing.assert_allclose(ht[key].numpy(), hj[key], rtol=1e-10,
+                                   err_msg=key)
+    np.testing.assert_array_equal(np.broadcast_to(ht["bytes"], (B, 3)),
+                                  hj["bytes"])
+    np.testing.assert_allclose(ft.numpy(), np.asarray(fj), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(wt.numpy(), np.asarray(wj), rtol=1e-10, atol=1e-12)
+    for b in range(B):
+        one = [torch.from_numpy(a[b]) for a in arrays]
+        state, w1, h1 = ticoa.run(TPoly(1, 4), dataclasses.replace(tcfg, eps=0.0),
+                                  *one, seed=5 + b)
+        for key in KEYS:
+            np.testing.assert_allclose(ht[key][b].numpy(), h1[key], rtol=1e-10,
+                                       err_msg=f"trial {b} {key}")
+        np.testing.assert_allclose(ft[b].numpy(), state.f.numpy(), rtol=1e-10,
+                                   atol=1e-12)
 
 
 @pytest.mark.parametrize("engine", ENGINES)
@@ -624,3 +698,10 @@ def test_sweep_over_a_grid(single_thread):
                       device="cpu")
     assert [rs.spec.solver.alpha for rs in grid] == [1.0, 10.0]
     assert grid[1].cumulative_bytes[-1] < grid[0].cumulative_bytes[-1] / 9
+    # a grid over dense batches: the paper's gather-per-update schedule
+    # against the row-wise one, D times fewer bytes
+    dense = tapi.sweep(_spec(n_sweeps=2, engine="dense"),
+                       {"solver.row_broadcast": [False, True]}, trials=2,
+                       device="cpu")
+    assert [len(rs) for rs in dense] == [2, 2]
+    assert dense[0].cumulative_bytes[-1] == D * dense[1].cumulative_bytes[-1] / 2

@@ -386,8 +386,7 @@ def test_sources_contract(source, n_attrs):
 
 
 def test_friedman1_formula():
-    gen = torch.Generator().manual_seed(0)
-    x, y = tfriedman.friedman1(gen, 1000)
+    x, y = tfriedman.friedman1(prng.PRNGKey(0), 1000)
     x = x.numpy().astype(np.float64)
     raw = (10 * np.sin(np.pi * x[:, 0] * x[:, 1]) + 20 * (x[:, 2] - 0.5) ** 2
            + 10 * x[:, 3] + 5 * x[:, 4])

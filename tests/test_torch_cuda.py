@@ -28,7 +28,12 @@ Protection's split it reads diag_keep = 0 and a device diag_add (one per
 trial in the batch), held to the plain version at D = 5 and 100 and the
 subsample widths m = 20 and 2622.  The threefry subsample drawn on the card
 equals the CPU's, and Minimax Protection's fits (alpha = 20, delta = 0 and
-0.01) on the card match the CPU's.
+0.01) on the card match the CPU's.  Data drawn on the card: uniforms,
+64-bit words, fold_in and float32 normals equal the CPU's bit for bit;
+float64 normals within 4 ulp of the CPU's (torch.log differs); a trial
+batch drawn in one pass gives each trial its single draw's bits; the
+batched dense engine's trials match their single-trial runs on the card;
+a Result saved on the card loads back on it with the same predictions.
 """
 import dataclasses
 import math
@@ -562,6 +567,107 @@ def test_minimax_fit_on_card_matches_cpu(card, engine, delta):
         for key in ("train_mse", "test_mse", "eta"):
             np.testing.assert_allclose(getattr(on_card.history, key),
                                        getattr(on_cpu.history, key), rtol=tol)
+
+
+# ------------------------------------------------ data drawn on the card
+
+DRAW_RANGES = [(0.0, 1.0), (1.0, 100.0), (40.0 * math.pi, 560.0 * math.pi)]
+
+
+def _ulp(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
+    it = torch.int32 if got.dtype == torch.float32 else torch.int64
+    a, b = (x.view(it).to(torch.int64) for x in (got, want))
+    lo = torch.iinfo(it).min
+    a = torch.where(a < 0, lo - a, a)
+    b = torch.where(b < 0, lo - b, b)
+    return (a - b).abs()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_card_uniforms_and_words_equal_cpu(card, dtype):
+    keys = prng.split(prng.PRNGKey(3), 4)
+    for lo, hi in DRAW_RANGES:
+        want = prng.uniform(keys, (5, 3001), dtype, lo, hi)
+        assert torch.equal(prng.uniform(keys.to(card), (5, 3001), dtype,
+                                        lo, hi).cpu(), want)
+    for width in (32, 64):
+        assert torch.equal(prng.bits(keys.to(card), (777,), width).cpu(),
+                           prng.bits(keys, (777,), width))
+    assert torch.equal(prng.fold_in(keys.to(card), 2**31 + 5).cpu(),
+                       prng.fold_in(keys, 2**31 + 5))
+
+
+@pytest.mark.parametrize("dtype,max_ulp", [(torch.float32, 0),
+                                           (torch.float64, 4)],
+                         ids=["f32", "f64"])
+def test_card_normals_within_ulp_of_cpu(card, dtype, max_ulp):
+    key = prng.PRNGKey(7)
+    got = prng.normal(key.to(card), (200_000,), dtype).cpu()
+    d = _ulp(got, prng.normal(key, (200_000,), dtype))
+    assert int(d.max()) <= max_ulp, (int(d.max()), float((d == 0).double().mean()))
+
+
+@pytest.mark.parametrize("source", ["friedman2", "correlated_linear", "cosine"])
+def test_card_trial_batch_equals_single_draws(card, source):
+    from repro_torch.data import sources as data_sources
+
+    n_attrs, groups = (None, [[j] for j in range(5)]) if source == "friedman2" \
+        else (6, [[0, 1], [2, 3], [4, 5]])
+    seeds = [0, 5, 2]
+    batch = data_sources.make_trial_batch(source, 3000, 700, seeds, groups,
+                                          noise=0.1, n_attrs=n_attrs,
+                                          device=card)
+    for b, seed in enumerate(seeds):
+        xtr, ytr, xte, yte = data_sources.make_dataset(
+            source, 3000, 700, seed, noise=0.1, n_attrs=n_attrs, device=card)
+        single = (data_sources.partition_columns(xtr, groups), ytr,
+                  data_sources.partition_columns(xte, groups), yte)
+        cpu = data_sources.make_dataset(source, 3000, 700, seed, noise=0.1,
+                                        n_attrs=n_attrs)
+        for got, want in zip(batch, single):
+            assert torch.equal(got[b], want)
+        for got, want in zip((xtr, ytr, xte, yte), cpu):      # normwise
+            assert float((got.cpu() - want).abs().max()) <= 2e-6 * max(
+                1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("alpha,delta", [(1.0, 0.0), (20.0, 0.01)])
+def test_card_dense_batch_matches_single_runs(card, alpha, delta):
+    """The batched dense engine on the card in float64: each trial's
+    history within 1e-10 of the single-trial dense run of its spec."""
+    dt = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        spec = api.ExperimentSpec(
+            data=api.DataSpec(n_train=400, n_test=200),
+            solver=api.SolverSpec(engine="dense", n_sweeps=2, eps=0.0,
+                                  alpha=alpha, delta=delta, minimax_steps=60))
+        rs = api.batch_fit(spec, 3, device="cuda")
+        for t, res in enumerate(rs):
+            one = api.fit(api.trial_spec(spec, t), device="cuda")
+            assert res.history.bytes_transmitted == one.history.bytes_transmitted
+            for key in ("train_mse", "test_mse", "eta"):
+                np.testing.assert_allclose(getattr(res.history, key),
+                                           getattr(one.history, key), rtol=1e-10)
+    finally:
+        torch.set_default_dtype(dt)
+
+
+def test_card_result_saves_and_loads_on_card(card, tmp_path):
+    spec = api.ExperimentSpec(data=api.DataSpec(n_train=500, n_test=200),
+                              solver=api.SolverSpec(engine="fused",
+                                                    use_kernel=True, n_sweeps=3))
+    res = api.fit(spec, device="cuda")
+    res.save(str(tmp_path))
+    back = api.load(str(tmp_path), device="cuda")
+    assert back.params.is_cuda and back.history.as_dict() == res.history.as_dict()
+    for name in ("params", "weights", "f"):
+        assert torch.equal(getattr(back, name), getattr(res, name))
+    x = res.data.xcols_test[:, :, 0].T.contiguous()
+    assert torch.equal(back.predict(x), res.predict(x))
+    for got, want in zip(back.data[:4], res.data[:4]):
+        assert torch.equal(got, want)
 
 
 # ------------------------------------------------------------- LM kernels

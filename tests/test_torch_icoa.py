@@ -139,14 +139,20 @@ def test_converged_record_matches_jax():
 def test_config_rejects_unported():
     """Minimax Protection and the dense engine validate; what still raises is
     the dense engine on a kernel (the reference has none: its Pallas Gram
-    cannot be differentiated) and a batched dense engine (ROADMAP A4b)."""
+    cannot be differentiated).  A batched dense engine runs: a batch of one
+    is the single-trial run."""
     ticoa.ICOAConfig(alpha=20.0, delta=0.1, engine="dense").validate()
     with pytest.raises(ValueError, match="pallas_call's JVP rule"):
         ticoa.ICOAConfig(engine="dense", use_kernel=True).validate()
-    xc, y, xt, yt = [torch.from_numpy(a) for a in _friedman(n=60)]
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A4b\b"):
-        ticoa.run_scan(TPoly(1, 4), ticoa.ICOAConfig(engine="dense"),
-                       xc[None], y[None], xt[None], yt[None])
+    xc, y, xt, yt = [torch.from_numpy(a.copy()) for a in _friedman(n=60)]
+    cfg = ticoa.ICOAConfig(engine="dense", n_sweeps=2, eps=0.0)
+    _, f_b, _, h_b = ticoa.run_scan(TPoly(1, 4), cfg, xc[None], y[None],
+                                    xt[None], yt[None])
+    state, _, h = ticoa.run(TPoly(1, 4), cfg, xc, y, xt, yt)
+    assert torch.equal(f_b[0], state.f)
+    for key in KEYS:
+        np.testing.assert_allclose(h_b[key][0].numpy(), h[key], rtol=1e-6,
+                                   err_msg=key)
 
 
 # ------------------------------------------------------------ solver knobs
