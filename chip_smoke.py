@@ -105,6 +105,27 @@ Phases, each fatal on failure (nothing is caught):
               dense run in float64, and one fp32 batched sweep timed; a
               card fit saved, loaded back on the card, its
               arrays, history, data and predictions equal bit for bit;
+  8c. transport  the transport layer on the kernels: the paper cell (3
+              sweeps, fused and incremental, use_kernel) on every topology
+              (full, ring, star, random_graph p=0.8 seed=3) x codec
+              (exact_f64/f32/bf16, int8_affine, topk_sparse k=64), each
+              against the CPU on the same data (exact codecs within 1e-4,
+              lossy ones within LOSSY_TOL) with bytes equal to the CPU's and
+              to the analytic price; byte budgets on star at 0.75 of one
+              sweep's price under both policies, single fits and 32-trial
+              batches (every trial's ledger within the budget and equal to
+              the CPU run_scan's on the same data, at least two distinct
+              under greedy_eta, whose batches launch B6/B8 with one agent
+              per trial); B6/B8 with one agent per trial at the deployment
+              shapes, each slice equal to the single-trial kernel bit for
+              bit, can_tx-false trials (and a single B7 with can_tx False by
+              value) keeping m_inv and s bitwise; the deployment cell on
+              ring + int8_affine, one fused and one incremental sweep, each
+              with a ledger of exactly 5,138,179,200 bytes, host-timed and
+              profiled (device busy, device ops per agent) beside phase 5;
+              an 8-trial fused batched sweep on star + int8_affine under
+              greedy_eta at 0.75 of its price, through batch_fit and again
+              timed alone on the same data;
   9. lm kernels  flash attention (B9), flash decode (B10) and WKV (B11)
               against their plain versions on the same card inputs (fp32:
               1e-5 normwise; bf16: 8e-3, about two bf16 roundings of the
@@ -177,8 +198,23 @@ B_DEPLOY, B_PAPER = 8, 32     # trials: deployment batch; the paper's Monte Carl
 SINGLE = ("gram", "row_gram", "probe_sweep", "commit_sweep")
 BATCHED = ("gram_batched", "row_gram_batched", "probe_sweep_batched",
            "commit_sweep_batched")
+PER_TRIAL = ("probe_sweep_batched_per_trial", "commit_sweep_batched_per_trial")
 LM = ("flash_attention", "flash_attention_tc", "flash_decode", "wkv")
 REPS, RUNS = 20, 5
+
+
+TRANSPORT_TOPOLOGIES = (("full", ()), ("ring", ()), ("star", ()),
+                        ("random_graph", (("p", 0.8), ("seed", 3))))
+TRANSPORT_CODECS = (("exact_f64", ()), ("exact_f32", ()), ("exact_bf16", ()),
+                    ("int8_affine", ()), ("topk_sparse", (("k", 64),)))
+# Card vs CPU on the same data through a lossy codec (phase transport): the
+# fp32 kernels and their plain versions differ by ~1e-7, and a payload value
+# that lands that close to a bucket edge (an int8 level, a bf16 rounding
+# midpoint, the k-th largest |x| of a topk row) is delivered a whole step
+# apart; one such step moves eta by about its share of the row's energy, up
+# to ~1/k (1.6% at k = 64).  The exact codecs are held at 1e-4.
+LOSSY_TOL = 5e-2
+RING_INT8_DEPLOY_BYTES = 5_138_179_200      # one ring + int8_affine sweep, D=100
 
 
 def log(msg: str) -> None:
@@ -756,7 +792,8 @@ def phase_kernels_batched(gram_ops, gram_ref, sweep_ops, sweep_ref):
 
 
 def expected_launches(engine: str, d: int, sweeps: int, batched: bool = False,
-                      split: bool = False, protected: bool = False) -> dict:
+                      split: bool = False, protected: bool = False,
+                      per_trial: bool = False) -> dict:
     """Launches of each kernel by core/icoa.py for `sweeps` sweeps: gram at
     record 0 (weights + eta) and, per sweep, the CovState build plus the
     record; row_gram twice per agent (probe + commit) in the incremental
@@ -765,8 +802,10 @@ def expected_launches(engine: str, d: int, sweeps: int, batched: bool = False,
     row product (row_gram, not the probe kernel); at delta > 0
     (`protected`) it runs the incremental engine.  A batch (run_scan)
     launches the batched kernels on the same schedule, one launch for all
-    trials, and no single-trial kernel.  The dense engine launches none.
-    No LM kernel runs."""
+    trials, and no single-trial kernel; with `per_trial` (a batch under a
+    byte budget with greedy_eta: each trial orders its own agents) every
+    batched probe and commit takes one agent per trial.  The dense engine
+    launches none.  No LM kernel runs."""
     inc = engine == "incremental" or protected
     if engine == "dense":
         counts = [0, 0, 0, 0]
@@ -777,8 +816,10 @@ def expected_launches(engine: str, d: int, sweeps: int, batched: bool = False,
     else:
         counts = [2 + 3 * sweeps, 0, d * sweeps, d * sweeps]
     zeros = [0] * 4
-    return dict(zip(SINGLE + BATCHED + LM,
-                    (zeros + counts if batched else counts + zeros) + [0] * len(LM)))
+    agents = counts[2:] if batched and per_trial else [0, 0]
+    return dict(zip(SINGLE + BATCHED + PER_TRIAL + LM,
+                    (zeros + counts if batched else counts + zeros)
+                    + agents + [0] * len(LM)))
 
 
 def fit_on_card(api, _build, spec, data, tag: str):
@@ -829,18 +870,23 @@ def phase_paper(api, _build):
 
 
 def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str,
-                  key=None) -> dict:
+                  key=None, light: bool = False) -> dict:
     """torch.profiler over one deployment sweep (one trial, or a batch of
     trials; `key` draws an alpha > 1 sweep's subsample): device busy time
     (sum of kernel durations; one stream, so they do not overlap) against
     the wall clock, the kernels that take it, and the host calls that wait
     on the device.  The full tables go to chiprun_out/profile_<engine>.txt.
-    Returns the wall and busy ms and the count of device operations."""
+    `light` records the device only, for sweeps of ~10^5 device operations
+    whose host events would take the profiler a minute to tabulate: no
+    waits, no tables, no trace.  Returns the wall and busy ms and the count
+    of device operations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] if light else [ProfilerActivity.CPU,
+                                                  ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         icoa.sweep(family, cfg, params, f, xcols, y, key)
         torch.cuda.synchronize()
@@ -867,6 +913,8 @@ def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str,
         f"{n_ops} device operations, {sum(waits.values())} host waits on the device")
     for name, us in top:
         log(f"[profile] {engine}:   {us / 1e3:8.2f} ms  {name[:90]}")
+    if light:
+        return {"wall_ms": wall_ms, "busy_ms": busy_ms, "ops": n_ops}
     for key, count in sorted(waits.items(), key=lambda kv: -kv[1])[:4]:
         log(f"[profile] {engine}:   {count} waits in {key[:120]}")
     prof.export_chrome_trace(os.path.join(HERE, "chiprun_out",
@@ -992,7 +1040,9 @@ def batch_on_card(api, _build, spec, n_trials: int, tag: str):
     want = expected_launches(spec.solver.engine, spec.data.resolved_n_agents,
                              spec.solver.n_sweeps, batched=True,
                              split=spec.solver.alpha > 1.0,
-                             protected=spec.solver.delta > 0.0)
+                             protected=spec.solver.delta > 0.0,
+                             per_trial=spec.transport.byte_budget is not None
+                             and spec.transport.policy == "greedy_eta")
     log(f"[{tag}] engine={spec.solver.engine} trials={n_trials} "
         f"sweeps={spec.solver.n_sweeps} batch_fit {secs:.3f} s "
         f"launches={json.dumps(counts)} expected={json.dumps(want)}")
@@ -1015,8 +1065,10 @@ HISTORY_KEYS = ("train_mse", "test_mse", "eta")
 # Named from the card (NVIDIA H100 80GB HBM3, 700 W): trial 17 lands 9.97e-2
 # from the CPU run under both engines and trial 31 4.94e-1 under the
 # incremental one, each within 8.1e-6 of a CPU run whose inputs moved by one
-# ulp.  Any other trial, or a knife edge with no such witness, fails.
-KNIFE_EDGES = {"incremental": (17, 31), "fused": (17,)}
+# ulp.  Since the standardisation sums in XLA's order (the data's last bits
+# moved), trial 31 lands 4.94e-1 from the CPU run under the fused engine
+# too.  Any other trial, or a knife edge with no such witness, fails.
+KNIFE_EDGES = {"incremental": (17, 31), "fused": (17, 31)}
 
 
 def moved_runs(icoa, family, cfg, data, seeds, n_moved: int = 8):
@@ -1776,6 +1828,248 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
+# ------------------------------------------------------- 8c. transport
+
+
+def _transport_spec(api, topo, codec, **kw):
+    return api.TransportSpec(topology=topo[0], topology_options=topo[1],
+                             codec=codec[0], codec_options=codec[1], **kw)
+
+
+def _card_vs_cpu(tag, hg, hc, tol):
+    """Histories finite, card within `tol` of the CPU (max relative), bytes
+    equal; returns the largest relative difference."""
+    require(hg.bytes_transmitted == hc.bytes_transmitted,
+            f"{tag}: bytes card {hg.bytes_transmitted} cpu {hc.bytes_transmitted}")
+    worst = 0.0
+    for key in ("train_mse", "test_mse", "eta"):
+        a, b = getattr(hg, key), getattr(hc, key)
+        require(len(a) == len(b) and all(map(math.isfinite, a)),
+                f"{tag}: {key} {a} vs {b}")
+        worst = max(worst, max_rel(a, b))
+    require(worst <= tol, f"{tag}: card vs cpu {worst:.3e} > {tol:g}")
+    return worst
+
+
+def check_per_trial_agents(sweep_ops, sweep_ref, dev) -> None:
+    """B6 and B8 with one agent per trial at B_DEPLOY trials of the
+    deployment shapes: slice b equals the single-trial kernel on agent i[b]
+    bit for bit, the launch equals the batched plain version with the same
+    agents, and a trial whose can_tx is false keeps m_inv and s bitwise."""
+    b, d, n, k = B_DEPLOY, D_DEPLOY, N_DEPLOY, K_STEPS
+    gen = torch.Generator(device=dev).manual_seed(11)
+    r = torch.randn((b, d, n), generator=gen, device=dev)
+    scenes = [spd_scene(d, gen, dev) for _ in range(b)]
+    m_inv, s, eta = (torch.stack(x).contiguous() for x in zip(*scenes))
+    delta = 0.05 * torch.randn((b, n), generator=gen, device=dev)
+    steps = torch.tensor([0.5 ** j for j in range(k)], device=dev) * math.sqrt(n)
+    agents = torch.tensor([3, 97, 0, 41, 41, 99, 12, 58], device=dev)
+    can = torch.tensor([True, False, True, True, False, True, True, True],
+                       device=dev)
+    probe = sweep_ops.probe_sweep(r, m_inv, s, eta, agents, steps)
+    commit = sweep_ops.commit_sweep(r, m_inv, s, eta, agents, delta, 1.0, 0.0,
+                                    eta - 1.0, can)
+    for t in range(b):
+        i = int(agents[t])
+        one_p = sweep_ops.probe_sweep(r[t], m_inv[t], s[t], eta[t], i, steps)
+        one_c = sweep_ops.commit_sweep(r[t], m_inv[t], s[t], eta[t], i, delta[t],
+                                       1.0, 0.0, eta[t] - 1.0, bool(can[t]))
+        require(all(torch.equal(g[t], w) for g, w in zip(probe, one_p)),
+                f"probe_sweep_batched per trial: trial {t} differs from the "
+                f"single kernel on agent {i}")
+        require(all(torch.equal(g[t], w) for g, w in zip(commit, one_c)),
+                f"commit_sweep_batched per trial: trial {t} differs from the "
+                f"single kernel on agent {i}")
+    for t in (1, 4):
+        require(not bool(commit[3][t]) and torch.equal(commit[0][t], m_inv[t])
+                and torch.equal(commit[1][t], s[t]),
+                f"commit_sweep_batched: trial {t} with can_tx false moved its state")
+    want_p = sweep_ref.probe_sweep_batched_ref(r, m_inv, s, eta, agents, steps)
+    for nm, g, w in zip(("etas", "cross", "p", "gnorm"), probe, want_p):
+        compare(f"probe_sweep_batched per trial .{nm}", g, w, 1e-4)
+    want_c = sweep_ref.commit_sweep_batched_ref(r, m_inv, s, eta, agents, delta,
+                                                1.0, 0.0, eta - 1.0, can)
+    require(torch.equal(commit[3], want_c[3]), "commit_sweep_batched per trial: "
+            "accept flags differ from the plain version")
+    compare("commit_sweep_batched per trial .s", commit[1], want_c[1], 1e-4)
+    single = sweep_ops.commit_sweep(r[0], m_inv[0], s[0], eta[0], 5, delta[0],
+                                    1.0, 0.0, eta[0] - 1.0, False)
+    require(not bool(single[3]) and torch.equal(single[0], m_inv[0])
+            and torch.equal(single[1], s[0]),
+            "commit_sweep: can_tx false (by value) moved the state")
+    log(f"[transport] B6/B8 with one agent per trial (agents "
+        f"{agents.tolist()}, can_tx {can.tolist()}): every slice equals the "
+        f"single-trial kernel on its agent bit for bit; can_tx-false trials "
+        f"kept m_inv and s bitwise; single-trial B7 with can_tx=False by value too")
+
+
+def phase_transport(api, _build, icoa, data_sources, sweep_ops, sweep_ref,
+                    alpha1_profiles):
+    """Phase 8c: the transport layer on the kernels.  (a) the paper cell
+    over every topology x codec, both engines; (b) byte budgets under both
+    policies, single fits and 32-trial batches, with B6/B8 taking one agent
+    per trial under greedy_eta; (c) the deployment width on ring + int8 and
+    a budgeted star batch."""
+    from repro_torch import transport as ttr
+
+    totals = {}
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+
+    def add(counts):
+        for k_, v_ in counts.items():
+            totals[k_] = totals.get(k_, 0) + v_
+
+    # --- (a) the paper cell, every topology x codec, fused and incremental
+    base = api.DataSpec()
+    data = base.build("cuda")
+    worst = {}
+    for topo in TRANSPORT_TOPOLOGIES:
+        for codec in TRANSPORT_CODECS:
+            tspec = _transport_spec(api, topo, codec)
+            price = ttr.icoa_sweep_cost(tspec.resolve(5), base.n_train,
+                                        split=False, row_wise=True)
+            for engine in ("fused", "incremental"):
+                spec = api.ExperimentSpec(transport=tspec, solver=api.SolverSpec(
+                    engine=engine, use_kernel=True, n_sweeps=3, eps=0.0))
+                tag = f"transport {topo[0]}/{codec[0]}/{engine}"
+                res, counts, _ = fit_on_card(api, _build, spec, data, tag)
+                add(counts)
+                cpu = api.fit(spec, device="cpu", data=data)
+                lossy = not ttr.build_codec(*codec).is_identity_for(torch.float32)
+                w = _card_vs_cpu(tag, res.history, cpu.history,
+                                 LOSSY_TOL if lossy else 1e-4)
+                require(res.history.bytes_transmitted[1:] == [float(price)] * 3,
+                        f"{tag}: bytes {res.history.bytes_transmitted} != {price}/sweep")
+                worst[(topo[0], codec[0], engine)] = (w, price,
+                                                      res.history.test_mse[-1])
+    for (t, c, e), (w, price, mse) in worst.items():
+        log(f"[transport] paper {t:12s} {c:11s} {e:11s}: {price:>8d} bytes/sweep, "
+            f"card vs cpu max rel {w:.3e}, test MSE {mse:.5f}")
+
+    # --- (b) budgets on star: 0.75 x one unbudgeted sweep, both policies
+    star = _transport_spec(api, ("star", ()), ("exact_f64", ()))
+    budget = 0.75 * ttr.icoa_sweep_cost(star.resolve(5), base.n_train,
+                                        split=False, row_wise=True)
+    dd = base
+    seeds = list(range(B_PAPER))
+    batch_cpu = [a.cpu() for a in data_sources.make_trial_batch(
+        dd.source, dd.n_train, dd.n_test, seeds, dd.groups, device="cuda")]
+    for policy in ("greedy_eta", "truncate"):
+        tspec = dataclasses.replace(star, byte_budget=budget, policy=policy)
+        for engine in ("fused", "incremental"):
+            spec = api.ExperimentSpec(transport=tspec, solver=api.SolverSpec(
+                engine=engine, use_kernel=True, n_sweeps=3, eps=0.0))
+            tag = f"transport budget {policy}/{engine}"
+            res, counts, _ = fit_on_card(api, _build, spec, data, tag)
+            add(counts)
+            cpu = api.fit(spec, device="cpu", data=data)
+            _card_vs_cpu(tag, res.history, cpu.history, 1e-4)
+            spent = sum(res.history.bytes_transmitted)
+            require(spent <= budget, f"{tag}: spent {spent} > budget {budget}")
+            rs, counts, secs = batch_on_card(api, _build, spec, B_PAPER,
+                                             f"{tag} batch")
+            add(counts)
+            per_trial = counts["probe_sweep_batched_per_trial"] + counts[
+                "commit_sweep_batched_per_trial"]
+            if policy == "greedy_eta" and engine == "fused":
+                require(counts["probe_sweep_batched_per_trial"] == 5 * 3 and
+                        counts["commit_sweep_batched_per_trial"] == 5 * 3,
+                        f"{tag}: per-trial launches {counts}")
+            cfg = spec.solver.icoa_config(spec.resolved_transport())
+            ref = icoa.run_scan(rs[0].family, cfg, *batch_cpu, seeds=seeds)[3]
+            ledgers = [a.history.bytes_transmitted for a in rs]
+            require(ledgers == ref["trial_bytes"],
+                    f"{tag} batch: card ledgers differ from the cpu port's")
+            require(all(sum(b) <= budget for b in ledgers),
+                    f"{tag} batch: a trial overspent its budget")
+            distinct = len({tuple(b) for b in ledgers})
+            if policy == "greedy_eta":
+                require(distinct > 1, f"{tag} batch: all {B_PAPER} ledgers equal")
+            log(f"[transport] {tag}: single spent {spent:.0f} of {budget:.0f}; "
+                f"batch of {B_PAPER} in {secs:.3f} s, {distinct} distinct ledgers "
+                f"(spent {min(map(sum, ledgers)):.0f}..{max(map(sum, ledgers)):.0f}), "
+                f"equal to the cpu port's; per-trial-agent launches {per_trial}")
+    check_per_trial_agents(sweep_ops, sweep_ref, dev)
+
+    # --- (c) the deployment width: ring + int8_affine, then a budgeted star batch
+    dspec = api.DataSpec(source="correlated_linear", n_attrs=D_DEPLOY,
+                         n_train=N_DEPLOY, n_test=N_TEST_DEPLOY)
+    deploy = dspec.build("cuda")
+    ring = _transport_spec(api, ("ring", ()), ("int8_affine", ()))
+    for engine in ("fused", "incremental"):
+        spec = api.ExperimentSpec(data=dspec, transport=ring, solver=api.SolverSpec(
+            engine=engine, use_kernel=True, n_sweeps=1))
+        family = spec.agent.resolve(n_cols=1)
+        cfg = spec.solver.icoa_config(spec.resolved_transport())
+        state = icoa.init_state(family, deploy.xcols, deploy.y)
+        _build.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, f, led = icoa.sweep(family, cfg, state.params, state.f,
+                                    deploy.xcols, deploy.y)
+        torch.cuda.synchronize()
+        sweep_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(_build.LAUNCHES)
+        add(counts)
+        require(led.spent == RING_INT8_DEPLOY_BYTES,
+                f"deploy ring/int8 {engine}: ledger {led.spent} != "
+                f"{RING_INT8_DEPLOY_BYTES}")
+        require(bool(torch.isfinite(f).all()), f"deploy ring/int8 {engine}: f")
+        prof = profile_sweep(icoa, family, cfg, params, f, deploy.xcols, deploy.y,
+                             f"ring_int8_{engine}", light=True)
+        base_prof = alpha1_profiles[engine]
+        log(f"[transport] deploy ring/int8 {engine}: one sweep {sweep_ms:.1f} ms "
+            f"(full/exact_f64, phase 5: {base_prof['sweep_ms']:.1f} ms), ledger "
+            f"{led.spent} bytes; profiled: busy {prof['busy_ms']:.1f} ms of "
+            f"{prof['wall_ms']:.1f} ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), "
+            f"{prof['ops'] / D_DEPLOY:.1f} device ops per agent (full/exact_f64: "
+            f"busy {base_prof['busy_ms']:.1f} ms, "
+            f"{base_prof['ops'] / D_DEPLOY:.1f} ops per agent); launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    del deploy
+    star_i8 = _transport_spec(api, ("star", ()), ("int8_affine", ()))
+    price = ttr.icoa_sweep_cost(star_i8.resolve(D_DEPLOY), N_DEPLOY, split=False,
+                                row_wise=True)
+    require(price == 104_336_496, f"deploy star/int8 price {price}")
+    spec = api.ExperimentSpec(
+        data=dspec, transport=dataclasses.replace(star_i8, byte_budget=0.75 * price,
+                                                  policy="greedy_eta"),
+        solver=api.SolverSpec(engine="fused", use_kernel=True, n_sweeps=1))
+    rs, counts, secs = batch_on_card(api, _build, spec, B_DEPLOY,
+                                     "transport deploy star batch")
+    add(counts)
+    require(counts["probe_sweep_batched_per_trial"] == D_DEPLOY and
+            counts["commit_sweep_batched_per_trial"] == D_DEPLOY,
+            f"deploy star batch: per-trial launches {counts}")
+    ledgers = [a.history.bytes_transmitted[1] for a in rs]
+    require(all(b <= 0.75 * price for b in ledgers), f"deploy star batch: {ledgers}")
+    require(all(math.isfinite(e) for a in rs for e in a.history.eta),
+            "deploy star batch: eta not finite")
+    # the same batched sweep again from the batch's own data, timed alone
+    seeds = list(range(B_DEPLOY))
+    xcols, y = data_sources.make_trial_batch(
+        dspec.source, dspec.n_train, dspec.n_test, seeds, dspec.groups,
+        n_attrs=dspec.n_attrs, device="cuda")[:2]
+    family = spec.agent.resolve(n_cols=1)
+    cfg = spec.solver.icoa_config(spec.resolved_transport())
+    state = icoa.init_state(family, xcols, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, f, led = icoa.sweep(family, cfg, state.params, state.f, xcols, y)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    require(list(led.spent) == ledgers, f"deploy star batch: the timed sweep's "
+            f"ledgers {led.spent} != batch_fit's {ledgers}")
+    log(f"[transport] deploy star/int8 greedy_eta, budget {0.75 * price:.0f} "
+        f"(0.75 x {price}): {B_DEPLOY} trials, one fused batched sweep, "
+        f"batch_fit {secs:.3f} s (data draw included), the sweep alone "
+        f"{batch_ms:.1f} ms (phase 7's unbudgeted full/exact_f64 batched sweep: "
+        f"see [deploy-batch]); ledgers {ledgers}")
+    log(f"[transport] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 # ------------------------------------------------------------ 9. LM kernels
 
 
@@ -2313,6 +2607,10 @@ def main() -> None:
     rows += phase_lm_kernels(_build, fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref,
                              get_config)
     stamp("lm kernels")
+    for k_, v_ in phase_transport(api, _build, icoa, data_sources, sweep_ops,
+                                  sweep_ref, alpha1_profiles).items():
+        launches[k_] += v_
+    stamp("transport")
     launches.update(serve_full(lm, _build, "smollm-360m",
                                {"flash_attention": 32, "flash_attention_tc": 32,
                                 "flash_decode": 32 * 64}))

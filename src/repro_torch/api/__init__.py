@@ -22,8 +22,9 @@ with no CUDA device they raise instead of carrying on.  On the card,
 `use_kernel=True` sends every product the JAX package computes in a Pallas
 kernel through the hand-written CUDA kernels of repro_torch.kernels — the
 batched kernels for `batch_fit`.  Every solver of the JAX package runs on
-its default transport: icoa on the dense, incremental and fused engines at
-any alpha and delta, and the averaging and residual-refitting baselines.
+every transport of it (topology, codec, byte budget and policy): icoa on
+the dense, incremental and fused engines at any alpha and delta, and the
+averaging and residual-refitting baselines.
 `sweep(spec, grid, trials=k)` runs a grid of specs, each as k trials.
 Data are drawn on the device from the JAX package's key stream, so
 `fit(spec)` reproduces `repro.api.fit(spec)` from the seed on.

@@ -155,9 +155,9 @@ class ResultSet:
     @property
     def cumulative_bytes(self) -> np.ndarray:
         """Cumulative measured wire bytes per record — defined only when the
-        per-trial ledgers agree (always, for this slice's unbudgeted
-        transport); a divergence names the first offending trial and
-        record."""
+        per-trial ledgers agree (always without a byte budget; under one
+        with greedy_eta the trials' orders may differ); a divergence names
+        the first offending trial and record."""
         b = self.stack("bytes_transmitted")
         scale = max(float(np.max(np.abs(b))), 1.0)
         dev = np.abs(b - b[0:1])

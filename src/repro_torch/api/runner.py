@@ -91,7 +91,9 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
     solver); `compiled=False` runs `n_trials` serial `fit` calls instead.
     Trial t equals `fit(trial_spec(spec, t))` on the same device up to the
     order of fp32 sums; the batched icoa path ignores `solver.eps` and
-    reports fit's stopping record as History.converged_at."""
+    reports fit's stopping record as History.converged_at.  Each trial
+    records its own ledger's bytes (under a byte budget with greedy_eta the
+    trials' orders, and so their spends, may differ)."""
     dev = resolve_device(device, "repro_torch.api.batch_fit")
     spec.validate()
     if n_trials < 1:
@@ -127,20 +129,21 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
         params, f, weights, hist = icoa.run_scan(
             family, cfg, xcols, y, xcols_test, y_test,
             seeds=[spec.seed + t for t in range(n_trials)])
-        bytes_hist = list(hist["bytes"])
+        trial_bytes = hist["trial_bytes"]
         conv = hist["converged_at"].cpu().tolist()
     elif solver.name == "averaging":
         params, f, hist = baselines.averaging(family, xcols, y, xcols_test,
                                               y_test)
         hist = {k: v[:, None] for k, v in hist.items()}    # one record
         weights = torch.full((n_trials, d), 1.0 / d, dtype=f.dtype, device=dev)
-        bytes_hist = bytes_history(spec, d, n, 1)
+        trial_bytes = [bytes_history(spec, d, n, 1)] * n_trials
     else:
         params, f, hist = baselines.residual_refitting(
-            family, xcols, y, xcols_test, y_test, n_cycles=solver.n_sweeps)
+            family, xcols, y, xcols_test, y_test, n_cycles=solver.n_sweeps,
+            codec=spec.resolved_transport().codec)
         # the ring ensemble is the SUM of the agents (see api.solvers)
         weights = torch.ones((n_trials, d), dtype=f.dtype, device=dev)
-        bytes_hist = bytes_history(spec, d, n, solver.n_sweeps)
+        trial_bytes = [bytes_history(spec, d, n, solver.n_sweeps)] * n_trials
 
     # one device-to-host transfer per history field, not one per scalar
     host = {k: hist[k].cpu().tolist() for k in ("train_mse", "test_mse", "eta")}
@@ -148,7 +151,7 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
     for t in range(n_trials):
         history = History(train_mse=host["train_mse"][t],
                           test_mse=host["test_mse"][t], eta=host["eta"][t],
-                          bytes_transmitted=list(bytes_hist),
+                          bytes_transmitted=list(trial_bytes[t]),
                           converged_at=None if conv is None else int(conv[t]))
         results.append(Result(spec=trial_spec(spec, t), family=family,
                               params=params[t], weights=weights[t], f=f[t],

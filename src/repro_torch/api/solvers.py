@@ -94,7 +94,7 @@ def _fit_refit(spec: ExperimentSpec, data: Dataset, family) -> Result:
     d, n = data.xcols.shape[0], data.y.shape[0]
     params, f, hist = baselines.residual_refitting(
         family, data.xcols, data.y, data.xcols_test, data.y_test,
-        n_cycles=spec.solver.n_sweeps)
+        n_cycles=spec.solver.n_sweeps, codec=spec.resolved_transport().codec)
     history = History(train_mse=hist["train_mse"],
                       test_mse=hist.get("test_mse", []), eta=hist["eta"],
                       bytes_transmitted=bytes_history(spec, d, n,

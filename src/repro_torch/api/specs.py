@@ -3,10 +3,11 @@
 The spec tree and its JSON layout are the JAX package's, field for field, so
 a spec file written by `repro` loads here (`spec_from_dict`, strict on
 unknown keys).  Validation runs in two steps: the JAX package's own checks
-(unknown registry entries, out-of-range knobs -> SpecError), then this
-slice's limits: every field whose feature is not ported yet raises
-NotPortedError naming the ROADMAP item it waits for — never silently
-ignored.  BackendSpec's Monte-Carlo knobs (trial_devices, compute_dtype,
+(unknown registry entries and options, out-of-range knobs, a byte budget
+on an engine that cannot gate -> SpecError), then this port's limits:
+every field whose feature is not ported yet raises NotPortedError naming
+the ROADMAP item it waits for — never silently ignored.
+`TransportSpec.resolve(d)` builds the run's `transport.Transport`.  BackendSpec's Monte-Carlo knobs (trial_devices, compute_dtype,
 donate) are read by batch_fit only, in the JAX package as here.
 
 `FaultSpec` and `ObsSpec` are copies of the JAX package's spec dataclasses
@@ -28,7 +29,8 @@ from repro_torch.core.icoa import ICOAConfig, NotPortedError
 from repro_torch.data import sources as data_sources
 from repro_torch.data.partition import PARTITIONS, make_groups, validate_partition
 from repro_torch.data.sources import SOURCES
-from repro_torch.transport import default_transport
+from repro_torch import transport as transport_lib
+from repro_torch.transport import CODECS, POLICIES, TOPOLOGIES, TransportError
 
 __all__ = [
     "DataSpec", "AgentSpec", "SolverSpec", "BackendSpec", "TransportSpec",
@@ -40,9 +42,6 @@ _SOLVERS = ("icoa", "averaging", "residual_refitting")
 _BACKENDS = ("local", "shard_map")
 _CHECKS = ("off", "raise")
 _COMPUTE_DTYPES = ("bfloat16", "float32", "float64")
-_TOPOLOGIES = ("full", "random_graph", "ring", "star")
-_CODECS = ("exact_bf16", "exact_f32", "exact_f64", "int8_affine", "topk_sparse")
-_POLICIES = ("greedy_eta", "truncate")
 _TAPS = ("accepts", "budget_rejects", "codec_error", "eta", "fault_retries", "s")
 
 
@@ -222,6 +221,11 @@ class SolverSpec:
 
 @dataclasses.dataclass(frozen=True)
 class TransportSpec:
+    """The communication regime of a run: `topology` and `codec` name the
+    transport registries (options as tuple-of-pairs), `byte_budget` caps
+    the run's measured wire bytes, spent in `policy` order (greedy_eta:
+    the most promising cached-probe rows first; truncate: round-robin)."""
+
     topology: str = "full"
     topology_options: Tuple[Tuple[str, Any], ...] = ()
     codec: str = "exact_f64"
@@ -230,22 +234,45 @@ class TransportSpec:
     policy: str = "greedy_eta"
 
     def validate(self) -> None:
-        if self.topology not in _TOPOLOGIES:
+        if self.topology not in TOPOLOGIES:
             raise SpecError(f"unknown topology {self.topology!r}; "
-                            f"known: {sorted(_TOPOLOGIES)}")
-        if self.codec not in _CODECS:
+                            f"registered: {sorted(TOPOLOGIES)}")
+        if self.codec not in CODECS:
             raise SpecError(f"unknown codec {self.codec!r}; "
-                            f"known: {sorted(_CODECS)}")
-        if self.policy not in _POLICIES:
+                            f"registered: {sorted(CODECS)}")
+        for label, opts, known in (
+                ("topology", self.topology_options,
+                 TOPOLOGIES[self.topology].options),
+                ("codec", self.codec_options, CODECS[self.codec].options)):
+            for name, _ in opts:
+                if name not in known:
+                    raise SpecError(
+                        f"{label} {getattr(self, label)!r} has no option "
+                        f"{name!r}; valid: {sorted(known)}")
+        if self.policy not in POLICIES:
             raise SpecError(f"unknown budget policy {self.policy!r}; "
-                            f"pick one of {_POLICIES}")
+                            f"pick one of {POLICIES}")
         if self.byte_budget is not None and not (
                 math.isfinite(self.byte_budget) and self.byte_budget > 0):
             raise SpecError(f"byte_budget must be positive and finite (got "
                             f"{self.byte_budget}); use None for unbudgeted")
-        if self != TransportSpec():
-            raise _not_ported("a non-default TransportSpec (topology, codec, "
-                              "byte budget or policy)", "A9")
+
+    def resolve(self, n_agents: int) -> transport_lib.Transport:
+        """The Transport of a D-agent run (graph tables, codec, budget)."""
+        self.validate()
+        if self == TransportSpec():
+            return transport_lib.default_transport(n_agents)
+        try:
+            topo = transport_lib.build_topology(
+                self.topology, n_agents, options=self.topology_options)
+            codec = transport_lib.build_codec(self.codec,
+                                              options=self.codec_options)
+            return transport_lib.Transport(topology=topo, codec=codec,
+                                           byte_budget=self.byte_budget,
+                                           policy=self.policy)
+        except (TransportError, TypeError) as e:
+            # TypeError: a wrong-typed option value (names are checked above)
+            raise SpecError(f"transport: {e}") from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -339,12 +366,21 @@ class ExperimentSpec:
         self.solver.validate()
         self.backend.validate()
         self.transport.validate()
+        if self.transport.byte_budget is not None:
+            if (self.solver.name != "icoa"
+                    or self.solver.engine not in ("incremental", "fused")):
+                raise SpecError(
+                    "byte_budget schedules gate per-row broadcasts off the "
+                    "carried CovState — they need solver 'icoa' with "
+                    "engine='incremental' or 'fused' (averaging transmits "
+                    "nothing; the refit ring and the dense oracle have no "
+                    "per-row broadcast to skip)")
         self.faults.validate()
         self.obs.validate()
 
     def resolved_transport(self):
-        """The default transport — the only one this slice accepts."""
-        return default_transport(self.data.resolved_n_agents)
+        """The run's Transport (TransportSpec.resolve at its agent count)."""
+        return self.transport.resolve(self.data.resolved_n_agents)
 
 
 # ------------------------------------------------------------- serialisation

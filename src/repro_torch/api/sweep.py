@@ -10,9 +10,11 @@ order, last axis fastest). `grid_specs` exposes the spec enumeration alone so
 callers that need per-run timing or custom scheduling can drive `fit`
 themselves. `zip_specs` varies several fields TOGETHER (paired, not crossed).
 The paper's trade-off grids run: `{"solver.alpha": [1, 20, 100],
-"solver.delta": [0, 0.01]}`, or the solver names themselves.  A grid point
-this port does not run yet (a lossy codec, say) raises its NotPortedError
-when it is fitted.
+"solver.delta": [0, 0.01]}`, the solver names themselves, or the
+transport's axes (`{"transport.codec": ["exact_f64", "int8_affine"],
+"transport.topology": ["full", "ring"]}`).  A grid point this port does
+not run yet (a fault model, say) raises its NotPortedError when it is
+fitted.
 """
 from __future__ import annotations
 

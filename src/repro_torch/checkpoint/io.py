@@ -10,7 +10,10 @@ package's layout, so either package reads the other's files:
                      structure written as jax.tree_util writes it
 
 bfloat16 leaves are stored as float32 (numpy has no bfloat16) and cast back
-on restore.  No pytree library: the tree walk is written out below.
+on restore.  A Python int or float leaf (a byte ledger's `spent`, say) is
+stored as a 0-d array, int64 for an int, as jax stores a scalar under
+jax_enable_x64, and restored as the like's Python type.  No pytree
+library: the tree walk is written out below.
 """
 from __future__ import annotations
 
@@ -69,6 +72,8 @@ def _to_numpy(leaf) -> np.ndarray:
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
+    if isinstance(leaf, int) and not isinstance(leaf, bool):
+        return np.asarray(leaf, dtype=np.int64)
     return np.asarray(leaf)
 
 
@@ -94,12 +99,17 @@ def _rebuild(like: Any, leaves) -> Any:
 
 def restore_checkpoint(directory: str, step: int, like: Any) -> Any:
     """Restore into the structure of `like`: each leaf cast to the dtype of
-    its tensor in `like`, on that tensor's device."""
+    its tensor in `like`, on that tensor's device (a Python int or float
+    leaf of `like` comes back as that type)."""
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
     out = []
     with np.load(path) as data:
         for p, leaf in _leaves(like):
-            t = torch.from_numpy(np.array(data[_SEP.join(p)]))
+            arr = np.array(data[_SEP.join(p)])
+            if not isinstance(leaf, torch.Tensor):
+                out.append(type(leaf)(arr.item()))
+                continue
+            t = torch.from_numpy(arr)
             out.append(t.to(device=leaf.device, dtype=leaf.dtype))
     return _rebuild(like, iter(out))
 

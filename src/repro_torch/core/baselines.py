@@ -11,8 +11,9 @@ error to zero — which is why it overtrains (paper Fig. 1).
 Both take an optional leading Monte-Carlo trial axis — xcols (B, D, N, C),
 y (B, N) — in place of the JAX package's `averaging_scan` /
 `residual_refitting_scan` under vmap: the same math on every trial at once,
-the records then (B,) tensors.  Only the default (exact) codec is ported, so
-an agent receives the leave-me-out ensemble sum as it was sent.
+the records then (B,) tensors.  The refit ring's payload — the
+leave-me-out ensemble sum each updater receives — passes the transport's
+codec once (`_loo_residual`); an identity codec keeps the plain expression.
 """
 from __future__ import annotations
 
@@ -24,6 +25,17 @@ from repro_torch.core import covariance as cov
 from repro_torch.core import ensemble
 
 __all__ = ["averaging", "residual_refitting"]
+
+
+def _loo_residual(codec, y: torch.Tensor, f_sum: torch.Tensor,
+                  f_i: torch.Tensor) -> torch.Tensor:
+    """Agent i's refit target from what it receives: the leave-me-out
+    ensemble sum through the codec, coded once.  No codec, or one that is
+    the identity for the dtype, keeps y - f_sum + f_i bit for bit (the
+    algebraically equal regrouping differs by ulps)."""
+    if codec is None or codec.is_identity_for(f_sum.dtype):
+        return y - f_sum + f_i
+    return y - codec.roundtrip(f_sum - f_i)
 
 
 def _fit_all(family, xcols: torch.Tensor, y: torch.Tensor):
@@ -63,9 +75,10 @@ def averaging(family, xcols: torch.Tensor, y: torch.Tensor,
 def residual_refitting(family, xcols: torch.Tensor, y: torch.Tensor,
                        xcols_test: Optional[torch.Tensor] = None,
                        y_test: Optional[torch.Tensor] = None,
-                       n_cycles: int = 30):
+                       n_cycles: int = 30, codec=None):
     """ICEA ring: the ensemble prediction is the SUM of the agents; each
-    agent in turn refits y minus the others' sum.  Returns (params, f, hist)
+    agent in turn refits y minus the others' sum, received through `codec`
+    (transport.Codec; None: as sent).  Returns (params, f, hist)
     with one record per cycle of train_mse, eta and (with test data)
     test_mse: lists of floats for one trial, (B, n_cycles) tensors for a
     batch.  Nothing in the loop waits for the device."""
@@ -77,7 +90,7 @@ def residual_refitting(family, xcols: torch.Tensor, y: torch.Tensor,
     for _ in range(n_cycles):
         for i in range(d):
             # the leave-agent-i-out sum is what crosses the wire to agent i
-            residual = y - f.sum(dim=-2) + f[..., i, :]
+            residual = _loo_residual(codec, y, f.sum(dim=-2), f[..., i, :])
             p_i = family.fit(None, xcols[..., i, :, :], residual)
             if params is None:
                 params = torch.zeros((*lead, d, p_i.shape[-1]), dtype=p_i.dtype,

@@ -22,8 +22,10 @@ a0 and m_inv (B, D, D), s (B, D), eta_tilde (B,) — the twin of the JAX
 package's covstate under the trial vmap.  `build`, `row_product`,
 `row_update_vector`, `eta_probe`, `s_probe`, `robust_eta_probe` and
 `apply_inverse_update` take such a state, with agent i shared by the batch
-(every trial updates the same agent at the same time) and u of shape
-(B, D), or (B, K, D) for a step schedule.
+(every trial updates the same agent at the same time) or, where a budget
+policy orders each trial's agents (transport.policy.greedy_order), one
+agent per trial as a (B,) int64 device tensor; u of shape (B, D), or
+(B, K, D) for a step schedule (core.trial_index indexes such an agent).
 
 Under Minimax Protection (alpha > 1) `build(exact_diag=)` splices the exact
 local variances into the subsample's Gram (Sec 4.1) and
@@ -40,11 +42,11 @@ import torch
 from repro_torch.core import covariance as cov
 from repro_torch.core import minimax
 from repro_torch.core.ensemble import _JITTER
+from repro_torch.core.trial_index import add_at, pick, put
 
 __all__ = ["CovState", "build", "refresh", "row_product", "row_update_vector",
            "eta_probe", "s_probe", "robust_eta_probe", "apply_inverse_update",
            "apply_row_update"]
-
 
 class CovState(NamedTuple):
     r_sub: torch.Tensor       # (D, m) residual matrix view (transmitted rows)
@@ -109,9 +111,9 @@ def row_update_vector(state: CovState, i: int, delta_sub: torch.Tensor,
     m = state.r_sub.shape[-1]
     w = row_product(delta_sub, state.r_sub, use_kernel=use_kernel) / m
     if ddiag is not None:
-        w[..., i] = 0.5 * ddiag
+        put(w, i, -1, 0.5 * ddiag)
     elif delta_sub.dim() == 2:
-        w[:, i] += torch.sum(delta_sub * delta_sub, dim=-1) / (2.0 * m)
+        add_at(w, i, 1, torch.sum(delta_sub * delta_sub, dim=-1) / (2.0 * m))
     else:
         w[i] += torch.dot(delta_sub, delta_sub) / (2.0 * m)
     return w
@@ -134,10 +136,10 @@ def _smw_pieces_batched(state: CovState, i: int, u: torch.Tensor):
     """`_smw_pieces` per trial: u (B, K, D) against m_inv (B, D, D); the
     per-trial scalars come back (B, 1) and the per-probe ones (B, K)."""
     m_inv = state.m_inv
-    z1 = m_inv[:, i]                             # (B, D): M e_i
+    z1 = pick(m_inv, i, 1)                       # (B, D): M e_i
     z2 = u @ m_inv.mT                            # (B, K, D): M u, row by row
-    k11 = m_inv[:, i, i, None]
-    k12 = 1.0 + z2[..., i]
+    k11 = pick(z1, i, 1)[:, None]
+    k12 = 1.0 + pick(z2, i, -1)
     k22 = torch.sum(u * z2, dim=-1)
     det = k11 * k22 - k12 * k12
     return z1, z2, k11, k12, k22, det
@@ -146,7 +148,7 @@ def _smw_pieces_batched(state: CovState, i: int, u: torch.Tensor):
 def _eta_probe_batched(state: CovState, i: int, u: torch.Tensor) -> torch.Tensor:
     u3 = u if u.dim() == 3 else u[:, None, :]
     _, _, k11, k12, k22, det = _smw_pieces_batched(state, i, u3)
-    t1 = state.s[:, i, None]
+    t1 = pick(state.s, i, 1)[:, None]
     t2 = (u3 @ state.s[..., None])[..., 0]
     eta = state.eta_tilde[:, None] - (k22 * t1 * t1 - 2.0 * k12 * t1 * t2
                                       + k11 * t2 * t2) / det
@@ -171,7 +173,7 @@ def s_probe(state: CovState, i: int, u: torch.Tensor) -> torch.Tensor:
     if state.m_inv.dim() == 3:
         u3 = u if u.dim() == 3 else u[:, None, :]
         z1, z2, k11, k12, k22, det = _smw_pieces_batched(state, i, u3)
-        t1 = state.s[:, i, None]
+        t1 = pick(state.s, i, 1)[:, None]
         t2 = (u3 @ state.s[..., None])[..., 0]
         z1 = z1[:, None, :]
         s = state.s[:, None, :]
@@ -197,8 +199,8 @@ def robust_eta_probe(state: CovState, i: int, u: torch.Tensor, delta: float,
     if a0.dim() == 3 and u.dim() == 3:
         a0 = a0[:, None]
     a0p = a0.expand(*u.shape[:-1], *a0.shape[-2:]).clone()
-    a0p[..., i, :] += u
-    a0p[..., :, i] += u                   # (i, i) gains 2 u_i, as in JAX
+    add_at(a0p, i, -2, u)
+    add_at(a0p, i, -1, u)                 # (i, i) gains 2 u_i, as in JAX
     sp = s_probe(state, i, u)
     ap = minimax.robust_weights(a0p, delta, steps=steps, lr=lr,
                                 a_init=sp / torch.sum(sp, dim=-1, keepdim=True))
@@ -216,7 +218,7 @@ def _apply_inverse_update_batched(state: CovState, i: int, u: torch.Tensor):
     m_inv = state.m_inv - (k22[:, None, None] * outer(z1, z1)
                            - k12[:, None, None] * (outer(z1, z2) + outer(z2, z1))
                            + k11[:, None, None] * outer(z2, z2)) / det[:, None, None]
-    t1 = state.s[:, i]
+    t1 = pick(state.s, i, 1)
     t2 = torch.sum(u * state.s, dim=-1)
     c1 = (k22 * t1 - k12 * t2) / det
     c2 = (k11 * t2 - k12 * t1) / det

@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.ensemble import eta_tilde_from_predictions
+from repro_torch.core.trial_index import pick
 
 __all__ = ["agent_gradient", "all_agent_gradients", "closed_form_gradient",
            "cached_row_gradient"]
@@ -53,7 +54,8 @@ def cached_row_gradient(v: torch.Tensor, r_sub: torch.Tensor, i: int,
                         exclude_self: bool = False) -> torch.Tensor:
     """Closed-form probe gradient of agent i over the transmitted positions:
     v (D,), r_sub (D, m) -> (m,), or per trial v (B, D), r_sub (B, D, m) ->
-    (B, m).  v is the cached s = (A0 + jitter I)^{-1} 1, or the robust
+    (B, m), agent i shared or one per trial (core.trial_index).  v is the
+    cached s = (A0 + jitter I)^{-1} 1, or the robust
     weights a* under Minimax Protection (the Danskin term has the same
     shape).
 
@@ -64,7 +66,7 @@ def cached_row_gradient(v: torch.Tensor, r_sub: torch.Tensor, i: int,
         cross = v @ r_sub
     else:
         cross = (v[..., None, :] @ r_sub)[..., 0, :]
-    vi = v[..., i, None]
+    vi = pick(v, i, -1)[..., None]
     if exclude_self:
-        cross = cross - vi * r_sub[..., i, :]
+        cross = cross - vi * pick(r_sub, i, -2)
     return (2.0 / r_sub.shape[-1]) * vi * cross

@@ -51,6 +51,15 @@ and the solve state are per trial.  With use_kernel every product goes to
 the batched kernels, one launch per agent for the whole batch.  The dense
 engine takes the batch as it is: it runs one trial as a batch of one.
 
+Transport (cfg.transport, repro_torch.transport): the sweep-start gather
+and every candidate row pass the codec relay before they reach the shared
+state, and the ledger charges their bytes.  Under a byte budget the
+incremental and fused engines offer the budget in the policy's order and a
+broadcast that does not fit is not committed; every gate of a sweep is
+settled on the host at its start (`_schedule`), so the agent loop still
+never waits for the device, and under greedy_eta a batch's trials each
+update their own agent at every slot (core.trial_index).
+
 Keys follow the JAX package: `run` starts from PRNGKey(seed + 1), records
 with it, then per sweep splits (key, k1, k2), sweeps with k1 and records
 with k2; `run_scan` does so per trial.  At alpha = 1 no draw reaches the
@@ -71,7 +80,8 @@ from repro_torch import transport as transport_lib
 from repro_torch.agents.polynomial import PolynomialFamily, _features
 from repro_torch.core import covariance as cov
 from repro_torch.core import covstate, ensemble, gradient, minimax
-from repro_torch.transport import Ledger, icoa_sweep_cost
+from repro_torch.core.trial_index import add_at, pick, put
+from repro_torch.transport import Ledger, TrialLedgers, icoa_sweep_cost
 
 __all__ = ["ICOAConfig", "ICOAState", "init_state", "sweep", "run",
            "run_scan", "converged_record", "ensemble_predict",
@@ -173,9 +183,9 @@ def _first_improving_batched(etas: torch.Tensor, eta0: torch.Tensor,
 def sweep(family, cfg: ICOAConfig, params: torch.Tensor, f: torch.Tensor,
           xcols: torch.Tensor, y: torch.Tensor,
           key: Optional[torch.Tensor] = None,
-          ledger: Optional[Ledger] = None):
-    """One full round-robin sweep over all D agents; returns
-    (params, f, ledger).  The inputs are not modified.
+          ledger: Optional[Union[Ledger, TrialLedgers]] = None):
+    """One full sweep over all D agents; returns (params, f, ledger).  The
+    inputs are not modified.
 
     At alpha > 1 the sweep splits `key` and draws its subsample of
     m = ceil(N / alpha) instances from the second half, as the JAX package
@@ -184,22 +194,30 @@ def sweep(family, cfg: ICOAConfig, params: torch.Tensor, f: torch.Tensor,
     candidate-row broadcast per agent) for the incremental and fused
     engines and for the dense one with `row_broadcast`, else the paper's
     re-gather per agent update; each payload carries the agent's exact
-    diagonal scalar at alpha > 1.
+    diagonal scalar at alpha > 1.  Under the transport's byte budget the
+    incremental and fused engines charge the gather only if it is
+    affordable and each candidate broadcast only while the run's total
+    stays within the budget, in the policy's order (transport.policy); a
+    broadcast that is not made is not committed.  Pass the ledger the
+    previous sweep returned: the budget caps the run's total.
 
     A batched state — params (B, D, P), f (B, D, N), xcols (B, D, N, C),
     y (B, N), key (B, 2) — runs all B trials through the batched engine,
-    each with its own subsample.  Every trial transmits the same number of
-    values, so the ledger is charged one trial's price, which each trial
-    pays alike."""
+    each with its own subsample, and carries one ledger per trial
+    (TrialLedgers): under greedy_eta each trial orders its own agents, so
+    the trials' spends may differ."""
     cfg.validate()
     d, n = f.shape[-2:]
     batched = f.dim() == 3
     tp = (cfg.transport or transport_lib.default_transport(d)).validate_for(d)
+    transport_lib.require_budget_engine(tp, cfg.engine)
     split = cfg.alpha > 1.0
     m = cov.subsample_size(n, cfg.alpha) if split else n
-    row_wise = cfg.engine in ("incremental", "fused") or cfg.row_broadcast
-    ledger = (ledger or Ledger()).charge(
-        icoa_sweep_cost(tp, m, split=split, row_wise=row_wise))
+    if ledger is None:
+        ledger = TrialLedgers.empty(f.shape[0]) if batched else Ledger()
+    if cfg.engine == "dense":
+        ledger = ledger.charge(icoa_sweep_cost(tp, m, split=split,
+                                               row_wise=cfg.row_broadcast))
     idx = None
     if split:
         if key is None:
@@ -208,14 +226,40 @@ def sweep(family, cfg: ICOAConfig, params: torch.Tensor, f: torch.Tensor,
         idx = cov.subsample_indices(prng.split(key)[..., 1, :], n, cfg.alpha)
     fused = cfg.engine == "fused" and cfg.delta == 0.0
     if cfg.engine == "dense":
-        engine = _sweep_dense
-    elif batched:
+        params, f = _sweep_dense(family, cfg, tp, params.clone(), f.clone(),
+                                 xcols, y, idx)
+        return params, f, ledger
+    if batched:
         engine = _sweep_fused_batched if fused else _sweep_incremental_batched
     else:
         engine = _sweep_fused if fused else _sweep_incremental
-    params, f = engine(family, cfg, tp, params.clone(), f.clone(), xcols, y,
-                       idx)
-    return params, f, ledger
+    return engine(family, cfg, tp, params.clone(), f.clone(), xcols, y, idx,
+                  ledger)
+
+
+def _schedule(tp, cs0, ledger, m: int, split: bool, step0: torch.Tensor):
+    """The sweep's agent order and budget gates, settled at its start
+    (transport.policy): (slots, cans, ledger).  slots[j] is the agent of
+    slot j — an int, or a (B,) int64 device tensor when each trial of a
+    batch orders its own agents (greedy_eta); cans[j] is None without a
+    budget, else slot j's can_tx: a bool, or for a batch a (B,) bool device
+    tensor (every gate of the sweep copied to the device at once).  The
+    ledger comes back charged for the whole sweep."""
+    d = tp.topology.n_agents
+    live, order, bcosts, ledger = transport_lib.budget_setup(
+        tp, cs0, ledger, m, split, step0)
+    if tp.byte_budget is None:
+        return list(range(d)), [None] * d, ledger
+    cans, ledger = transport_lib.gate_schedule(ledger, live, bcosts, order,
+                                               tp.byte_budget)
+    if not isinstance(ledger, TrialLedgers):
+        return order, cans, ledger
+    dev = cs0.s.device
+    cans = list(torch.tensor(cans, dtype=torch.bool, device=dev).unbind(0))
+    if isinstance(order, np.ndarray):          # one order per trial
+        order = list(torch.as_tensor(np.ascontiguousarray(order.T),
+                                     device=dev).unbind(0))
+    return order, cans, ledger
 
 
 def _add_at(g: torch.Tensor, idx: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -229,12 +273,13 @@ def _add_at(g: torch.Tensor, idx: torch.Tensor, c: torch.Tensor) -> torch.Tensor
 
 
 def _split_gradient(v: torch.Tensor, r_sub: torch.Tensor, r_i: torch.Tensor,
-                    idx: torch.Tensor, i: int, n: int) -> torch.Tensor:
+                    idx: torch.Tensor, i, n: int) -> torch.Tensor:
     """The Sec 4.1 gradient of agent i over all N positions: the exact
     diagonal's term (2/N) v_i^2 r_i everywhere, plus the subsample's
     off-diagonal terms at the transmitted positions.  Single (v (D,), r_i
-    (N,)) or per trial (v (B, D), r_i (B, N), idx (B, m))."""
-    vi = v[..., i]
+    (N,)) or per trial (v (B, D), r_i (B, N), idx (B, m), i shared or
+    (B,))."""
+    vi = pick(v, i, -1)
     g = ((2.0 / n) * (vi * vi))[..., None] * r_i
     return _add_at(g, idx, gradient.cached_row_gradient(v, r_sub, i,
                                                         exclude_self=True))
@@ -253,7 +298,7 @@ def _gathered_state(tp, r0: torch.Tensor, idx: Optional[torch.Tensor],
                           use_kernel=use_kernel), idx.shape[-1]
 
 
-def _delivered(tp, r_new: torch.Tensor, idx: Optional[torch.Tensor], i: int,
+def _delivered(tp, r_new: torch.Tensor, idx: Optional[torch.Tensor], i,
                a0_ii: torch.Tensor):
     """What agent i's candidate residual puts on the wire: the row (its
     subsample at alpha > 1) after the relay, and under the Sec 4.1 split the
@@ -339,7 +384,8 @@ def _sweep_dense(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
     return params, f
 
 
-def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
+def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
+                       ledger):
     """Rank-2 CovState engine: O(N*D + D^2) per agent update.  The CovState
     is rebuilt from f at sweep start (the once-per-sweep refresh bounding SMW
     drift); every probe and commit inside is a rank-2 update.  `params` and
@@ -351,13 +397,17 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
     the objective is the robust one: the weights a* are solved warm from the
     cached s / sum(s), the gradient is the Danskin term at a*, and every
     probe re-solves a* on its perturbed A0 (covstate.robust_eta_probe, the
-    whole schedule in one call)."""
+    whole schedule in one call).  Under a byte budget the agents go in the
+    policy's order and a candidate whose broadcast is not made is
+    rejected (`_schedule`)."""
     d, n = f.shape
     uk = cfg.use_kernel
     protected = cfg.delta > 0.0
     cs, m = _gathered_state(tp, y[None, :] - f, idx, uk)
     steps = _step_schedule(cfg, n, f.dtype, f.device)
     r_sub = cs.r_sub        # the sweep's own buffer: committed rows land in place
+    order, cans, ledger = _schedule(tp, cs, ledger, m, idx is not None,
+                                    steps[0])
 
     def probe(state, u):
         if protected:
@@ -365,7 +415,7 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
                                              cfg.minimax_steps, cfg.minimax_lr)
         return covstate.eta_probe(state, i, u)
 
-    for i in range(d):
+    for i, can_tx in zip(order, cans):
         if protected:
             v = minimax.robust_weights(cs.a0, cfg.delta, steps=cfg.minimax_steps,
                                        lr=cfg.minimax_lr,
@@ -408,6 +458,8 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
             accept = probe(cs, u_acc) > eta0
         else:
             accept = torch.ones((), dtype=torch.bool, device=f.device)
+        if can_tx is False:                     # the broadcast was not made
+            accept = torch.zeros_like(accept)
 
         params[i] = torch.where(accept, p_new, params[i])
         f[i] = torch.where(accept, f_new, f[i])
@@ -421,21 +473,24 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
             m_inv=torch.where(accept, m_inv, cs.m_inv),
             s=torch.where(accept, s, cs.s),
             eta_tilde=torch.where(accept, eta_t, cs.eta_tilde))
-    return params, f
+    return params, f, ledger
 
 
 def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
-                               xcols, y, idx):
+                               xcols, y, idx, ledger):
     """`_sweep_incremental` for B trials at once: one batched CovState, every
-    trial updating agent i together, each with its own subsample idx
-    (B, m); the step, accept/reject and the commit are per trial
-    (torch.where on (B,) booleans, no host wait)."""
+    trial updating agent i together (or, under greedy_eta with a budget,
+    each its own agent i[b], a (B,) device index), each with its own
+    subsample idx (B, m); the step, accept/reject, the budget gate and the
+    commit are per trial (torch.where on (B,) booleans, no host wait)."""
     d, n = f.shape[-2:]
     uk = cfg.use_kernel
     protected = cfg.delta > 0.0
     cs, m = _gathered_state(tp, y[:, None, :] - f, idx, uk)
     steps = _step_schedule(cfg, n, f.dtype, f.device)
     r_sub = cs.r_sub
+    order, cans, ledger = _schedule(tp, cs, ledger, m, idx is not None,
+                                    steps[0])
 
     def probe(state, u):
         if protected:
@@ -443,7 +498,7 @@ def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
                                              cfg.minimax_steps, cfg.minimax_lr)
         return covstate.eta_probe(state, i, u)
 
-    for i in range(d):
+    for i, can_tx in zip(order, cans):
         if protected:
             v = minimax.robust_weights(cs.a0, cfg.delta, steps=cfg.minimax_steps,
                                        lr=cfg.minimax_lr,
@@ -452,7 +507,7 @@ def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
             eta0 = -minimax.robust_objective(v, cs.a0, cfg.delta)   # (B,)
         else:
             v, eta0 = cs.s, cs.eta_tilde
-        r_i = y - f[:, i]                                         # (B, N)
+        r_i = y - pick(f, i, 1)                                   # (B, N)
         if idx is None:
             g = gradient.cached_row_gradient(v, r_sub, i)         # (B, m)
         else:
@@ -465,38 +520,43 @@ def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
         u = -steps[None, :, None] * p[:, None, :]                 # (B, K, D)
         if idx is None:
             gg = torch.sum(g_sub * g_sub, dim=-1)
-            u[:, :, i] += steps[None, :] * steps[None, :] * gg[:, None] / (2.0 * m)
+            add_at(u, i, 2, steps[None, :] * steps[None, :] * gg[:, None]
+                   / (2.0 * m))
         else:
             c1 = torch.sum(r_i * g_unit, dim=-1)
             st = steps[None, :]
-            u[:, :, i] = 0.5 * ((st * st - 2.0 * st * c1[:, None]) / n)
+            put(u, i, 2, 0.5 * ((st * st - 2.0 * st * c1[:, None]) / n))
         step = _first_improving_batched(probe(cs, u), eta0, steps)
 
-        f_hat = f[:, i] + step[:, None] * g_unit
-        p_new = family.fit(params[:, i], xcols[:, i], f_hat)
-        f_new = family.predict(p_new, xcols[:, i])
+        f_hat = pick(f, i, 1) + step[:, None] * g_unit
+        p_new = family.fit(pick(params, i, 1), pick(xcols, i, 1), f_hat)
+        f_new = family.predict(p_new, pick(xcols, i, 1))
 
-        r_new_sub, ddiag = _delivered(tp, y - f_new, idx, i, cs.a0[:, i, i])
-        u_acc = covstate.row_update_vector(cs, i, r_new_sub - r_sub[:, i],
+        r_new_sub, ddiag = _delivered(tp, y - f_new, idx, i,
+                                      pick(pick(cs.a0, i, 1), i, 1))
+        u_acc = covstate.row_update_vector(cs, i, r_new_sub - pick(r_sub, i, 1),
                                            ddiag=ddiag, use_kernel=uk)
         if cfg.accept_reject:
             accept = probe(cs, u_acc) > eta0
         else:
             accept = torch.ones(eta0.shape, dtype=torch.bool, device=f.device)
+        if can_tx is not None:
+            accept = accept & can_tx
 
-        params[:, i] = torch.where(accept[:, None], p_new, params[:, i])
-        f[:, i] = torch.where(accept[:, None], f_new, f[:, i])
+        put(params, i, 1, torch.where(accept[:, None], p_new, pick(params, i, 1)))
+        put(f, i, 1, torch.where(accept[:, None], f_new, pick(f, i, 1)))
         m_inv, s, eta_t = covstate.apply_inverse_update(cs, i, u_acc)
         a0 = cs.a0.clone()
-        a0[:, i, :] += u_acc
-        a0[:, :, i] += u_acc
-        r_sub[:, i] = torch.where(accept[:, None], r_new_sub, r_sub[:, i])
+        add_at(a0, i, 1, u_acc)
+        add_at(a0, i, 2, u_acc)
+        put(r_sub, i, 1, torch.where(accept[:, None], r_new_sub,
+                                     pick(r_sub, i, 1)))
         cs = covstate.CovState(
             r_sub=r_sub, a0=torch.where(accept[:, None, None], a0, cs.a0),
             m_inv=torch.where(accept[:, None, None], m_inv, cs.m_inv),
             s=torch.where(accept[:, None], s, cs.s),
             eta_tilde=torch.where(accept, eta_t, cs.eta_tilde))
-    return params, f
+    return params, f, ledger
 
 
 def _small_inv(gm: torch.Tensor) -> torch.Tensor:
@@ -530,7 +590,8 @@ def _poly_projector(xcols: torch.Tensor, degree: int, ridge: float):
     return phi_t, _small_inv(torch.stack(rows, -2) + ridge * eye)
 
 
-def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
+def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
+                 ledger):
     """Fused engine: the incremental sweep with its back-search in closed
     form (kernels.sweep.ref.probe_etas_closed) and accept/commit as one
     evaluation with accept selecting the rank-2 update.
@@ -542,8 +603,10 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
     that identity, so the probe keeps its row product on the subsample
     (kernels.gram.row_gram with use_kernel), and the commit takes
     diag_keep = 0 and diag_add = half the exact diagonal's change, a device
-    value.  Both branches mirror the JAX engine exactly (the kernel branch
-    runs its algebra in fp32 whatever the data dtype)."""
+    value.  Under a byte budget the agents go in the policy's order and the
+    commit takes the broadcast's gate as can_tx, a Python bool (by value in
+    the kernel).  Both branches mirror the JAX engine exactly (the kernel
+    branch runs its algebra in fp32 whatever the data dtype)."""
     from repro_torch.kernels.sweep import ops as sweep_ops
     from repro_torch.kernels.sweep import ref as sweep_ref
 
@@ -553,6 +616,8 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
     cs0, m = _gathered_state(tp, y[None, :] - f, idx, uk)
     rs, a0, m_inv, s, eta = cs0.r_sub, cs0.a0, cs0.m_inv, cs0.s, cs0.eta_tilde
     steps = _step_schedule(cfg, n, dt, dev)
+    order, cans, ledger = _schedule(tp, cs0, ledger, m, idx is not None,
+                                    steps[0])
     zero = torch.zeros((), dtype=dt, device=dev)
     half_n = 0.5 / torch.full((), n, dtype=dt, device=dev)
     commit = sweep_ops.commit_sweep if uk else sweep_ref.commit_sweep_ref
@@ -569,7 +634,7 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
             return p_new, family.predict(p_new, xcols[i])
 
     threshold_off = float("-inf")
-    for i in range(d):
+    for i, can_tx in zip(order, cans):
         eta0 = eta
         # --- probe: gradient + the whole back-search schedule ---
         if idx is not None:
@@ -607,7 +672,8 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
         threshold = eta0 if cfg.accept_reject else threshold_off
         m_inv, s, u_eff, accept, _ = commit(rs, m_inv, s, eta, i,
                                             r_new_sub - rs[i], diag_keep,
-                                            diag_add, threshold, True)
+                                            diag_add, threshold,
+                                            True if can_tx is None else can_tx)
         eta = torch.sum(s)
 
         params[i] = torch.where(accept, p_new, params[i])
@@ -615,15 +681,17 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
         a0[i, :] += u_eff                      # u_eff = 0 on reject
         a0[:, i] += u_eff
         rs[i] = torch.where(accept, r_new_sub, rs[i])
-    return params, f
+    return params, f, ledger
 
 
 def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
-                         idx):
+                         idx, ledger):
     """`_sweep_fused` for B trials at once: one batched probe (or row
     product) launch and one batched commit launch per agent with
-    use_kernel; eta, threshold, the accept flags, the subsample and the
-    commit's diag_add per trial as (B,) device tensors."""
+    use_kernel; eta, threshold, the accept flags, the subsample, the
+    commit's diag_add and the budget gate (can_tx) per trial as (B,) device
+    tensors.  Under greedy_eta with a budget each trial updates its own
+    agent at each slot: the kernels take the (B,) agent index."""
     from repro_torch.kernels.sweep import ops as sweep_ops
     from repro_torch.kernels.sweep import ref as sweep_ref
 
@@ -633,6 +701,8 @@ def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
     cs0, m = _gathered_state(tp, y[:, None, :] - f, idx, uk)
     rs, a0, m_inv, s, eta = cs0.r_sub, cs0.a0, cs0.m_inv, cs0.s, cs0.eta_tilde
     steps = _step_schedule(cfg, n, dt, dev)
+    order, cans, ledger = _schedule(tp, cs0, ledger, m, idx is not None,
+                                    steps[0])
     zero = torch.zeros((), dtype=dt, device=dev)
     half_n = 0.5 / torch.full((), n, dtype=dt, device=dev)
     commit = sweep_ops.commit_sweep if uk else sweep_ref.commit_sweep_batched_ref
@@ -641,58 +711,62 @@ def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
         phi_t, ginv = _poly_projector(xcols, family.degree, family.ridge)
 
         def project(i, p_old, f_hat):
-            p_new = (ginv[:, i] @ (phi_t[:, i] @ f_hat[..., None]))[..., 0]
-            return p_new, (p_new[:, None, :] @ phi_t[:, i])[:, 0]
+            gi, pi = pick(ginv, i, 1), pick(phi_t, i, 1)
+            p_new = (gi @ (pi @ f_hat[..., None]))[..., 0]
+            return p_new, (p_new[:, None, :] @ pi)[:, 0]
     else:
         def project(i, p_old, f_hat):
-            p_new = family.fit(p_old, xcols[:, i], f_hat)
-            return p_new, family.predict(p_new, xcols[:, i])
+            p_new = family.fit(p_old, pick(xcols, i, 1), f_hat)
+            return p_new, family.predict(p_new, pick(xcols, i, 1))
 
     threshold_off = float("-inf")
-    for i in range(d):
+    for i, can_tx in zip(order, cans):
         eta0 = eta                                                # (B,)
         if idx is not None:
-            r_i = y - f[:, i]
+            r_i = y - pick(f, i, 1)
             g = _split_gradient(s, rs, r_i, idx, i, n)
             gnorm = torch.linalg.norm(g, dim=-1) + 1e-30
             g_unit = g / gnorm[:, None]
             p = covstate.row_product(cov.take_cols(g_unit, idx), rs,
                                      use_kernel=uk) / m
-            p[:, i].zero_()
+            put(p, i, 1, 0.0)
             c1 = torch.sum(r_i * g_unit, dim=-1)
             etas = sweep_ref.probe_etas_closed_batched(
                 m_inv, s, eta, i, steps, p, -c1 / n, half_n)
         elif uk:
             etas, cross, _, gnorm = sweep_ops.probe_sweep(rs, m_inv, s, eta, i,
                                                           steps)
-            g_unit = ((2.0 / m) * s[:, i] / gnorm)[:, None] * cross
+            g_unit = ((2.0 / m) * pick(s, i, 1) / gnorm)[:, None] * cross
         else:
             g = gradient.cached_row_gradient(s, rs, i)
             gnorm = torch.linalg.norm(g, dim=-1) + 1e-30
             g_unit = g / gnorm[:, None]
-            p = (2.0 * s[:, i] / (m * gnorm))[:, None] * (a0 @ s[..., None])[..., 0]
+            p = ((2.0 * pick(s, i, 1) / (m * gnorm))[:, None]
+                 * (a0 @ s[..., None])[..., 0])
             gg = torch.sum(g_unit * g_unit, dim=-1)
             etas = sweep_ref.probe_etas_closed_batched(
                 m_inv, s, eta, i, steps, p, zero, gg / (2.0 * m))
         step = _first_improving_batched(etas, eta0, steps)
 
-        f_hat = f[:, i] + step[:, None] * g_unit
-        p_new, f_new = project(i, params[:, i], f_hat)
+        f_hat = pick(f, i, 1) + step[:, None] * g_unit
+        p_new, f_new = project(i, pick(params, i, 1), f_hat)
 
-        r_new_sub, ddiag = _delivered(tp, y - f_new, idx, i, a0[:, i, i])
+        r_new_sub, ddiag = _delivered(tp, y - f_new, idx, i,
+                                      pick(pick(a0, i, 1), i, 1))
         diag_keep, diag_add = (1.0, 0.0) if ddiag is None else (0.0, 0.5 * ddiag)
         threshold = eta0 if cfg.accept_reject else threshold_off
         m_inv, s, u_eff, accept, _ = commit(rs, m_inv, s, eta, i,
-                                            r_new_sub - rs[:, i], diag_keep,
-                                            diag_add, threshold, True)
+                                            r_new_sub - pick(rs, i, 1),
+                                            diag_keep, diag_add, threshold,
+                                            True if can_tx is None else can_tx)
         eta = torch.sum(s, dim=-1)
 
-        params[:, i] = torch.where(accept[:, None], p_new, params[:, i])
-        f[:, i] = torch.where(accept[:, None], f_new, f[:, i])
-        a0[:, i, :] += u_eff                   # u_eff = 0 on reject
-        a0[:, :, i] += u_eff
-        rs[:, i] = torch.where(accept[:, None], r_new_sub, rs[:, i])
-    return params, f
+        put(params, i, 1, torch.where(accept[:, None], p_new, pick(params, i, 1)))
+        put(f, i, 1, torch.where(accept[:, None], f_new, pick(f, i, 1)))
+        add_at(a0, i, 1, u_eff)                # u_eff = 0 on reject
+        add_at(a0, i, 2, u_eff)
+        put(rs, i, 1, torch.where(accept[:, None], r_new_sub, pick(rs, i, 1)))
+    return params, f, ledger
 
 
 def _weights(f: torch.Tensor, y: torch.Tensor, cfg: ICOAConfig,
@@ -840,8 +914,9 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     hist["train_mse"], ["test_mse"] and ["eta"] (B, n_sweeps + 1) tensors
     in the data dtype (record 0 is the non-cooperative init),
     hist["converged_at"] (B,) — the record where `run`'s eps rule would
-    have stopped — and hist["bytes"], the host ledger's bytes per record
-    (record 0: 0), the same for every trial.  Nothing in the loop waits for
+    have stopped — hist["trial_bytes"], each trial's host ledger's bytes
+    per record (record 0: 0), and hist["bytes"], their one list when every
+    trial's agree (always without a byte budget), else None.  Nothing in the loop waits for
     the device.  TF32 is off for the call, as in `run`."""
     cfg.validate()
     if xcols.dim() != 4 or y.dim() != 2:
@@ -868,15 +943,18 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
 
     params, f = state.params, state.f
     weights = record(params, f, key)
-    ledger = Ledger()
-    bytes_hist = [0.0]
+    ledger = TrialLedgers.empty(y.shape[0])
+    trial_bytes = [[0.0] for _ in seeds]
     for _ in range(cfg.n_sweeps):
         key, k1, k2 = _split3(key)
         params, f, led2 = sweep(family, cfg, params, f, xcols, y, k1, ledger)
-        bytes_hist.append(float(led2.spent - ledger.spent))
+        for b, (now, before) in enumerate(zip(led2.spent, ledger.spent)):
+            trial_bytes[b].append(float(now - before))
         ledger = led2
         weights = record(params, f, k2)
     hist = {k: torch.stack(v, dim=-1) for k, v in recs.items()}
     hist["converged_at"] = converged_record(hist["eta"], cfg.eps)
-    hist["bytes"] = bytes_hist
+    hist["trial_bytes"] = trial_bytes
+    same = all(t == trial_bytes[0] for t in trial_bytes)
+    hist["bytes"] = trial_bytes[0] if same else None
     return params, f, weights, hist

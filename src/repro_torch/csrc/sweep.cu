@@ -59,8 +59,10 @@
 // same agent update for B independent Monte-Carlo trials, every operand with
 // a leading trial axis (R (B, D, N), m_inv (B, D, D), s (B, D); eta,
 // threshold and can_tx (B,) device tensors, or one value for all) while
-// agent i, the step schedule and the diagonal constants are shared by the
-// batch.  The trial is one more grid dimension of the same kernels
+// the step schedule is shared by the batch, and agent i is too unless a
+// (B,) int32 device vector gives each trial its own (a budget policy that
+// orders each trial's agents; a null pointer: i for every trial, the
+// by-value path).  The trial is one more grid dimension of the same kernels
 // (blockIdx.y), with its own partial rows (and, on the probe's register
 // route and in the commit, its own arrival counter), and a one-block
 // epilogue runs per trial (the last arrival of the trial, or blockIdx.x of
@@ -201,8 +203,9 @@ probe_rows_kernel(const float* __restrict__ r, const float* __restrict__ minv,
                   float* __restrict__ part_p, float* __restrict__ part_gg,
                   int* __restrict__ arrivals, float* __restrict__ etas,
                   float* __restrict__ p_out, float* __restrict__ gnorm_out, int d,
-                  int n, int chunk, int k_steps, int i) {
+                  int n, int chunk, int k_steps, int i_all, const int* __restrict__ agents) {
   const int trial = blockIdx.y, nc = gridDim.x, ncp = (nc + 3) & ~3;
+  const int i = agents ? agents[trial] : i_all;
   r += (size_t)trial * d * n;
   s += (size_t)trial * d;
   cross += (size_t)trial * n;
@@ -361,10 +364,12 @@ probe_finish_kernel(const float* __restrict__ part_p,
                     const float* __restrict__ s,
                     const float* __restrict__ eta,
                     const float* __restrict__ steps, int k_steps, int d,
-                    int i, float m, float* __restrict__ etas,
-                    float* __restrict__ p_out, float* __restrict__ gnorm_out) {
+                    int i_all, const int* __restrict__ agents, float m,
+                    float* __restrict__ etas, float* __restrict__ p_out,
+                    float* __restrict__ gnorm_out) {
   extern __shared__ double smem_d[];
   const size_t b_ = blockIdx.x;                             // the trial
+  const int i = agents ? agents[b_] : i_all;
   part_p += b_ * nb * d;
   part_gg += b_ * nb;
   double* q = smem_d;
@@ -519,7 +524,8 @@ __device__ __noinline__ void commit_epilogue(
 // of at most 1024.  part: (trial, d + 1, nbp) scratch, nbp = strips rounded
 // up to 4; arrivals: one int per trial, zero on entry and on exit.  A null
 // eta_p / threshold_p / can_tx_p / diag_keep_p / diag_add_p means the value
-// after it, for every trial.
+// after it, for every trial; a null agents means agent i_all for every
+// trial, else trial b updates agent agents[b].
 template <bool ALIGNED>
 __global__ void __launch_bounds__(repro::kStreamThreads, 2)
 commit_kernel(const float* __restrict__ r, const float* __restrict__ delta,
@@ -530,9 +536,11 @@ commit_kernel(const float* __restrict__ r, const float* __restrict__ delta,
               int* __restrict__ arrivals, float* __restrict__ minv_out,
               float* __restrict__ s_out, float* __restrict__ u_out,
               bool* __restrict__ accept_out, float* __restrict__ obj_out, int d, int n,
-              int strip, int i, const float* __restrict__ diag_keep_p, float diag_keep,
+              int strip, int i_all, const int* __restrict__ agents,
+              const float* __restrict__ diag_keep_p, float diag_keep,
               const float* __restrict__ diag_add_p, float diag_add) {
   const int trial = blockIdx.y, nb = gridDim.x, nbp = (nb + 3) & ~3;
+  const int i = agents ? agents[trial] : i_all;
   r += (size_t)trial * d * n;
   delta += (size_t)trial * n;
   part += (size_t)trial * (d + 1) * nbp;
@@ -586,8 +594,8 @@ CommitKernel commit_kernel_for(bool aligned, int d, cudaError_t* err) {
 int launch_probe(const float* r, const float* minv, const float* s,
                  const float* eta, const float* steps, float* cross,
                  float* scratch, int* arrivals, float* etas, float* p,
-                 float* gnorm, int d, int n, int k_steps, int i, int route,
-                 int chunk, int aligned, int batch, cudaStream_t st) {
+                 float* gnorm, int d, int n, int k_steps, int i, const int* agents,
+                 int route, int chunk, int aligned, int batch, cudaStream_t st) {
   const int nb = (n + chunk - 1) / chunk;
   float* part_p = scratch;
   float* part_gg = scratch + (size_t)batch * d * (route == 0 ? (nb + 3) & ~3 : nb);
@@ -596,7 +604,7 @@ int launch_probe(const float* r, const float* minv, const float* s,
     const RowsKernel kernel = aligned ? rows_kernel_for<true>(d) : rows_kernel_for<false>(d);
     kernel<<<dim3(nb, batch), kProbeThreads, 0, st>>>(r, minv, s, eta, steps, cross, part_p,
                                                       part_gg, arrivals, etas, p, gnorm, d, n,
-                                                      chunk, k_steps, i);
+                                                      chunk, k_steps, i, agents);
     return cudaGetLastError();
   }
   const int bn = chunk;
@@ -611,7 +619,7 @@ int launch_probe(const float* r, const float* minv, const float* s,
   if (err != cudaSuccess) return err;
   const size_t smem2 = ((size_t)d + 34) * sizeof(double) + (size_t)d * sizeof(float);
   probe_finish_kernel<<<batch, kFinishThreads, smem2, st>>>(
-      part_p, part_gg, nb, minv, s, eta, steps, k_steps, d, i, (float)n, etas,
+      part_p, part_gg, nb, minv, s, eta, steps, k_steps, d, i, agents, (float)n, etas,
       p, gnorm);
   return cudaGetLastError();
 }
@@ -620,9 +628,9 @@ int launch_commit(const float* r, const float* delta, const float* minv, const f
                   const float* eta_p, float eta, const float* threshold_p, float threshold,
                   const float* can_tx_p, int can_tx, float* scratch, int* arrivals,
                   float* minv_out, float* s_out, float* u_out, bool* accept, float* obj_post,
-                  int d, int n, int i, const float* diag_keep_p, float diag_keep,
-                  const float* diag_add_p, float diag_add, int strip, int aligned, int batch,
-                  cudaStream_t st) {
+                  int d, int n, int i, const int* agents, const float* diag_keep_p,
+                  float diag_keep, const float* diag_add_p, float diag_add, int strip,
+                  int aligned, int batch, cudaStream_t st) {
   if (strip % 128 || strip < 128 || strip > 128 * repro::kStreamSlices)
     return cudaErrorInvalidValue;
   cudaError_t err;
@@ -631,7 +639,7 @@ int launch_commit(const float* r, const float* delta, const float* minv, const f
   kernel<<<dim3((n + strip - 1) / strip, batch), repro::kStreamThreads, commit_shared_bytes(d),
            st>>>(r, delta, minv, s, eta_p, eta, threshold_p, threshold, can_tx_p, can_tx,
                  scratch, arrivals, minv_out, s_out, u_out, accept, obj_post, d, n, strip, i,
-                 diag_keep_p, diag_keep, diag_add_p, diag_add);
+                 agents, diag_keep_p, diag_keep, diag_add_p, diag_add);
   return cudaGetLastError();
 }
 
@@ -643,13 +651,14 @@ int launch_commit(const float* r, const float* delta, const float* minv, const f
 // k_steps), p (batch, d), gnorm (batch,).  route, chunk and the scratch as
 // in launch_probe; the wrapper picks them from (d, n) and the card, never
 // from the batch.  aligned != 0 only if n % 4 == 0 and r is 16-byte aligned.
+// agents: null (agent i for every trial) or (batch,) int32, trial b's agent.
 extern "C" int repro_probe_sweep_batched(
     const float* r, const float* minv, const float* s, const float* eta,
     const float* steps, float* cross, float* scratch, int* arrivals,
     float* etas, float* p, float* gnorm, int d, int n, int k_steps, int i,
-    int route, int chunk, int aligned, int batch, void* stream) {
+    const int* agents, int route, int chunk, int aligned, int batch, void* stream) {
   return launch_probe(r, minv, s, eta, steps, cross, scratch, arrivals, etas,
-                      p, gnorm, d, n, k_steps, i, route, chunk, aligned, batch,
+                      p, gnorm, d, n, k_steps, i, agents, route, chunk, aligned, batch,
                       static_cast<cudaStream_t>(stream));
 }
 
@@ -663,7 +672,7 @@ extern "C" int repro_probe_sweep(const float* r, const float* minv,
                                  int aligned, void* stream) {
   return repro_probe_sweep_batched(r, minv, s, eta, steps, cross, scratch,
                                    arrivals, etas, p, gnorm, d, n, k_steps, i,
-                                   route, chunk, aligned, 1, stream);
+                                   nullptr, route, chunk, aligned, 1, stream);
 }
 
 // Blocks of the register route's kernel for d rows that one SM holds at
@@ -700,16 +709,18 @@ extern "C" int repro_commit_blocks_per_sm(int d) {
 // the same way as eta.  strip: a multiple of 128 columns, at most 1024,
 // picked by the wrapper from n and the card, never from the batch;
 // aligned != 0 only if n % 4 == 0 and r and delta are 16-byte aligned.
+// agents: null (agent i for every trial) or (batch,) int32, trial b's agent.
 extern "C" int repro_commit_sweep_batched(
     const float* r, const float* delta, const float* minv, const float* s, const float* eta_p,
     float eta, const float* threshold_p, float threshold, const float* can_tx_p, int can_tx,
     float* scratch, int* arrivals, float* minv_out, float* s_out, float* u_out, bool* accept,
-    float* obj_post, int d, int n, int i, const float* diag_keep_p, float diag_keep,
-    const float* diag_add_p, float diag_add, int strip, int aligned, int batch, void* stream) {
+    float* obj_post, int d, int n, int i, const int* agents, const float* diag_keep_p,
+    float diag_keep, const float* diag_add_p, float diag_add, int strip, int aligned,
+    int batch, void* stream) {
   return launch_commit(r, delta, minv, s, eta_p, eta, threshold_p, threshold, can_tx_p, can_tx,
                        scratch, arrivals, minv_out, s_out, u_out, accept, obj_post, d, n, i,
-                       diag_keep_p, diag_keep, diag_add_p, diag_add, strip, aligned, batch,
-                       static_cast<cudaStream_t>(stream));
+                       agents, diag_keep_p, diag_keep, diag_add_p, diag_add, strip, aligned,
+                       batch, static_cast<cudaStream_t>(stream));
 }
 
 // The same for one trial: r (d, n), delta (n,), m_inv (d, d), s (d,);
@@ -726,6 +737,6 @@ extern "C" int repro_commit_sweep(const float* r, const float* delta, const floa
                                   int aligned, void* stream) {
   return repro_commit_sweep_batched(r, delta, minv, s, eta_p, eta, threshold_p, threshold,
                                     can_tx_p, can_tx, scratch, arrivals, minv_out, s_out,
-                                    u_out, accept, obj_post, d, n, i, diag_keep_p, diag_keep,
-                                    diag_add_p, diag_add, strip, aligned, 1, stream);
+                                    u_out, accept, obj_post, d, n, i, nullptr, diag_keep_p,
+                                    diag_keep, diag_add_p, diag_add, strip, aligned, 1, stream);
 }

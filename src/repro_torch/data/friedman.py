@@ -19,7 +19,7 @@ import torch
 from repro_torch import prng
 
 __all__ = ["friedman1", "friedman2", "friedman3", "make_dataset",
-           "standardise", "FRIEDMAN_FNS"]
+           "standardise", "xla_sum", "FRIEDMAN_FNS"]
 
 
 def _normalise(y: torch.Tensor) -> torch.Tensor:
@@ -78,12 +78,48 @@ def friedman3(key: torch.Tensor, n: int, noise: float = 0.0,
 FRIEDMAN_FNS = {1: friedman1, 2: friedman2, 3: friedman3}
 
 
+def xla_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The sum over `dim` in the order of XLA's CPU code for a reduction
+    over a major axis: up to 32 values are added one by one from 0; a
+    longer axis is padded with zeros to a multiple of 32 (half the padding,
+    rounded down, in front), each window of 32 is added one by one, and the
+    window sums are reduced the same way.  Plain adds only, so every device
+    gives the same bits."""
+    x = x.movedim(dim, 0)
+    n = x.shape[0]
+    if n > 32:
+        padded = -(-n // 32) * 32
+        lo = (padded - n) // 2
+        z = x.new_zeros((padded, *x.shape[1:]))
+        z[lo:lo + n] = x
+        x = z.reshape(padded // 32, 32, *x.shape[1:]).movedim(1, 0)
+    acc = torch.zeros_like(x[0])
+    for k in range(x.shape[0]):
+        acc = acc + x[k]
+    return acc if n <= 32 else xla_sum(acc, 0)
+
+
+def _sqrt(v: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root (torch's float32 one on the CPU
+    can miss by an ulp; through float64 it is rounded once)."""
+    if v.dtype == torch.float32:
+        return torch.sqrt(v.double()).float()
+    return torch.sqrt(v)
+
+
 def standardise(xtr: torch.Tensor, xte: torch.Tensor):
     """Standardise both splits with the train split's mean and (population)
-    standard deviation over its instances (axis -2), as the JAX package
-    does."""
-    mu = xtr.mean(dim=-2, keepdim=True)
-    sd = xtr.std(dim=-2, correction=0, keepdim=True) + 1e-12
+    standard deviation over its instances (axis -2), with the JAX
+    package's operations in XLA's order: the sums by `xla_sum`, the mean
+    as the sum times the rounded reciprocal of N (XLA's rewrite of a
+    division by a constant), the variance as a true division by N."""
+    n = xtr.shape[-2]
+    mu = (xla_sum(xtr, -2)
+          * (torch.ones((), dtype=xtr.dtype) / n).to(xtr.device)).unsqueeze(-2)
+    cen = xtr - mu
+    var = xla_sum(cen * cen, -2) / torch.full((), float(n), dtype=xtr.dtype,
+                                              device=xtr.device)
+    sd = _sqrt(var).unsqueeze(-2) + 1e-12
     return (xtr - mu) / sd, (xte - mu) / sd
 
 

@@ -22,7 +22,9 @@ costs the host one pass over its arguments.
 `LAUNCHES` counts kernel launches by wrapper name.  Each ops wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels (`reset_launches()` before, read after).
-"flash_attention_tc" counts the tensor-core launches among "flash_attention"'s.
+"flash_attention_tc" counts the tensor-core launches among "flash_attention"'s;
+"probe_sweep_batched_per_trial" and "commit_sweep_batched_per_trial" the
+batched launches with one agent per trial among theirs.
 """
 from __future__ import annotations
 
@@ -52,7 +54,10 @@ _FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
 LAUNCHES: Dict[str, int] = {"gram": 0, "row_gram": 0, "probe_sweep": 0,
                             "commit_sweep": 0, "gram_batched": 0,
                             "row_gram_batched": 0, "probe_sweep_batched": 0,
-                            "commit_sweep_batched": 0, "flash_attention": 0,
+                            "commit_sweep_batched": 0,
+                            "probe_sweep_batched_per_trial": 0,
+                            "commit_sweep_batched_per_trial": 0,
+                            "flash_attention": 0,
                             "flash_attention_tc": 0, "flash_decode": 0,
                             "wkv": 0}
 

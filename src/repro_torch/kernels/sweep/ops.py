@@ -16,12 +16,14 @@ commit needs no host round trip and no fill launch.
 
 Both take an optional leading Monte-Carlo trial axis: with r of shape
 (B, D, N), every operand carries the trial axis (eta, threshold, can_tx,
-diag_keep and diag_add as (B,) tensors, or one number for all trials),
-agent i and the step
-schedule are shared, and the batched kernel runs — the twin of the JAX
-package's custom_vmap rules (repro/kernels/sweep/ops.py).  Trial b gets the
-single-trial kernel's blocks and summation order, so slice b equals the
-single-trial result bit for bit.
+diag_keep and diag_add as (B,) tensors, or one number for all trials), the
+step schedule is shared, and agent i is one int for every trial or a (B,)
+integer device tensor, trial b's own agent (a budget policy that orders
+each trial's agents; the TPU kernels carry i per trial in their parameter
+plate) — the twin of the JAX package's custom_vmap rules
+(repro/kernels/sweep/ops.py).  Trial b gets the single-trial kernel's
+blocks and summation order, so slice b equals the single-trial result on
+its agent bit for bit.
 
 The probe has two routes, chosen by D (`probe_route`; csrc/sweep.cu's
 header has the designs): up to D = 128 the register route, one launch whose
@@ -213,7 +215,8 @@ def probe_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
     (etas (K,), cross (N,), p (D,), gnorm ()) — the whole back-search
     schedule plus the gradient pieces (g_unit = (2 s_i / m / gnorm) * cross).
     Outputs in r's dtype.  With r (B, D, N), m_inv (B, D, D), s (B, D) and
-    eta (B,): (etas (B, K), cross (B, N), p (B, D), gnorm (B,))."""
+    eta (B,): (etas (B, K), cross (B, N), p (B, D), gnorm (B,)); i may then
+    be a (B,) integer tensor, trial b's agent."""
     if r.dim() == 3:
         return _probe_sweep_batched(r, m_inv, s, eta, i, steps)
     dt = r.dtype
@@ -237,9 +240,28 @@ def probe_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
     return etas.to(dt), cross.to(dt), p.to(dt), gnorm[0].to(dt)
 
 
+def _agents(i, b: int, device: torch.device):
+    """Agent operand of a batched launch: (i, None) for one int (the kernel
+    takes it by value), (0, int32 device vector) for one agent per trial."""
+    if not isinstance(i, torch.Tensor):
+        return i, None
+    if i.device != device or tuple(i.shape) != (b,) or i.dtype.is_floating_point:
+        raise ValueError(f"per-trial agents: expected an integer ({b},) tensor on "
+                         f"{device}, got {i.dtype} {tuple(i.shape)} on {i.device}")
+    return 0, i.to(torch.int32).contiguous()
+
+
+def _check_agent(op: str, i, d: int) -> None:
+    """A shared agent index is checked on the host; a per-trial one is a
+    device tensor the host does not read."""
+    if not isinstance(i, torch.Tensor) and not 0 <= i < d:
+        raise IndexError(f"{op}: agent {i} out of range for D={d}")
+
+
 def _launch_probe(r, m_inv, s, eta, i, steps, batch):
     """The probe kernel on checked CUDA operands (eta a device tensor);
-    batch None for one trial, else the trial count of r's leading axis."""
+    batch None for one trial, else the trial count of r's leading axis (i
+    an int, or a (batch,) tensor of agents)."""
     d, n = r.shape[-2:]
     k = steps.shape[0]
     b = batch or 1
@@ -254,13 +276,14 @@ def _launch_probe(r, m_inv, s, eta, i, steps, batch):
     p = torch.empty(lead + (d,), **f32)
     gnorm = torch.empty((b,), **f32)
     scratch = torch.empty((b * (geo.part_p + geo.part_gg),), **f32)   # the partials
-    args = (r32, as_f32(m_inv), as_f32(s), eta, as_f32(steps), cross, scratch,
-            _build.arrivals(dev, b), etas, p, gnorm, d, n, k, i,
-            ROUTES.index(geo.route), geo.chunk, aligned16(n, r32))
+    head = (r32, as_f32(m_inv), as_f32(s), eta, as_f32(steps), cross, scratch,
+            _build.arrivals(dev, b), etas, p, gnorm, d, n, k)
+    tail = (ROUTES.index(geo.route), geo.chunk, aligned16(n, r32))
     if batch:
-        _build.launch("sweep", "repro_probe_sweep_batched", *args, batch)
+        _build.launch("sweep", "repro_probe_sweep_batched", *head,
+                      *_agents(i, b, dev), *tail, batch)
     else:
-        _build.launch("sweep", "repro_probe_sweep", *args)
+        _build.launch("sweep", "repro_probe_sweep", *head, i, *tail)
     return etas, cross, p, gnorm
 
 
@@ -278,7 +301,7 @@ def commit_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
     diagonal's change, a device value the kernel reads without a host sync.
     With r (B, D, N), delta (B, N) and per-trial eta, threshold, can_tx and
     diag_add (B,): every output gains the leading trial axis, accept is (B,)
-    bool."""
+    bool; i may then be a (B,) integer tensor, trial b's agent."""
     if r.dim() == 3:
         return _commit_sweep_batched(r, m_inv, s, eta, i, delta, diag_keep,
                                      diag_add, threshold, can_tx)
@@ -336,18 +359,19 @@ def _launch_commit(r, m_inv, s, eta, i, delta, diag_keep, diag_add, threshold,
     scratch = torch.empty((b * geo.part,), **f32)   # the strips' partials
     batched = batch is not None
     can_ptr, can_val = _by_value_or_tensor(can_tx, b, dev, batched)
-    args = (r32, d32, as_f32(m_inv), as_f32(s),
+    head = (r32, d32, as_f32(m_inv), as_f32(s),
             *_by_value_or_tensor(eta, b, dev, batched),
             *_by_value_or_tensor(threshold, b, dev, batched),
             can_ptr, int(can_val != 0.0), scratch, _build.arrivals(dev, b), m_new,
-            s_new, u_eff, accept, obj_post, d, n, i,
-            *_by_value_or_tensor(diag_keep, b, dev, batched),
+            s_new, u_eff, accept, obj_post, d, n)
+    tail = (*_by_value_or_tensor(diag_keep, b, dev, batched),
             *_by_value_or_tensor(diag_add, b, dev, batched),
             geo.strip, aligned16(n, r32, d32))
     if batched:
-        _build.launch("sweep", "repro_commit_sweep_batched", *args, batch)
+        _build.launch("sweep", "repro_commit_sweep_batched", *head,
+                      *_agents(i, b, dev), *tail, batch)
     else:
-        _build.launch("sweep", "repro_commit_sweep", *args)
+        _build.launch("sweep", "repro_commit_sweep", *head, i, *tail)
     return m_new, s_new, u_eff, accept, obj_post
 
 
@@ -356,8 +380,7 @@ def _probe_sweep_batched(r, m_inv, s, eta, i, steps):
     b, d, n = r.shape
     k = steps.shape[0]
     _check_batched("probe_sweep", r, m_inv=(m_inv, (d, d)), s=(s, (d,)))
-    if not 0 <= i < d:
-        raise IndexError(f"probe_sweep: agent {i} out of range for D={d}")
+    _check_agent("probe_sweep", i, d)
     if _build.on_cpu(r, "probe_sweep"):
         eta32 = eta.to(torch.float32) if isinstance(eta, torch.Tensor) else eta
         out = ref.probe_sweep_batched_ref(as_f32(r), as_f32(m_inv), as_f32(s),
@@ -371,6 +394,8 @@ def _probe_sweep_batched(r, m_inv, s, eta, i, steps):
                                           _device_vector(eta, b, r.device), i,
                                           steps, b)
     _build.LAUNCHES["probe_sweep_batched"] += 1
+    if isinstance(i, torch.Tensor):
+        _build.LAUNCHES["probe_sweep_batched_per_trial"] += 1
     return etas.to(dt), cross.to(dt), p.to(dt), gnorm.to(dt)
 
 
@@ -379,8 +404,7 @@ def _commit_sweep_batched(r, m_inv, s, eta, i, delta, diag_keep, diag_add,
     b, d, n = r.shape
     _check_batched("commit_sweep", r, m_inv=(m_inv, (d, d)), s=(s, (d,)),
                    delta=(delta, (n,)))
-    if not 0 <= i < d:
-        raise IndexError(f"commit_sweep: agent {i} out of range for D={d}")
+    _check_agent("commit_sweep", i, d)
     if _build.on_cpu(r, "commit_sweep"):
         def c32(x):
             return x.to(torch.float32) if isinstance(x, torch.Tensor) else x
@@ -396,5 +420,7 @@ def _commit_sweep_batched(r, m_inv, s, eta, i, delta, diag_keep, diag_add,
     m_new, s_new, u_eff, accept, obj_post = _launch_commit(
         r, m_inv, s, eta, i, delta, diag_keep, diag_add, threshold, can_tx, b)
     _build.LAUNCHES["commit_sweep_batched"] += 1
+    if isinstance(i, torch.Tensor):
+        _build.LAUNCHES["commit_sweep_batched_per_trial"] += 1
     return (m_new.to(m_inv.dtype), s_new.to(s.dtype), u_eff.to(s.dtype),
             accept, obj_post.to(s.dtype))

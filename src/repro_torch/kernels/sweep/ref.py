@@ -26,13 +26,16 @@ kernels, and chip_smoke.py holds the CUDA kernels against them on the card.
 
 The `_batched` versions compute the same for B independent Monte-Carlo
 trials: every operand carries a leading trial axis (eta, threshold and can_tx
-as (B,) tensors) while agent i and the step schedule are shared.
+as (B,) tensors) while the step schedule is shared, and agent i is shared
+(an int) or one per trial (a (B,) int64 tensor, core.trial_index).
 """
 from __future__ import annotations
 
 from typing import Tuple, Union
 
 import torch
+
+from repro_torch.core.trial_index import Agent, pick, put
 
 __all__ = ["probe_etas_closed", "probe_sweep_ref", "commit_sweep_ref",
            "probe_etas_closed_batched", "probe_sweep_batched_ref",
@@ -138,17 +141,17 @@ def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def probe_etas_closed_batched(m_inv: torch.Tensor, s: torch.Tensor,
-                              eta: torch.Tensor, i: int, steps: torch.Tensor,
+                              eta: torch.Tensor, i: Agent, steps: torch.Tensor,
                               p_hat: torch.Tensor, c1h: Scalar,
                               c2h: Scalar) -> torch.Tensor:
     """`probe_etas_closed` per trial: m_inv (B, D, D), s and p_hat (B, D),
     eta, c1h and c2h (B,) or scalars, steps (K,) shared -> (B, K)."""
     q = _matvec(m_inv, p_hat)
     a = _vdot(p_hat, q)[:, None]
-    b = q[:, i, None]
-    c = m_inv[:, i, i, None]
+    b = pick(q, i, 1)[:, None]
+    c = pick(pick(m_inv, i, 1), i, 1)[:, None]
     e = _vdot(p_hat, s)[:, None]
-    t1 = s[:, i, None]
+    t1 = pick(s, i, 1)[:, None]
     c1h = torch.as_tensor(c1h, dtype=s.dtype, device=s.device).reshape(-1, 1)
     c2h = torch.as_tensor(c2h, dtype=s.dtype, device=s.device).reshape(-1, 1)
     st = steps[None, :]
@@ -162,7 +165,7 @@ def probe_etas_closed_batched(m_inv: torch.Tensor, s: torch.Tensor,
 
 
 def probe_sweep_batched_ref(r_sub: torch.Tensor, m_inv: torch.Tensor,
-                            s: torch.Tensor, eta: Scalar, i: int,
+                            s: torch.Tensor, eta: Scalar, i: Agent,
                             steps: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor, torch.Tensor]:
@@ -172,7 +175,7 @@ def probe_sweep_batched_ref(r_sub: torch.Tensor, m_inv: torch.Tensor,
     cross = (s[:, None, :] @ r_sub)[:, 0]
     p_acc = _matvec(r_sub, cross)              # = m * A0 @ s
     gg_cross = _vdot(cross, cross)
-    scale = (2.0 / m) * s[:, i]
+    scale = (2.0 / m) * pick(s, i, 1)
     gnorm = torch.sqrt(gg_cross) * torch.abs(scale) + 1e-30
     p = (scale / (m * gnorm))[:, None] * p_acc  # R @ g_unit / m
     gg = (scale / gnorm) ** 2 * gg_cross       # <g_unit, g_unit>
@@ -182,7 +185,7 @@ def probe_sweep_batched_ref(r_sub: torch.Tensor, m_inv: torch.Tensor,
 
 
 def commit_sweep_batched_ref(r_sub: torch.Tensor, m_inv: torch.Tensor,
-                             s: torch.Tensor, eta: Scalar, i: int,
+                             s: torch.Tensor, eta: Scalar, i: Agent,
                              delta: torch.Tensor, diag_keep: Scalar,
                              diag_add: Scalar, threshold: Scalar,
                              can_tx: Union[bool, torch.Tensor]
@@ -197,15 +200,15 @@ def commit_sweep_batched_ref(r_sub: torch.Tensor, m_inv: torch.Tensor,
     w = _matvec(r_sub, delta) / m
     dd_auto = _vdot(delta, delta) / (2.0 * m)
     u = w.clone()
-    u[:, i] = diag_keep * (w[:, i] + dd_auto) + diag_add
+    put(u, i, 1, diag_keep * (pick(w, i, 1) + dd_auto) + diag_add)
 
-    z1 = m_inv[:, i]
+    z1 = pick(m_inv, i, 1)
     z2 = _matvec(m_inv, u)
-    k11 = m_inv[:, i, i]
-    k12 = 1.0 + z2[:, i]
+    k11 = pick(z1, i, 1)
+    k12 = 1.0 + pick(z2, i, 1)
     k22 = _vdot(u, z2)
     det = k11 * k22 - k12 * k12
-    t1 = s[:, i]
+    t1 = pick(s, i, 1)
     t2 = _vdot(u, s)
     obj_post = eta - (k22 * t1 * t1 - 2.0 * k12 * t1 * t2
                       + k11 * t2 * t2) / det

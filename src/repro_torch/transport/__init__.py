@@ -1,69 +1,97 @@
-"""repro_torch.transport — the measured communication layer, default path.
+"""repro_torch.transport — the measured communication layer.
 
-Twin of repro.transport for this slice: the `full` topology, the exact
-codecs and the host-side byte ledger.  `Transport` bundles one topology and
-codec and provides the relays the sweeps call: a broadcast from agent i
-reaches the farthest agent after ecc[i] decode/re-encode hops, so the shared
-covariance state holds the roundtrip^ecc view of each row — the identity for
-an exact codec that holds the data dtype.  The `_st` relays pass gradients
-straight through the codec (the dense engine differentiates its objective
-through the payload).  Byte budgets, budget policies and faults wait for
-ROADMAP A9 and A12.
+Twin of repro.transport: topologies (full, ring, star, random_graph),
+codecs (exact_f64 / f32 / bf16, int8_affine, topk_sparse), the host-side
+byte ledger and the byte-budget policies (truncate, greedy_eta).
+`Transport` bundles one topology, codec and budget and provides the relays
+the sweeps call: a broadcast from agent i reaches the farthest agent after
+ecc[i] decode/re-encode hops, so the shared covariance state holds the
+roundtrip^ecc view of each row — the identity for an exact codec that
+holds the data dtype.  The `_st` relays pass gradients straight through
+the codec at every hop (the dense engine differentiates its objective
+through the payload).  Faults wait for ROADMAP A12.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.transport.codecs import (CODECS, Codec, ExactCodec,
+                                          Int8AffineCodec, TopKSparseCodec,
                                           build_codec, register_codec)
-from repro_torch.transport.ledger import (Ledger, agent_broadcast_cost,
-                                          gather_cost, icoa_sweep_cost,
-                                          refit_cycle_bytes)
+from repro_torch.transport.ledger import (Ledger, TrialLedgers,
+                                          agent_broadcast_cost, gather_cost,
+                                          icoa_sweep_cost, refit_cycle_bytes)
+from repro_torch.transport.policy import (POLICIES, budget_setup,
+                                          gate_broadcast, gate_schedule,
+                                          greedy_order, require_budget_engine)
 from repro_torch.transport.topology import (TOPOLOGIES, Topology,
                                             TransportError, build_topology,
                                             register_topology)
 
 __all__ = [
-    "CODECS", "Codec", "ExactCodec", "Ledger", "TOPOLOGIES", "Topology",
-    "Transport", "TransportError", "agent_broadcast_cost", "build_codec",
-    "build_topology", "default_transport", "gather_cost", "icoa_sweep_cost",
-    "refit_cycle_bytes", "register_codec", "register_topology",
+    "CODECS", "Codec", "ExactCodec", "Int8AffineCodec", "Ledger", "POLICIES",
+    "TOPOLOGIES", "Topology", "TopKSparseCodec", "Transport", "TransportError",
+    "TrialLedgers", "agent_broadcast_cost", "budget_setup", "build_codec",
+    "build_topology", "default_transport", "gate_broadcast", "gate_schedule",
+    "gather_cost", "greedy_order", "icoa_sweep_cost", "refit_cycle_bytes",
+    "register_codec", "register_topology", "require_budget_engine",
 ]
 
 
 @dataclasses.dataclass(frozen=True)
 class Transport:
-    """One resolved communication regime (topology + codec)."""
+    """One resolved communication regime (topology + codec + budget)."""
 
     topology: Topology
     codec: Codec
+    byte_budget: Optional[float] = None
+    policy: str = "greedy_eta"
 
-    def _relay(self, x: torch.Tensor, ecc) -> torch.Tensor:
-        """x after `ecc` decode/re-encode hops: an int for one row, the
-        per-row tuple for a (D, m) matrix.  The identity check comes first,
-        so an exact codec costs no host-to-device copy (and no wait)."""
+    def __post_init__(self):
+        if self.policy not in POLICIES:
+            raise TransportError(
+                f"unknown budget policy {self.policy!r}; pick one of {POLICIES}")
+        if self.byte_budget is not None and not (
+                math.isfinite(self.byte_budget) and self.byte_budget > 0):
+            raise TransportError(
+                f"byte_budget must be positive and finite (got "
+                f"{self.byte_budget}); use None for unbudgeted runs")
+
+    def _st(self, x: torch.Tensor) -> torch.Tensor:
+        """One straight-through hop: the delivered value, the identity's
+        gradient (x + sg(roundtrip(x) - x), the JAX package's form)."""
+        return x + (self.codec.roundtrip(x) - x).detach()
+
+    def _relay(self, x: torch.Tensor, ecc, rt) -> torch.Tensor:
+        """x after `ecc` hops of rt: a Python int for one payload (the hop
+        applied ecc times), the per-row tuple for a (..., D, m) matrix, or
+        a (B,) device tensor of hop counts for one payload per trial (both
+        selected hop by hop).  The identity check comes first, so an exact
+        codec costs nothing."""
         if self.codec.is_identity_for(x.dtype):
             return x
-        hops = torch.as_tensor(ecc, device=x.device)
-        if hops.dim() == 1:
-            hops = hops[:, None]
+        if isinstance(ecc, int):
+            for _ in range(ecc):
+                x = rt(x)
+            return x
+        hops = (ecc if isinstance(ecc, torch.Tensor)
+                else _on_device(ecc, x.device))[:, None]
         for h in range(self.topology.max_ecc):
-            x = torch.where(hops > h, self.codec.roundtrip(x), x)
+            x = torch.where(hops > h, rt(x), x)
         return x
 
     def relay_rows(self, r: torch.Tensor) -> torch.Tensor:
-        """(D, m) -> (D, m): row i as received after ecc[i] relay hops."""
-        return self._relay(r, self.topology.ecc)
+        """(..., D, m) -> the same: row i as received after ecc[i] hops."""
+        return self._relay(r, self.topology.ecc, self.codec.roundtrip)
 
     def relay_rows_st(self, r: torch.Tensor) -> torch.Tensor:
-        """`relay_rows` with straight-through gradients: the delivered
-        value, the identity's gradient."""
-        if self.codec.is_identity_for(r.dtype):
-            return r
-        return r + (self.relay_rows(r) - r).detach()
+        """`relay_rows` with straight-through gradients, hop by hop."""
+        return self._relay(r, self.topology.ecc, self._st)
 
     def relay_scalars(self, v: torch.Tensor) -> torch.Tensor:
         """(..., D) per-agent scalars, each flooded from its own agent."""
@@ -77,16 +105,30 @@ class Transport:
             return v
         return self.relay_rows_st(v[..., None])[..., 0]
 
-    def relay_row(self, row: torch.Tensor, i: int) -> torch.Tensor:
-        """One row broadcast from agent i."""
-        return self._relay(row, self.topology.ecc[i])
+    def _ecc_of(self, i):
+        """Hops of agent i's broadcast: an int, or per trial for a (B,)
+        device index."""
+        if isinstance(i, torch.Tensor):
+            return _on_device(self.topology.ecc, i.device)[i]
+        return self.topology.ecc[i]
 
-    def relay_scalar(self, v: torch.Tensor, i: int) -> torch.Tensor:
+    def relay_row(self, row: torch.Tensor, i) -> torch.Tensor:
+        """One row broadcast from agent i (one per trial, (B, m), from
+        agent i or from each trial's own agent i (B,))."""
+        return self._relay(row, self._ecc_of(i), self.codec.roundtrip)
+
+    def relay_scalar(self, v: torch.Tensor, i) -> torch.Tensor:
         """A per-row scalar (or one per trial, (B,)) rides the same relay as
         its row, as a payload of its own."""
         if self.codec.is_identity_for(v.dtype):
             return v
         return self.relay_row(v[..., None], i)[..., 0]
+
+    def broadcast_costs(self, m: int, split: bool) -> Tuple[int, ...]:
+        """The D agents' flood prices — the budget gate indexes them by the
+        (possibly reordered) updating agent."""
+        return tuple(agent_broadcast_cost(self, i, m, split)
+                     for i in range(self.topology.n_agents))
 
     def validate_for(self, n_agents: int) -> "Transport":
         if self.topology.n_agents != n_agents:
@@ -94,6 +136,12 @@ class Transport:
                 f"transport topology {self.topology.name!r} was built for "
                 f"{self.topology.n_agents} agents but the run has {n_agents}")
         return self
+
+
+@functools.lru_cache(maxsize=None)
+def _on_device(ecc: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """A topology's hop counts as a device tensor, copied there once."""
+    return torch.tensor(ecc, device=device)
 
 
 @functools.lru_cache(maxsize=None)

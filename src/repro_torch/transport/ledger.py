@@ -1,10 +1,14 @@
 """The byte ledger: traffic accounted from what crossed the wire.
 
-Twin of repro.transport.ledger as host-side integer bookkeeping: no budget
-gates on the device in this slice, so every price is a Python int fixed by
-the spec (payload bytes of the codec times the topology's flood
-transmissions) and the ledger is a plain counter.  Cost model per ICOA
-sweep (m = transmitted instances):
+Twin of repro.transport.ledger as host-side integer bookkeeping: every
+price is a Python int fixed by the spec (payload bytes of the codec times
+the topology's flood transmissions), and a budget gate depends only on the
+prices and the order the agents transmit in, never on the device's
+numbers, so the ledger is a plain counter that never wraps (the JAX
+package's int32 ledger needs `ensure_sweep_capacity`; this one does not).
+A Monte-Carlo batch carries one ledger per trial (`TrialLedgers`): under a
+budget the trials' orders, and so their spends, may differ.  Cost model
+per ICOA sweep (m = transmitted instances):
 
     payload       = nbytes(m)                     one agent's row
     broadcast_i   = bcast_tx[i] * payload         flood from agent i
@@ -21,9 +25,10 @@ sum per agent update (`refit_cycle_bytes`); averaging charges nothing.  On
 from __future__ import annotations
 
 import dataclasses
+from typing import List, Sequence, Tuple
 
-__all__ = ["Ledger", "agent_broadcast_cost", "gather_cost", "icoa_sweep_cost",
-           "refit_cycle_bytes"]
+__all__ = ["Ledger", "TrialLedgers", "agent_broadcast_cost", "gather_cost",
+           "icoa_sweep_cost", "refit_cycle_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,6 +39,48 @@ class Ledger:
 
     def charge(self, n_bytes: int) -> "Ledger":
         return Ledger(spent=self.spent + int(n_bytes))
+
+    def affords(self, n_bytes: int, budget: float) -> bool:
+        """True when charging `n_bytes` more stays within `budget`, floored
+        to whole bytes."""
+        return self.spent + int(n_bytes) <= int(budget)
+
+    def charge_if(self, cond: bool, n_bytes: int) -> "Ledger":
+        return self.charge(n_bytes) if cond else self
+
+
+@dataclasses.dataclass(frozen=True)
+class TrialLedgers:
+    """One ledger per Monte-Carlo trial: `spent` holds B Python ints."""
+
+    spent: Tuple[int, ...]
+
+    @classmethod
+    def empty(cls, n_trials: int) -> "TrialLedgers":
+        return cls(spent=(0,) * n_trials)
+
+    def charge(self, n_bytes) -> "TrialLedgers":
+        """Charge every trial `n_bytes`, or trial b `n_bytes[b]`."""
+        each = _per_trial(n_bytes, len(self.spent))
+        return TrialLedgers(tuple(s + c for s, c in zip(self.spent, each)))
+
+    def affords(self, n_bytes, budget: float) -> Tuple[bool, ...]:
+        each = _per_trial(n_bytes, len(self.spent))
+        return tuple(s + c <= int(budget) for s, c in zip(self.spent, each))
+
+    def charge_if(self, cond: Sequence[bool], n_bytes) -> "TrialLedgers":
+        each = _per_trial(n_bytes, len(self.spent))
+        return self.charge([c if ok else 0 for ok, c in zip(cond, each)])
+
+
+def _per_trial(n_bytes, n_trials: int) -> List[int]:
+    """One price for every trial, or a sequence (or CPU int64 tensor) of B."""
+    if not hasattr(n_bytes, "__len__"):
+        return [int(n_bytes)] * n_trials
+    each = [int(c) for c in n_bytes]
+    if len(each) != n_trials:
+        raise ValueError(f"{len(each)} prices for {n_trials} trials")
+    return each
 
 
 def _payload(transport, m: int, split: bool) -> int:

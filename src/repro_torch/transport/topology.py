@@ -1,9 +1,9 @@
 """Topology registry: the static communication graph the agents live on.
 
-Twin of repro.transport.topology holding the `full` graph only (the other
-builders — ring, star, random_graph — wait for ROADMAP A9).  A builder
-returns a symmetric (D, D) 0/1 adjacency; `build_topology` derives, host
-side and once:
+Twin of repro.transport.topology: the `full`, `ring`, `star` and
+`random_graph` graphs (numpy's seeded `default_rng` draws the same random
+graph).  A builder returns a symmetric (D, D) 0/1 adjacency;
+`build_topology` derives, host side and once:
 
     hops[i][j]   shortest-path hop count (BFS)
     ecc[i]       eccentricity: relay hops of agent i's broadcast
@@ -35,6 +35,10 @@ class Topology:
     hops: Tuple[Tuple[int, ...], ...]        # shortest-path hop counts
     ecc: Tuple[int, ...]                     # per-agent eccentricity
     bcast_tx: Tuple[int, ...]                # per-agent flood transmissions
+
+    @property
+    def is_complete(self) -> bool:
+        return all(e == 1 for e in self.ecc)
 
     @property
     def max_ecc(self) -> int:
@@ -112,7 +116,8 @@ def build_topology(name: str, n_agents: int, options=()) -> Topology:
             stranded = sorted(int(j) for j in np.flatnonzero(hops < 0))
             raise TransportError(
                 f"topology {name!r} is disconnected (agents {stranded} "
-                f"unreachable from agent {i})")
+                f"unreachable from agent {i}); every agent must be able to "
+                f"relay to every other — raise p / change the seed")
         hops_rows.append(tuple(int(h) for h in hops))
         bcast.append(int(n_tx))
     ecc = tuple(max(row) if n_agents > 1 else 0 for row in hops_rows)
@@ -126,3 +131,36 @@ def full(n_agents: int) -> np.ndarray:
     """Complete graph — the paper's implicit assumption (1 hop, 1 tx)."""
     return (np.ones((n_agents, n_agents), dtype=np.int64)
             - np.eye(n_agents, dtype=np.int64))
+
+
+@register_topology("ring")
+def ring(n_agents: int) -> np.ndarray:
+    """Cycle: each agent talks to its two neighbours."""
+    adj = np.zeros((n_agents, n_agents), dtype=np.int64)
+    if n_agents == 1:
+        return adj
+    for i in range(n_agents):
+        adj[i, (i + 1) % n_agents] = 1
+        adj[(i + 1) % n_agents, i] = 1
+    return adj
+
+
+@register_topology("star")
+def star(n_agents: int) -> np.ndarray:
+    """Hub-and-spoke: agent 0 is the fusion centre, leaves relay through it."""
+    adj = np.zeros((n_agents, n_agents), dtype=np.int64)
+    adj[0, 1:] = 1
+    adj[1:, 0] = 1
+    return adj
+
+
+@register_topology("random_graph")
+def random_graph(n_agents: int, p: float = 0.5, seed: int = 0) -> np.ndarray:
+    """Erdos-Renyi G(D, p), seeded; a disconnected draw is rejected by
+    `build_topology`."""
+    if not 0.0 <= p <= 1.0:
+        raise TransportError(f"random_graph needs 0 <= p <= 1, got {p}")
+    rng = np.random.default_rng(int(seed))
+    upper = rng.random((n_agents, n_agents)) < p
+    adj = np.triu(upper, k=1).astype(np.int64)
+    return adj + adj.T

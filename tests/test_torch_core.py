@@ -361,7 +361,7 @@ def test_exact_codecs_match_jax():
     assert ttransport.default_transport(3).relay_rows(xt) is xt   # identity
     assert ttransport.default_transport(3).relay_rows_st(xt) is xt
     with pytest.raises(ttransport.TransportError):
-        ttransport.build_topology("ring", 3)
+        ttransport.build_topology("hypercube", 3)
 
 
 # --------------------------------------------------------------------- data

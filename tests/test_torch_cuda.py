@@ -34,6 +34,10 @@ float64 normals within 4 ulp of the CPU's (torch.log differs); a trial
 batch drawn in one pass gives each trial its single draw's bits; the
 batched dense engine's trials match their single-trial runs on the card;
 a Result saved on the card loads back on it with the same predictions.
+The transport layer: B6 and B8 with one agent per trial give slice b the
+single launch's bits on agent i[b]; the lossy codecs' round trips on the
+card equal the CPU's bit for bit; a budgeted star batch (greedy_eta) has
+the CPU's per-trial ledgers.
 """
 import dataclasses
 import math
@@ -165,8 +169,9 @@ def test_kernels_match_plain(card, d, n):
     assert {k: _build.LAUNCHES[k] - before[k] for k in before} == {
         "gram": 5, "row_gram": 5, "probe_sweep": 5, "commit_sweep": 2,
         "gram_batched": 0, "row_gram_batched": 0, "probe_sweep_batched": 0,
-        "commit_sweep_batched": 0, "flash_attention": 0, "flash_attention_tc": 0,
-        "flash_decode": 0, "wkv": 0}
+        "commit_sweep_batched": 0, "probe_sweep_batched_per_trial": 0,
+        "commit_sweep_batched_per_trial": 0, "flash_attention": 0,
+        "flash_attention_tc": 0, "flash_decode": 0, "wkv": 0}
 
 
 COMMIT_CASES = [(100, 262144), (100, 20001), (129, 4096), (300, 20001), (5, 600)]
@@ -668,6 +673,112 @@ def test_card_result_saves_and_loads_on_card(card, tmp_path):
     assert torch.equal(back.predict(x), res.predict(x))
     for got, want in zip(back.data[:4], res.data[:4]):
         assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------- transport
+
+def _batched_scene(b, d, n, seed, device):
+    scenes = [_scene(d, n, seed + t, device) for t in range(b)]
+    return {k: torch.stack([s[k] for s in scenes]).contiguous()
+            for k in ("r", "m_inv", "s", "eta", "delta")} | {"steps": scenes[0]["steps"]}
+
+
+@pytest.mark.parametrize("d,n", [(5, 600), (100, 20001), (129, 4096)])
+def test_per_trial_agents_equal_the_single_launch(card, d, n):
+    """B6 and B8 with one agent per trial: slice b equals the single-trial
+    kernel on agent i[b] bit for bit; the null-index (one agent) path
+    equals it too, and a trial whose can_tx is false keeps its state."""
+    b = 4
+    sc = _batched_scene(b, d, n, 40, card)
+    agents = torch.tensor([d - 1, 0, d // 2, d - 1], device=card)
+    can = torch.tensor([True, False, True, True], device=card)
+    thr = sc["eta"] - 1.0
+    probe = sweep_ops.probe_sweep(sc["r"], sc["m_inv"], sc["s"], sc["eta"],
+                                  agents, sc["steps"])
+    commit = sweep_ops.commit_sweep(sc["r"], sc["m_inv"], sc["s"], sc["eta"],
+                                    agents, sc["delta"], 1.0, 0.0, thr, can)
+    shared = sweep_ops.probe_sweep(sc["r"], sc["m_inv"], sc["s"], sc["eta"], 0,
+                                   sc["steps"])
+    for t in range(b):
+        i = int(agents[t])
+        one_p = sweep_ops.probe_sweep(sc["r"][t], sc["m_inv"][t], sc["s"][t],
+                                      sc["eta"][t], i, sc["steps"])
+        one_c = sweep_ops.commit_sweep(sc["r"][t], sc["m_inv"][t], sc["s"][t],
+                                       sc["eta"][t], i, sc["delta"][t], 1.0, 0.0,
+                                       thr[t], bool(can[t]))
+        assert all(torch.equal(g[t], w) for g, w in zip(probe, one_p)), t
+        assert all(torch.equal(g[t], w) for g, w in zip(commit, one_c)), t
+        zero_p = sweep_ops.probe_sweep(sc["r"][t], sc["m_inv"][t], sc["s"][t],
+                                       sc["eta"][t], 0, sc["steps"])
+        assert all(torch.equal(g[t], w) for g, w in zip(shared, zero_p)), t
+    assert not bool(commit[3][1])
+    assert torch.equal(commit[0][1], sc["m_inv"][1])
+    assert torch.equal(commit[1][1], sc["s"][1])
+    want = sweep_ref.commit_sweep_batched_ref(sc["r"], sc["m_inv"], sc["s"],
+                                              sc["eta"], agents, sc["delta"],
+                                              1.0, 0.0, thr, can)
+    assert torch.equal(commit[3], want[3])
+    _close(commit[1], want[1], 1e-4, "commit s per trial")
+
+
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_card_codecs_equal_the_cpu(card, x64):
+    """int8_affine (its decode one addcmul, a fused multiply-add, on the
+    card; the exact FMA emulation on the CPU), topk_sparse with ties, and
+    exact_bf16: the card's round trip equals the CPU's bit for bit."""
+    from repro_torch import transport as ttr
+
+    dt = torch.float64 if x64 else torch.float32
+    rng = np.random.default_rng(9)
+    x = torch.tensor(rng.standard_normal((8, 5000)) * rng.random((8, 1)) * 7,
+                     dtype=dt)
+    x[1] = 0.75
+    x[2, :100] = 1.5
+    x[2, 200:300] = -1.5
+    for name, opts in (("int8_affine", ()), ("topk_sparse", (("k", 64),)),
+                       ("topk_sparse", (("k", 150),)), ("exact_bf16", ())):
+        codec = ttr.build_codec(name, opts)
+        got = codec.roundtrip(x.to(card))
+        assert torch.equal(got.cpu(), codec.roundtrip(x)), name
+    tp = ttr.Transport(topology=ttr.build_topology("ring", 8),
+                       codec=ttr.build_codec("int8_affine"))
+    assert torch.equal(tp.relay_rows(x.to(card)).cpu(), tp.relay_rows(x))
+
+
+@pytest.mark.parametrize("engine", ["fused", "incremental"])
+def test_budgeted_batch_fit_on_star_on_card(card, engine):
+    """A budgeted batch (star, greedy_eta, 0.75 x one sweep's price) on the
+    card: the per-trial ledgers equal the CPU's on the same data and
+    diverge, each within the budget; every trial within 1e-4 of the CPU;
+    under the fused engine B6 and B8 take one agent per trial."""
+    from repro_torch import transport as ttr
+    from repro_torch.core import icoa
+    from repro_torch.data import sources
+
+    star = api.TransportSpec(topology="star")
+    price = ttr.icoa_sweep_cost(star.resolve(5), 400, split=False, row_wise=True)
+    spec = api.ExperimentSpec(
+        data=api.DataSpec(n_train=400, n_test=200),
+        transport=dataclasses.replace(star, byte_budget=0.75 * price),
+        solver=api.SolverSpec(engine=engine, use_kernel=True, n_sweeps=2,
+                              eps=0.0))
+    _build.reset_launches()
+    rs = api.batch_fit(spec, 8, device="cuda")
+    per_trial = _build.LAUNCHES["probe_sweep_batched_per_trial"]
+    assert per_trial == (10 if engine == "fused" else 0)
+    seeds = list(range(8))
+    dd = spec.data
+    cpu = [a.cpu() for a in sources.make_trial_batch(
+        dd.source, dd.n_train, dd.n_test, seeds, dd.groups, device="cuda")]
+    cfg = spec.solver.icoa_config(spec.resolved_transport())
+    ref = icoa.run_scan(rs[0].family, cfg, *cpu, seeds=seeds)[3]
+    ledgers = [r.history.bytes_transmitted for r in rs]
+    assert ledgers == ref["trial_bytes"]
+    assert len({tuple(b) for b in ledgers}) > 1
+    assert all(sum(b) <= 0.75 * price for b in ledgers)
+    for t, res in enumerate(rs):
+        np.testing.assert_allclose(res.history.eta, ref["eta"][t].numpy(),
+                                   rtol=1e-4)
 
 
 # ------------------------------------------------------------- LM kernels

@@ -2,10 +2,13 @@
 
   * every source x {float32, float64 (jax.enable_x64)} x 3 seeds against
     `repro.data.sources.make_dataset`: the raw uniform covariates of the
-    Friedman and cosine sources bit for bit before standardisation; the
-    standardised datasets within 2e-6 (float32) and 1e-12 (float64) —
-    their sums and the normals' log1p round differently in the two
-    libraries (measured: 7.2e-7 and 3.0e-15 at most);
+    Friedman and cosine sources bit for bit before standardisation, and
+    after it (the train split's mean and standard deviation are summed in
+    the order of XLA's CPU code, `friedman.xla_sum`, which equals jax's
+    reduction bit for bit); the datasets within 2e-6 (float32) and 1e-12
+    (float64) — the outcomes' sin / atan / cos, correlated_linear's
+    Cholesky factor and product, and the f64 normals' log round
+    differently in the two libraries;
   * all five partitions against `repro.data.partition` over a grid of
     (n_attrs, n_agents, options): the same groups, or the same error; the
     column masks equal; DataSpec rejects unequal groups as the JAX
@@ -161,3 +164,34 @@ def test_friedman_make_dataset_matches_jax(which):
     got = tfriedman.make_dataset(which, 300, 100, seed=4, noise=0.1)
     for g, w in zip(got, want):
         assert np.max(np.abs(g.numpy() - w)) <= DATA_TOL[torch.float32]
+
+
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 300, 2000, 40000])
+def test_xla_sum_equals_jax_reduction(n, x64):
+    """jnp.sum over a major axis, compiled by XLA for the CPU, and
+    friedman.xla_sum: the same bits (the mean and std of standardise)."""
+    dt = np.float64 if x64 else np.float32
+    x = np.random.default_rng(n).standard_normal((n, 7)).astype(dt)
+    with jax.enable_x64(x64):
+        want = np.asarray(jax.jit(lambda a: a.sum(axis=0))(x))
+    got = tfriedman.xla_sum(torch.from_numpy(x), 0)
+    np.testing.assert_array_equal(got.numpy(), want)
+    batch = torch.from_numpy(np.stack([x, 2 * x]))
+    assert torch.equal(tfriedman.xla_sum(batch, -2)[0], got)
+
+
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+@pytest.mark.parametrize("source", UNIFORM_SOURCES)
+def test_standardised_covariates_bit_for_bit(source, x64):
+    """The Friedman and cosine covariates after standardisation, both
+    splits: equal to the JAX package's bit for bit."""
+    opts = OPTIONS.get(source, ())
+    for seed, n in ((0, 300), (7, 2000)):
+        with jax.enable_x64(x64):
+            want = [np.asarray(a) for a in jsrc.make_dataset(
+                source, n, 120, seed, noise=0.1, options=opts)]
+        got = tsrc.make_dataset(source, n, 120, seed, noise=0.1, options=opts,
+                                dtype=_dtype(x64))
+        np.testing.assert_array_equal(got[0].numpy(), want[0])
+        np.testing.assert_array_equal(got[2].numpy(), want[2])
