@@ -126,6 +126,24 @@ Phases, each fatal on failure (nothing is caught):
               an 8-trial fused batched sweep on star + int8_affine under
               greedy_eta at 0.75 of its price, through batch_fit and again
               timed alone on the same data;
+  8d. faults_families  seeded fault injection and the mlp / rff families
+              on the kernels: the paper cell (use_kernel, 4 sweeps, eps 0)
+              under every fault at once (drops with 2 retries, 4-bit
+              corruption, stragglers, agent 1 down for rounds 1-2), fused
+              and incremental: bytes equal to the CPU's, a second run
+              bit-identical, histories within FAULT_TOL of the CPU, agent
+              1's weight exactly 0 in records 2 and 3 and non-zero in
+              record 4; B7/B8 gated off on struck rows keep m_inv and s
+              bitwise; drops alone under greedy_eta at 0.75 of a clean
+              star sweep, single and a 16-trial batch (every ledger equal
+              to the CPU's, within the budget); fig1_overtraining's mlp
+              cell (3 trials x 10 sweeps, icoa and residual_refitting)
+              timed, and its first 3 sweeps in float64 card vs CPU
+              (FIG1_TOL); rff on the paper cell (RFF_TOL); the deployment
+              cell: two fused and two incremental sweeps under every fault
+              (ledgers 471,859,200 and 482,344,960 bytes), one fused sweep
+              each of mlp and rff at their defaults, timed, with one
+              agent's projection profiled (device busy, device ops);
   9. lm kernels  flash attention (B9), flash decode (B10) and WKV (B11)
               against their plain versions on the same card inputs (fp32:
               1e-5 normwise; bf16: 8e-3, about two bf16 roundings of the
@@ -869,6 +887,34 @@ def phase_paper(api, _build):
     return totals
 
 
+def profile_light(fn, tag: str) -> dict:
+    """torch.profiler recording the device only over one call of fn (for
+    calls of ~10^5 device operations, whose host events would take the
+    profiler a minute to tabulate): the wall and device busy ms, the
+    count of device operations, and the kernels that take the time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    n_ops = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) + e.time_range.elapsed_us()
+            n_ops += 1
+    busy_ms = sum(by_kernel.values()) / 1e3
+    log(f"[profile] {tag}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}%), {n_ops} device operations")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"[profile] {tag}:   {us / 1e3:8.2f} ms  {name[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "ops": n_ops}
+
+
 def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str,
                   key=None, light: bool = False) -> dict:
     """torch.profiler over one deployment sweep (one trial, or a batch of
@@ -883,9 +929,11 @@ def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if light:
+        return profile_light(lambda: icoa.sweep(family, cfg, params, f, xcols,
+                                                y, key), engine)
     torch.cuda.synchronize()
-    acts = [ProfilerActivity.CUDA] if light else [ProfilerActivity.CPU,
-                                                  ProfilerActivity.CUDA]
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         icoa.sweep(family, cfg, params, f, xcols, y, key)
@@ -913,8 +961,6 @@ def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str,
         f"{n_ops} device operations, {sum(waits.values())} host waits on the device")
     for name, us in top:
         log(f"[profile] {engine}:   {us / 1e3:8.2f} ms  {name[:90]}")
-    if light:
-        return {"wall_ms": wall_ms, "busy_ms": busy_ms, "ops": n_ops}
     for key, count in sorted(waits.items(), key=lambda kv: -kv[1])[:4]:
         log(f"[profile] {engine}:   {count} waits in {key[:120]}")
     prof.export_chrome_trace(os.path.join(HERE, "chiprun_out",
@@ -2070,6 +2116,259 @@ def phase_transport(api, _build, icoa, data_sources, sweep_ops, sweep_ref,
     return totals
 
 
+# --------------------------------------------- 8d. faults and the families
+
+
+# the JAX package's fully loaded failure model (tests/test_faults.py _FAULTS)
+FULL_FAULTS = dict(seed=5, drop_rate=0.3, corrupt_rate=0.2, corrupt_bits=4,
+                   straggle_rate=0.1, max_retries=2, crash=((1, 1, 3),))
+# the deployment cell's ledger under FULL_FAULTS, sweeps (rounds) 0 and 1:
+# the JAX package's own broadcast_costs and trace; clean: 419,430,400
+FAULT_DEPLOY_BYTES = (471_859_200, 482_344_960)
+CLEAN_DEPLOY_BYTES = 419_430_400
+# Card vs CPU on the same data, stated before the first card run:
+#   FAULT_TOL   the paper cell under faults: the trace is drawn on the host
+#               and strikes the same bits on both, so the exact-codec bound
+#   FIG1_TOL    fig1's mlp cell in float64 (3 sweeps), every trial: the
+#               Adam steps' tanh and sums over N round apart in the last
+#               bits, and a float32 bias update can then round a step apart
+#               (~1e-8 each)
+#   RFF_TOL     rff on the paper cell in float32: a ridge solve over 64
+#               nearly collinear features amplifies the two libraries'
+#               last bits of the Gram's sums (the JAX package's own one-ulp
+#               spread of rff float32 predictions is ~8e-5, its gap to the
+#               port ~5e-5 .. 2e-4 in the records)
+FAULT_TOL, FIG1_TOL, RFF_TOL = 1e-4, 1e-6, 1e-2
+
+
+def check_fault_gate(sweep_ops, dev) -> None:
+    """B7 and B8 at the deployment shapes on a row struck by the fault
+    trace: a commit gated off (can_tx False: dead, straggling or not
+    delivered) leaves m_inv and s bit for bit, by value and per trial."""
+    from repro_torch.faults import FaultSpec, corrupt
+
+    b, d, n = B_DEPLOY, D_DEPLOY, N_DEPLOY
+    gen = torch.Generator(device=dev).manual_seed(21)
+    r = torch.randn((b, d, n), generator=gen, device=dev)
+    m_inv, s, eta = (torch.stack(x).contiguous()
+                     for x in zip(*[spd_scene(d, gen, dev) for _ in range(b)]))
+    spec = FaultSpec(seed=5, corrupt_rate=1.0, corrupt_bits=4)
+    clean = 0.05 * torch.randn((b, n), generator=gen, device=dev)
+    struck = corrupt(spec, clean, 0, list(range(b)))
+    require(bool((struck != clean).any()) and bool(torch.isfinite(struck).all()),
+            "fault gate: the strike moved nothing or made a non-finite row")
+    one = sweep_ops.commit_sweep(r[0], m_inv[0], s[0], eta[0], 7, struck[0], 1.0,
+                                 0.0, eta[0] - 1.0, False)
+    require(not bool(one[3]) and torch.equal(one[0], m_inv[0])
+            and torch.equal(one[1], s[0]), "B7: a gated-off commit moved the state")
+    can = torch.tensor([True, False, True, False, False, True, True, False],
+                       device=dev)
+    out = sweep_ops.commit_sweep(r, m_inv, s, eta, 7, struck, 1.0, 0.0,
+                                 eta - 1.0, can)
+    for t in range(b):
+        if not bool(can[t]):
+            require(not bool(out[3][t]) and torch.equal(out[0][t], m_inv[t])
+                    and torch.equal(out[1][t], s[t]),
+                    f"B8: trial {t} gated off moved its state")
+    log(f"[faults] B7/B8 on struck rows at D={d}, N={n}: gated-off commits "
+        f"(by value; per trial {can.tolist()}) kept m_inv and s bitwise")
+
+
+def phase_faults_families(api, _build, icoa, data_sources, sweep_ops):
+    """Phase 8d: fault injection and the mlp / rff families on the kernels.
+    (a) the paper cell under every fault at once (fused, incremental),
+    replayed, with agent 1's weight through its crash and rejoin; drops
+    with retries under a greedy_eta budget, single and a 16-trial batch;
+    (b) fig1's mlp cell and rff on the paper cell; (c) the deployment
+    width: two faulted sweeps per engine with their exact ledgers, one
+    mlp and one rff fused sweep, timed and profiled."""
+    from repro_torch import transport as ttr
+    from repro_torch.core.tree import take
+
+    totals = {}
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+
+    def add(counts):
+        for k_, v_ in counts.items():
+            totals[k_] = totals.get(k_, 0) + v_
+
+    # --- (a) the paper cell under every fault at once
+    faults = api.FaultSpec(**FULL_FAULTS)
+    base = api.DataSpec()
+    data = base.build("cuda")
+    for engine in ("fused", "incremental"):
+        spec = api.ExperimentSpec(faults=faults, solver=api.SolverSpec(
+            engine=engine, use_kernel=True, n_sweeps=4, eps=0.0))
+        tag = f"faults paper {engine}"
+        res, counts, secs = fit_on_card(api, _build, spec, data, tag)
+        add(counts)
+        again = api.fit(spec, device="cuda", data=data)
+        require(again.history.as_dict() == res.history.as_dict()
+                and torch.equal(again.weights, res.weights),
+                f"{tag}: the same fault seed did not replay bit for bit")
+        cpu = api.fit(spec, device="cpu", data=data)
+        gap = _card_vs_cpu(tag, res.history, cpu.history, FAULT_TOL)
+        w1 = []
+        for sweeps in (2, 3):
+            cut = dataclasses.replace(spec, solver=dataclasses.replace(
+                spec.solver, n_sweeps=sweeps))
+            w1.append(api.fit(cut, device="cuda", data=data).weights[1].item())
+        w1.append(res.weights[1].item())
+        require(w1[0] == 0.0 and w1[1] == 0.0 and w1[2] != 0.0,
+                f"{tag}: agent 1's weight in records 2, 3, 4 is {w1}")
+        log(f"[faults] paper {engine}: fit {secs:.3f} s, bytes "
+            f"{res.history.bytes_transmitted} (= the cpu port's; clean 160000 a "
+            f"sweep), replayed bit for bit, card vs cpu max rel {gap:.3e} "
+            f"(bound {FAULT_TOL:g}), agent 1's weight in records 2/3/4 {w1}, "
+            f"test MSE {res.history.test_mse[-1]:.5f}")
+    check_fault_gate(sweep_ops, dev)
+
+    star = _transport_spec(api, ("star", ()), ("exact_f64", ()))
+    price = ttr.icoa_sweep_cost(star.resolve(5), base.n_train, split=False,
+                                row_wise=True)
+    budget = 0.75 * price
+    drops = api.FaultSpec(seed=5, drop_rate=0.3, max_retries=2)
+    tspec = dataclasses.replace(star, byte_budget=budget, policy="greedy_eta")
+    seeds = list(range(16))
+    batch_cpu = [a.cpu() for a in data_sources.make_trial_batch(
+        base.source, base.n_train, base.n_test, seeds, base.groups, device="cuda")]
+    for engine in ("fused", "incremental"):
+        spec = api.ExperimentSpec(transport=tspec, faults=drops, solver=api.SolverSpec(
+            engine=engine, use_kernel=True, n_sweeps=3, eps=0.0))
+        tag = f"faults drops+greedy_eta {engine}"
+        res, counts, _ = fit_on_card(api, _build, spec, data, tag)
+        add(counts)
+        cpu = api.fit(spec, device="cpu", data=data)
+        gap = _card_vs_cpu(tag, res.history, cpu.history, FAULT_TOL)
+        spent = sum(res.history.bytes_transmitted)
+        require(spent <= budget, f"{tag}: spent {spent} > budget {budget}")
+        rs, counts, secs = batch_on_card(api, _build, spec, 16, f"{tag} batch")
+        add(counts)
+        cfg = spec.solver.icoa_config(spec.resolved_transport())
+        ref = icoa.run_scan(rs[0].family, cfg, *batch_cpu, seeds=seeds)[3]
+        ledgers = [a.history.bytes_transmitted for a in rs]
+        require(ledgers == ref["trial_bytes"],
+                f"{tag} batch: card ledgers differ from the cpu port's")
+        require(all(sum(b) <= budget for b in ledgers),
+                f"{tag} batch: a trial overspent its budget")
+        log(f"[faults] {tag}: single spent {spent:.0f} of {budget:.0f}, card vs "
+            f"cpu {gap:.3e}; batch of 16 in {secs:.3f} s, "
+            f"{len({tuple(b) for b in ledgers})} distinct ledgers, each equal to "
+            f"the cpu port's")
+
+    # --- (b) fig1's mlp cell (fig1_overtraining.py), rff on the paper cell
+    fig1 = api.ExperimentSpec(
+        data=api.DataSpec(n_train=600, n_test=600, seed=0),
+        agent=api.AgentSpec(family="mlp", options=(("hidden", 24), ("fit_steps", 120))),
+        solver=api.SolverSpec(n_sweeps=10))
+    for name in ("residual_refitting", "icoa"):
+        spec = api.spec_with(fig1, "solver.name", name)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rs = api.batch_fit(spec, 3, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        tr, te = rs.mean("train_mse")[-1], rs.mean("test_mse")[-1]
+        require(math.isfinite(tr) and math.isfinite(te), f"fig1 {name}: not finite")
+        spec64 = dataclasses.replace(
+            spec, backend=api.BackendSpec(compute_dtype="float64"),
+            solver=dataclasses.replace(spec.solver, n_sweeps=3))
+        card64 = api.batch_fit(spec64, 3, device="cuda")
+        cpu64 = api.batch_fit(spec64, 3, device="cpu")
+        gaps = []
+        for t in range(3):
+            gap = max(max_rel(getattr(card64[t].history, k),
+                              getattr(cpu64[t].history, k)) for k in HISTORY_KEYS)
+            require(gap <= FIG1_TOL, f"fig1 {name} float64 trial {t}: card vs "
+                    f"cpu {gap:.3e} > {FIG1_TOL:g}")
+            gaps.append(gap)
+        log(f"[families] fig1 mlp {name}: 3 trials x 10 sweeps (N=600, hidden 24, "
+            f"120 steps, float32) in {secs:.2f} s host time; final train "
+            f"{tr:.5f} test {te:.5f}; float64, 3 sweeps, card vs cpu per trial "
+            f"{', '.join(f'{g:.3e}' for g in gaps)} (bound {FIG1_TOL:g})")
+    spec = api.ExperimentSpec(agent=api.AgentSpec(family="rff"), solver=api.SolverSpec(
+        engine="fused", use_kernel=True, n_sweeps=4, eps=0.0))
+    res, counts, secs = fit_on_card(api, _build, spec, data, "families rff paper")
+    add(counts)
+    cpu = api.fit(spec, device="cpu", data=data)
+    gap = _card_vs_cpu("families rff paper", res.history, cpu.history, RFF_TOL)
+    log(f"[families] rff paper cell (fused, use_kernel, 4 sweeps): fit "
+        f"{secs:.3f} s, test MSE {res.history.test_mse[-1]:.5f}, card vs cpu "
+        f"max rel {gap:.3e} (bound {RFF_TOL:g})")
+
+    # --- (c) the deployment width
+    dspec = api.DataSpec(source="correlated_linear", n_attrs=D_DEPLOY,
+                         n_train=N_DEPLOY, n_test=N_TEST_DEPLOY)
+    deploy = dspec.build("cuda")
+    state = None                          # one init, shared by both engines
+    for engine in ("fused", "incremental"):
+        spec = api.ExperimentSpec(data=dspec, faults=faults, solver=api.SolverSpec(
+            engine=engine, use_kernel=True, n_sweeps=2))
+        family = spec.agent.resolve(n_cols=1)
+        cfg = spec.solver.icoa_config(spec.resolved_transport())
+        if state is None:
+            state = icoa.init_state(family, deploy.xcols, deploy.y)
+        params, f = state.params, state.f
+        _build.reset_launches()
+        spent, ms = [], []
+        for r in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, f, led = icoa.sweep(family, cfg, params, f, deploy.xcols,
+                                        deploy.y, None, None, r)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            spent.append(led.spent)
+        counts = dict(_build.LAUNCHES)
+        add(counts)
+        require(tuple(spent) == FAULT_DEPLOY_BYTES,
+                f"deploy faults {engine}: ledgers {spent} != {FAULT_DEPLOY_BYTES}")
+        require(bool(torch.isfinite(f).all()), f"deploy faults {engine}: f")
+        log(f"[faults] deploy {engine} under every fault: sweeps {ms[0]:.1f} / "
+            f"{ms[1]:.1f} ms, ledgers {spent[0]:,} / {spent[1]:,} bytes (clean "
+            f"{CLEAN_DEPLOY_BYTES:,}); launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for fam_name in ("rff", "mlp"):
+        spec = api.ExperimentSpec(data=dspec, agent=api.AgentSpec(family=fam_name),
+                                  solver=api.SolverSpec(engine="fused",
+                                                        use_kernel=True, n_sweeps=1))
+        family = spec.agent.resolve(n_cols=1)
+        cfg = spec.solver.icoa_config(spec.resolved_transport())
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = icoa.init_state(family, deploy.xcols, deploy.y)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        params, f, led = icoa.sweep(family, cfg, state.params, state.f,
+                                    deploy.xcols, deploy.y)
+        torch.cuda.synchronize()
+        sweep_s = time.perf_counter() - t0
+        counts = dict(_build.LAUNCHES)
+        add(counts)
+        require(led.spent == CLEAN_DEPLOY_BYTES and bool(torch.isfinite(f).all()),
+                f"deploy {fam_name}: ledger {led.spent} or f not finite")
+        one = take(params, 0, 0)
+        prof = profile_light(lambda: family.predict(
+            family.fit(one, deploy.xcols[0], f[0]), deploy.xcols[0]),
+            f"deploy {fam_name}: one agent's projection")
+        log(f"[families] deploy {fam_name} (defaults): init of 100 agents "
+            f"{init_s:.2f} s, one fused sweep {sweep_s:.2f} s host "
+            f"({sweep_s * 1e3 / D_DEPLOY:.1f} ms an agent), peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; one agent's "
+            f"projection: device busy {prof['busy_ms']:.2f} ms of "
+            f"{prof['wall_ms']:.2f} ({100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), "
+            f"{prof['ops']} device ops; launches "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+        del state, params, f
+    del deploy
+    log(f"[faults] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
 # ------------------------------------------------------------ 9. LM kernels
 
 
@@ -2611,6 +2910,10 @@ def main() -> None:
                                   sweep_ref, alpha1_profiles).items():
         launches[k_] += v_
     stamp("transport")
+    for k_, v_ in phase_faults_families(api, _build, icoa, data_sources,
+                                        sweep_ops).items():
+        launches[k_] += v_
+    stamp("faults_families")
     launches.update(serve_full(lm, _build, "smollm-360m",
                                {"flash_attention": 32, "flash_attention_tc": 32,
                                 "flash_decode": 32 * 64}))

@@ -1,13 +1,19 @@
-"""Local estimator families — the hypothesis spaces H_i of the paper.
+"""Local estimator families — the hypothesis spaces H_i of the paper
+(twin of repro.agents): polynomial and its degree-1 case `linear` (closed-
+form ridge), rff (closed-form ridge on random Fourier features) and mlp
+(warm-started full-batch Adam).
 
-This port holds the polynomial family and its degree-1 case, `linear`;
-`mlp`/`rff` wait for ROADMAP A16 (see `NOT_PORTED`)."""
+Each family takes `init(key, dtype)` (keys (..., 2) -> params),
+`fit(params, x, target)` and `predict(params, x)`, every one batched over
+leading agent and trial axes.
+"""
 from repro_torch.agents.linear import LinearFamily
+from repro_torch.agents.mlp import MLPFamily
 from repro_torch.agents.polynomial import PolynomialFamily
+from repro_torch.agents.rff import RFFFamily
 
-FAMILIES = {"polynomial": PolynomialFamily, "linear": LinearFamily}
+FAMILIES = {"polynomial": PolynomialFamily, "linear": LinearFamily,
+            "mlp": MLPFamily, "rff": RFFFamily}
 
-# families of the JAX package that are not ported yet -> the ROADMAP item
-NOT_PORTED = {"mlp": "A16", "rff": "A16"}
-
-__all__ = ["FAMILIES", "NOT_PORTED", "LinearFamily", "PolynomialFamily"]
+__all__ = ["FAMILIES", "LinearFamily", "MLPFamily", "PolynomialFamily",
+           "RFFFamily"]

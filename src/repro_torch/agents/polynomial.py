@@ -41,9 +41,13 @@ class PolynomialFamily:
     def n_features(self) -> int:
         return 1 + self.n_cols * self.degree + self.n_cols * (self.n_cols - 1) // 2
 
-    def init(self, device="cpu") -> torch.Tensor:
-        """Zero params — the first `fit` overwrites them."""
-        return torch.zeros((self.n_features,), dtype=torch.float32, device=device)
+    def init(self, key: torch.Tensor, dtype=None) -> torch.Tensor:
+        """Zero params (..., P) in float32 for keys (..., 2), as the JAX
+        package's (the key and the run's dtype are not read) — the first
+        `fit` overwrites them."""
+        del dtype
+        return torch.zeros((*key.shape[:-1], self.n_features),
+                           dtype=torch.float32, device=key.device)
 
     def fit(self, params: torch.Tensor, x: torch.Tensor,
             target: torch.Tensor) -> torch.Tensor:

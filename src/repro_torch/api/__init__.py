@@ -24,7 +24,15 @@ kernel through the hand-written CUDA kernels of repro_torch.kernels — the
 batched kernels for `batch_fit`.  Every solver of the JAX package runs on
 every transport of it (topology, codec, byte budget and policy): icoa on
 the dense, incremental and fused engines at any alpha and delta, and the
-averaging and residual-refitting baselines.
+averaging and residual-refitting baselines, with every agent family
+(polynomial, linear, rff, mlp).  A FaultSpec (drops with retries,
+corruption, stragglers, crash and rejoin) runs on the incremental and
+fused engines, single and batched:
+
+    api.ExperimentSpec(solver=api.SolverSpec(engine="fused"),
+                       faults=api.FaultSpec(seed=5, drop_rate=0.3,
+                                            max_retries=2,
+                                            crash=((1, 1, 3),)))
 `sweep(spec, grid, trials=k)` runs a grid of specs, each as k trials.
 Data are drawn on the device from the JAX package's key stream, so
 `fit(spec)` reproduces `repro.api.fit(spec)` from the seed on.
@@ -40,14 +48,15 @@ from repro_torch.api.runner import batch_fit, resolve_device, trial_spec
 from repro_torch.api.solvers import (SOLVERS, comm_floats_per_sweep,
                                      register_solver, run_solver)
 from repro_torch.api.specs import (AgentSpec, BackendSpec, DataSpec, Dataset,
-                                   ExperimentSpec, FaultSpec, NotPortedError,
-                                   ObsSpec, SolverSpec, SpecError,
-                                   TransportSpec, spec_from_dict, spec_to_dict)
+                                   ExperimentSpec, FaultError, FaultSpec,
+                                   NotPortedError, ObsSpec, SolverSpec,
+                                   SpecError, TransportSpec, spec_from_dict,
+                                   spec_to_dict)
 from repro_torch.api.sweep import grid_specs, spec_with, sweep, zip_specs
 
 __all__ = [
     "AgentSpec", "BackendSpec", "DataSpec", "Dataset", "ExperimentSpec",
-    "FaultSpec", "History", "NotPortedError", "ObsSpec", "Result",
+    "FaultError", "FaultSpec", "History", "NotPortedError", "ObsSpec", "Result",
     "ResultSet", "SOLVERS", "SolverSpec", "SpecError", "TransportSpec",
     "batch_fit", "comm_floats_per_sweep", "fit", "grid_specs", "load",
     "register_solver", "run_solver", "save_result", "spec_from_dict",

@@ -9,7 +9,9 @@ loads the other's results:
 
 `load_result` rebuilds the arrays' structure from the spec alone and, with
 `with_data`, the Dataset too: both packages draw it from the seed.  As in
-the JAX package, params, weights and f come back as float32.
+the JAX package, weights and f come back as float32 and params in the
+dtypes of `family.init` (float32; the mlp family's weights in torch's
+default float dtype, its biases float32), a dict for mlp.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.api.result import History, Result
 from repro_torch.api.runner import resolve_device
 from repro_torch.api.specs import ExperimentSpec, spec_from_dict, spec_to_dict
 from repro_torch.checkpoint import io as ckpt_io
+from repro_torch.core.icoa import init_keys
 
 __all__ = ["save_result", "load_result"]
 
@@ -54,7 +57,7 @@ def load_result(directory: str, with_data: bool = True,
     groups = spec.data.groups
     d, n_cols = len(groups), len(groups[0])
     family = spec.agent.resolve(n_cols)
-    like = {"params": family.init(dev).expand(d, -1),
+    like = {"params": family.init(init_keys(spec.seed, d, dev)),
             "weights": torch.zeros((d,), dtype=torch.float32, device=dev),
             "f": torch.zeros((d, spec.data.n_train), dtype=torch.float32,
                              device=dev)}

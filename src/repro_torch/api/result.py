@@ -52,7 +52,7 @@ class History:
 class Result:
     spec: ExperimentSpec
     family: Any               # resolved agent family
-    params: torch.Tensor      # (D, P) stacked agent params
+    params: Any               # stacked agent params (D, P); a dict for mlp
     weights: torch.Tensor     # (D,) combination weights
     f: torch.Tensor           # (D, N_train) final per-agent train predictions
     history: History

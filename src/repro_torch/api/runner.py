@@ -35,6 +35,7 @@ from repro_torch.api.result import History, Result, ResultSet
 from repro_torch.api.solvers import bytes_history
 from repro_torch.api.specs import ExperimentSpec, SpecError, _not_ported
 from repro_torch.core import baselines, icoa
+from repro_torch.core.tree import tree_map
 from repro_torch.data import sources as data_sources
 
 __all__ = ["batch_fit", "trial_spec", "resolve_device"]
@@ -132,14 +133,16 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
         trial_bytes = hist["trial_bytes"]
         conv = hist["converged_at"].cpu().tolist()
     elif solver.name == "averaging":
-        params, f, hist = baselines.averaging(family, xcols, y, xcols_test,
-                                              y_test)
+        params, f, hist = baselines.averaging(
+            family, xcols, y, xcols_test, y_test,
+            seed=[spec.seed + t for t in range(n_trials)])
         hist = {k: v[:, None] for k, v in hist.items()}    # one record
         weights = torch.full((n_trials, d), 1.0 / d, dtype=f.dtype, device=dev)
         trial_bytes = [bytes_history(spec, d, n, 1)] * n_trials
     else:
         params, f, hist = baselines.residual_refitting(
             family, xcols, y, xcols_test, y_test, n_cycles=solver.n_sweeps,
+            seed=[spec.seed + t for t in range(n_trials)],
             codec=spec.resolved_transport().codec)
         # the ring ensemble is the SUM of the agents (see api.solvers)
         weights = torch.ones((n_trials, d), dtype=f.dtype, device=dev)
@@ -154,6 +157,7 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
                           bytes_transmitted=list(trial_bytes[t]),
                           converged_at=None if conv is None else int(conv[t]))
         results.append(Result(spec=trial_spec(spec, t), family=family,
-                              params=params[t], weights=weights[t], f=f[t],
+                              params=tree_map(lambda a: a[t], params),
+                              weights=weights[t], f=f[t],
                               history=history, data=None))
     return ResultSet(spec, results)

@@ -79,7 +79,8 @@ def _fit_icoa(spec: ExperimentSpec, data: Dataset, family) -> Result:
 def _fit_averaging(spec: ExperimentSpec, data: Dataset, family) -> Result:
     d = data.xcols.shape[0]
     params, f, hist = baselines.averaging(family, data.xcols, data.y,
-                                          data.xcols_test, data.y_test)
+                                          data.xcols_test, data.y_test,
+                                          seed=spec.seed)
     history = History(train_mse=[hist["train_mse"]], eta=[hist["eta"]],
                       bytes_transmitted=bytes_history(spec, d, data.y.shape[0], 1))
     if "test_mse" in hist:
@@ -94,7 +95,8 @@ def _fit_refit(spec: ExperimentSpec, data: Dataset, family) -> Result:
     d, n = data.xcols.shape[0], data.y.shape[0]
     params, f, hist = baselines.residual_refitting(
         family, data.xcols, data.y, data.xcols_test, data.y_test,
-        n_cycles=spec.solver.n_sweeps, codec=spec.resolved_transport().codec)
+        n_cycles=spec.solver.n_sweeps, seed=spec.seed,
+        codec=spec.resolved_transport().codec)
     history = History(train_mse=hist["train_mse"],
                       test_mse=hist.get("test_mse", []), eta=hist["eta"],
                       bytes_transmitted=bytes_history(spec, d, n,

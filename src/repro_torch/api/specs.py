@@ -10,10 +10,10 @@ the ROADMAP item it waits for — never silently ignored.
 `TransportSpec.resolve(d)` builds the run's `transport.Transport`.  BackendSpec's Monte-Carlo knobs (trial_devices, compute_dtype,
 donate) are read by batch_fit only, in the JAX package as here.
 
-`FaultSpec` and `ObsSpec` are copies of the JAX package's spec dataclasses
-(fields, `is_inert` / `enabled`, validation): the port has no fault or
-observability layer yet, so a non-inert FaultSpec (ROADMAP A12) or an
-enabled ObsSpec (A13) is rejected.
+`FaultSpec` is repro_torch.faults' (the JAX package's fields and checks);
+`resolved_transport()` rides it on the run's Transport.  `ObsSpec` is a
+copy of the JAX package's spec dataclass: the port has no observability
+layer yet, so an enabled ObsSpec (ROADMAP A13) is rejected.
 """
 from __future__ import annotations
 
@@ -24,18 +24,18 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.agents import FAMILIES
-from repro_torch.agents import NOT_PORTED as FAMILIES_NOT_PORTED
 from repro_torch.core.icoa import ICOAConfig, NotPortedError
 from repro_torch.data import sources as data_sources
 from repro_torch.data.partition import PARTITIONS, make_groups, validate_partition
 from repro_torch.data.sources import SOURCES
+from repro_torch.faults.spec import FaultError, FaultSpec
 from repro_torch import transport as transport_lib
 from repro_torch.transport import CODECS, POLICIES, TOPOLOGIES, TransportError
 
 __all__ = [
     "DataSpec", "AgentSpec", "SolverSpec", "BackendSpec", "TransportSpec",
-    "FaultSpec", "ObsSpec", "ExperimentSpec", "Dataset", "SpecError",
-    "NotPortedError", "spec_to_dict", "spec_from_dict",
+    "FaultSpec", "FaultError", "ObsSpec", "ExperimentSpec", "Dataset",
+    "SpecError", "NotPortedError", "spec_to_dict", "spec_from_dict",
 ]
 
 _SOLVERS = ("icoa", "averaging", "residual_refitting")
@@ -160,9 +160,6 @@ class AgentSpec:
     options: Tuple[Tuple[str, Any], ...] = ()
 
     def validate(self) -> None:
-        if self.family in FAMILIES_NOT_PORTED:
-            raise _not_ported(f"agent family {self.family!r}",
-                              FAMILIES_NOT_PORTED[self.family])
         if self.family not in FAMILIES:
             raise SpecError(f"unknown agent family {self.family!r}; "
                             f"registered: {sorted(FAMILIES)}")
@@ -302,35 +299,6 @@ class BackendSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class FaultSpec:
-    """Copy of repro.faults.FaultSpec: the seeded failure model."""
-
-    seed: int = 0
-    drop_rate: float = 0.0
-    corrupt_rate: float = 0.0
-    corrupt_bits: int = 8
-    straggle_rate: float = 0.0
-    max_retries: int = 0
-    crash: Tuple[Tuple[int, int, int], ...] = ()
-
-    @property
-    def is_inert(self) -> bool:
-        return (self.drop_rate == 0.0 and self.corrupt_rate == 0.0
-                and self.straggle_rate == 0.0 and not self.crash)
-
-    def validate(self) -> None:
-        for name in ("drop_rate", "corrupt_rate", "straggle_rate"):
-            v = getattr(self, name)
-            if not 0.0 <= v <= 1.0:
-                raise SpecError(f"faults: {name} is a probability, must be in "
-                                f"[0, 1] (got {v})")
-        if self.max_retries < 0 or self.corrupt_bits < 1:
-            raise SpecError("faults: need max_retries >= 0 and corrupt_bits >= 1")
-        if not self.is_inert:
-            raise _not_ported("fault injection (a non-inert FaultSpec)", "A12")
-
-
-@dataclasses.dataclass(frozen=True)
 class ObsSpec:
     """Copy of repro.obs.ObsSpec: which in-sweep taps to collect."""
 
@@ -375,12 +343,42 @@ class ExperimentSpec:
                     "engine='incremental' or 'fused' (averaging transmits "
                     "nothing; the refit ring and the dense oracle have no "
                     "per-row broadcast to skip)")
-        self.faults.validate()
+        try:
+            self.faults.validate()
+        except FaultError as e:
+            raise SpecError(f"faults: {e}") from None
+        if not self.faults.is_inert:
+            # in lockstep with faults.require_fault_engine, naming the fields
+            if (self.solver.name != "icoa"
+                    or self.solver.engine not in ("incremental", "fused")):
+                raise SpecError(
+                    "fault injection gates per-row broadcasts inside the "
+                    "carried-CovState sweep — it needs solver 'icoa' with "
+                    "engine='incremental' or 'fused' (averaging transmits "
+                    "nothing; the refit ring and the dense oracle re-transmit "
+                    "everything by construction)")
+            if self.faults.crash and self.solver.delta > 0.0:
+                raise SpecError(
+                    "faults.crash re-weights the ensemble over the survivors "
+                    "(a masked closed form); the minimax-protected weights "
+                    "(delta > 0) have no masked closed form — run crash "
+                    "schedules with delta=0")
+            n_agents = self.data.resolved_n_agents
+            for agent, _, _ in self.faults.crash:
+                if agent >= n_agents:
+                    raise SpecError(
+                        f"faults.crash names agent {agent} but the run has "
+                        f"{n_agents} agents")
         self.obs.validate()
 
     def resolved_transport(self):
-        """The run's Transport (TransportSpec.resolve at its agent count)."""
-        return self.transport.resolve(self.data.resolved_n_agents)
+        """The run's Transport (TransportSpec.resolve at its agent count)
+        with the spec's FaultSpec riding on it (an inert one resolves to
+        the reliable wire)."""
+        tp = self.transport.resolve(self.data.resolved_n_agents)
+        if self.faults.is_inert:
+            return tp
+        return dataclasses.replace(tp, faults=self.faults)
 
 
 # ------------------------------------------------------------- serialisation

@@ -12,9 +12,10 @@ themselves. `zip_specs` varies several fields TOGETHER (paired, not crossed).
 The paper's trade-off grids run: `{"solver.alpha": [1, 20, 100],
 "solver.delta": [0, 0.01]}`, the solver names themselves, or the
 transport's axes (`{"transport.codec": ["exact_f64", "int8_affine"],
-"transport.topology": ["full", "ring"]}`).  A grid point this port does
-not run yet (a fault model, say) raises its NotPortedError when it is
-fitted.
+"transport.topology": ["full", "ring"]}`), the agent families
+(`{"agent.family": ["polynomial", "mlp"]}`) or a fault model's rates
+(`{"faults.drop_rate": [0.0, 0.3]}`).  A grid point this port does not
+run yet (obs taps, say) raises its NotPortedError when it is fitted.
 """
 from __future__ import annotations
 

@@ -40,9 +40,17 @@ def dataset_from_numpy(xcols, y, xcols_test, y_test,
                    _tensor(xcols_test, device), _tensor(y_test, device), g)
 
 
-def params_from_numpy(params, device="cpu") -> torch.Tensor:
-    """The JAX package's `Result.params` — (D, P) polynomial (or linear,
-    the degree-1 case) coefficients."""
+def params_from_numpy(params, device="cpu"):
+    """The JAX package's `Result.params`: (D, P) coefficients of the
+    polynomial, linear and rff families, or the mlp family's dict of
+    stacked arrays (w1 (D, C, H), b1 (D, H), ...), each leaf in its own
+    dtype (float32 biases beside float64 weights under x64)."""
+    if isinstance(params, dict):
+        out = {str(k): _tensor(v, device) for k, v in params.items()}
+        if len({v.shape[0] for v in out.values()}) != 1:
+            raise ValueError(f"leaves disagree on the agent axis: "
+                             f"{ {k: tuple(v.shape) for k, v in out.items()} }")
+        return out
     p = _tensor(params, device)
     if p.dim() != 2:
         raise ValueError(f"expected (D, P) stacked params, got {tuple(p.shape)}")
@@ -50,8 +58,8 @@ def params_from_numpy(params, device="cpu") -> torch.Tensor:
 
 
 def state_from_numpy(params, f, device="cpu") -> ICOAState:
-    """An ICOAState from the JAX package's stacked params (D, P) and
-    prediction matrix f (D, N)."""
+    """An ICOAState from the JAX package's stacked params ((D, P), or the
+    mlp family's dict) and prediction matrix f (D, N)."""
     return ICOAState(params=params_from_numpy(params, device),
                      f=_tensor(f, device))
 

@@ -14,6 +14,9 @@ y (B, N) — in place of the JAX package's `averaging_scan` /
 the records then (B,) tensors.  The refit ring's payload — the
 leave-me-out ensemble sum each updater receives — passes the transport's
 codec once (`_loo_residual`); an identity codec keeps the plain expression.
+Every agent starts from `family.init` of its key in split(PRNGKey(seed), D)
+(per trial for a sequence of seeds), as in the JAX package: the mlp
+family warm-starts from those weights.
 """
 from __future__ import annotations
 
@@ -23,8 +26,10 @@ import torch
 
 from repro_torch.core import covariance as cov
 from repro_torch.core import ensemble
+from repro_torch.core.icoa import init_keys
+from repro_torch.core.tree import store, take, tree_map
 
-__all__ = ["averaging", "residual_refitting"]
+__all__ = ["averaging", "residual_refitting", "align_param_dtypes"]
 
 
 def _loo_residual(codec, y: torch.Tensor, f_sum: torch.Tensor,
@@ -38,10 +43,27 @@ def _loo_residual(codec, y: torch.Tensor, f_sum: torch.Tensor,
     return y - codec.roundtrip(f_sum - f_i)
 
 
-def _fit_all(family, xcols: torch.Tensor, y: torch.Tensor):
-    """Every agent fits y directly: params (..., D, P), f (..., D, N)."""
+def align_param_dtypes(params, like):
+    """Stacked init params cast to the dtypes `family.fit` returns (those
+    of `like`, one agent's fitted params): the refit ring carries
+    never-fitted params beside fitted ones, and the closed-form families'
+    float32 zero init becomes the data's dtype on its first fit."""
+    return tree_map(lambda t, v: t.to(v.dtype), params, like)
+
+
+def _init(family, xcols: torch.Tensor, seed):
+    """Every agent's init params, from split(PRNGKey(seed), D) (a seed per
+    trial for a batch)."""
+    keys = init_keys(seed, xcols.shape[-3], xcols.device)
+    return family.init(keys.expand(*xcols.shape[:-1][:-1], 2), xcols.dtype)
+
+
+def _fit_all(family, xcols: torch.Tensor, y: torch.Tensor, seed):
+    """Every agent fits y directly from its init: params (..., D, ...),
+    f (..., D, N)."""
     d, n = xcols.shape[-3], xcols.shape[-2]
-    params = family.fit(None, xcols, y[..., None, :].expand(*y.shape[:-1], d, n))
+    params = family.fit(_init(family, xcols, seed), xcols,
+                        y[..., None, :].expand(*y.shape[:-1], d, n))
     return params, family.predict(params, xcols)
 
 
@@ -53,11 +75,12 @@ def _eta(f: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def averaging(family, xcols: torch.Tensor, y: torch.Tensor,
               xcols_test: Optional[torch.Tensor] = None,
-              y_test: Optional[torch.Tensor] = None):
+              y_test: Optional[torch.Tensor] = None, seed=0):
     """Non-cooperative uniform ensemble.  Returns (params, f, hist): hist
     holds one record of train_mse and eta, and of test_mse when test data
-    is given — floats for one trial, (B,) tensors for a batch."""
-    params, f = _fit_all(family, xcols, y)
+    is given — floats for one trial, (B,) tensors for a batch (`seed` then
+    one per trial)."""
+    params, f = _fit_all(family, xcols, y, seed)
     batched = y.dim() == 2
 
     def out(t):
@@ -75,27 +98,29 @@ def averaging(family, xcols: torch.Tensor, y: torch.Tensor,
 def residual_refitting(family, xcols: torch.Tensor, y: torch.Tensor,
                        xcols_test: Optional[torch.Tensor] = None,
                        y_test: Optional[torch.Tensor] = None,
-                       n_cycles: int = 30, codec=None):
+                       n_cycles: int = 30, seed=0, codec=None):
     """ICEA ring: the ensemble prediction is the SUM of the agents; each
     agent in turn refits y minus the others' sum, received through `codec`
     (transport.Codec; None: as sent).  Returns (params, f, hist)
     with one record per cycle of train_mse, eta and (with test data)
     test_mse: lists of floats for one trial, (B, n_cycles) tensors for a
-    batch.  Nothing in the loop waits for the device."""
+    batch (`seed` then one per trial).  Nothing in the loop waits for the
+    device."""
     d, n = xcols.shape[-3], xcols.shape[-2]
     lead = y.shape[:-1]
-    params = None
+    params = _init(family, xcols, seed)
+    aligned = False
     f = torch.zeros((*lead, d, n), dtype=y.dtype, device=y.device)
     recs = {"train_mse": [], "test_mse": [], "eta": []}
     for _ in range(n_cycles):
         for i in range(d):
             # the leave-agent-i-out sum is what crosses the wire to agent i
             residual = _loo_residual(codec, y, f.sum(dim=-2), f[..., i, :])
-            p_i = family.fit(None, xcols[..., i, :, :], residual)
-            if params is None:
-                params = torch.zeros((*lead, d, p_i.shape[-1]), dtype=p_i.dtype,
-                                     device=p_i.device)
-            params[..., i, :] = p_i
+            p_i = family.fit(take(params, i, len(lead)), xcols[..., i, :, :],
+                             residual)
+            if not aligned:
+                params, aligned = align_param_dtypes(params, p_i), True
+            store(params, i, len(lead), p_i)
             f[..., i, :] = family.predict(p_i, xcols[..., i, :, :])
         recs["train_mse"].append(torch.mean((y - f.sum(dim=-2)) ** 2, dim=-1))
         if xcols_test is not None:

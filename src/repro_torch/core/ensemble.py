@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["optimal_weights", "eta", "eta_tilde", "eta_tilde_from_predictions",
-           "combine", "solve_vec"]
+           "combine", "solve_vec", "surviving_weights"]
 
 _JITTER = 1e-10
 
@@ -56,3 +56,26 @@ def combine(weights: torch.Tensor, predictions: torch.Tensor) -> torch.Tensor:
     if weights.dim() == 1:
         return weights @ predictions
     return (weights[..., None, :] @ predictions)[..., 0, :]
+
+
+def surviving_weights(a_mat: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """Optimal weights over the alive agents only (alive (D,) bool, or one
+    mask per trial): dead agents get weight exactly 0 and the rest solve
+    the constrained problem on the principal submatrix (dead rows and
+    columns replaced by the identity, the solution masked and
+    renormalised), as the JAX package does.  Edge cases, without a
+    branch on the data: a single survivor gets exactly 1; a degenerate
+    solve (a sum of the solution at most the dtype's tiny) falls back to
+    uniform over the survivors; no survivor, to uniform over all agents."""
+    d = a_mat.shape[-1]
+    alive_f = alive.to(a_mat.dtype).expand(a_mat.shape[:-1])
+    n_alive = torch.sum(alive_f, dim=-1, keepdim=True)
+    eye = torch.eye(d, dtype=a_mat.dtype, device=a_mat.device)
+    mask2 = alive_f[..., :, None] * alive_f[..., None, :]
+    a_masked = a_mat * mask2 + torch.diag_embed(1.0 - alive_f)
+    s = torch.linalg.solve(a_masked + _JITTER * eye, alive_f) * alive_f
+    tot = torch.sum(s, dim=-1, keepdim=True)
+    solvable = torch.abs(tot) > torch.finfo(a_mat.dtype).tiny
+    w = torch.where(solvable, s / torch.where(solvable, tot, torch.ones_like(tot)),
+                    alive_f / torch.clamp_min(n_alive, 1.0))
+    return torch.where(n_alive > 0.0, w, torch.full_like(w, 1.0 / d))

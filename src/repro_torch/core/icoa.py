@@ -60,17 +60,34 @@ settled on the host at its start (`_schedule`), so the agent loop still
 never waits for the device, and under greedy_eta a batch's trials each
 update their own agent at every slot (core.trial_index).
 
-Keys follow the JAX package: `run` starts from PRNGKey(seed + 1), records
-with it, then per sweep splits (key, k1, k2), sweeps with k1 and records
-with k2; `run_scan` does so per trial.  At alpha = 1 no draw reaches the
-math, so the key stream is not computed there.
+Keys follow the JAX package: every agent starts from `family.init` of its
+key in split(PRNGKey(seed), D) (the mlp family draws its weights there);
+`run` starts from PRNGKey(seed + 1), records with it, then per sweep splits
+(key, k1, k2), sweeps with k1 and records with k2; `run_scan` does so per
+trial.  At alpha = 1 no draw reaches the math, so the sweeps' key stream is
+not computed there.
+
+Agent parameters are a tree (core.tree): one tensor for the closed-form
+families, a dict for mlp; every engine takes, selects and writes agent i's
+through it.  Families other than the polynomial ones project through
+`family.fit` in the fused engine too.
+
+Faults (cfg.transport.faults, repro_torch.faults): `sweep(..., round_)`
+draws the round's trace on the host at sweep start; the gather charges
+the alive agents only, each broadcast `attempts` times its price, and a
+dead, straggling or undelivered agent's commit is gated off exactly as an
+unaffordable one (can_tx, settled in `_schedule` with the budget's gates).
+A delivered row may arrive bit-flipped: the strike hits the wire view
+before the commit, never the sender's params and f.  Under a crash
+schedule the record's weights re-solve over the survivors
+(ensemble.surviving_weights).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
 import math
-from typing import List, Optional, Union
+from typing import Any, List, Optional, Union
 
 import numpy as np
 import torch
@@ -81,10 +98,14 @@ from repro_torch.agents.polynomial import PolynomialFamily, _features
 from repro_torch.core import covariance as cov
 from repro_torch.core import covstate, ensemble, gradient, minimax
 from repro_torch.core.trial_index import add_at, pick, put
+from repro_torch.core.tree import clone as tree_clone
+from repro_torch.core.tree import select, store, take, tree_map
+from repro_torch.faults import inject as faults_inject
+from repro_torch.faults import trace as faults_trace
 from repro_torch.transport import Ledger, TrialLedgers, icoa_sweep_cost
 
-__all__ = ["ICOAConfig", "ICOAState", "init_state", "sweep", "run",
-           "run_scan", "converged_record", "ensemble_predict",
+__all__ = ["ICOAConfig", "ICOAState", "init_keys", "init_state", "sweep",
+           "run", "run_scan", "converged_record", "ensemble_predict",
            "NotPortedError"]
 
 
@@ -135,16 +156,26 @@ class ICOAConfig:
 
 @dataclasses.dataclass
 class ICOAState:
-    params: torch.Tensor       # (D, P) stacked agent params
+    params: Any                # stacked agent params, leading dim D
     f: torch.Tensor            # (D, N) training predictions
 
 
-def init_state(family, xcols: torch.Tensor, y: torch.Tensor) -> ICOAState:
-    """Non-cooperative warm start: every agent fits y directly.  Batched:
-    xcols (B, D, N, C), y (B, N)."""
+def init_keys(seed, d: int, device) -> torch.Tensor:
+    """The agents' init keys, split(PRNGKey(seed), D): (D, 2), or
+    (B, D, 2) for a sequence of B seeds, as the JAX package splits them."""
+    return prng.split(prng.PRNGKey(np.asarray(seed), device=device), d)
+
+
+def init_state(family, xcols: torch.Tensor, y: torch.Tensor,
+               keys: Optional[torch.Tensor] = None) -> ICOAState:
+    """Non-cooperative warm start: every agent fits y directly, from
+    `family.init` of its key (keys (..., D, 2); None: init_keys(0, D)).
+    Batched: xcols (B, D, N, C), y (B, N)."""
     d, n = xcols.shape[-3], xcols.shape[-2]
-    params = family.fit(None, xcols,
-                        y[..., None, :].expand(*y.shape[:-1], d, n))
+    if keys is None:
+        keys = init_keys(0, d, y.device)
+    p0 = family.init(keys.expand(*xcols.shape[:-3], d, 2), xcols.dtype)
+    params = family.fit(p0, xcols, y[..., None, :].expand(*y.shape[:-1], d, n))
     return ICOAState(params=params, f=family.predict(params, xcols))
 
 
@@ -180,10 +211,11 @@ def _first_improving_batched(etas: torch.Tensor, eta0: torch.Tensor,
                        torch.zeros((), dtype=steps.dtype, device=steps.device))
 
 
-def sweep(family, cfg: ICOAConfig, params: torch.Tensor, f: torch.Tensor,
+def sweep(family, cfg: ICOAConfig, params: Any, f: torch.Tensor,
           xcols: torch.Tensor, y: torch.Tensor,
           key: Optional[torch.Tensor] = None,
-          ledger: Optional[Union[Ledger, TrialLedgers]] = None):
+          ledger: Optional[Union[Ledger, TrialLedgers]] = None,
+          round_: int = 0):
     """One full sweep over all D agents; returns (params, f, ledger).  The
     inputs are not modified.
 
@@ -199,7 +231,9 @@ def sweep(family, cfg: ICOAConfig, params: torch.Tensor, f: torch.Tensor,
     affordable and each candidate broadcast only while the run's total
     stays within the budget, in the policy's order (transport.policy); a
     broadcast that is not made is not committed.  Pass the ledger the
-    previous sweep returned: the budget caps the run's total.
+    previous sweep returned: the budget caps the run's total.  `round_`
+    is the global sweep index, the fault trace's coordinate (ignored
+    without faults).
 
     A batched state — params (B, D, P), f (B, D, N), xcols (B, D, N, C),
     y (B, N), key (B, 2) — runs all B trials through the batched engine,
@@ -211,6 +245,7 @@ def sweep(family, cfg: ICOAConfig, params: torch.Tensor, f: torch.Tensor,
     batched = f.dim() == 3
     tp = (cfg.transport or transport_lib.default_transport(d)).validate_for(d)
     transport_lib.require_budget_engine(tp, cfg.engine)
+    faults_inject.require_fault_engine(tp, cfg)
     split = cfg.alpha > 1.0
     m = cov.subsample_size(n, cfg.alpha) if split else n
     if ledger is None:
@@ -225,41 +260,62 @@ def sweep(family, cfg: ICOAConfig, params: torch.Tensor, f: torch.Tensor,
                              f"subsample from a key; pass key")
         idx = cov.subsample_indices(prng.split(key)[..., 1, :], n, cfg.alpha)
     fused = cfg.engine == "fused" and cfg.delta == 0.0
+    rt = (None if tp.faults is None
+          else faults_inject.RoundTrace(tp.faults, round_, d, f.dtype))
     if cfg.engine == "dense":
-        params, f = _sweep_dense(family, cfg, tp, params.clone(), f.clone(),
+        params, f = _sweep_dense(family, cfg, tp, tree_clone(params), f.clone(),
                                  xcols, y, idx)
         return params, f, ledger
     if batched:
         engine = _sweep_fused_batched if fused else _sweep_incremental_batched
     else:
         engine = _sweep_fused if fused else _sweep_incremental
-    return engine(family, cfg, tp, params.clone(), f.clone(), xcols, y, idx,
-                  ledger)
+    return engine(family, cfg, tp, tree_clone(params), f.clone(), xcols, y,
+                  idx, ledger, rt)
 
 
-def _schedule(tp, cs0, ledger, m: int, split: bool, step0: torch.Tensor):
-    """The sweep's agent order and budget gates, settled at its start
-    (transport.policy): (slots, cans, ledger).  slots[j] is the agent of
-    slot j — an int, or a (B,) int64 device tensor when each trial of a
-    batch orders its own agents (greedy_eta); cans[j] is None without a
-    budget, else slot j's can_tx: a bool, or for a batch a (B,) bool device
-    tensor (every gate of the sweep copied to the device at once).  The
-    ledger comes back charged for the whole sweep."""
+def _schedule(tp, cs0, ledger, m: int, split: bool, step0: torch.Tensor,
+              rt=None):
+    """The sweep's agent order and gates, settled at its start
+    (transport.policy, and faults.inject under a fault trace `rt`):
+    (slots, cans, agents, ledger).  slots[j] is the agent of slot j — an
+    int, or a (B,) int64 device tensor when each trial of a batch orders
+    its own agents (greedy_eta); agents[j] is the same on the host (an
+    int, or B ints).  cans[j] is None with neither a budget nor faults,
+    else slot j's can_tx: a bool, or for a batch under a budget a (B,)
+    bool device tensor (every gate of the sweep copied to the device at
+    once; faults alone gate every trial alike: a bool).  The ledger comes
+    back charged for the whole sweep."""
     d = tp.topology.n_agents
     live, order, bcosts, ledger = transport_lib.budget_setup(
-        tp, cs0, ledger, m, split, step0)
-    if tp.byte_budget is None:
-        return list(range(d)), [None] * d, ledger
-    cans, ledger = transport_lib.gate_schedule(ledger, live, bcosts, order,
-                                               tp.byte_budget)
+        tp, cs0, ledger, m, split, step0, None if rt is None else rt.alive)
+    if rt is not None:
+        cans, ledger = faults_inject.gate_schedule(rt, ledger, live, bcosts,
+                                                   order, tp.byte_budget)
+    elif tp.byte_budget is None:
+        return list(range(d)), [None] * d, list(range(d)), ledger
+    else:
+        cans, ledger = transport_lib.gate_schedule(ledger, live, bcosts,
+                                                   order, tp.byte_budget)
     if not isinstance(ledger, TrialLedgers):
-        return order, cans, ledger
+        return order, cans, list(order), ledger
+    if tp.byte_budget is None:                 # the shared trace alone
+        return order, [c[0] for c in cans], list(order), ledger
     dev = cs0.s.device
     cans = list(torch.tensor(cans, dtype=torch.bool, device=dev).unbind(0))
     if isinstance(order, np.ndarray):          # one order per trial
+        agents = [tuple(int(a) for a in col) for col in order.T]
         order = list(torch.as_tensor(np.ascontiguousarray(order.T),
                                      device=dev).unbind(0))
-    return order, cans, ledger
+        return order, cans, agents, ledger
+    return order, cans, list(order), ledger
+
+
+def _strike(rt, row: torch.Tensor, agent) -> torch.Tensor:
+    """The delivered row as it arrives under the fault trace `rt`
+    (faults.inject.RoundTrace.strike): possibly bit-flipped; agent an int,
+    or a tuple of B for one row per trial."""
+    return row if rt is None else rt.strike(row, agent)
 
 
 def _add_at(g: torch.Tensor, idx: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -339,10 +395,10 @@ def _sweep_dense(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
     gradient; the candidates are (B, K, D, N), and the step, the robust
     weights and accept/reject are per trial."""
     if f.dim() == 2:
-        p, ff = _sweep_dense(family, cfg, tp, params[None], f[None],
-                             xcols[None], y[None],
+        p, ff = _sweep_dense(family, cfg, tp, tree_map(lambda t: t[None], params),
+                             f[None], xcols[None], y[None],
                              None if idx is None else idx[None])
-        return p[0], ff[0]
+        return tree_map(lambda t: t[0], p), ff[0]
     b, d, n = f.shape
     steps = _step_schedule(cfg, n, f.dtype, f.device)
 
@@ -371,7 +427,8 @@ def _sweep_dense(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
         step = _first_improving_batched(obj(cand), eta0, steps)
 
         f_hat = f[:, i] + step[:, None] * g_unit
-        p_new = family.fit(params[:, i], xcols[:, i], f_hat)
+        p_old = take(params, i, 1)
+        p_new = family.fit(p_old, xcols[:, i], f_hat)
         f_new = family.predict(p_new, xcols[:, i])
         if cfg.accept_reject:
             f_acc = f.clone()
@@ -379,13 +436,13 @@ def _sweep_dense(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
             accept = obj(f_acc) > eta0
         else:
             accept = torch.ones((b,), dtype=torch.bool, device=f.device)
-        params[:, i] = torch.where(accept[:, None], p_new, params[:, i])
+        store(params, i, 1, select(accept, p_new, p_old))
         f[:, i] = torch.where(accept[:, None], f_new, f[:, i])
     return params, f
 
 
 def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
-                       ledger):
+                       ledger, rt=None):
     """Rank-2 CovState engine: O(N*D + D^2) per agent update.  The CovState
     is rebuilt from f at sweep start (the once-per-sweep refresh bounding SMW
     drift); every probe and commit inside is a rank-2 update.  `params` and
@@ -399,15 +456,16 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
     probe re-solves a* on its perturbed A0 (covstate.robust_eta_probe, the
     whole schedule in one call).  Under a byte budget the agents go in the
     policy's order and a candidate whose broadcast is not made is
-    rejected (`_schedule`)."""
+    rejected (`_schedule`); under faults, likewise one that does not
+    arrive, and the delivered row may be struck (`_strike`)."""
     d, n = f.shape
     uk = cfg.use_kernel
     protected = cfg.delta > 0.0
     cs, m = _gathered_state(tp, y[None, :] - f, idx, uk)
     steps = _step_schedule(cfg, n, f.dtype, f.device)
     r_sub = cs.r_sub        # the sweep's own buffer: committed rows land in place
-    order, cans, ledger = _schedule(tp, cs, ledger, m, idx is not None,
-                                    steps[0])
+    order, cans, agents, ledger = _schedule(tp, cs, ledger, m, idx is not None,
+                                            steps[0], rt)
 
     def probe(state, u):
         if protected:
@@ -415,7 +473,7 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
                                              cfg.minimax_steps, cfg.minimax_lr)
         return covstate.eta_probe(state, i, u)
 
-    for i, can_tx in zip(order, cans):
+    for i, can_tx, agent in zip(order, cans, agents):
         if protected:
             v = minimax.robust_weights(cs.a0, cfg.delta, steps=cfg.minimax_steps,
                                        lr=cfg.minimax_lr,
@@ -446,12 +504,15 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
         step = _first_improving(probe(cs, u), eta0, steps)
 
         f_hat = f[i] + step * g_unit
-        p_new = family.fit(params[i], xcols[i], f_hat)
+        p_old = take(params, i, 0)
+        p_new = family.fit(p_old, xcols[i], f_hat)
         f_new = family.predict(p_new, xcols[i])
 
         # accept/reject and commit share one rank-2 row update; the candidate
-        # row passes the codec relay before it touches the shared state
+        # row passes the codec relay (and the fault trace's strike) before
+        # it touches the shared state
         r_new_sub, ddiag = _delivered(tp, y - f_new, idx, i, cs.a0[i, i])
+        r_new_sub = _strike(rt, r_new_sub, agent)
         u_acc = covstate.row_update_vector(cs, i, r_new_sub - r_sub[i],
                                            ddiag=ddiag, use_kernel=uk)
         if cfg.accept_reject:
@@ -461,7 +522,7 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
         if can_tx is False:                     # the broadcast was not made
             accept = torch.zeros_like(accept)
 
-        params[i] = torch.where(accept, p_new, params[i])
+        store(params, i, 0, select(accept, p_new, p_old))
         f[i] = torch.where(accept, f_new, f[i])
         m_inv, s, eta_t = covstate.apply_inverse_update(cs, i, u_acc)
         a0 = cs.a0.clone()
@@ -477,7 +538,7 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
 
 
 def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
-                               xcols, y, idx, ledger):
+                               xcols, y, idx, ledger, rt=None):
     """`_sweep_incremental` for B trials at once: one batched CovState, every
     trial updating agent i together (or, under greedy_eta with a budget,
     each its own agent i[b], a (B,) device index), each with its own
@@ -489,8 +550,8 @@ def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
     cs, m = _gathered_state(tp, y[:, None, :] - f, idx, uk)
     steps = _step_schedule(cfg, n, f.dtype, f.device)
     r_sub = cs.r_sub
-    order, cans, ledger = _schedule(tp, cs, ledger, m, idx is not None,
-                                    steps[0])
+    order, cans, agents, ledger = _schedule(tp, cs, ledger, m, idx is not None,
+                                            steps[0], rt)
 
     def probe(state, u):
         if protected:
@@ -498,7 +559,7 @@ def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
                                              cfg.minimax_steps, cfg.minimax_lr)
         return covstate.eta_probe(state, i, u)
 
-    for i, can_tx in zip(order, cans):
+    for i, can_tx, agent in zip(order, cans, agents):
         if protected:
             v = minimax.robust_weights(cs.a0, cfg.delta, steps=cfg.minimax_steps,
                                        lr=cfg.minimax_lr,
@@ -529,11 +590,13 @@ def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
         step = _first_improving_batched(probe(cs, u), eta0, steps)
 
         f_hat = pick(f, i, 1) + step[:, None] * g_unit
-        p_new = family.fit(pick(params, i, 1), pick(xcols, i, 1), f_hat)
+        p_old = take(params, i, 1)
+        p_new = family.fit(p_old, pick(xcols, i, 1), f_hat)
         f_new = family.predict(p_new, pick(xcols, i, 1))
 
         r_new_sub, ddiag = _delivered(tp, y - f_new, idx, i,
                                       pick(pick(cs.a0, i, 1), i, 1))
+        r_new_sub = _strike(rt, r_new_sub, agent)
         u_acc = covstate.row_update_vector(cs, i, r_new_sub - pick(r_sub, i, 1),
                                            ddiag=ddiag, use_kernel=uk)
         if cfg.accept_reject:
@@ -543,7 +606,7 @@ def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
         if can_tx is not None:
             accept = accept & can_tx
 
-        put(params, i, 1, torch.where(accept[:, None], p_new, pick(params, i, 1)))
+        store(params, i, 1, select(accept, p_new, p_old))
         put(f, i, 1, torch.where(accept[:, None], f_new, pick(f, i, 1)))
         m_inv, s, eta_t = covstate.apply_inverse_update(cs, i, u_acc)
         a0 = cs.a0.clone()
@@ -591,7 +654,7 @@ def _poly_projector(xcols: torch.Tensor, degree: int, ridge: float):
 
 
 def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
-                 ledger):
+                 ledger, rt=None):
     """Fused engine: the incremental sweep with its back-search in closed
     form (kernels.sweep.ref.probe_etas_closed) and accept/commit as one
     evaluation with accept selecting the rank-2 update.
@@ -603,9 +666,10 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
     that identity, so the probe keeps its row product on the subsample
     (kernels.gram.row_gram with use_kernel), and the commit takes
     diag_keep = 0 and diag_add = half the exact diagonal's change, a device
-    value.  Under a byte budget the agents go in the policy's order and the
-    commit takes the broadcast's gate as can_tx, a Python bool (by value in
-    the kernel).  Both branches mirror the JAX engine exactly (the kernel
+    value.  Under a byte budget or faults the agents go in the policy's
+    order and the commit takes the broadcast's gate as can_tx, a Python
+    bool (by value in the kernel); a struck row reaches the commit as
+    delivered.  Both branches mirror the JAX engine exactly (the kernel
     branch runs its algebra in fp32 whatever the data dtype)."""
     from repro_torch.kernels.sweep import ops as sweep_ops
     from repro_torch.kernels.sweep import ref as sweep_ref
@@ -616,8 +680,8 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
     cs0, m = _gathered_state(tp, y[None, :] - f, idx, uk)
     rs, a0, m_inv, s, eta = cs0.r_sub, cs0.a0, cs0.m_inv, cs0.s, cs0.eta_tilde
     steps = _step_schedule(cfg, n, dt, dev)
-    order, cans, ledger = _schedule(tp, cs0, ledger, m, idx is not None,
-                                    steps[0])
+    order, cans, agents, ledger = _schedule(tp, cs0, ledger, m,
+                                            idx is not None, steps[0], rt)
     zero = torch.zeros((), dtype=dt, device=dev)
     half_n = 0.5 / torch.full((), n, dtype=dt, device=dev)
     commit = sweep_ops.commit_sweep if uk else sweep_ref.commit_sweep_ref
@@ -634,7 +698,7 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
             return p_new, family.predict(p_new, xcols[i])
 
     threshold_off = float("-inf")
-    for i, can_tx in zip(order, cans):
+    for i, can_tx, agent in zip(order, cans, agents):
         eta0 = eta
         # --- probe: gradient + the whole back-search schedule ---
         if idx is not None:
@@ -664,10 +728,12 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
 
         # --- projection onto H_i ---
         f_hat = f[i] + step * g_unit
-        p_new, f_new = project(i, params[i], f_hat)
+        p_old = take(params, i, 0)
+        p_new, f_new = project(i, p_old, f_hat)
 
         # --- fused accept/commit ---
         r_new_sub, ddiag = _delivered(tp, y - f_new, idx, i, a0[i, i])
+        r_new_sub = _strike(rt, r_new_sub, agent)
         diag_keep, diag_add = (1.0, 0.0) if ddiag is None else (0.0, 0.5 * ddiag)
         threshold = eta0 if cfg.accept_reject else threshold_off
         m_inv, s, u_eff, accept, _ = commit(rs, m_inv, s, eta, i,
@@ -676,7 +742,7 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
                                             True if can_tx is None else can_tx)
         eta = torch.sum(s)
 
-        params[i] = torch.where(accept, p_new, params[i])
+        store(params, i, 0, select(accept, p_new, p_old))
         f[i] = torch.where(accept, f_new, f[i])
         a0[i, :] += u_eff                      # u_eff = 0 on reject
         a0[:, i] += u_eff
@@ -685,7 +751,7 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
 
 
 def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
-                         idx, ledger):
+                         idx, ledger, rt=None):
     """`_sweep_fused` for B trials at once: one batched probe (or row
     product) launch and one batched commit launch per agent with
     use_kernel; eta, threshold, the accept flags, the subsample, the
@@ -701,8 +767,8 @@ def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
     cs0, m = _gathered_state(tp, y[:, None, :] - f, idx, uk)
     rs, a0, m_inv, s, eta = cs0.r_sub, cs0.a0, cs0.m_inv, cs0.s, cs0.eta_tilde
     steps = _step_schedule(cfg, n, dt, dev)
-    order, cans, ledger = _schedule(tp, cs0, ledger, m, idx is not None,
-                                    steps[0])
+    order, cans, agents, ledger = _schedule(tp, cs0, ledger, m,
+                                            idx is not None, steps[0], rt)
     zero = torch.zeros((), dtype=dt, device=dev)
     half_n = 0.5 / torch.full((), n, dtype=dt, device=dev)
     commit = sweep_ops.commit_sweep if uk else sweep_ref.commit_sweep_batched_ref
@@ -720,7 +786,7 @@ def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
             return p_new, family.predict(p_new, pick(xcols, i, 1))
 
     threshold_off = float("-inf")
-    for i, can_tx in zip(order, cans):
+    for i, can_tx, agent in zip(order, cans, agents):
         eta0 = eta                                                # (B,)
         if idx is not None:
             r_i = y - pick(f, i, 1)
@@ -749,10 +815,12 @@ def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
         step = _first_improving_batched(etas, eta0, steps)
 
         f_hat = pick(f, i, 1) + step[:, None] * g_unit
-        p_new, f_new = project(i, pick(params, i, 1), f_hat)
+        p_old = take(params, i, 1)
+        p_new, f_new = project(i, p_old, f_hat)
 
         r_new_sub, ddiag = _delivered(tp, y - f_new, idx, i,
                                       pick(pick(a0, i, 1), i, 1))
+        r_new_sub = _strike(rt, r_new_sub, agent)
         diag_keep, diag_add = (1.0, 0.0) if ddiag is None else (0.0, 0.5 * ddiag)
         threshold = eta0 if cfg.accept_reject else threshold_off
         m_inv, s, u_eff, accept, _ = commit(rs, m_inv, s, eta, i,
@@ -761,7 +829,7 @@ def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
                                             True if can_tx is None else can_tx)
         eta = torch.sum(s, dim=-1)
 
-        put(params, i, 1, torch.where(accept[:, None], p_new, pick(params, i, 1)))
+        store(params, i, 1, select(accept, p_new, p_old))
         put(f, i, 1, torch.where(accept[:, None], f_new, pick(f, i, 1)))
         add_at(a0, i, 1, u_eff)                # u_eff = 0 on reject
         add_at(a0, i, 2, u_eff)
@@ -770,11 +838,13 @@ def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
 
 
 def _weights(f: torch.Tensor, y: torch.Tensor, cfg: ICOAConfig,
-             key: Optional[torch.Tensor] = None) -> torch.Tensor:
+             key: Optional[torch.Tensor] = None,
+             alive: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Ensemble weights from what the agents can see (per trial for a
     batched f (B, D, N), y (B, N), key (B, 2)): at alpha > 1 the covariance
     of a subsample drawn from `key` with the exact diagonal, the robust
-    weights at delta > 0, else the closed form."""
+    weights at delta > 0, else the closed form — over the survivors
+    `alive` (D,) under a crash schedule (never with delta > 0)."""
     r = y[..., None, :] - f
     if cfg.alpha > 1.0:
         a0 = cov.subsampled_covariance(key, r, cfg.alpha,
@@ -784,10 +854,21 @@ def _weights(f: torch.Tensor, y: torch.Tensor, cfg: ICOAConfig,
     if cfg.delta > 0.0:
         return minimax.robust_weights(a0, cfg.delta, steps=cfg.minimax_steps,
                                       lr=cfg.minimax_lr)
+    if alive is not None:
+        return ensemble.surviving_weights(a0, alive)
     return ensemble.optimal_weights(a0)
 
 
-def ensemble_predict(family, params: torch.Tensor, weights: torch.Tensor,
+def _alive(cfg: ICOAConfig, d: int, round_: int, device) -> Optional[torch.Tensor]:
+    """The record's survivors after sweep `round_` under a crash schedule
+    (a host list copied to the device), else None."""
+    fl = cfg.transport.faults if cfg.transport is not None else None
+    if fl is None or not fl.crash:
+        return None
+    return torch.tensor(faults_trace.alive_at(fl, d, round_), device=device)
+
+
+def ensemble_predict(family, params: Any, weights: torch.Tensor,
                      xcols: torch.Tensor) -> torch.Tensor:
     return ensemble.combine(weights, family.predict(params, xcols))
 
@@ -859,19 +940,22 @@ def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     record-time full-data residual covariance) and the bytes the sweep put
     on the wire (record 0: 0).  The weights of each record come from what
     the agents can see (`_weights`: the subsample drawn from the record's
-    key at alpha > 1, robust at delta > 0).  The run stops after a sweep
+    key at alpha > 1, robust at delta > 0, over the survivors of the
+    sweep's round under a crash schedule).  The run stops after a sweep
     whose eta moved less than cfg.eps from the previous sweep's.  `seed`
-    seeds the key stream (PRNGKey(seed + 1), as in the JAX package).
+    seeds the init keys (split(PRNGKey(seed), D)) and the key stream
+    (PRNGKey(seed + 1)), as in the JAX package; sweep r is fault round r.
     Plain float32 matrix products on the card stay full fp32: TF32 is off
     for the call (PyTorch's default) and the caller's setting is restored
     after it."""
     cfg.validate()
-    state = init_state(family, xcols, y)
+    d = xcols.shape[-3]
+    state = init_state(family, xcols, y, init_keys(seed, d, y.device))
     hist = {"train_mse": [], "test_mse": [], "eta": [], "bytes": [0.0]}
     key = _first_key(cfg, seed, y.device)
 
-    def record(params, f, key):
-        w = _weights(f, y, cfg, key)
+    def record(params, f, key, alive=None):
+        w = _weights(f, y, cfg, key, alive)
         hist["train_mse"].append(float(torch.mean((y - ensemble.combine(w, f)) ** 2)))
         if xcols_test is not None:
             pred = ensemble_predict(family, params, w, xcols_test)
@@ -883,14 +967,14 @@ def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     weights = record(state.params, state.f, key)
     eta_prev = math.inf
     ledger = Ledger()
-    for _ in range(cfg.n_sweeps):
+    for r in range(cfg.n_sweeps):
         key, k1, k2 = _split3(key)
         params, f, led2 = sweep(family, cfg, state.params, state.f, xcols, y,
-                                k1, ledger)
+                                k1, ledger, r)
         hist["bytes"].append(float(led2.spent - ledger.spent))
         ledger = led2
         state = ICOAState(params=params, f=f)
-        weights = record(params, f, k2)
+        weights = record(params, f, k2, _alive(cfg, d, r, y.device))
         eta_now = hist["eta"][-1]
         if abs(eta_prev - eta_now) < cfg.eps:
             break
@@ -912,7 +996,8 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     static: exactly cfg.n_sweeps sweeps run and eps stops nothing.  Returns
     (params (B, D, P), f (B, D, N), weights (B, D), hist) with
     hist["train_mse"], ["test_mse"] and ["eta"] (B, n_sweeps + 1) tensors
-    in the data dtype (record 0 is the non-cooperative init),
+    in the data dtype (record 0 is the non-cooperative init; params a
+    tree of (B, D, ...) leaves for the mlp family),
     hist["converged_at"] (B,) — the record where `run`'s eps rule would
     have stopped — hist["trial_bytes"], each trial's host ledger's bytes
     per record (record 0: 0), and hist["bytes"], their one list when every
@@ -926,12 +1011,13 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
         seeds = list(range(y.shape[0]))
     if len(seeds) != y.shape[0]:
         raise ValueError(f"run_scan: {len(seeds)} seeds for {y.shape[0]} trials")
-    state = init_state(family, xcols, y)
+    d = xcols.shape[-3]
+    state = init_state(family, xcols, y, init_keys(seeds, d, y.device))
     recs = {"train_mse": [], "test_mse": [], "eta": []}
     key = _first_key(cfg, seeds, y.device)
 
-    def record(params, f, key):
-        w = _weights(f, y, cfg, key)
+    def record(params, f, key, alive=None):
+        w = _weights(f, y, cfg, key, alive)
         recs["train_mse"].append(
             torch.mean((y - ensemble.combine(w, f)) ** 2, dim=-1))
         pred = ensemble_predict(family, params, w, xcols_test)
@@ -945,13 +1031,13 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     weights = record(params, f, key)
     ledger = TrialLedgers.empty(y.shape[0])
     trial_bytes = [[0.0] for _ in seeds]
-    for _ in range(cfg.n_sweeps):
+    for r in range(cfg.n_sweeps):
         key, k1, k2 = _split3(key)
-        params, f, led2 = sweep(family, cfg, params, f, xcols, y, k1, ledger)
+        params, f, led2 = sweep(family, cfg, params, f, xcols, y, k1, ledger, r)
         for b, (now, before) in enumerate(zip(led2.spent, ledger.spent)):
             trial_bytes[b].append(float(now - before))
         ledger = led2
-        weights = record(params, f, k2)
+        weights = record(params, f, k2, _alive(cfg, d, r, y.device))
     hist = {k: torch.stack(v, dim=-1) for k, v in recs.items()}
     hist["converged_at"] = converged_record(hist["eta"], cfg.eps)
     hist["trial_bytes"] = trial_bytes

@@ -2,8 +2,10 @@
 
 Twin of repro.data.friedman, drawn from the same threefry stream
 (repro_torch.prng): the same seed gives the JAX package's covariates bit for
-bit (float32, or float64 as under jax_enable_x64) and its outcomes within
-the ulp bounds of its normals and of the libraries' sin / sqrt / atan.
+bit (float32, or float64 as under jax_enable_x64).  Friedman-1's and
+Friedman-3's float32 outcomes are its bits too (the C library's sinf and
+atanf, data.libm); float64 outcomes are within the ulp bounds of its
+normals, and Friedman-2's of its sqrt and the multiply-adds XLA fuses.
 
 A key (..., 2) draws one dataset per key: x (..., n, 5), y (..., n), so a
 (B, 2) key stack draws B Monte-Carlo trials in one pass, on the key's
@@ -17,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch import prng
+from repro_torch.data import libm
 
 __all__ = ["friedman1", "friedman2", "friedman3", "make_dataset",
            "standardise", "xla_sum", "FRIEDMAN_FNS"]
@@ -34,7 +37,7 @@ def friedman1(key: torch.Tensor, n: int, noise: float = 0.0,
     """phi(x) = 10 sin(pi x1 x2) + 20 (x3 - 1/2)^2 + 10 x4 + 5 x5,  x_j ~ U[0,1]."""
     kx, kw = prng.split(key).unbind(-2)
     x = prng.uniform(kx, (n, 5), dtype)
-    y = (10.0 * torch.sin(math.pi * x[..., 0] * x[..., 1])
+    y = (10.0 * libm.sin(math.pi * x[..., 0] * x[..., 1])
          + 20.0 * (x[..., 2] - 0.5) ** 2
          + 10.0 * x[..., 3]
          + 5.0 * x[..., 4])
@@ -69,8 +72,8 @@ def friedman3(key: torch.Tensor, n: int, noise: float = 0.0,
     """phi(x) = atan((x2 x3 - 1/(x2 x4)) / x1); X5 is a nuisance variable."""
     kx, kw = prng.split(key).unbind(-2)
     x = _friedman23_covariates(kx, n, dtype)
-    y = torch.atan((x[..., 1] * x[..., 2] - 1.0 / (x[..., 1] * x[..., 3]))
-                   / x[..., 0])
+    y = libm.atan((x[..., 1] * x[..., 2] - 1.0 / (x[..., 1] * x[..., 3]))
+                  / x[..., 0])
     y = y + noise * prng.normal(kw, (n,), dtype)
     return x, _normalise(y)
 
@@ -99,14 +102,6 @@ def xla_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return acc if n <= 32 else xla_sum(acc, 0)
 
 
-def _sqrt(v: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded square root (torch's float32 one on the CPU
-    can miss by an ulp; through float64 it is rounded once)."""
-    if v.dtype == torch.float32:
-        return torch.sqrt(v.double()).float()
-    return torch.sqrt(v)
-
-
 def standardise(xtr: torch.Tensor, xte: torch.Tensor):
     """Standardise both splits with the train split's mean and (population)
     standard deviation over its instances (axis -2), with the JAX
@@ -119,7 +114,7 @@ def standardise(xtr: torch.Tensor, xte: torch.Tensor):
     cen = xtr - mu
     var = xla_sum(cen * cen, -2) / torch.full((), float(n), dtype=xtr.dtype,
                                               device=xtr.device)
-    sd = _sqrt(var).unsqueeze(-2) + 1e-12
+    sd = libm.sqrt(var).unsqueeze(-2) + 1e-12
     return (xtr - mu) / sd, (xte - mu) / sd
 
 

@@ -23,7 +23,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import prng
-from repro_torch.data import friedman
+from repro_torch.data import friedman, libm
 
 __all__ = ["Source", "SOURCES", "register_source", "make_dataset",
            "make_trial_batch", "partition_columns", "correlated_linear",
@@ -138,8 +138,8 @@ def cosine_additive(key, n: int, n_attrs: int, noise: float, dtype,
     kx, kw = prng.split(key).unbind(-2)
     x = prng.uniform(kx, (n, n_attrs), dtype)
     j = torch.arange(n_attrs, dtype=dtype, device=key.device)
-    comps = torch.cos(2.0 * math.pi * freq * (j + 1.0) * x) / (j + 1.0)
-    y = per_trial(lambda c: c.sum(dim=-1), key.dim() - 1, comps)
+    comps = libm.cos(2.0 * math.pi * freq * (j + 1.0) * x) / (j + 1.0)
+    y = friedman.xla_sum(comps, -1)          # XLA's order: the JAX package's bits
     y = y + noise * prng.normal(kw, (n,), dtype)
     return x, friedman._normalise(y)
 

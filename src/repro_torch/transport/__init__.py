@@ -9,7 +9,9 @@ ecc[i] decode/re-encode hops, so the shared covariance state holds the
 roundtrip^ecc view of each row — the identity for an exact codec that
 holds the data dtype.  The `_st` relays pass gradients straight through
 the codec at every hop (the dense engine differentiates its objective
-through the payload).  Faults wait for ROADMAP A12.
+through the payload).  A FaultSpec (repro_torch.faults) rides on the
+Transport; an inert one is normalised to None, so the zero-fault sweep is
+the plain one, launch for launch.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.faults.spec import FaultSpec
 from repro_torch.transport.codecs import (CODECS, Codec, ExactCodec,
                                           Int8AffineCodec, TopKSparseCodec,
                                           build_codec, register_codec)
@@ -34,7 +37,8 @@ from repro_torch.transport.topology import (TOPOLOGIES, Topology,
                                             register_topology)
 
 __all__ = [
-    "CODECS", "Codec", "ExactCodec", "Int8AffineCodec", "Ledger", "POLICIES",
+    "CODECS", "Codec", "ExactCodec", "FaultSpec", "Int8AffineCodec", "Ledger",
+    "POLICIES",
     "TOPOLOGIES", "Topology", "TopKSparseCodec", "Transport", "TransportError",
     "TrialLedgers", "agent_broadcast_cost", "budget_setup", "build_codec",
     "build_topology", "default_transport", "gate_broadcast", "gate_schedule",
@@ -45,12 +49,14 @@ __all__ = [
 
 @dataclasses.dataclass(frozen=True)
 class Transport:
-    """One resolved communication regime (topology + codec + budget)."""
+    """One resolved communication regime (topology + codec + budget, and
+    the failure model: None is the reliable wire)."""
 
     topology: Topology
     codec: Codec
     byte_budget: Optional[float] = None
     policy: str = "greedy_eta"
+    faults: Optional[FaultSpec] = None
 
     def __post_init__(self):
         if self.policy not in POLICIES:
@@ -61,6 +67,11 @@ class Transport:
             raise TransportError(
                 f"byte_budget must be positive and finite (got "
                 f"{self.byte_budget}); use None for unbudgeted runs")
+        if self.faults is not None:
+            self.faults.validate()
+            if self.faults.is_inert:
+                # an inject-nothing spec is the reliable wire
+                object.__setattr__(self, "faults", None)
 
     def _st(self, x: torch.Tensor) -> torch.Tensor:
         """One straight-through hop: the delivered value, the identity's
@@ -135,6 +146,12 @@ class Transport:
             raise TransportError(
                 f"transport topology {self.topology.name!r} was built for "
                 f"{self.topology.n_agents} agents but the run has {n_agents}")
+        if self.faults is not None:
+            for agent, _, _ in self.faults.crash:
+                if agent >= n_agents:
+                    raise TransportError(
+                        f"faults.crash names agent {agent} but the run has "
+                        f"{n_agents} agents")
         return self
 
 

@@ -48,25 +48,32 @@ def require_budget_engine(transport, engine: str) -> None:
 
 
 def budget_setup(transport, cs0, ledger: AnyLedger, m: int, split: bool,
-                 step0: torch.Tensor):
+                 step0: torch.Tensor, alive: Sequence[bool] = None):
     """Sweep-start budget state: (live, order, bcosts, ledger).
 
-    Unbudgeted: the whole row-wise schedule runs, charged as one constant;
-    live is True and order / bcosts are None (round-robin, no gating).
-    Budgeted: the gather is charged if affordable (`live`, per trial for a
-    batch), `bcosts` are the D broadcast prices, and `order` is the greedy
-    ranking at the engine's own back-search step0 (read to the host: a
-    list of D ints, or a (B, D) int64 array for a batched CovState) or the
-    round-robin identity (a list, shared by a batch's trials)."""
+    Unbudgeted and without faults: the whole row-wise schedule runs,
+    charged as one constant; live is True and order / bcosts are None
+    (round-robin, no gating).  Otherwise the gather — the floods of the
+    agents that are `alive` (D bools from a fault trace; default all) —
+    is charged, under a budget only if affordable (`live`, per trial for a
+    batch), and `bcosts` are the D broadcast prices, for the gates to
+    charge.  `order` is the greedy ranking at the engine's own back-search
+    step0 (read to the host: a list of D ints, or a (B, D) int64 array for
+    a batched CovState) or the round-robin identity (a list, shared by a
+    batch's trials)."""
     batched = isinstance(ledger, TrialLedgers)
-    if transport.byte_budget is None:
+    budget = transport.byte_budget
+    if budget is None and alive is None:
         cost = icoa_sweep_cost(transport, m, split=split, row_wise=True)
         return True, None, None, ledger.charge(cost)
     d = transport.topology.n_agents
-    g = gather_cost(transport, m, split)
-    live = ledger.affords(g, transport.byte_budget)
-    ledger = ledger.charge_if(live, g)
     bcosts = transport.broadcast_costs(m, split)
+    g = (gather_cost(transport, m, split) if alive is None
+         else sum(c for c, a in zip(bcosts, alive) if a))
+    if budget is None:
+        return True, list(range(d)), bcosts, ledger.charge(g)
+    live = ledger.affords(g, budget)
+    ledger = ledger.charge_if(live, g)
     if transport.policy == "truncate":
         return live, list(range(d)), bcosts, ledger
     order = greedy_order(cs0, step0)[0].cpu().numpy()

@@ -37,7 +37,11 @@ a Result saved on the card loads back on it with the same predictions.
 The transport layer: B6 and B8 with one agent per trial give slice b the
 single launch's bits on agent i[b]; the lossy codecs' round trips on the
 card equal the CPU's bit for bit; a budgeted star batch (greedy_eta) has
-the CPU's per-trial ledgers.
+the CPU's per-trial ledgers.  The C library's float32 sin / cos / atan
+(data.libm) and the fault trace's bit flips on the card equal the CPU's
+bit for bit; a commit gated off by the fault trace leaves the state
+bitwise; a faulted paper fit has the CPU's bytes and histories within
+1e-4; an mlp fit on the card is within 1e-9 of the CPU's in float64.
 """
 import dataclasses
 import math
@@ -779,6 +783,117 @@ def test_budgeted_batch_fit_on_star_on_card(card, engine):
     for t, res in enumerate(rs):
         np.testing.assert_allclose(res.history.eta, ref["eta"][t].numpy(),
                                    rtol=1e-4)
+
+
+# ------------------------------------------- the C library's sin / cos, faults
+
+
+def test_libm_on_card_equals_cpu(card):
+    """glibc's float32 sinf / cosf / atanf written in tensor operations
+    (data.libm): the card's bits equal the CPU's (which equal the C
+    library's, tests/test_torch_families.py) over every reduction branch."""
+    from repro_torch.data import libm
+
+    rng = np.random.default_rng(0)
+    n = 200_000
+    x = np.concatenate([rng.uniform(-1, 1, n), rng.uniform(-130, 130, n),
+                        rng.uniform(-1e6, 1e6, n),
+                        np.exp(rng.uniform(-100, 88, n)) * rng.choice([-1, 1], n),
+                        [0.0, -0.0, np.inf, -np.inf, np.nan, 120.0, 0.75,
+                         2.0 ** 25, 1e-40]]).astype(np.float32)
+    xt = torch.from_numpy(x)
+    for fn in (libm.sinf, libm.cosf, libm.atanf):
+        got = fn(xt.to(card)).cpu().numpy()
+        want = fn(xt).numpy()
+        same = (got.view(np.int32) == want.view(np.int32)) | (np.isnan(got) & np.isnan(want))
+        assert same.all(), fn.__name__
+
+
+@pytest.mark.parametrize("x64", [False, True], ids=["f32", "f64"])
+def test_corrupt_on_card_equals_cpu(card, x64):
+    """The fault trace's bit flips drawn on the card equal the CPU's: one
+    row (through `corrupt` and the engines' RoundTrace.strike), and one
+    row per trial with one agent each."""
+    from repro_torch.faults import FaultSpec, RoundTrace, corrupt
+
+    dt = torch.float64 if x64 else torch.float32
+    spec = FaultSpec(seed=9, corrupt_rate=0.7, corrupt_bits=12)
+    rows = torch.randn((6, 3000), dtype=dt, generator=torch.Generator().manual_seed(1))
+    for r in range(3):
+        rt = RoundTrace(spec, r, 4, dt)
+        for a in range(4):
+            want = corrupt(spec, rows[0], r, a)
+            assert torch.equal(corrupt(spec, rows[0].to(card), r, a).cpu(), want)
+            assert torch.equal(rt.strike(rows[0].to(card), a).cpu(), want)
+        agents = [0, 3, 1, 2, 2, 0]
+        assert torch.equal(corrupt(spec, rows.to(card), r, agents).cpu(),
+                           corrupt(spec, rows, r, agents))
+
+
+def test_fault_gated_commits_leave_the_state(card):
+    """A commit gated off by the fault trace (dead, straggling or
+    undelivered: can_tx False) on a struck row leaves m_inv and s bit for
+    bit, single (by value) and batched (a device vector)."""
+    from repro_torch.faults import FaultSpec, corrupt
+
+    d, n, b = 7, 4000, 4
+    sc = _scene(d, n, 3, card)
+    r, m_inv, s, eta = sc["r"], sc["m_inv"], sc["s"], sc["eta"]
+    spec = FaultSpec(seed=2, corrupt_rate=1.0, corrupt_bits=8)
+    delta = corrupt(spec, 0.05 * torch.randn(n, device=card), 0, 2)
+    out = sweep_ops.commit_sweep(r, m_inv, s, eta, 2, delta, 1.0, 0.0,
+                                 eta - 1.0, False)
+    assert not bool(out[3]) and torch.equal(out[0], m_inv) and torch.equal(out[1], s)
+    rb = r[None].expand(b, d, n).contiguous()
+    mb = m_inv[None].expand(b, d, d).contiguous()
+    sb, eb = s[None].expand(b, d).contiguous(), eta.expand(b).contiguous()
+    db = delta[None].expand(b, n).contiguous()
+    can = torch.tensor([True, False, True, False], device=card)
+    outb = sweep_ops.commit_sweep(rb, mb, sb, eb, 2, db, 1.0, 0.0, eb - 1.0, can)
+    for t in (1, 3):
+        assert not bool(outb[3][t])
+        assert torch.equal(outb[0][t], mb[t]) and torch.equal(outb[1][t], sb[t])
+
+
+def test_fault_fit_on_card_matches_cpu(card):
+    """Every fault at once on the paper cell (4 sweeps, fused, use_kernel):
+    bytes equal to the CPU's on the same data, histories within 1e-4, and
+    agent 1 (down for rounds 1 and 2) weighs exactly 0 after sweep 2."""
+    from repro_torch.faults import FaultSpec
+
+    faults = FaultSpec(seed=5, drop_rate=0.3, corrupt_rate=0.2, corrupt_bits=4,
+                       straggle_rate=0.1, max_retries=2, crash=((1, 1, 3),))
+    for sweeps in (2, 4):
+        spec = api.ExperimentSpec(
+            data=api.DataSpec(n_train=600, n_test=300), faults=faults,
+            solver=api.SolverSpec(engine="fused", use_kernel=True,
+                                  n_sweeps=sweeps, eps=0.0))
+        data = spec.data.build("cuda")
+        res = api.fit(spec, device="cuda", data=data)
+        cpu = api.fit(spec, device="cpu", data=data)
+        assert res.history.bytes_transmitted == cpu.history.bytes_transmitted
+        np.testing.assert_allclose(res.history.eta, cpu.history.eta, rtol=1e-4)
+        assert (res.weights[1].item() == 0.0) == (sweeps == 2)
+
+
+def test_mlp_fit_on_card_within_bound_of_cpu(card):
+    """The mlp family's fit (4 agents batched, 60 Adam steps, float64 with
+    its float32 biases) on the card against the CPU: predictions within
+    1e-9 of each other (the CPU run is within ~1e-15 of the JAX package's,
+    tests/test_torch_families.py; the card's tanh and the sums over N round
+    differently in the last bits, and a float32 bias update can round a
+    step apart)."""
+    from repro_torch.agents import MLPFamily
+
+    fam = MLPFamily(n_cols=1, hidden=16, fit_steps=60)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((4, 500, 1), dtype=torch.float64, generator=gen)
+    y = torch.sin(2 * x[..., 0])
+    p0 = fam.init(prng.split(prng.PRNGKey(2), 4), torch.float64)
+    want = fam.predict(fam.fit(p0, x, y), x)
+    p0c = {k: v.to(card) for k, v in p0.items()}
+    got = fam.predict(fam.fit(p0c, x.to(card), y.to(card)), x.to(card)).cpu()
+    assert float((got - want).abs().max()) <= 1e-9
 
 
 # ------------------------------------------------------------- LM kernels
