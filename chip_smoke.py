@@ -144,6 +144,34 @@ Phases, each fatal on failure (nothing is caught):
               (ledgers 471,859,200 and 482,344,960 bytes), one fused sweep
               each of mlp and rff at their defaults, timed, with one
               agent's projection profiled (device busy, device ops);
+  8e. stream_obs  observability and online ICOA on the kernels: the
+              paper cell with every tap on (dense, incremental, fused;
+              single and 32-trial batches): histories bit for bit the
+              untapped ones and launch counts the untapped schedule's, the
+              eta tap bit for bit History.eta[1:], the taps within FAULT_TOL
+              of the CPU's (int taps equal); under the full FaultSpec
+              fault_retries x the broadcast price = each sweep's retry
+              bytes; the deploy cell's untapped fused sweep at most
+              DEPLOY_OPS_PER_AGENT device ops an agent, and its tapped
+              sweep exactly the tap sites' own ops more.  serve_bench's
+              stream (cosine, 5 agents, window 2048, chunk 64, a resweep
+              every 1024, 4096 arrivals, drift freq 1.0 -> 1.4, taps eta,
+              accepts and s) fused, incremental and under the full
+              FaultSpec: accept flags and bytes equal to the CPU's, in
+              float64 the records and the s tap within FAULT_TOL of the
+              CPU's, in float32 within STREAM_F32_FACTOR x the CPU's own
+              spread between its two engines; a checkpoint at 2048
+              resumed bit for bit; under the full FaultSpec agent 1
+              served exactly 0 while down; a
+              PredictEngine fed from a second thread equal to
+              ensemble.combine at each bucket.  The deployment stream
+              (correlated_linear, 100 agents, window 32768, a resweep every
+              8192, 40960 arrivals, fused, every engine tap, a request
+              thread on the engine, the tracer on): ledgers 13,107,200 ..
+              52,428,800 a resweep, weights summing to 1, a checkpoint round
+              trip bitwise, the metrics text, the JSONL through
+              tools/obs_report.py; ms per chunk of ingest, device ops an
+              arrival, busy share, ms per resweep, each bucket's p50/p99;
   9. lm kernels  flash attention (B9), flash decode (B10) and WKV (B11)
               against their plain versions on the same card inputs (fp32:
               1e-5 normwise; bf16: 8e-3, about two bf16 roundings of the
@@ -200,6 +228,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1270,7 +1299,7 @@ def phase_deploy_batch(api, _build, icoa, data_sources, single_sweep_ms):
         for _ in range(n_sweeps):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            params, f, _ = icoa.sweep(family, cfg, params, f, xcols, y)
+            params, f, _, _ = icoa.sweep(family, cfg, params, f, xcols, y)
             torch.cuda.synchronize()
             sweeps_ms.append((time.perf_counter() - t1) * 1e3)
             recs.append(eta_records(cov, ensemble, f, y))
@@ -2052,7 +2081,7 @@ def phase_transport(api, _build, icoa, data_sources, sweep_ops, sweep_ref,
         _build.reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        params, f, led = icoa.sweep(family, cfg, state.params, state.f,
+        params, f, led, _ = icoa.sweep(family, cfg, state.params, state.f,
                                     deploy.xcols, deploy.y)
         torch.cuda.synchronize()
         sweep_ms = (time.perf_counter() - t0) * 1e3
@@ -2102,7 +2131,7 @@ def phase_transport(api, _build, icoa, data_sources, sweep_ops, sweep_ref,
     state = icoa.init_state(family, xcols, y)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    _, f, led = icoa.sweep(family, cfg, state.params, state.f, xcols, y)
+    _, f, led, _ = icoa.sweep(family, cfg, state.params, state.f, xcols, y)
     torch.cuda.synchronize()
     batch_ms = (time.perf_counter() - t0) * 1e3
     require(list(led.spent) == ledgers, f"deploy star batch: the timed sweep's "
@@ -2315,7 +2344,7 @@ def phase_faults_families(api, _build, icoa, data_sources, sweep_ops):
         for r in range(2):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            params, f, led = icoa.sweep(family, cfg, params, f, deploy.xcols,
+            params, f, led, _ = icoa.sweep(family, cfg, params, f, deploy.xcols,
                                         deploy.y, None, None, r)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
@@ -2343,7 +2372,7 @@ def phase_faults_families(api, _build, icoa, data_sources, sweep_ops):
         init_s = time.perf_counter() - t0
         _build.reset_launches()
         t0 = time.perf_counter()
-        params, f, led = icoa.sweep(family, cfg, state.params, state.f,
+        params, f, led, _ = icoa.sweep(family, cfg, state.params, state.f,
                                     deploy.xcols, deploy.y)
         torch.cuda.synchronize()
         sweep_s = time.perf_counter() - t0
@@ -2366,6 +2395,486 @@ def phase_faults_families(api, _build, icoa, data_sources, sweep_ops):
         del state, params, f
     del deploy
     log(f"[faults] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+# ------------------------------------------------------- 8e. stream_obs
+
+
+STREAM_SPEC = dict(window=2048, chunk=64, resweep_every=1024,
+                   total_instances=4096, drift_option="freq",
+                   drift_start=1.0, drift_end=1.4, serve_buckets=(1, 16, 128))
+STREAM_DEPLOY = dict(window=32768, chunk=64, resweep_every=8192,
+                     total_instances=40960)
+# one resweep's ledger at the deploy stream: 2 filled D 8 (filled 8192 ..
+# the full window), the JAX package's row-wise price on `full`
+STREAM_DEPLOY_BYTES = (13_107_200, 26_214_400, 39_321_600, 52_428_800,
+                       52_428_800)
+# serve_bench's stream in float32, card vs CPU: its chunks are the raw
+# generator's (cosine covariates on U[0, 1], not standardised), where the
+# degree-4 ridge Gram of every agent has cond ~5e5, so a float32 solve
+# keeps ~2 digits and any change of a sum's order moves the records by
+# ~1e-3 (the accept flags stay equal).  The card's kernels sum in another
+# order than the CPU's products, so the float32 cell is held against the
+# CPU's own spread between its two engines (the same sweeps, their sums in
+# two orders), measured in the same run: at most STREAM_F32_FACTOR times
+# it, the records and the s tap each.  The card's arithmetic is held
+# closely in float64 (the kernels fp32 inside) at FAULT_TOL.
+STREAM_F32_FACTOR = 4.0
+# device ops an agent of one untapped fused sweep at the deploy cell: phase
+# 5 profiles this sweep at 3,054 ops on an H100 (700 W), on the trees
+# before taps were ported and on this one: taps off must add none
+DEPLOY_OPS_PER_AGENT = 30.54
+
+
+def expected_stream_launches(engine: str, d: int, sweeps: int) -> dict:
+    """Launches of a stream_fit: per sweep the sweep-start build and the
+    record's two Grams (its weights and its eta; the first resweep's warm
+    start and every writeback rebuild run plain products), and the
+    engine's per-agent kernels as in a fit; ingest launches none."""
+    counts = dict.fromkeys(SINGLE + BATCHED + PER_TRIAL + LM, 0)
+    counts["gram"] = 3 * sweeps
+    if engine == "incremental":
+        counts["row_gram"] = 2 * d * sweeps
+    else:
+        counts["probe_sweep"] = counts["commit_sweep"] = d * sweeps
+    return counts
+
+
+def stream_on_card(api, _build, spec, tag: str, **kw):
+    """One main-path run through api.stream_fit on the card, its launch
+    counts read just after it and held to the stream's schedule."""
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = api.stream_fit(spec, device="cuda", **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(_build.LAUNCHES)
+    sweeps = sum(r["sweeps"] for r in res.records)
+    want = expected_stream_launches(spec.experiment.solver.engine,
+                                    spec.experiment.data.resolved_n_agents, sweeps)
+    log(f"[{tag}] stream_fit {secs:.2f} s, {len(res.records)} records, "
+        f"{sweeps} sweeps, launches={json.dumps({k: v for k, v in counts.items() if v})}")
+    require(counts == want, f"{tag}: launch counts {counts} != {want}")
+    for r in res.records:
+        require(all(math.isfinite(r[k]) for k in ("train_mse", "preq_mse", "eta")),
+                f"{tag}: a record is not finite: {r}")
+    return res, counts, secs
+
+
+def stream_gaps(got, want) -> dict:
+    """Two stream runs' records: the largest relative difference of their
+    floats, and of the s tap (normwise each record)."""
+    rec = max(max_rel([a[k] for a in got], [b[k] for b in want])
+              for k in ("train_mse", "preq_mse", "eta"))
+    s_tap = max(float(np.abs(a["taps"]["s"] - b["taps"]["s"]).max()
+                      / np.abs(b["taps"]["s"]).max()) for a, b in zip(got, want))
+    return {"records": rec, "s": s_tap}
+
+
+def stream_held(tag, got, want, bounds: dict) -> dict:
+    """Records of a card run against the CPU's: bytes and counts equal, the
+    gaps of `stream_gaps` within `bounds`; returns the gaps."""
+    require([r["bytes"] for r in got] == [r["bytes"] for r in want]
+            and [r["count"] for r in got] == [r["count"] for r in want],
+            f"{tag}: bytes or counts differ")
+    gaps = stream_gaps(got, want)
+    for k, v in gaps.items():
+        require(v <= bounds[k], f"{tag}: {k} {v:.3e} > {bounds[k]:.3e}")
+    return gaps
+
+
+def same_records(tag, got, want):
+    """Records of two stream runs bit for bit (taps too)."""
+    require(len(got) == len(want), f"{tag}: {len(got)} vs {len(want)} records")
+    for a, b in zip(got, want):
+        require({k: v for k, v in a.items() if k != "taps"}
+                == {k: v for k, v in b.items() if k != "taps"}
+                and all(np.array_equal(a["taps"][k], b["taps"][k])
+                        for k in b["taps"]), f"{tag}: records differ")
+
+
+def phase_stream_obs(api, _build, icoa, sweep_ops):
+    """Phase 8e: observability and the stream on the card.  (a) the paper
+    cell with every tap on, each engine, single and a 32-trial batch:
+    histories bitwise the untapped ones, the eta tap bitwise History.eta[1:],
+    fault_retries times the price equal to the ledger's retry bytes under
+    the full FaultSpec, the taps within FAULT_TOL of the CPU's; the deploy
+    cell's untapped fused sweep at its device ops an agent.  (b) serve_bench's
+    stream (cosine, 5 agents) on the fused and incremental engines against
+    the CPU, a checkpoint at 2048 resumed bit for bit, the full FaultSpec
+    serving agent 1 a weight of 0 while it is down, a PredictEngine fed
+    from a second thread.  (c) the deployment stream (correlated_linear,
+    100 agents, window 32768): ledgers, a checkpoint round trip, the
+    metrics text, the JSONL through tools/obs_report.py, times."""
+    import shutil
+    import threading
+
+    from repro_torch import obs
+    from repro_torch.core import ensemble
+    from repro_torch.faults import trace as faults_trace
+    from repro_torch.stream import (ChunkSource, PredictEngine, build_ingestor,
+                                    restore_stream, save_stream)
+
+    totals = {}
+    t_phase = time.perf_counter()
+
+    def add(counts):
+        for k_, v_ in counts.items():
+            totals[k_] = totals.get(k_, 0) + v_
+
+    # --- (a) taps on the paper cell, every engine, single and batched
+    every = api.ObsSpec(taps=tuple(obs.ALL_TAPS))
+    data = api.DataSpec().build("cuda")
+    for engine in ("dense", "incremental", "fused"):
+        solver = api.SolverSpec(engine=engine, use_kernel=engine != "dense",
+                                n_sweeps=4, eps=0.0)
+        plain = api.ExperimentSpec(solver=solver)
+        tapped = dataclasses.replace(plain, obs=every)
+        res, counts, secs = fit_on_card(api, _build, tapped, data, f"obs {engine}")
+        add(counts)
+        off = api.fit(plain, device="cuda", data=data)
+        require(off.metrics is None and res.metrics is not None
+                and off.history.as_dict() == res.history.as_dict()
+                and torch.equal(off.weights, res.weights),
+                f"obs {engine}: tapped history differs from the untapped one")
+        m = res.metrics
+        require(m["eta"].tolist() == res.history.eta[1:],
+                f"obs {engine}: eta tap != History.eta[1:]")
+        cpu = api.fit(tapped, device="cpu", data=data)
+        gap = _card_vs_cpu(f"obs {engine}", res.history, cpu.history, FAULT_TOL)
+        for name in obs.ALL_TAPS:
+            a, b = m[name], cpu.metrics[name]
+            require(a.dtype == b.dtype and a.shape == b.shape, f"obs {engine}: {name}")
+            if a.dtype.kind == "i":
+                require(np.array_equal(a, b), f"obs {engine}: {name} {a} vs {b}")
+            else:
+                err = float(np.abs(a - b).max()) / max(float(np.abs(b).max()), 1e-30)
+                require(err <= FAULT_TOL, f"obs {engine}: {name} card vs cpu {err:.3e}")
+        rs, counts, bsecs = batch_on_card(api, _build, dataclasses.replace(
+            tapped, solver=dataclasses.replace(solver, n_sweeps=3)), B_PAPER,
+            f"obs batch {engine}")
+        add(counts)
+        rs_off = api.batch_fit(dataclasses.replace(
+            plain, solver=dataclasses.replace(solver, n_sweeps=3)), B_PAPER,
+            device="cuda")
+        for t in range(B_PAPER):
+            require(rs[t].history.as_dict() == rs_off[t].history.as_dict()
+                    and rs[t].metrics["eta"].tolist() == rs[t].history.eta[1:]
+                    and rs[t].metrics["accepts"].shape == (3, 5),
+                    f"obs batch {engine}: trial {t}")
+        log(f"[obs] paper {engine}: tapped fit {secs:.3f} s = the untapped history "
+            f"bit for bit, card vs cpu {gap:.3e} (taps within {FAULT_TOL:g}, ints "
+            f"equal); accepts/sweep {m['accepts'].sum(axis=1).tolist()}; batch of "
+            f"{B_PAPER} {bsecs:.3f} s, every trial = its untapped one")
+
+    spec = api.ExperimentSpec(faults=api.FaultSpec(**FULL_FAULTS), obs=every,
+                              solver=api.SolverSpec(engine="fused", use_kernel=True,
+                                                    n_sweeps=4, eps=0.0))
+    res, counts, _ = fit_on_card(api, _build, spec, data, "obs faults")
+    add(counts)
+    tp = spec.resolved_transport()
+    bcost = tp.broadcast_costs(spec.data.n_train, False)
+    require(len(set(bcost)) == 1, f"obs faults: prices {bcost}")
+    d = spec.data.resolved_n_agents
+    for k, (spent, tries) in enumerate(zip(res.history.bytes_transmitted[1:],
+                                           res.metrics["fault_retries"])):
+        alive = faults_trace.alive_at(tp.faults, d, k)
+        late = faults_trace.straggles(tp.faults, k, list(range(d)), torch.float32)
+        n_tx = sum(a and not s for a, s in zip(alive, late))
+        retry_bytes = spent - bcost[0] * (sum(alive) + n_tx)
+        require(retry_bytes == int(tries) * bcost[0],
+                f"obs faults sweep {k}: retry bytes {retry_bytes} != "
+                f"{int(tries)} x {bcost[0]}")
+    log(f"[obs] full FaultSpec: fault_retries {res.metrics['fault_retries'].tolist()} "
+        f"x {bcost[0]} bytes = the ledger's retry bytes of each sweep "
+        f"(bytes {res.history.bytes_transmitted[1:]})")
+
+    dspec = api.DataSpec(source="correlated_linear", n_attrs=D_DEPLOY,
+                         n_train=N_DEPLOY, n_test=N_TEST_DEPLOY)
+    deploy = dspec.build("cuda")
+    family = api.AgentSpec().resolve(n_cols=1)
+    state = icoa.init_state(family, deploy.xcols, deploy.y)
+    ops, cfgs = {}, {}
+    for label, taps in (("untapped", None), ("tapped", every)):
+        cfg = cfgs[label] = api.SolverSpec(engine="fused", use_kernel=True).icoa_config(
+            None, obs=None if taps is None else taps.normalized())
+        icoa.sweep(family, cfg, state.params, state.f, deploy.xcols, deploy.y)
+        prof = profile_light(lambda: icoa.sweep(family, cfg, state.params, state.f,
+                                                deploy.xcols, deploy.y),
+                             f"deploy fused sweep {label}")
+        ops[label] = prof["ops"]
+    # the tap sites at this sweep's shapes (the sweep-start taps, codec_error
+    # of the gathered rows, and one accept write an agent), counted as the
+    # ops they add to a profile of the untapped sweep: late in a full run
+    # the profiler misses a few dozen events at a profile's start (3,018
+    # for a sweep that reads 3,054 alone), so each count is taken from a
+    # profile that starts with the same sweep
+    every_n = every.normalized()
+    r0 = deploy.y[None, :] - state.f
+    flag = torch.ones((), dtype=torch.bool, device="cuda")
+
+    def sweep_then_sites():
+        icoa.sweep(family, cfgs["untapped"], state.params, state.f, deploy.xcols,
+                   deploy.y)
+        taps = obs.taps.engine_taps(every_n, state.f, r0, r0)
+        for i in range(D_DEPLOY):
+            obs.taps.tap_accept(taps, every_n, i, flag)
+
+    sweep_then_sites()
+    ops["sites"] = profile_light(sweep_then_sites, "deploy untapped sweep, then the "
+                                 "tap sites")["ops"] - ops["untapped"]
+    require(ops["untapped"] <= DEPLOY_OPS_PER_AGENT * D_DEPLOY,
+            f"deploy: untapped fused sweep {ops['untapped'] / D_DEPLOY} ops an "
+            f"agent > {DEPLOY_OPS_PER_AGENT}")
+    require(ops["tapped"] - ops["untapped"] == ops["sites"],
+            f"deploy: the tapped sweep launched {ops['tapped'] - ops['untapped']} "
+            f"ops more than the untapped one, its tap sites {ops['sites']}")
+    log(f"[obs] deploy fused sweep: {ops['untapped'] / D_DEPLOY:.2f} device ops an "
+        f"agent untapped (at most {DEPLOY_OPS_PER_AGENT}), "
+        f"{ops['tapped'] / D_DEPLOY:.2f} with every tap: {ops['sites']} more, the "
+        f"tap sites' own ops exactly")
+    del deploy, state
+    t_a = time.perf_counter() - t_phase
+
+    # --- (b) serve_bench's stream on the kernels
+    def stream_spec(engine, taps=("eta", "accepts", "s"), faults=None, **kw):
+        exp = api.ExperimentSpec(
+            data=api.DataSpec(source="cosine"),
+            solver=api.SolverSpec(engine=engine, use_kernel=True),
+            obs=api.ObsSpec(taps=taps),
+            faults=faults if faults is not None else api.FaultSpec())
+        return api.StreamSpec(experiment=exp, **{**STREAM_SPEC, **kw})
+
+    def held64(tag, spec):
+        """The cell in float64 (the kernels fp32 inside), card vs CPU within
+        FAULT_TOL, records and s tap."""
+        torch.set_default_dtype(torch.float64)
+        try:
+            res64, counts, secs64 = stream_on_card(api, _build, spec, f"{tag} f64")
+            add(counts)
+            gaps = stream_held(f"{tag} f64", res64.records,
+                               api.stream_fit(spec, device="cpu").records,
+                               dict.fromkeys(("records", "s"), FAULT_TOL))
+        finally:
+            torch.set_default_dtype(torch.float32)
+        return (f"float64 {secs64:.2f} s, card vs cpu records {gaps['records']:.3e}, "
+                f"s {gaps['s']:.3e} (bound {FAULT_TOL:g})")
+
+    def held32(tag, res, cpu, witness):
+        """The float32 cell, card vs CPU, within STREAM_F32_FACTOR x the
+        CPU's spread between its two engines (`witness`: the other engine's
+        CPU run)."""
+        require(np.array_equal(res.metrics["accepts"], cpu.metrics["accepts"]),
+                f"{tag}: accept flags differ from the cpu's")
+        spread = stream_gaps(witness.records, cpu.records)
+        gaps = stream_held(tag, res.records, cpu.records,
+                           {k: STREAM_F32_FACTOR * v for k, v in spread.items()})
+        return (f"float32 accept flags = the cpu's, card vs cpu records "
+                f"{gaps['records']:.3e}, s {gaps['s']:.3e} (the cpu's engines apart "
+                f"by {spread['records']:.3e}, {spread['s']:.3e}; bound "
+                f"{STREAM_F32_FACTOR:g}x)")
+
+    ckdir = os.path.join(HERE, "build", "stream_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    card32, cpu32, notes = {}, {}, {}
+    for engine in ("fused", "incremental"):
+        tag = f"stream paper {engine}"
+        spec = stream_spec(engine, checkpoint_every=2048)
+        res, counts, secs = stream_on_card(api, _build, spec, tag, checkpoint_dir=ckdir)
+        add(counts)
+        card32[engine], cpu32[engine] = res, api.stream_fit(spec, device="cpu")
+        require(res.metrics["eta"].tolist() == [e for r in res.records
+                                                for e in r["etas"]],
+                f"{tag}: eta tap != the records' etas")
+        os.remove(os.path.join(ckdir, "ckpt_00004096.npz"))
+        again = api.stream_fit(spec, device="cuda", checkpoint_dir=ckdir, resume=True)
+        same_records(f"{tag} resume", again.records, res.records[2:])
+        require(torch.equal(again.weights, res.weights), f"{tag}: resumed weights differ")
+        shutil.rmtree(ckdir)
+        notes[engine] = (f"{secs:.2f} s, bytes {[r['bytes'] for r in res.records]}, "
+                         f"resumed at 2048 bit for bit; "
+                         + held64(tag, dataclasses.replace(spec, checkpoint_every=None)))
+    for engine, other in (("fused", "incremental"), ("incremental", "fused")):
+        tag = f"stream paper {engine}"
+        log(f"[stream] paper {engine}: {notes[engine]}; "
+            + held32(tag, card32[engine], cpu32[engine], cpu32[other])
+            + f"; preq MSE {[round(r['preq_mse'], 6) for r in card32[engine].records]}")
+
+    class Recorder(PredictEngine):
+        """The engine, keeping agent 1's served weight of every publish."""
+
+        def __init__(self, *args):
+            super().__init__(*args)
+            self.seen = []
+
+        def update(self, params, weights, alive=None):
+            super().update(params, weights, alive)
+            self.seen.append(self._live[1][1].item())
+
+    fspec = stream_spec("fused", faults=api.FaultSpec(**FULL_FAULTS))
+    groups = fspec.experiment.data.groups
+    rec = Recorder(api.AgentSpec().resolve(n_cols=1), groups, 5,
+                   fspec.serve_buckets)
+    res, counts, _ = stream_on_card(api, _build, fspec, "stream faults", engine=rec)
+    add(counts)
+    f32 = held32("stream faults", res, api.stream_fit(fspec, device="cpu"),
+                 api.stream_fit(stream_spec("incremental",
+                                            faults=api.FaultSpec(**FULL_FAULTS)),
+                                device="cpu"))
+    f64 = held64("stream faults", fspec)
+    events = [0]
+    for t in range(fspec.total_instances // fspec.chunk):
+        count = (t + 1) * fspec.chunk
+        events.append(count)
+        if count % fspec.resweep_every == 0:
+            events.append(-count)           # the publish after a resweep
+    require(len(events) == len(rec.seen), f"stream faults: {len(rec.seen)} publishes")
+    # agent 1 is down in rounds 1-2: from the publish after the resweep at
+    # 2048 (round 1) until the one after the resweep at 4096 (round 3)
+    down = [w for e, w in zip(events, rec.seen)
+            if e in (-2048, -3072) or 2048 < e <= 4096]
+    up = [w for e, w in zip(events, rec.seen) if e == -4096]
+    require(all(w == 0.0 for w in down) and up[0] != 0.0,
+            f"stream faults: agent 1 served {sorted(set(down))[:4]} while down, "
+            f"{up} after its rejoin")
+    log(f"[stream] paper under every fault: {f32}; {f64}; agent 1 served "
+        f"exactly 0 in {len(down)} publishes (rounds 1-2), {up[0]:.4f} after "
+        f"rejoining; bytes {[r['bytes'] for r in res.records]}")
+
+    # a PredictEngine fed from a second thread, at each bucket
+    res = api.stream_fit(stream_spec("fused"), device="cuda")
+    engine = PredictEngine(res.family, groups, 5, STREAM_SPEC["serve_buckets"])
+    engine.update(res.params, res.weights)
+    engine.warmup()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    xq = torch.rand((300, 5), generator=gen, device="cuda")
+    answers = {}
+
+    def requests():
+        for n in (1, 16, 128, 300):
+            answers[n] = engine.predict(xq[:n])
+
+    worker = threading.Thread(target=requests)
+    worker.start()
+    worker.join(timeout=120)
+    require(not worker.is_alive() and len(answers) == 4, "engine thread did not finish")
+    for n, got in answers.items():
+        xc = torch.stack([xq[:n, g] for g in groups])
+        want = ensemble.combine(res.weights, res.family.predict(res.params, xc))
+        if n in STREAM_SPEC["serve_buckets"]:
+            require(torch.equal(got, want), f"engine: bucket {n} differs from combine")
+        else:
+            require(bool((got - want).abs().max() <= 1e-6), f"engine: {n} rows strided")
+    log("[stream] PredictEngine from a second thread: buckets 1/16/128 equal "
+        "ensemble.combine bit for bit, 300 rows strided within 1e-6")
+    t_b = time.perf_counter() - t_phase - t_a
+
+    # --- (c) the deployment stream
+    dexp = api.ExperimentSpec(
+        data=api.DataSpec(source="correlated_linear", n_attrs=D_DEPLOY),
+        solver=api.SolverSpec(engine="fused", use_kernel=True),
+        obs=api.ObsSpec(taps=obs.spec.ENGINE_TAPS))
+    dstream = api.StreamSpec(experiment=dexp, **STREAM_DEPLOY)
+    dgroups = dexp.data.groups
+    engine = PredictEngine(dexp.agent.resolve(n_cols=1), dgroups, D_DEPLOY)
+    jsonl = os.path.join(HERE, "chiprun_out", "stream_deploy.jsonl")
+    if os.path.exists(jsonl):
+        os.remove(jsonl)
+    stop = threading.Event()
+    served = []
+
+    def requests():
+        xr = torch.rand((128, D_DEPLOY), device="cuda")
+        while not stop.is_set():
+            if engine._live is None:            # nothing published yet
+                time.sleep(0.01)
+                continue
+            for n in (1, 16, 128):
+                served.append(engine.predict(xr[:n]))
+                time.sleep(0.02)                # requests arrive, not a spin
+
+    obs.configure(jsonl, run_id="stream-deploy")
+    worker = threading.Thread(target=requests)
+    try:
+        worker.start()
+        res, counts, secs = stream_on_card(api, _build, dstream, "stream deploy",
+                                           engine=engine)
+    finally:
+        stop.set()
+        worker.join(timeout=120)
+        obs.disable()
+    add(counts)
+    require(not worker.is_alive(), "deploy: the request thread did not stop")
+    got_bytes = tuple(r["bytes"] for r in res.records)
+    require(got_bytes == STREAM_DEPLOY_BYTES,
+            f"deploy stream: ledgers {got_bytes} != {STREAM_DEPLOY_BYTES}")
+    wsum = float(res.weights.double().sum())
+    require(abs(wsum - 1.0) <= 1e-5 and bool(torch.isfinite(res.weights).all()),
+            f"deploy stream: served weights sum to {wsum}")
+    require(all(bool(torch.isfinite(a).all()) for a in served[-30:]),
+            "deploy stream: a served prediction is not finite")
+    text = engine.metrics_text(res.ingestor)
+    require("repro_stream_resweeps_total 5.0" in text
+            and 'repro_serve_predict_latency_seconds{bucket="128",quantile="p99"}' in text,
+            "deploy stream: metrics_text")
+    with open(os.path.join(HERE, "chiprun_out", "stream_metrics.txt"), "w") as fh:
+        fh.write(text)
+    report = subprocess.run([sys.executable, os.path.join(HERE, "tools", "obs_report.py"),
+                             jsonl], capture_output=True, text=True, timeout=120)
+    require(report.returncode == 0 and "[OK]" in report.stdout,
+            f"deploy stream: obs_report failed: {report.stdout[-2000:]} {report.stderr[-2000:]}")
+    rows = [json.loads(line) for line in open(jsonl)]
+    resweep_ms = [1e3 * r["dur_s"] for r in rows if r["name"] == "stream.resweep"]
+    fit_s = [r["dur_s"] for r in rows if r["name"] == "stream.fit"][0]
+
+    ckdir = os.path.join(HERE, "build", "stream_deploy_ckpt")
+    shutil.rmtree(ckdir, ignore_errors=True)
+    save_stream(ckdir, res.state)
+    ing = res.ingestor
+    back, step = restore_stream(ckdir, like=ing.init_state())
+    shutil.rmtree(ckdir)
+    same = (step == dstream.total_instances and back.ledger.spent == res.state.ledger.spent
+            and all(torch.equal(getattr(back, k), getattr(res.state, k))
+                    for k in ("xcols", "y", "f", "weights", "key", "preq_sse"))
+            and all(torch.equal(getattr(back.cov, k), getattr(res.state.cov, k))
+                    for k in back.cov._fields))
+    require(same, "deploy stream: restore_stream did not give the state back")
+
+    # ingest alone: ms per chunk, device ops per arrival, busy share
+    source = ChunkSource("correlated_linear", 64, 640, n_attrs=D_DEPLOY,
+                         device="cuda")
+    st = res.state
+    chunks = [source(640 + k) for k in range(21)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in chunks[:20]:
+        st = ing.ingest(st, x, y)
+    torch.cuda.synchronize()
+    ingest_ms = (time.perf_counter() - t0) * 1e3 / 20
+    t0 = time.perf_counter()
+    for k in range(20):
+        source(700 + k)
+    torch.cuda.synchronize()
+    draw_ms = (time.perf_counter() - t0) * 1e3 / 20
+    prof = profile_light(lambda: ing.ingest(st, *chunks[20]), "deploy ingest, one chunk")
+    dprof = profile_light(lambda: source(720), "deploy stream, one chunk's draw")
+    pct = {b: engine.latency[b].percentiles((50, 99)) for b in engine.buckets}
+    log(f"[stream] deploy: stream_fit {secs:.2f} s ({fit_s:.2f} s in its span) for "
+        f"{dstream.total_instances} arrivals, resweeps {', '.join(f'{v:.1f}' for v in resweep_ms)} ms, "
+        f"ledgers {[f'{b:,}' for b in got_bytes]}; ingest {ingest_ms:.2f} ms a chunk "
+        f"of 64 ({prof['ops'] / 64:.1f} device ops an arrival, device busy "
+        f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f}%), the chunk's draw "
+        f"{draw_ms:.2f} ms ({dprof['ops']} device ops, busy "
+        f"{100 * dprof['busy_ms'] / dprof['wall_ms']:.1f}%); served weights sum "
+        f"{wsum:.6f}; {len(served)} requests, "
+        + ", ".join(f"bucket {b} p50 {1e3 * v['p50']:.3f} p99 {1e3 * v['p99']:.3f} ms"
+                    for b, v in pct.items())
+        + "; checkpoint round trip bitwise; obs_report [OK]")
+    t_c = time.perf_counter() - t_phase - t_a - t_b
+    log(f"[stream_obs] phase done in {time.perf_counter() - t_phase:.1f} s "
+        f"(taps {t_a:.1f}, paper stream {t_b:.1f}, deploy stream {t_c:.1f})")
     return totals
 
 
@@ -2914,6 +3423,9 @@ def main() -> None:
                                         sweep_ops).items():
         launches[k_] += v_
     stamp("faults_families")
+    for k_, v_ in phase_stream_obs(api, _build, icoa, sweep_ops).items():
+        launches[k_] += v_
+    stamp("stream_obs")
     launches.update(serve_full(lm, _build, "smollm-360m",
                                {"flash_attention": 32, "flash_attention_tc": 32,
                                 "flash_decode": 32 * 64}))

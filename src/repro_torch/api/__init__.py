@@ -36,6 +36,17 @@ fused engines, single and batched:
 `sweep(spec, grid, trials=k)` runs a grid of specs, each as k trials.
 Data are drawn on the device from the JAX package's key stream, so
 `fit(spec)` reproduces `repro.api.fit(spec)` from the seed on.
+
+An `ObsSpec` of taps fills `Result.metrics` (every engine, single and
+batched, under any transport and FaultSpec); `stream_fit(StreamSpec(...))`
+runs the online loop (repro_torch.stream) on the card:
+
+    r = api.fit(api.ExperimentSpec(obs=api.ObsSpec(taps=("eta", "accepts"))))
+    r.metrics["accepts"]                    # (n_sweeps, D)
+    s = api.stream_fit(api.StreamSpec(window=4096, chunk=64,
+                                      resweep_every=2048,
+                                      total_instances=16384))
+    s.eta, s.test_mse, s.total_bytes
 """
 from __future__ import annotations
 
@@ -49,19 +60,24 @@ from repro_torch.api.solvers import (SOLVERS, comm_floats_per_sweep,
                                      register_solver, run_solver)
 from repro_torch.api.specs import (AgentSpec, BackendSpec, DataSpec, Dataset,
                                    ExperimentSpec, FaultError, FaultSpec,
-                                   NotPortedError, ObsSpec, SolverSpec,
-                                   SpecError, TransportSpec, spec_from_dict,
-                                   spec_to_dict)
+                                   NotPortedError, ObsError, ObsSpec,
+                                   SolverSpec, SpecError, StreamSpec,
+                                   TransportSpec, spec_from_dict, spec_to_dict,
+                                   stream_spec_from_dict, stream_spec_to_dict)
 from repro_torch.api.sweep import grid_specs, spec_with, sweep, zip_specs
+from repro_torch.obs.taps import Metrics
+from repro_torch.obs.trace import trace as _obs_span
+from repro_torch.stream.run import StreamResult, stream_fit
 
 __all__ = [
     "AgentSpec", "BackendSpec", "DataSpec", "Dataset", "ExperimentSpec",
-    "FaultError", "FaultSpec", "History", "NotPortedError", "ObsSpec", "Result",
-    "ResultSet", "SOLVERS", "SolverSpec", "SpecError", "TransportSpec",
-    "batch_fit", "comm_floats_per_sweep", "fit", "grid_specs", "load",
-    "register_solver", "run_solver", "save_result", "spec_from_dict",
-    "spec_to_dict",
-    "spec_with", "sweep", "trial_spec", "zip_specs",
+    "FaultError", "FaultSpec", "History", "Metrics", "NotPortedError",
+    "ObsError", "ObsSpec", "Result", "ResultSet", "SOLVERS", "SolverSpec",
+    "SpecError", "StreamResult", "StreamSpec", "TransportSpec", "batch_fit",
+    "comm_floats_per_sweep", "fit", "grid_specs", "load", "register_solver",
+    "run_solver", "save_result", "spec_from_dict", "spec_to_dict",
+    "spec_with", "stream_fit", "stream_spec_from_dict", "stream_spec_to_dict",
+    "sweep", "trial_spec", "zip_specs",
 ]
 
 
@@ -72,11 +88,13 @@ def fit(spec: ExperimentSpec, *, device="cuda",
     the registered solver and return the standardised Result."""
     dev = resolve_device(device, "repro_torch.api.fit")
     spec.validate()
-    if data is None:
-        data = spec.data.build(dev)
-    else:
-        data = Dataset(data.xcols.to(dev), data.y.to(dev),
-                       data.xcols_test.to(dev), data.y_test.to(dev),
-                       data.groups)
-    family = spec.agent.resolve(n_cols=data.xcols.shape[-1])
-    return run_solver(spec, data, family)
+    with _obs_span("api.fit", solver=spec.solver.name,
+                   backend=spec.backend.name):
+        if data is None:
+            data = spec.data.build(dev)
+        else:
+            data = Dataset(data.xcols.to(dev), data.y.to(dev),
+                           data.xcols_test.to(dev), data.y_test.to(dev),
+                           data.groups)
+        family = spec.agent.resolve(n_cols=data.xcols.shape[-1])
+        return run_solver(spec, data, family)

@@ -5,6 +5,8 @@ the optimally weighted ensemble, paper eq. 11) and bytes_transmitted (the
 ledger bytes of the sweep that produced the record; record 0 is 0).
 `ResultSet` is the Monte-Carlo aggregate of api.batch_fit: every trial of
 one spec, with mean/std trade-off curves over the trial axis.
+`Result.metrics` holds the run's obs taps (obs.Metrics; None without
+taps), in memory only: result io never writes it, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import torch
 from repro_torch.api.specs import Dataset, ExperimentSpec
 from repro_torch.core import covariance as cov
 from repro_torch.core import ensemble, icoa, minimax
+from repro_torch.obs.taps import Metrics
 
 __all__ = ["History", "Result", "ResultSet"]
 
@@ -57,6 +60,7 @@ class Result:
     f: torch.Tensor           # (D, N_train) final per-agent train predictions
     history: History
     data: Optional[Dataset] = None
+    metrics: Optional[Metrics] = None   # obs taps (spec.obs); None when off
 
     @property
     def groups(self) -> List[List[int]]:

@@ -37,6 +37,7 @@ from repro_torch.api.specs import ExperimentSpec, SpecError, _not_ported
 from repro_torch.core import baselines, icoa
 from repro_torch.core.tree import tree_map
 from repro_torch.data import sources as data_sources
+from repro_torch.obs import taps as obs_taps
 
 __all__ = ["batch_fit", "trial_spec", "resolve_device"]
 
@@ -125,13 +126,16 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
     d, n = len(groups), dspec.n_train
     solver = spec.solver
     conv = None
+    taps = {}
     if solver.name == "icoa":
-        cfg = solver.icoa_config(spec.resolved_transport())
+        cfg = solver.icoa_config(spec.resolved_transport(),
+                                 obs=spec.obs.normalized())
         params, f, weights, hist = icoa.run_scan(
             family, cfg, xcols, y, xcols_test, y_test,
             seeds=[spec.seed + t for t in range(n_trials)])
         trial_bytes = hist["trial_bytes"]
         conv = hist["converged_at"].cpu().tolist()
+        taps = hist["taps"]               # (n_trials, n_sweeps, ...) each
     elif solver.name == "averaging":
         params, f, hist = baselines.averaging(
             family, xcols, y, xcols_test, y_test,
@@ -156,8 +160,10 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
                           test_mse=host["test_mse"][t], eta=host["eta"][t],
                           bytes_transmitted=list(trial_bytes[t]),
                           converged_at=None if conv is None else int(conv[t]))
+        metrics = obs_taps.metrics_from_taps(
+            spec.obs.normalized(), {k: v[t] for k, v in taps.items()})
         results.append(Result(spec=trial_spec(spec, t), family=family,
                               params=tree_map(lambda a: a[t], params),
                               weights=weights[t], f=f[t],
-                              history=history, data=None))
+                              history=history, data=None, metrics=metrics))
     return ResultSet(spec, results)

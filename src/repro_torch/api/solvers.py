@@ -12,6 +12,7 @@ from repro_torch.api.result import History, Result
 from repro_torch.api.specs import Dataset, ExperimentSpec, SolverSpec, SpecError
 from repro_torch.core import baselines, icoa
 from repro_torch.core import covariance as cov
+from repro_torch.obs import taps as obs_taps
 from repro_torch.transport import ledger as ledger_mod
 
 __all__ = ["SOLVERS", "register_solver", "comm_floats_per_sweep", "run_solver"]
@@ -64,7 +65,8 @@ def bytes_history(spec: ExperimentSpec, d: int, n: int, n_records: int) -> List[
 
 @register_solver("icoa")
 def _fit_icoa(spec: ExperimentSpec, data: Dataset, family) -> Result:
-    cfg = spec.solver.icoa_config(spec.resolved_transport())
+    cfg = spec.solver.icoa_config(spec.resolved_transport(),
+                                  obs=spec.obs.normalized())
     state, weights, hist = icoa.run(family, cfg, data.xcols, data.y,
                                     data.xcols_test, data.y_test,
                                     seed=spec.seed)
@@ -72,7 +74,8 @@ def _fit_icoa(spec: ExperimentSpec, data: Dataset, family) -> Result:
                       eta=hist["eta"], bytes_transmitted=list(hist["bytes"]),
                       converged_at=len(hist["train_mse"]) - 1)
     return Result(spec=spec, family=family, params=state.params,
-                  weights=weights, f=state.f, history=history, data=data)
+                  weights=weights, f=state.f, history=history, data=data,
+                  metrics=obs_taps.metrics_from_taps(cfg.obs, hist["taps"]))
 
 
 @register_solver("averaging")

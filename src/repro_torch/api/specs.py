@@ -11,9 +11,10 @@ the ROADMAP item it waits for — never silently ignored.
 donate) are read by batch_fit only, in the JAX package as here.
 
 `FaultSpec` is repro_torch.faults' (the JAX package's fields and checks);
-`resolved_transport()` rides it on the run's Transport.  `ObsSpec` is a
-copy of the JAX package's spec dataclass: the port has no observability
-layer yet, so an enabled ObsSpec (ROADMAP A13) is rejected.
+`resolved_transport()` rides it on the run's Transport.  `ObsSpec` is
+repro_torch.obs' (the taps of the icoa solver: an unknown tap, or taps on
+another solver, is a SpecError).  `StreamSpec` describes an online run
+(repro_torch.stream), with the JAX package's checks and dict layout.
 """
 from __future__ import annotations
 
@@ -29,20 +30,21 @@ from repro_torch.data import sources as data_sources
 from repro_torch.data.partition import PARTITIONS, make_groups, validate_partition
 from repro_torch.data.sources import SOURCES
 from repro_torch.faults.spec import FaultError, FaultSpec
+from repro_torch.obs.spec import ObsError, ObsSpec
 from repro_torch import transport as transport_lib
 from repro_torch.transport import CODECS, POLICIES, TOPOLOGIES, TransportError
 
 __all__ = [
     "DataSpec", "AgentSpec", "SolverSpec", "BackendSpec", "TransportSpec",
-    "FaultSpec", "FaultError", "ObsSpec", "ExperimentSpec", "Dataset",
-    "SpecError", "NotPortedError", "spec_to_dict", "spec_from_dict",
+    "FaultSpec", "FaultError", "ObsSpec", "ObsError", "ExperimentSpec",
+    "StreamSpec", "Dataset", "SpecError", "NotPortedError", "spec_to_dict",
+    "spec_from_dict", "stream_spec_to_dict", "stream_spec_from_dict",
 ]
 
 _SOLVERS = ("icoa", "averaging", "residual_refitting")
 _BACKENDS = ("local", "shard_map")
 _CHECKS = ("off", "raise")
 _COMPUTE_DTYPES = ("bfloat16", "float32", "float64")
-_TAPS = ("accepts", "budget_rejects", "codec_error", "eta", "fault_retries", "s")
 
 
 class SpecError(ValueError):
@@ -205,7 +207,9 @@ class SolverSpec:
             raise SpecError(f"unknown engine {self.engine!r}; pick 'dense', "
                             f"'incremental' or 'fused'")
 
-    def icoa_config(self, transport=None) -> ICOAConfig:
+    def icoa_config(self, transport=None, obs=None) -> ICOAConfig:
+        """`transport` the resolved Transport (None: the exact_f64 / full
+        default), `obs` the normalized ObsSpec (None: no taps)."""
         return ICOAConfig(
             n_sweeps=self.n_sweeps, eps=self.eps, step0=self.step0,
             backtrack=self.backtrack, max_probes=self.max_probes,
@@ -213,7 +217,7 @@ class SolverSpec:
             minimax_steps=self.minimax_steps, minimax_lr=self.minimax_lr,
             use_kernel=self.use_kernel, accept_reject=self.accept_reject,
             row_broadcast=self.row_broadcast, engine=self.engine,
-            transport=transport)
+            transport=transport, obs=obs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -299,25 +303,6 @@ class BackendSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class ObsSpec:
-    """Copy of repro.obs.ObsSpec: which in-sweep taps to collect."""
-
-    taps: Tuple[str, ...] = ()
-
-    @property
-    def enabled(self) -> bool:
-        return bool(self.taps)
-
-    def validate(self) -> None:
-        unknown = sorted(set(self.taps) - set(_TAPS))
-        if unknown:
-            raise SpecError(f"obs: unknown tap(s) {unknown}; "
-                            f"registered: {list(_TAPS)}")
-        if self.enabled:
-            raise _not_ported("obs taps (an enabled ObsSpec)", "A13")
-
-
-@dataclasses.dataclass(frozen=True)
 class ExperimentSpec:
     data: DataSpec = DataSpec()
     agent: AgentSpec = AgentSpec()
@@ -334,6 +319,15 @@ class ExperimentSpec:
         self.solver.validate()
         self.backend.validate()
         self.transport.validate()
+        try:
+            self.obs.validate()
+        except ObsError as e:
+            raise SpecError(f"obs: {e}") from None
+        if self.obs.enabled and self.solver.name != "icoa":
+            raise SpecError(
+                "obs taps are collected inside the ICOA sweep; solver {!r} "
+                "has no sweep to tap (averaging and the refit ring record "
+                "only their History)".format(self.solver.name))
         if self.transport.byte_budget is not None:
             if (self.solver.name != "icoa"
                     or self.solver.engine not in ("incremental", "fused")):
@@ -369,7 +363,6 @@ class ExperimentSpec:
                     raise SpecError(
                         f"faults.crash names agent {agent} but the run has "
                         f"{n_agents} agents")
-        self.obs.validate()
 
     def resolved_transport(self):
         """The run's Transport (TransportSpec.resolve at its agent count)
@@ -379,6 +372,78 @@ class ExperimentSpec:
         if self.faults.is_inert:
             return tp
         return dataclasses.replace(tp, faults=self.faults)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamSpec:
+    """The online run description (the JAX package's): instances arrive in
+    `chunk`-sized micro-batches into a `window`-instance ring; every
+    `resweep_every` instances `sweeps_per_resweep` ICOA sweeps run on the
+    warm window and emit a history record; predictions are scored
+    prequentially (each chunk before it is ingested).  `experiment` is the
+    scenario template (its n_train / n_test are not read).  `drift_option`
+    names a source option drifting linearly from `drift_start` to
+    `drift_end` over the stream; `checkpoint_every` (with stream_fit's
+    directory) saves the live state every that many instances;
+    `serve_buckets` are PredictEngine's batch sizes."""
+
+    experiment: ExperimentSpec = ExperimentSpec()
+    window: int = 2048            # ring-buffer capacity
+    chunk: int = 64               # arrival micro-batch size
+    total_instances: int = 100_000
+    resweep_every: int = 2048     # instances between cadenced re-sweeps
+    sweeps_per_resweep: int = 1
+    drift_option: Optional[str] = None   # source option that drifts over time
+    drift_start: float = 0.0
+    drift_end: float = 0.0
+    checkpoint_every: Optional[int] = None   # instances between state saves
+    serve_buckets: Tuple[int, ...] = (1, 16, 128)  # PredictEngine batch sizes
+
+    def validate(self) -> None:
+        self.experiment.validate()
+        sol = self.experiment.solver
+        if sol.name != "icoa":
+            raise SpecError(
+                f"streaming re-sweeps drive icoa on the warm window; solver "
+                f"{sol.name!r} has no sweep to cadence")
+        if sol.alpha != 1.0 or sol.delta != 0.0:
+            raise SpecError(
+                "the warm stream CovState tracks the full window residuals "
+                "(alpha=1) and serves closed-form live weights (delta=0); "
+                "Minimax Protection knobs are an offline-path feature")
+        if self.experiment.backend.name != "local":
+            raise SpecError("stream_fit runs the local backend only (the "
+                            "ingest/serve loop is a single-process engine)")
+        for name, val in (("window", self.window), ("chunk", self.chunk),
+                          ("total_instances", self.total_instances),
+                          ("resweep_every", self.resweep_every),
+                          ("sweeps_per_resweep", self.sweeps_per_resweep)):
+            if val < 1:
+                raise SpecError(f"need {name} >= 1, got {val}")
+        # a chunk never straddles the ring's wrap point
+        for name, val in (("window", self.window),
+                          ("total_instances", self.total_instances),
+                          ("resweep_every", self.resweep_every)):
+            if val % self.chunk != 0:
+                raise SpecError(
+                    f"{name}={val} must be a multiple of chunk={self.chunk} "
+                    f"(static-shape ring arithmetic)")
+        if self.checkpoint_every is not None \
+                and self.checkpoint_every % self.chunk != 0:
+            raise SpecError(
+                f"checkpoint_every={self.checkpoint_every} must be a "
+                f"multiple of chunk={self.chunk}")
+        if not self.serve_buckets or \
+                any(b < 1 for b in self.serve_buckets):
+            raise SpecError("serve_buckets needs at least one positive "
+                            "batch size")
+        if self.drift_option is not None:
+            src = SOURCES[self.experiment.data.source]
+            if self.drift_option not in src.options:
+                raise SpecError(
+                    f"source {src.name!r} has no option "
+                    f"{self.drift_option!r} to drift; valid: "
+                    f"{sorted(src.options)}")
 
 
 # ------------------------------------------------------------- serialisation
@@ -460,3 +525,18 @@ def spec_from_dict(d: Dict[str, Any]) -> ExperimentSpec:
         obs=ObsSpec(**obs),
         seed=d.get("seed", 0),
     )
+
+
+def stream_spec_to_dict(spec: StreamSpec) -> Dict[str, Any]:
+    d = dataclasses.asdict(spec)
+    d["experiment"] = spec_to_dict(spec.experiment)
+    return d
+
+
+def stream_spec_from_dict(d: Dict[str, Any]) -> StreamSpec:
+    """Load the JAX package's stream spec layout (strict on unknown keys)."""
+    fields = _checked_fields(StreamSpec, d, "stream spec")
+    fields["experiment"] = spec_from_dict(fields.get("experiment", {}))
+    if "serve_buckets" in fields:
+        fields["serve_buckets"] = tuple(int(b) for b in fields["serve_buckets"])
+    return StreamSpec(**fields)

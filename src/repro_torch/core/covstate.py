@@ -30,11 +30,17 @@ agent per trial as a (B,) int64 device tensor; u of shape (B, D), or
 Under Minimax Protection (alpha > 1) `build(exact_diag=)` splices the exact
 local variances into the subsample's Gram (Sec 4.1) and
 `row_update_vector(ddiag=)` moves that diagonal by its exact change;
-`robust_eta_probe` is the protected twin of `eta_probe`.  Twin of
-repro.core.covstate; the streaming column swaps wait for ROADMAP A14.
+`robust_eta_probe` is the protected twin of `eta_probe`.
+
+`replace_cols` swaps a run of instance columns of r_sub (the stream's
+commit of a chunk, repro_torch.stream; `replace_col` one): per arrival one
+Sherman–Morrison update for the arriving column and one downdate for the
+evicted one, O(D^2) with no pass over the window.  Twin of
+repro.core.covstate.
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional
 
 import torch
@@ -46,7 +52,7 @@ from repro_torch.core.trial_index import add_at, pick, put
 
 __all__ = ["CovState", "build", "refresh", "row_product", "row_update_vector",
            "eta_probe", "s_probe", "robust_eta_probe", "apply_inverse_update",
-           "apply_row_update"]
+           "apply_row_update", "replace_col", "replace_cols"]
 
 class CovState(NamedTuple):
     r_sub: torch.Tensor       # (D, m) residual matrix view (transmitted rows)
@@ -253,3 +259,53 @@ def apply_row_update(state: CovState, i: int, r_new_sub: torch.Tensor,
     r_sub = state.r_sub.clone()
     r_sub[i] = r_new_sub
     return CovState(r_sub=r_sub, a0=a0, m_inv=m_inv, s=s, eta_tilde=eta)
+
+
+def _rank1_inverse_update(m_inv: torch.Tensor, s: torch.Tensor,
+                          v: torch.Tensor, sign: float):
+    """(m_inv', s') after A0 += sign * v v^T — one Sherman–Morrison step.
+    m_inv is symmetric, so w = M v serves both sides of the correction and
+    s' = M' 1 follows from the same pieces; sign is +1 (update) or -1
+    (downdate)."""
+    w = m_inv @ v
+    vw = torch.dot(v, w)
+    denom = 1.0 + vw if sign > 0 else 1.0 - vw    # 1 + sign * v.w, exactly
+    coef = sign / denom
+    return m_inv - coef * torch.outer(w, w), s - (coef * torch.dot(v, s)) * w
+
+
+def replace_cols(state: CovState, j0: int, c_new: torch.Tensor) -> CovState:
+    """Replace instance columns j0 .. j0 + n - 1 of r_sub (D, m) by c_new
+    (D, n): the stream's commit of n arrivals, O(n D^2) with no pass over
+    the window, equal to n successive one-column swaps.
+
+    Each arrival is one rank-1 update of A0 = r r^T / m for the arriving
+    column and one rank-1 downdate for the evicted one, two Sherman–Morrison
+    steps on (m_inv, s) in arrival order; A0 takes the n columns' change in
+    one product.  A zero outgoing column (the ring's empty slot during
+    warm-up) leaves its downdate an exact no-op (w = 0, so m_inv and s are
+    unchanged), so append and evict-replace are one operation.  The slots
+    are distinct and do not wrap (j0 + n <= m).  The alpha = 1 state only
+    (no spliced diagonal).  Returns a new state; `state` is left as it
+    was."""
+    n, m = c_new.shape[-1], state.r_sub.shape[-1]
+    if j0 + n > m:
+        raise ValueError(f"columns {j0}..{j0 + n - 1} run past the window "
+                         f"of {m}")
+    inv_sqrt_m = 1.0 / math.sqrt(m)
+    c_old = state.r_sub[:, j0:j0 + n]
+    v_new, v_old = c_new * inv_sqrt_m, c_old * inv_sqrt_m
+    m_inv, s = state.m_inv, state.s
+    for t in range(n):
+        m_inv, s = _rank1_inverse_update(m_inv, s, v_new[:, t], 1.0)
+        m_inv, s = _rank1_inverse_update(m_inv, s, v_old[:, t], -1.0)
+    a0 = state.a0 + (c_new @ c_new.T - c_old @ c_old.T) / m
+    r_sub = state.r_sub.clone()
+    r_sub[:, j0:j0 + n] = c_new
+    return CovState(r_sub=r_sub, a0=a0, m_inv=m_inv, s=s, eta_tilde=torch.sum(s))
+
+
+def replace_col(state: CovState, j: int, c_new: torch.Tensor) -> CovState:
+    """Replace instance column j of r_sub by c_new (D,): `replace_cols` of
+    one arrival."""
+    return replace_cols(state, j, c_new[:, None])

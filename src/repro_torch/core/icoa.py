@@ -72,6 +72,15 @@ families, a dict for mlp; every engine takes, selects and writes agent i's
 through it.  Families other than the polynomial ones project through
 `family.fit` in the fused engine too.
 
+Taps (cfg.obs, repro_torch.obs): with an ObsSpec the sweep returns its
+tap dict — each agent's acceptance after the gates, the budget's denials
+and the fault trace's retries (host counts from the gates settled at
+sweep start), the codec's round-trip error on the sweep-start gather —
+and `run` / `run_scan` add each record's eta and solve vector s, off the
+record's own Gram.  Every tap site is a Python `if` on the spec: without
+taps the sweep runs exactly the device operations it ran before, and
+with them it reads only values it already has.
+
 Faults (cfg.transport.faults, repro_torch.faults): `sweep(..., round_)`
 draws the round's trace on the host at sweep start; the gather charges
 the alive agents only, each broadcast `attempts` times its price, and a
@@ -102,6 +111,8 @@ from repro_torch.core.tree import clone as tree_clone
 from repro_torch.core.tree import select, store, take, tree_map
 from repro_torch.faults import inject as faults_inject
 from repro_torch.faults import trace as faults_trace
+from repro_torch.obs import taps as obs_taps
+from repro_torch.obs.spec import ObsSpec
 from repro_torch.transport import Ledger, TrialLedgers, icoa_sweep_cost
 
 __all__ = ["ICOAConfig", "ICOAState", "init_keys", "init_state", "sweep",
@@ -140,6 +151,7 @@ class ICOAConfig:
                                 # price); incremental/fused are row-wise
     engine: str = "incremental"  # "incremental" | "fused" | "dense"
     transport: Optional[transport_lib.Transport] = None  # None = default
+    obs: Optional[ObsSpec] = None  # the taps to collect (None: none)
 
     def validate(self) -> None:
         if self.engine not in ("incremental", "fused", "dense"):
@@ -216,8 +228,9 @@ def sweep(family, cfg: ICOAConfig, params: Any, f: torch.Tensor,
           key: Optional[torch.Tensor] = None,
           ledger: Optional[Union[Ledger, TrialLedgers]] = None,
           round_: int = 0):
-    """One full sweep over all D agents; returns (params, f, ledger).  The
-    inputs are not modified.
+    """One full sweep over all D agents; returns (params, f, ledger, taps),
+    `taps` the sweep's tap dict of cfg.obs ({} without taps).  The inputs
+    are not modified.
 
     At alpha > 1 the sweep splits `key` and draws its subsample of
     m = ceil(N / alpha) instances from the second half, as the JAX package
@@ -263,9 +276,9 @@ def sweep(family, cfg: ICOAConfig, params: Any, f: torch.Tensor,
     rt = (None if tp.faults is None
           else faults_inject.RoundTrace(tp.faults, round_, d, f.dtype))
     if cfg.engine == "dense":
-        params, f = _sweep_dense(family, cfg, tp, tree_clone(params), f.clone(),
-                                 xcols, y, idx)
-        return params, f, ledger
+        params, f, taps = _sweep_dense(family, cfg, tp, tree_clone(params),
+                                       f.clone(), xcols, y, idx)
+        return params, f, ledger, taps
     if batched:
         engine = _sweep_fused_batched if fused else _sweep_incremental_batched
     else:
@@ -278,37 +291,62 @@ def _schedule(tp, cs0, ledger, m: int, split: bool, step0: torch.Tensor,
               rt=None):
     """The sweep's agent order and gates, settled at its start
     (transport.policy, and faults.inject under a fault trace `rt`):
-    (slots, cans, agents, ledger).  slots[j] is the agent of slot j — an
-    int, or a (B,) int64 device tensor when each trial of a batch orders
+    (slots, cans, agents, ledger, denied).  slots[j] is the agent of slot
+    j — an int, or a (B,) int64 device tensor when each trial of a batch orders
     its own agents (greedy_eta); agents[j] is the same on the host (an
     int, or B ints).  cans[j] is None with neither a budget nor faults,
     else slot j's can_tx: a bool, or for a batch under a budget a (B,)
     bool device tensor (every gate of the sweep copied to the device at
     once; faults alone gate every trial alike: a bool).  The ledger comes
-    back charged for the whole sweep."""
+    back charged for the whole sweep.  `denied` counts the broadcasts the
+    budget refused on a budgeted run without faults (an int, or B ints),
+    else 0: the budget_rejects tap."""
     d = tp.topology.n_agents
     live, order, bcosts, ledger = transport_lib.budget_setup(
         tp, cs0, ledger, m, split, step0, None if rt is None else rt.alive)
+    denied = 0
     if rt is not None:
         cans, ledger = faults_inject.gate_schedule(rt, ledger, live, bcosts,
                                                    order, tp.byte_budget)
     elif tp.byte_budget is None:
-        return list(range(d)), [None] * d, list(range(d)), ledger
+        return list(range(d)), [None] * d, list(range(d)), ledger, denied
     else:
         cans, ledger = transport_lib.gate_schedule(ledger, live, bcosts,
                                                    order, tp.byte_budget)
+        denied = np.sum(~np.asarray(cans, dtype=bool), axis=0).tolist()
     if not isinstance(ledger, TrialLedgers):
-        return order, cans, list(order), ledger
+        return order, cans, list(order), ledger, denied
     if tp.byte_budget is None:                 # the shared trace alone
-        return order, [c[0] for c in cans], list(order), ledger
+        return order, [c[0] for c in cans], list(order), ledger, denied
     dev = cs0.s.device
     cans = list(torch.tensor(cans, dtype=torch.bool, device=dev).unbind(0))
     if isinstance(order, np.ndarray):          # one order per trial
         agents = [tuple(int(a) for a in col) for col in order.T]
         order = list(torch.as_tensor(np.ascontiguousarray(order.T),
                                      device=dev).unbind(0))
-        return order, cans, agents, ledger
-    return order, cans, list(order), ledger
+        return order, cans, agents, ledger, denied
+    return order, cans, list(order), ledger, denied
+
+
+def _retries(rt) -> int:
+    """The attempts beyond the first of every agent that transmitted this
+    round (alive and not straggling) under the fault trace `rt`, whatever
+    the budget did: the fault_retries tap (0 without faults)."""
+    if rt is None:
+        return 0
+    return sum(a - 1 for a, alive, late in zip(rt.attempts, rt.alive,
+                                               rt.straggle)
+               if alive and not late)
+
+
+def _sweep_taps(cfg: ICOAConfig, f: torch.Tensor, sent, rel, denied, rt):
+    """The engine taps of a sweep at its start (obs.taps), {} without
+    taps: no device operation."""
+    if cfg.obs is None:
+        return {}
+    taps = obs_taps.engine_taps(cfg.obs, f, sent, rel)
+    obs_taps.tap_gates(taps, cfg.obs, denied, _retries(rt))
+    return taps
 
 
 def _strike(rt, row: torch.Tensor, agent) -> torch.Tensor:
@@ -343,15 +381,19 @@ def _split_gradient(v: torch.Tensor, r_sub: torch.Tensor, r_i: torch.Tensor,
 
 def _gathered_state(tp, r0: torch.Tensor, idx: Optional[torch.Tensor],
                     use_kernel: bool):
-    """The sweep-start gather as the CovState it builds, and the width m of
-    its rows: every row as delivered (its subsample at alpha > 1, with the
-    exact local variances spliced in as the diagonal, Sec 4.1).  Single
-    (r0 (D, N)) or per trial (r0 (B, D, N), idx (B, m))."""
+    """The sweep-start gather as the CovState it builds, the width m of its
+    rows, and the rows as sent and as delivered: every row after the relay
+    (its subsample at alpha > 1, with the exact local variances spliced in
+    as the diagonal, Sec 4.1).  Single (r0 (D, N)) or per trial
+    (r0 (B, D, N), idx (B, m))."""
     if idx is None:
-        return covstate.build(tp.relay_rows(r0), use_kernel=use_kernel), r0.shape[-1]
+        rel = tp.relay_rows(r0)
+        return covstate.build(rel, use_kernel=use_kernel), r0.shape[-1], r0, rel
     exact = tp.relay_scalars(torch.sum(r0 * r0, dim=-1) / r0.shape[-1])
-    return covstate.build(tp.relay_rows(cov.take_cols(r0, idx)), exact_diag=exact,
-                          use_kernel=use_kernel), idx.shape[-1]
+    sent = cov.take_cols(r0, idx)
+    rel = tp.relay_rows(sent)
+    return (covstate.build(rel, exact_diag=exact, use_kernel=use_kernel),
+            idx.shape[-1], sent, rel)
 
 
 def _delivered(tp, r_new: torch.Tensor, idx: Optional[torch.Tensor], i,
@@ -390,17 +432,27 @@ def _sweep_dense(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
 
     It runs B trials at once — params (B, D, P), f (B, D, N), xcols
     (B, D, N, C), y (B, N), idx (B, m) — and one trial as a batch of one.
+    Returns (params, f, taps): the taps report the codec's round trip on
+    the sweep-start rows (the payload the other engines gather).
     The gradient is autograd's of the sum of the trials' objectives: each
     trial's term depends on its own row only, so every trial gets its own
     gradient; the candidates are (B, K, D, N), and the step, the robust
     weights and accept/reject are per trial."""
     if f.dim() == 2:
-        p, ff = _sweep_dense(family, cfg, tp, tree_map(lambda t: t[None], params),
-                             f[None], xcols[None], y[None],
-                             None if idx is None else idx[None])
-        return tree_map(lambda t: t[0], p), ff[0]
+        p, ff, taps = _sweep_dense(family, cfg, tp,
+                                   tree_map(lambda t: t[None], params),
+                                   f[None], xcols[None], y[None],
+                                   None if idx is None else idx[None])
+        return (tree_map(lambda t: t[0], p), ff[0],
+                {k: v[0] for k, v in taps.items()})
     b, d, n = f.shape
     steps = _step_schedule(cfg, n, f.dtype, f.device)
+    sent = rel = None
+    if cfg.obs is not None and "codec_error" in cfg.obs.taps:
+        r0 = y[:, None, :] - f
+        sent = r0 if idx is None else cov.take_cols(r0, idx)
+        rel = tp.relay_rows(sent)
+    taps = _sweep_taps(cfg, f, sent, rel, 0, None)
 
     def obj(ff):
         """Each trial's objective at ff (B, ..., D, N): (B, ...)."""
@@ -436,9 +488,10 @@ def _sweep_dense(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx):
             accept = obj(f_acc) > eta0
         else:
             accept = torch.ones((b,), dtype=torch.bool, device=f.device)
+        obs_taps.tap_accept(taps, cfg.obs, i, accept)
         store(params, i, 1, select(accept, p_new, p_old))
         f[:, i] = torch.where(accept[:, None], f_new, f[:, i])
-    return params, f
+    return params, f, taps
 
 
 def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
@@ -461,11 +514,12 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
     d, n = f.shape
     uk = cfg.use_kernel
     protected = cfg.delta > 0.0
-    cs, m = _gathered_state(tp, y[None, :] - f, idx, uk)
+    cs, m, sent, rel = _gathered_state(tp, y[None, :] - f, idx, uk)
     steps = _step_schedule(cfg, n, f.dtype, f.device)
     r_sub = cs.r_sub        # the sweep's own buffer: committed rows land in place
-    order, cans, agents, ledger = _schedule(tp, cs, ledger, m, idx is not None,
-                                            steps[0], rt)
+    order, cans, agents, ledger, denied = _schedule(tp, cs, ledger, m,
+                                                    idx is not None, steps[0], rt)
+    taps = _sweep_taps(cfg, f, sent, rel, denied, rt)
 
     def probe(state, u):
         if protected:
@@ -521,6 +575,7 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
             accept = torch.ones((), dtype=torch.bool, device=f.device)
         if can_tx is False:                     # the broadcast was not made
             accept = torch.zeros_like(accept)
+        obs_taps.tap_accept(taps, cfg.obs, i, accept)
 
         store(params, i, 0, select(accept, p_new, p_old))
         f[i] = torch.where(accept, f_new, f[i])
@@ -534,7 +589,7 @@ def _sweep_incremental(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
             m_inv=torch.where(accept, m_inv, cs.m_inv),
             s=torch.where(accept, s, cs.s),
             eta_tilde=torch.where(accept, eta_t, cs.eta_tilde))
-    return params, f, ledger
+    return params, f, ledger, taps
 
 
 def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
@@ -547,11 +602,12 @@ def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
     d, n = f.shape[-2:]
     uk = cfg.use_kernel
     protected = cfg.delta > 0.0
-    cs, m = _gathered_state(tp, y[:, None, :] - f, idx, uk)
+    cs, m, sent, rel = _gathered_state(tp, y[:, None, :] - f, idx, uk)
     steps = _step_schedule(cfg, n, f.dtype, f.device)
     r_sub = cs.r_sub
-    order, cans, agents, ledger = _schedule(tp, cs, ledger, m, idx is not None,
-                                            steps[0], rt)
+    order, cans, agents, ledger, denied = _schedule(tp, cs, ledger, m,
+                                                    idx is not None, steps[0], rt)
+    taps = _sweep_taps(cfg, f, sent, rel, denied, rt)
 
     def probe(state, u):
         if protected:
@@ -605,6 +661,7 @@ def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
             accept = torch.ones(eta0.shape, dtype=torch.bool, device=f.device)
         if can_tx is not None:
             accept = accept & can_tx
+        obs_taps.tap_accept(taps, cfg.obs, i, accept)
 
         store(params, i, 1, select(accept, p_new, p_old))
         put(f, i, 1, torch.where(accept[:, None], f_new, pick(f, i, 1)))
@@ -619,7 +676,7 @@ def _sweep_incremental_batched(family, cfg: ICOAConfig, tp, params, f,
             m_inv=torch.where(accept[:, None, None], m_inv, cs.m_inv),
             s=torch.where(accept[:, None], s, cs.s),
             eta_tilde=torch.where(accept, eta_t, cs.eta_tilde))
-    return params, f, ledger
+    return params, f, ledger, taps
 
 
 def _small_inv(gm: torch.Tensor) -> torch.Tensor:
@@ -677,11 +734,12 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
     d, n = f.shape
     uk = cfg.use_kernel
     dt, dev = f.dtype, f.device
-    cs0, m = _gathered_state(tp, y[None, :] - f, idx, uk)
+    cs0, m, sent, rel = _gathered_state(tp, y[None, :] - f, idx, uk)
     rs, a0, m_inv, s, eta = cs0.r_sub, cs0.a0, cs0.m_inv, cs0.s, cs0.eta_tilde
     steps = _step_schedule(cfg, n, dt, dev)
-    order, cans, agents, ledger = _schedule(tp, cs0, ledger, m,
-                                            idx is not None, steps[0], rt)
+    order, cans, agents, ledger, denied = _schedule(tp, cs0, ledger, m,
+                                                    idx is not None, steps[0], rt)
+    taps = _sweep_taps(cfg, f, sent, rel, denied, rt)
     zero = torch.zeros((), dtype=dt, device=dev)
     half_n = 0.5 / torch.full((), n, dtype=dt, device=dev)
     commit = sweep_ops.commit_sweep if uk else sweep_ref.commit_sweep_ref
@@ -741,13 +799,14 @@ def _sweep_fused(family, cfg: ICOAConfig, tp, params, f, xcols, y, idx,
                                             diag_add, threshold,
                                             True if can_tx is None else can_tx)
         eta = torch.sum(s)
+        obs_taps.tap_accept(taps, cfg.obs, i, accept)
 
         store(params, i, 0, select(accept, p_new, p_old))
         f[i] = torch.where(accept, f_new, f[i])
         a0[i, :] += u_eff                      # u_eff = 0 on reject
         a0[:, i] += u_eff
         rs[i] = torch.where(accept, r_new_sub, rs[i])
-    return params, f, ledger
+    return params, f, ledger, taps
 
 
 def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
@@ -764,11 +823,12 @@ def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
     d, n = f.shape[-2:]
     uk = cfg.use_kernel
     dt, dev = f.dtype, f.device
-    cs0, m = _gathered_state(tp, y[:, None, :] - f, idx, uk)
+    cs0, m, sent, rel = _gathered_state(tp, y[:, None, :] - f, idx, uk)
     rs, a0, m_inv, s, eta = cs0.r_sub, cs0.a0, cs0.m_inv, cs0.s, cs0.eta_tilde
     steps = _step_schedule(cfg, n, dt, dev)
-    order, cans, agents, ledger = _schedule(tp, cs0, ledger, m,
-                                            idx is not None, steps[0], rt)
+    order, cans, agents, ledger, denied = _schedule(tp, cs0, ledger, m,
+                                                    idx is not None, steps[0], rt)
+    taps = _sweep_taps(cfg, f, sent, rel, denied, rt)
     zero = torch.zeros((), dtype=dt, device=dev)
     half_n = 0.5 / torch.full((), n, dtype=dt, device=dev)
     commit = sweep_ops.commit_sweep if uk else sweep_ref.commit_sweep_batched_ref
@@ -828,13 +888,14 @@ def _sweep_fused_batched(family, cfg: ICOAConfig, tp, params, f, xcols, y,
                                             diag_keep, diag_add, threshold,
                                             True if can_tx is None else can_tx)
         eta = torch.sum(s, dim=-1)
+        obs_taps.tap_accept(taps, cfg.obs, i, accept)
 
         store(params, i, 1, select(accept, p_new, p_old))
         put(f, i, 1, torch.where(accept[:, None], f_new, pick(f, i, 1)))
         add_at(a0, i, 1, u_eff)                # u_eff = 0 on reject
         add_at(a0, i, 2, u_eff)
         put(rs, i, 1, torch.where(accept[:, None], r_new_sub, pick(rs, i, 1)))
-    return params, f, ledger
+    return params, f, ledger, taps
 
 
 def _weights(f: torch.Tensor, y: torch.Tensor, cfg: ICOAConfig,
@@ -897,6 +958,17 @@ def converged_record(eta: Union[List[float], torch.Tensor], eps: float):
     return last
 
 
+def _record_eta(cfg: ICOAConfig, r: torch.Tensor):
+    """A record's eta = 1 / eta_tilde of the full residual Gram of r
+    (..., D, N), and its record taps (obs.taps.record_taps): the eta tap is
+    this very value and the s tap the solve vector eta_tilde sums, so with
+    taps the record computes what it computes without them."""
+    a0 = cov.subsampled_gram(r, None, use_kernel=cfg.use_kernel)
+    s = ensemble.solve_vec(a0)
+    eta = 1.0 / torch.sum(s, dim=-1)         # ensemble.eta_tilde's own ops
+    return eta, obs_taps.record_taps(cfg.obs, eta, s)
+
+
 def _full_fp32(fn):
     """Run fn with plain float32 matrix products in full fp32 on the card
     (TF32 off, PyTorch's default), and give the caller back the TF32 flag
@@ -945,6 +1017,8 @@ def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     whose eta moved less than cfg.eps from the previous sweep's.  `seed`
     seeds the init keys (split(PRNGKey(seed), D)) and the key stream
     (PRNGKey(seed + 1)), as in the JAX package; sweep r is fault round r.
+    With cfg.obs, hist["taps"] holds each tap stacked over the sweeps
+    (sweep k is record k + 1; obs.taps), else {}.
     Plain float32 matrix products on the card stay full fp32: TF32 is off
     for the call (PyTorch's default) and the caller's setting is restored
     after it."""
@@ -953,6 +1027,7 @@ def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     state = init_state(family, xcols, y, init_keys(seed, d, y.device))
     hist = {"train_mse": [], "test_mse": [], "eta": [], "bytes": [0.0]}
     key = _first_key(cfg, seed, y.device)
+    tap_rows = []
 
     def record(params, f, key, alive=None):
         w = _weights(f, y, cfg, key, alive)
@@ -960,25 +1035,28 @@ def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
         if xcols_test is not None:
             pred = ensemble_predict(family, params, w, xcols_test)
             hist["test_mse"].append(float(torch.mean((y_test - pred) ** 2)))
-        a0 = cov.subsampled_gram(y[None, :] - f, None, use_kernel=cfg.use_kernel)
-        hist["eta"].append(float(1.0 / ensemble.eta_tilde(a0)))
-        return w
+        eta, rtaps = _record_eta(cfg, y[None, :] - f)
+        hist["eta"].append(float(eta))
+        return w, rtaps
 
-    weights = record(state.params, state.f, key)
+    weights, _ = record(state.params, state.f, key)
     eta_prev = math.inf
     ledger = Ledger()
     for r in range(cfg.n_sweeps):
         key, k1, k2 = _split3(key)
-        params, f, led2 = sweep(family, cfg, state.params, state.f, xcols, y,
-                                k1, ledger, r)
+        params, f, led2, etaps = sweep(family, cfg, state.params, state.f,
+                                       xcols, y, k1, ledger, r)
         hist["bytes"].append(float(led2.spent - ledger.spent))
         ledger = led2
         state = ICOAState(params=params, f=f)
-        weights = record(params, f, k2, _alive(cfg, d, r, y.device))
+        weights, rtaps = record(params, f, k2, _alive(cfg, d, r, y.device))
+        if cfg.obs is not None:
+            tap_rows.append({**etaps, **rtaps})
         eta_now = hist["eta"][-1]
         if abs(eta_prev - eta_now) < cfg.eps:
             break
         eta_prev = eta_now
+    hist["taps"] = obs_taps.stack_tap_rows(tap_rows)
     return state, weights, hist
 
 
@@ -1001,8 +1079,9 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     hist["converged_at"] (B,) — the record where `run`'s eps rule would
     have stopped — hist["trial_bytes"], each trial's host ledger's bytes
     per record (record 0: 0), and hist["bytes"], their one list when every
-    trial's agree (always without a byte budget), else None.  Nothing in the loop waits for
-    the device.  TF32 is off for the call, as in `run`."""
+    trial's agree (always without a byte budget), else None; with cfg.obs,
+    hist["taps"], each tap (B, n_sweeps, ...), else {}.  Nothing in the
+    loop waits for the device.  TF32 is off for the call, as in `run`."""
     cfg.validate()
     if xcols.dim() != 4 or y.dim() != 2:
         raise ValueError(f"run_scan: expected xcols (B, D, N, C) and y (B, N), "
@@ -1015,6 +1094,7 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     state = init_state(family, xcols, y, init_keys(seeds, d, y.device))
     recs = {"train_mse": [], "test_mse": [], "eta": []}
     key = _first_key(cfg, seeds, y.device)
+    tap_rows = []
 
     def record(params, f, key, alive=None):
         w = _weights(f, y, cfg, key, alive)
@@ -1022,23 +1102,26 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
             torch.mean((y - ensemble.combine(w, f)) ** 2, dim=-1))
         pred = ensemble_predict(family, params, w, xcols_test)
         recs["test_mse"].append(torch.mean((y_test - pred) ** 2, dim=-1))
-        a0 = cov.subsampled_gram(y[:, None, :] - f, None,
-                                 use_kernel=cfg.use_kernel)
-        recs["eta"].append(1.0 / ensemble.eta_tilde(a0))
-        return w
+        eta, rtaps = _record_eta(cfg, y[:, None, :] - f)
+        recs["eta"].append(eta)
+        return w, rtaps
 
     params, f = state.params, state.f
-    weights = record(params, f, key)
+    weights, _ = record(params, f, key)
     ledger = TrialLedgers.empty(y.shape[0])
     trial_bytes = [[0.0] for _ in seeds]
     for r in range(cfg.n_sweeps):
         key, k1, k2 = _split3(key)
-        params, f, led2 = sweep(family, cfg, params, f, xcols, y, k1, ledger, r)
+        params, f, led2, etaps = sweep(family, cfg, params, f, xcols, y, k1,
+                                       ledger, r)
         for b, (now, before) in enumerate(zip(led2.spent, ledger.spent)):
             trial_bytes[b].append(float(now - before))
         ledger = led2
-        weights = record(params, f, k2, _alive(cfg, d, r, y.device))
+        weights, rtaps = record(params, f, k2, _alive(cfg, d, r, y.device))
+        if cfg.obs is not None:
+            tap_rows.append({**etaps, **rtaps})
     hist = {k: torch.stack(v, dim=-1) for k, v in recs.items()}
+    hist["taps"] = obs_taps.stack_tap_rows(tap_rows, axis=1)
     hist["converged_at"] = converged_record(hist["eta"], cfg.eps)
     hist["trial_bytes"] = trial_bytes
     same = all(t == trial_bytes[0] for t in trial_bytes)

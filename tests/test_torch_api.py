@@ -147,7 +147,6 @@ def test_fit_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("change,item", [
-    pytest.param(dict(obs=tapi.ObsSpec(taps=("eta",))), "A13", id="change3-A13"),
     pytest.param(dict(backend=tapi.BackendSpec(checks="raise")), "A15",
                  id="change4-A15"),
     pytest.param(dict(backend=tapi.BackendSpec(name="shard_map")), "A11",
@@ -168,11 +167,13 @@ def test_unported_fields_raise_with_roadmap_item(change, item):
     pytest.param({"agent": {"family": "mlp", "options": [["hidden", 8],
                                                           ["fit_steps", 5]]}},
                  id="mlp"),
+    pytest.param({"obs": {"taps": ["eta", "accepts"]}}, id="obs"),
 ])
 def test_specs_once_unported_match_jax(change):
-    """The agent families and fault specs that raised NotPortedError before
-    their slice (the rows that left the table above), from the spec in
-    float64 against repro.api.fit: histories at 1e-10, bytes equal (the
+    """The agent families, fault specs and obs taps that raised
+    NotPortedError before their slice (the rows that left the table above),
+    from the spec in float64 against repro.api.fit: histories at 1e-10,
+    bytes equal (the
     mlp family cut to hidden 8 and 5 Adam steps: at its defaults the JAX
     package's sweep takes minutes to compile here)."""
     d = {"data": {"n_train": 300, "n_test": 200, "seed": 3},
@@ -581,6 +582,9 @@ def test_port_imports_no_jax_and_no_repro():
                 if name.split(".")[0] in ("jax", "jaxlib", "repro"):
                     bad.append(f"{path.relative_to(REPO)}:{node.lineno} {name}")
     assert len(_port_files()) > 20
+    names = {p.relative_to(REPO).as_posix() for p in _port_files()}
+    for pkg in ("obs", "stream"):           # the observability and stream slices
+        assert f"src/repro_torch/{pkg}/__init__.py" in names
     assert bad == []
 
 
@@ -593,6 +597,10 @@ def test_port_runs_with_jax_unimportable():
         "spec = api.ExperimentSpec(data=api.DataSpec(n_train=200, n_test=100),\n"
         "    solver=api.SolverSpec(n_sweeps=2, engine='fused', use_kernel=True))\n"
         "r = api.fit(spec, device='cpu')\n"
+        "import repro_torch.obs, repro_torch.stream\n"
+        "s = api.stream_fit(api.StreamSpec(window=64, chunk=32, resweep_every=64,\n"
+        "    total_instances=64), device='cpu')\n"
+        "assert len(s.records) == 1\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok', len(r.history.eta))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))

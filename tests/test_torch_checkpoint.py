@@ -80,3 +80,106 @@ def test_latest_step(tmp_path):
     for step in (3, 12, 5):
         tio.save_checkpoint(str(tmp_path), step, ttree)
     assert tio.latest_step(str(tmp_path)) == jio.latest_step(str(tmp_path)) == 12
+
+
+# ----------------------------------------------------- NamedTuple trees
+
+
+def _named_trees():
+    """A NamedTuple holding a nested NamedTuple, a tuple and a dict, in
+    each package (jax keys a NamedTuple's fields '.name')."""
+    from typing import NamedTuple
+
+    class Inner(NamedTuple):
+        u: object
+        v: object
+
+    class S(NamedTuple):
+        a: object
+        b: object
+        c: object
+
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal(3)
+    u, v, x = rng.standard_normal((2, 2)), rng.standard_normal(1), rng.standard_normal(4)
+    jt = S(a=jnp.asarray(a, jnp.float32),
+           b=(jnp.zeros(1, jnp.float32), {"x": jnp.asarray(x, jnp.float32)}),
+           c=Inner(u=jnp.asarray(u, jnp.float32), v=jnp.asarray(v, jnp.float32)))
+    tt = S(a=torch.tensor(a, dtype=torch.float32),
+           b=(torch.zeros(1), {"x": torch.tensor(x, dtype=torch.float32)}),
+           c=Inner(u=torch.tensor(u, dtype=torch.float32),
+                   v=torch.tensor(v, dtype=torch.float32)))
+    return jt, tt
+
+
+def test_named_tuple_keys_and_treedef_match_jax():
+    jt, tt = _named_trees()
+    assert tio.tree_keys(tt) == jio.tree_keys(jt) == [
+        ".a", ".b|0", ".b|1|x", ".c|.u", ".c|.v"]
+    assert (f"PyTreeDef({tio._treedef(tt)})"
+            == str(jax.tree_util.tree_structure(jt)))
+
+
+@pytest.mark.parametrize("writer", ["port", "jax"])
+def test_named_tuple_checkpoint_restores_in_the_other(tmp_path, writer):
+    jt, tt = _named_trees()
+    if writer == "port":
+        tio.save_checkpoint(str(tmp_path), 3, tt)
+    else:
+        jio.save_checkpoint(str(tmp_path), 3, jt)
+    t_back = tio.restore_checkpoint(str(tmp_path), 3, tt)
+    j_back = jio.restore_checkpoint(str(tmp_path), 3, jt)
+    assert type(t_back) is type(tt) and type(t_back.c) is type(tt.c)
+    for a, b, want in zip(_flat(t_back), _flat(j_back), _flat(tt)):
+        np.testing.assert_array_equal(a, want)
+        np.testing.assert_array_equal(b, want)
+    with open(tmp_path / "ckpt_00000003.json") as fh:
+        manifest = json.load(fh)
+    assert manifest["treedef"] == str(jax.tree_util.tree_structure(jt))
+    assert manifest["keys"] == sorted(jio.tree_keys(jt))
+
+
+@pytest.mark.parametrize("x64", [False, True])
+def test_stream_state_checkpoint_crosses_packages(tmp_path, x64):
+    """A StreamState saved by either package restores in the other, every
+    leaf cast to the template's dtype: the JAX key's uint32 words into the
+    port's int64 key, the JAX ledger's default int into the port's Python
+    int, the int32 scalars into the port's numpy int32 (and back)."""
+    from repro import api as japi
+    from repro.stream.run import build_ingestor as jbuild
+    from repro_torch import api as tapi
+    from repro_torch.stream import build_ingestor as tbuild
+
+    d = {"experiment": {"data": {"source": "cosine"}}, "window": 64,
+         "chunk": 32, "resweep_every": 64, "total_instances": 64}
+    dt = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64 if x64 else torch.float32)
+    try:
+        with jax.enable_x64(x64):
+            jing = jbuild(japi.stream_spec_from_dict(d))
+            tstate = tbuild(tapi.stream_spec_from_dict(d), device="cpu").init_state()
+            jstate = jing.init_state()
+            jstate = jstate._replace(count=jnp.asarray(96, jnp.int32),
+                                     ledger=jstate.ledger.charge(12345))
+            tstate = tstate._replace(count=np.int32(96), cursor=np.int32(32),
+                                     ledger=tstate.ledger.charge(777))
+            assert tio.tree_keys(tstate) == jio.tree_keys(jstate)
+            assert (f"PyTreeDef({tio._treedef(tstate)})"
+                    == str(jax.tree_util.tree_structure(jstate)))
+            jio.save_checkpoint(str(tmp_path / "j"), 96, jstate)
+            tio.save_checkpoint(str(tmp_path / "t"), 96, tstate)
+            t_from_j = tio.restore_checkpoint(str(tmp_path / "j"), 96, tstate)
+            j_from_t = jio.restore_checkpoint(str(tmp_path / "t"), 96, jstate)
+    finally:
+        torch.set_default_dtype(dt)
+    assert t_from_j.ledger.spent == 12345 and t_from_j.count == 96
+    assert isinstance(t_from_j.count, np.int32)
+    assert t_from_j.key.dtype == torch.int64
+    assert t_from_j.key.tolist() == np.asarray(jstate.key).tolist()
+    assert t_from_j.y.dtype == tstate.y.dtype
+    assert int(j_from_t.ledger.spent) == 777 and int(j_from_t.cursor) == 32
+    assert j_from_t.ledger.spent.dtype == jstate.ledger.spent.dtype
+    assert j_from_t.key.dtype == jnp.uint32
+    assert np.asarray(j_from_t.key).tolist() == tstate.key.tolist()
+    np.testing.assert_array_equal(np.asarray(j_from_t.cov.m_inv),
+                                  tstate.cov.m_inv.numpy())

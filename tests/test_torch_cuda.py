@@ -42,6 +42,15 @@ the CPU's per-trial ledgers.  The C library's float32 sin / cos / atan
 bit for bit; a commit gated off by the fault trace leaves the state
 bitwise; a faulted paper fit has the CPU's bytes and histories within
 1e-4; an mlp fit on the card is within 1e-9 of the CPU's in float64.
+Observability and the stream: every tap of a fused paper fit on the card
+(use_kernel) equals the CPU's (int taps and accept flags equal, float taps
+within 1e-4); the stream's chunks on the card equal the CPU's bit for bit;
+replace_cols on the card matches the CPU, one arrival and a chunk (float64
+1e-12, float32 1e-5); a short float64 stream on the card has the CPU's bytes
+and records within 1e-8, in float32 on the kernels its accept flags and
+bytes and records within 4x the CPU's spread between its two engines;
+stream_fit under a caller's TF32 gives the bits it gives without; a stream
+checkpoint saved on the card restores on the CPU with the same leaves.
 """
 import dataclasses
 import math
@@ -1200,3 +1209,164 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return [_to(v, device) for v in tree]
+
+
+# ------------------------------------------------------ observability, stream
+
+ALL_TAPS = ("accepts", "budget_rejects", "codec_error", "eta",
+            "fault_retries", "s")
+
+
+def test_taps_on_card_match_cpu(card):
+    spec = api.ExperimentSpec(
+        solver=api.SolverSpec(engine="fused", use_kernel=True, n_sweeps=4,
+                              eps=0.0),
+        faults=api.FaultSpec(seed=5, drop_rate=0.3, max_retries=2),
+        obs=api.ObsSpec(taps=ALL_TAPS))
+    data = spec.data.build(card)
+    got = api.fit(spec, device=card, data=data)
+    want = api.fit(spec, device="cpu", data=data)
+    assert got.history.bytes_transmitted == want.history.bytes_transmitted
+    for name in ALL_TAPS:
+        a, b = got.metrics[name], want.metrics[name]
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if name in ("accepts", "budget_rejects", "fault_retries"):
+            np.testing.assert_array_equal(a, b, err_msg=name)
+        else:
+            assert np.abs(a - b).max() <= 1e-4 * max(np.abs(b).max(), 1e-30), name
+    assert got.metrics["eta"].tolist() == got.history.eta[1:]
+
+
+@pytest.mark.parametrize("source,kw", [
+    ("cosine", dict(noise=0.1, drift_option="freq", drift_start=1.0, drift_end=1.4)),
+    ("friedman1", dict(noise=0.37)),
+])
+def test_chunk_source_on_card_equals_cpu(card, source, kw):
+    from repro_torch.stream import ChunkSource
+
+    on_card = ChunkSource(source, 64, 50, seed=4, device=card, **kw)
+    on_cpu = ChunkSource(source, 64, 50, seed=4, device="cpu", **kw)
+    for t in range(0, 50, 7):
+        (xg, yg), (xc, yc) = on_card(t), on_cpu(t)
+        assert torch.equal(xg.cpu(), xc) and torch.equal(yg.cpu(), yc), t
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+def test_replace_col_on_card_matches_cpu(card, dtype, tol):
+    from repro_torch.core import covstate
+
+    gen = torch.Generator().manual_seed(4)
+    r = torch.randn((100, 512), generator=gen, dtype=dtype)
+    r[:, 9] = 0.0
+    r[:, 70:80] = 0.0
+    c = torch.randn((100, 64), generator=gen, dtype=dtype)
+    # one arrival over a filled and an empty slot, and a chunk of 64 (the
+    # stream's commit) over filled and empty slots
+    for j, n in ((3, 1), (9, 1), (40, 64)):
+        want = covstate.replace_cols(covstate.build(r), j, c[:, :n])
+        got = covstate.replace_cols(covstate.build(r.to(card)), j, c[:, :n].to(card))
+        for name in ("a0", "m_inv", "s", "eta_tilde", "r_sub"):
+            g, w = getattr(got, name).cpu(), getattr(want, name)
+            assert (g - w).abs().max() <= tol * w.abs().max(), (name, n)
+
+
+def _short_stream(engine="fused", use_kernel=True, taps=("eta", "accepts")):
+    return api.StreamSpec(
+        experiment=api.ExperimentSpec(
+            data=api.DataSpec(source="cosine"),
+            solver=api.SolverSpec(engine=engine, use_kernel=use_kernel),
+            obs=api.ObsSpec(taps=taps)),
+        window=256, chunk=32, resweep_every=128, total_instances=512,
+        drift_option="freq", drift_start=1.0, drift_end=1.4)
+
+
+@pytest.mark.parametrize("engine", ["fused", "incremental"])
+def test_short_stream_on_card_matches_cpu(card, engine):
+    """The stream loop on the card (draws, ingest, resweeps, ledger) in
+    float64 on the plain products: records within 1e-8 of the CPU's (the
+    two devices' matrix products round apart in the last bits), bytes
+    equal.  In float32 the live weights' Sherman–Morrison updates carry
+    the card's and the CPU's rounding apart, so the kernel path's stream
+    is held in chip_smoke phase 8e instead."""
+    dt = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        spec = _short_stream(engine, use_kernel=False)
+        got = api.stream_fit(spec, device=card)
+        want = api.stream_fit(spec, device="cpu")
+    finally:
+        torch.set_default_dtype(dt)
+    assert [r["bytes"] for r in got.records] == [r["bytes"] for r in want.records]
+    for a, b in zip(got.records, want.records):
+        for key in ("train_mse", "preq_mse", "eta"):
+            assert abs(a[key] - b[key]) <= 1e-8 * abs(b[key]), key
+    assert got.metrics["eta"].tolist() == [e for r in got.records for e in r["etas"]]
+
+
+def _stream_gaps(got, want):
+    """The largest relative difference of two stream runs' record floats,
+    and of their s taps (normwise each record)."""
+    rec = max(abs(a[k] - b[k]) / abs(b[k]) for a, b in zip(got, want)
+              for k in ("train_mse", "preq_mse", "eta"))
+    s = max(float(np.abs(a["taps"]["s"] - b["taps"]["s"]).max()
+                  / np.abs(b["taps"]["s"]).max()) for a, b in zip(got, want))
+    return {"records": rec, "s": s}
+
+
+@pytest.mark.parametrize("engine,other", [("fused", "incremental"),
+                                          ("incremental", "fused")])
+def test_short_stream_f32_kernels_within_the_cpu_engines_spread(card, engine, other):
+    """The stream on the kernels in float32: accept flags and bytes equal
+    to the CPU's, the records and the s tap within 4x the CPU's own spread
+    between its two engines (the same sweeps, their sums in two orders:
+    the raw cosine chunks' ridge Gram has cond ~5e5, so float32 records
+    move by ~1e-3 with any change of a sum's order; chip_smoke phase 8e's
+    STREAM_F32_FACTOR)."""
+    taps = ("eta", "accepts", "s")
+    got = api.stream_fit(_short_stream(engine, taps=taps), device=card)
+    want = api.stream_fit(_short_stream(engine, taps=taps), device="cpu")
+    witness = api.stream_fit(_short_stream(other, taps=taps), device="cpu")
+    assert [r["bytes"] for r in got.records] == [r["bytes"] for r in want.records]
+    np.testing.assert_array_equal(got.metrics["accepts"], want.metrics["accepts"])
+    gaps, spread = _stream_gaps(got.records, want.records), _stream_gaps(
+        witness.records, want.records)
+    for k in gaps:
+        assert gaps[k] <= 4.0 * spread[k], (k, gaps[k], spread[k])
+
+
+def test_stream_fit_computes_in_full_fp32_under_tf32(card):
+    """A caller's TF32 setting leaves stream_fit's float32 products in full
+    fp32 (the same bits as with TF32 off) and is given back afterwards."""
+    saved = torch.get_float32_matmul_precision()
+    spec = _short_stream()
+    try:
+        torch.set_float32_matmul_precision("high")
+        with_tf32 = api.stream_fit(spec, device=card)
+        assert torch.get_float32_matmul_precision() == "high"
+        assert torch.backends.cuda.matmul.allow_tf32
+        torch.set_float32_matmul_precision("highest")
+        without = api.stream_fit(spec, device=card)
+    finally:
+        torch.set_float32_matmul_precision(saved)
+    assert len(with_tf32.records) == len(without.records)
+    for a, b in zip(with_tf32.records, without.records):
+        assert {k: v for k, v in a.items() if k != "taps"} == \
+            {k: v for k, v in b.items() if k != "taps"}
+    assert torch.equal(with_tf32.weights, without.weights)
+
+
+def test_stream_checkpoint_saved_on_card_restores_on_cpu(card, tmp_path):
+    from repro_torch.stream import build_ingestor, restore_stream, save_stream
+
+    spec = dataclasses.replace(_short_stream(), checkpoint_every=256)
+    got = api.stream_fit(spec, device=card, checkpoint_dir=str(tmp_path))
+    save_stream(str(tmp_path / "end"), got.state)
+    back, step = restore_stream(str(tmp_path / "end"),
+                                like=build_ingestor(spec, device="cpu").init_state())
+    assert step == 512 and back.ledger.spent == got.state.ledger.spent
+    assert back.xcols.device.type == "cpu"
+    for name in ("xcols", "y", "f", "weights", "key", "preq_sse"):
+        assert torch.equal(getattr(back, name), getattr(got.state, name).cpu()), name
+    for name in back.cov._fields:
+        assert torch.equal(getattr(back.cov, name),
+                           getattr(got.state.cov, name).cpu()), name

@@ -118,9 +118,10 @@ def test_sweep_from_jax_midrun_state(single_thread, engine):
         mid = convert.state_from_numpy(np.asarray(state.params),
                                        np.asarray(state.f))
     cfg_t = ticoa.ICOAConfig(n_sweeps=3, engine=engine)
-    p_t, f_t, led_t = ticoa.sweep(fam_t, cfg_t, mid.params, mid.f,
-                                  torch.from_numpy(np.array(xc)),
-                                  torch.from_numpy(np.array(y)))
+    p_t, f_t, led_t, taps = ticoa.sweep(fam_t, cfg_t, mid.params, mid.f,
+                                        torch.from_numpy(np.array(xc)),
+                                        torch.from_numpy(np.array(y)))
+    assert taps == {}                       # no ObsSpec: no taps
     assert p_t.dtype == torch.float64
     np.testing.assert_allclose(p_t.numpy(), params, rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(f_t.numpy(), f, rtol=1e-10, atol=1e-12)
