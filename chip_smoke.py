@@ -172,13 +172,42 @@ Phases, each fatal on failure (nothing is caught):
               trip bitwise, the metrics text, the JSONL through
               tools/obs_report.py; ms per chunk of ingest, device ops an
               arrival, busy share, ms per resweep, each bucket's p50/p99;
+  8f. analysis  the analysis rail on the kernels: the port's lint over
+              src/repro_torch and chip_smoke.py, zero violations; the
+              deployment cell (D=100, N=262144, use_kernel, fp32, 2 sweeps)
+              on the fused and incremental engines with checks="off" and
+              then "raise": histories, weights and bytes bit for bit, or
+              the located CheckError of an exactly-zero SMW pivot (the
+              incremental engine's fp32 back-search meets some at D=100;
+              any other outcome fails), the device ops an agent of one
+              sweep each way (off at most
+              DEPLOY_OPS_PER_AGENT on fused) and its ms from alternating
+              pairs; the deployment batch (8 trials, fused) raise against
+              off bit for bit; the paper cell through a NaN-injecting codec
+              under raise, fit and a 32-trial batch_fit, each raising the
+              located CheckError (the relay's site, the codec, trial 0 of
+              the batch; any other outcome fails); serve_bench's stream
+              (cosine, 4096 arrivals, fused) raise against off bit for bit;
+              llama3-405b at full width and 2 layers (d=16384, 128/8 heads
+              of 128, bf16, random weights drawn on the card): batch 8, a
+              1024-token prompt, 16 greedy tokens through B10 at G=16
+              (exactly 32 decode launches, every logit finite), B10 at
+              that shape (B=8, cache 1088) against its plain version and
+              SDPA, timed, its row logged, and its 2 layers in fp32 on the
+              card against the CPU (32-token prompt, 2 steps: logits within
+              1e-4, tokens equal; 42 GB of fp32 weights read on the CPU a
+              step).  After phase 11 the auditor's audit of
+              the whole run (nvcc builds and library loads by source, CUDA
+              graph captures by site) goes to chiprun_out/
+              recompile_audit.json and is held to the checked-in budget;
   9. lm kernels  flash attention (B9), flash decode (B10) and WKV (B11)
               against their plain versions on the same card inputs (fp32:
               1e-5 normwise; bf16: 8e-3, about two bf16 roundings of the
               output, or of P and the output in B9's tensor-core kernel),
               every call made twice and required to give the same bits, at
               ragged lengths, sliding windows (one inside a key tile), GQA
-              G=3 and 8, a single query row, Skv > Sq, decode positions
+              G=3 and 8 (decode also 12 and 16, the two-halves route), a
+              single query row, Skv > Sq, decode positions
               mid-cache and caches cut into many chunks (two geometries
               back to back); each B9 case logs the kernel that its
               (dtype, head dim) route picked.  Then each is checked the same
@@ -208,9 +237,11 @@ Phases, each fatal on failure (nothing is caught):
               within 1e-4 normwise, tokens equal);
   11. serve rwkv6  the same for the full rwkv6-1.6b config (24 layers,
               d=2048, bf16) with exactly 24 WKV launches in the prefill, and
-              one more warm prefill under torch.profiler split into B11's
-              device time and its share of the busy time, beside B11's
-              launch geometry;
+              one more warm prefill under torch.profiler (after a lead-in
+              prefill it does not read) split into B11's device time and
+              its share of the busy time, beside B11's launch geometry,
+              its 24 WKV launches counted both by the wrapper and in the
+              profile;
   12. the kernels line, the nvidia-smi line, and the result line
      {"ok": true, "device": {...}} last.
 
@@ -320,7 +351,7 @@ def _keep_device_busy() -> None:
     before the device reaches it: the events then bracket device time only,
     not the wrappers' host overhead between launches."""
     if "z" not in _BUSY:
-        _BUSY["z"] = torch.randn((8192, 8192), device="cuda")
+        _BUSY["z"] = torch.randn((8192, 8192), dtype=torch.float32, device="cuda")
     _BUSY["z"] @ _BUSY["z"]
 
 
@@ -489,8 +520,9 @@ def check_probe_routes(sweep_ops, sweep_ref, gen, dev, got, args, batch: int) ->
         scenes = [spd_scene(d, gen, dev) for _ in range(batch)]
         m_inv, s, eta = (torch.stack(x).reshape(lead + tuple(x[0].shape)).contiguous()
                          for x in zip(*scenes))
-        r = torch.randn(lead + (d, n), generator=gen, device=dev)
-        steps = torch.tensor([0.5 ** j for j in range(K_STEPS)], device=dev) * math.sqrt(n)
+        r = torch.randn(lead + (d, n), generator=gen, dtype=torch.float32, device=dev)
+        steps = torch.tensor([0.5 ** j for j in range(K_STEPS)], dtype=torch.float32,
+                             device=dev) * math.sqrt(n)
         call = (r, m_inv, s, eta, d // 3, steps)
         out = sweep_ops.probe_sweep(*call)
         probe_vs_f64(f"probe_sweep D={d} N={n} B={batch} ({sweep_ops.probe_route(d)} "
@@ -559,11 +591,11 @@ def check_commit_paths(sweep_ops, sweep_ref, gen, dev, got, args, batch: int, ot
         scenes = [spd_scene(d, gen, dev) for _ in range(batch)]
         mi, ss, ee = (torch.stack(x).reshape(lead + tuple(x[0].shape)).contiguous()
                       for x in zip(*scenes))
-        rr = torch.randn(lead + (d, n), generator=gen, device=dev)
-        dl = 0.05 * torch.randn(lead + (n,), generator=gen, device=dev)
+        rr = torch.randn(lead + (d, n), generator=gen, dtype=torch.float32, device=dev)
+        dl = 0.05 * torch.randn(lead + (n,), generator=gen, dtype=torch.float32, device=dev)
         flags = [t % 2 == 0 for t in range(batch)] if batch > 1 else [d != 129]
         thr = torch.tensor([-math.inf if f else math.inf for f in flags],
-                           device=dev).reshape(lead)
+                           dtype=torch.float32, device=dev).reshape(lead)
         call = (rr, mi, ss, ee, d // 3, dl, 1.0, 0.0, thr, True)
         out = sweep_ops.commit_sweep(*call)
         check_commit(f"commit_sweep D={d} N={n} B={batch}", out, plain(*call), mi, ss, flags)
@@ -579,7 +611,7 @@ def check_commit_paths(sweep_ops, sweep_ref, gen, dev, got, args, batch: int, ot
 
 def spd_scene(d, gen, dev):
     """An SPD m_inv with s = m_inv 1 and eta = sum s."""
-    mm = torch.randn((d, 2 * d), generator=gen, device=dev)
+    mm = torch.randn((d, 2 * d), generator=gen, dtype=torch.float32, device=dev)
     m_inv = mm @ mm.T / (2 * d) + torch.eye(d, device=dev)
     m_inv = 0.5 * (m_inv + m_inv.T)
     s = m_inv.sum(dim=1)
@@ -590,11 +622,11 @@ def phase_kernels(gram_ops, gram_ref, sweep_ops, sweep_ref):
     d, n, k = D_DEPLOY, N_DEPLOY, K_STEPS
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    r = torch.randn((d, n), generator=gen, device=dev)
-    v = torch.randn((n,), generator=gen, device=dev)
+    r = torch.randn((d, n), generator=gen, dtype=torch.float32, device=dev)
+    v = torch.randn((n,), generator=gen, dtype=torch.float32, device=dev)
     m_inv, s, eta = spd_scene(d, gen, dev)
-    delta = 0.05 * torch.randn((n,), generator=gen, device=dev)
-    steps = torch.tensor([0.5 ** j for j in range(k)], device=dev) * math.sqrt(n)
+    delta = 0.05 * torch.randn((n,), generator=gen, dtype=torch.float32, device=dev)
+    steps = torch.tensor([0.5 ** j for j in range(k)], dtype=torch.float32, device=dev) * math.sqrt(n)
     i = 37
     rows = []
 
@@ -693,12 +725,12 @@ def phase_kernels_batched(gram_ops, gram_ref, sweep_ops, sweep_ref):
     b, d, n, k = B_DEPLOY, D_DEPLOY, N_DEPLOY, K_STEPS
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(1)
-    r = torch.randn((b, d, n), generator=gen, device=dev)
-    v = torch.randn((b, n), generator=gen, device=dev)
+    r = torch.randn((b, d, n), generator=gen, dtype=torch.float32, device=dev)
+    v = torch.randn((b, n), generator=gen, dtype=torch.float32, device=dev)
     scenes = [spd_scene(d, gen, dev) for _ in range(b)]
     m_inv, s, eta = (torch.stack(x).contiguous() for x in zip(*scenes))
-    delta = 0.05 * torch.randn((b, n), generator=gen, device=dev)
-    steps = torch.tensor([0.5 ** j for j in range(k)], device=dev) * math.sqrt(n)
+    delta = 0.05 * torch.randn((b, n), generator=gen, dtype=torch.float32, device=dev)
+    steps = torch.tensor([0.5 ** j for j in range(k)], dtype=torch.float32, device=dev) * math.sqrt(n)
     i = 37
     probes = (0, b - 1)                 # slices held against the single kernel
     rows = []
@@ -800,7 +832,7 @@ def phase_kernels_batched(gram_ops, gram_ref, sweep_ops, sweep_ref):
 
     # --- commit_sweep_batched (B8): odd trials rejected, even ones committed
     thr = torch.tensor([math.inf if t % 2 else -math.inf for t in range(b)],
-                       device=dev)
+                       dtype=torch.float32, device=dev)
     call = (r, m_inv, s, eta, i, delta, 1.0, 0.0, thr, True)
     got = sweep_ops.commit_sweep(*call)
     errs = check_commit("commit_sweep_batched", got,
@@ -1388,11 +1420,11 @@ def minimax_kernels_at_m(gram_ops, gram_ref, sweep_ops, sweep_ref, m: int) -> No
     their device time (as phase 3) beside the bound and the library call."""
     d, dev = D_DEPLOY, torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(8)
-    r = torch.randn((d, m), generator=gen, device=dev)
-    v = torch.randn((m,), generator=gen, device=dev)
+    r = torch.randn((d, m), generator=gen, dtype=torch.float32, device=dev)
+    v = torch.randn((m,), generator=gen, dtype=torch.float32, device=dev)
     m_inv, s, eta = spd_scene(d, gen, dev)
-    delta = 0.05 * torch.randn((m,), generator=gen, device=dev)
-    add = torch.full((), 0.02, device=dev)
+    delta = 0.05 * torch.randn((m,), generator=gen, dtype=torch.float32, device=dev)
+    add = torch.full((), 0.02, dtype=torch.float32, device=dev)
     i = d // 3
     log_gram_geometry(gram_ops, r, v)
     log_commit_geometry(sweep_ops, d, m, 1)
@@ -1441,13 +1473,13 @@ def minimax_batched_kernels_at_m(gram_ops, gram_ref, sweep_ops, sweep_ref,
     operands (diag_add[t] as a 0-d tensor); their device time as above."""
     b, d, dev = B_DEPLOY, D_DEPLOY, torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(9)
-    r = torch.randn((b, d, m), generator=gen, device=dev)
-    v = torch.randn((b, m), generator=gen, device=dev)
+    r = torch.randn((b, d, m), generator=gen, dtype=torch.float32, device=dev)
+    v = torch.randn((b, m), generator=gen, dtype=torch.float32, device=dev)
     m_inv, s, eta = (torch.stack(x).contiguous()
                      for x in zip(*[spd_scene(d, gen, dev) for _ in range(b)]))
-    delta = 0.05 * torch.randn((b, m), generator=gen, device=dev)
+    delta = 0.05 * torch.randn((b, m), generator=gen, dtype=torch.float32, device=dev)
     add = 0.01 * torch.arange(1, b + 1, device=dev, dtype=torch.float32)
-    thr = torch.full((b,), -math.inf, device=dev)
+    thr = torch.full((b,), -math.inf, dtype=torch.float32, device=dev)
     i = d // 3
     log_gram_geometry(gram_ops, r, v, b)
     log_commit_geometry(sweep_ops, d, m, b)
@@ -1933,14 +1965,14 @@ def check_per_trial_agents(sweep_ops, sweep_ref, dev) -> None:
     agents, and a trial whose can_tx is false keeps m_inv and s bitwise."""
     b, d, n, k = B_DEPLOY, D_DEPLOY, N_DEPLOY, K_STEPS
     gen = torch.Generator(device=dev).manual_seed(11)
-    r = torch.randn((b, d, n), generator=gen, device=dev)
+    r = torch.randn((b, d, n), generator=gen, dtype=torch.float32, device=dev)
     scenes = [spd_scene(d, gen, dev) for _ in range(b)]
     m_inv, s, eta = (torch.stack(x).contiguous() for x in zip(*scenes))
-    delta = 0.05 * torch.randn((b, n), generator=gen, device=dev)
-    steps = torch.tensor([0.5 ** j for j in range(k)], device=dev) * math.sqrt(n)
-    agents = torch.tensor([3, 97, 0, 41, 41, 99, 12, 58], device=dev)
+    delta = 0.05 * torch.randn((b, n), generator=gen, dtype=torch.float32, device=dev)
+    steps = torch.tensor([0.5 ** j for j in range(k)], dtype=torch.float32, device=dev) * math.sqrt(n)
+    agents = torch.tensor([3, 97, 0, 41, 41, 99, 12, 58], dtype=torch.int64, device=dev)
     can = torch.tensor([True, False, True, True, False, True, True, True],
-                       device=dev)
+                       dtype=torch.bool, device=dev)
     probe = sweep_ops.probe_sweep(r, m_inv, s, eta, agents, steps)
     commit = sweep_ops.commit_sweep(r, m_inv, s, eta, agents, delta, 1.0, 0.0,
                                     eta - 1.0, can)
@@ -2178,11 +2210,11 @@ def check_fault_gate(sweep_ops, dev) -> None:
 
     b, d, n = B_DEPLOY, D_DEPLOY, N_DEPLOY
     gen = torch.Generator(device=dev).manual_seed(21)
-    r = torch.randn((b, d, n), generator=gen, device=dev)
+    r = torch.randn((b, d, n), generator=gen, dtype=torch.float32, device=dev)
     m_inv, s, eta = (torch.stack(x).contiguous()
                      for x in zip(*[spd_scene(d, gen, dev) for _ in range(b)]))
     spec = FaultSpec(seed=5, corrupt_rate=1.0, corrupt_bits=4)
-    clean = 0.05 * torch.randn((b, n), generator=gen, device=dev)
+    clean = 0.05 * torch.randn((b, n), generator=gen, dtype=torch.float32, device=dev)
     struck = corrupt(spec, clean, 0, list(range(b)))
     require(bool((struck != clean).any()) and bool(torch.isfinite(struck).all()),
             "fault gate: the strike moved nothing or made a non-finite row")
@@ -2191,7 +2223,7 @@ def check_fault_gate(sweep_ops, dev) -> None:
     require(not bool(one[3]) and torch.equal(one[0], m_inv[0])
             and torch.equal(one[1], s[0]), "B7: a gated-off commit moved the state")
     can = torch.tensor([True, False, True, False, False, True, True, False],
-                       device=dev)
+                       dtype=torch.bool, device=dev)
     out = sweep_ops.commit_sweep(r, m_inv, s, eta, 7, struck, 1.0, 0.0,
                                  eta - 1.0, can)
     for t in range(b):
@@ -2749,7 +2781,7 @@ def phase_stream_obs(api, _build, icoa, sweep_ops):
     engine.update(res.params, res.weights)
     engine.warmup()
     gen = torch.Generator(device="cuda").manual_seed(8)
-    xq = torch.rand((300, 5), generator=gen, device="cuda")
+    xq = torch.rand((300, 5), generator=gen, dtype=torch.float32, device="cuda")
     answers = {}
 
     def requests():
@@ -2786,7 +2818,7 @@ def phase_stream_obs(api, _build, icoa, sweep_ops):
     served = []
 
     def requests():
-        xr = torch.rand((128, D_DEPLOY), device="cuda")
+        xr = torch.rand((128, D_DEPLOY), dtype=torch.float32, device="cuda")
         while not stop.is_set():
             if engine._live is None:            # nothing published yet
                 time.sleep(0.01)
@@ -2878,6 +2910,353 @@ def phase_stream_obs(api, _build, icoa, sweep_ops):
     return totals
 
 
+# ------------------------------------------------------------ 8f. analysis
+
+
+ANALYSIS_ARCH = "llama3-405b"        # 128 query heads on 8 KV heads: G = 16
+ANALYSIS_PAIRS = 3                   # alternating off/raise pairs a timed engine
+RELAY_SITE = ("non-finite value in transport relay: codec 'nan_injector' "
+              "delivered a non-finite payload over topology 'full'")
+SMW_SITE = "division by zero in covstate._smw_pieces"
+
+
+def phase_analysis(api, _build, icoa, lm, fd_ops, fd_ref, rows):
+    """Phase 8f: the analysis rail on the card.  The port's lint over its
+    tree; the deploy cell (D = 100, N = 262144, use_kernel, fp32, 2 sweeps)
+    on the fused and incremental engines with checks off and then raise,
+    histories and bytes bit for bit or (the incremental engine's fp32
+    back-search) the located CheckError of an exactly-zero SMW pivot, the
+    device ops an agent of one sweep each way and its ms from alternating
+    pairs; the deploy batch (B = 8,
+    fused) raise against off bit for bit; the paper cell through a
+    NaN-injecting codec under raise, fit and a 32-trial batch_fit, each
+    required to raise the located CheckError (site, codec, trial); the
+    paper stream (cosine, 4096 arrivals, fused) raise against off bit for
+    bit; llama3-405b at full width and 2 layers (bf16, random weights drawn
+    on the card) serving B = 8 x 1024 prompt tokens and 16 greedy tokens
+    through B10 at G = 16, B10 at that shape against its plain version and
+    SDPA (timed, its row logged), and 2 fp32 layers against the CPU.
+    Returns the main paths' launch counts."""
+    from repro_torch import transport as ttransport
+    from repro_torch.analysis import CheckError, lint
+    from repro_torch.transport import codecs as tcodecs
+
+    t_phase = time.perf_counter()
+    totals = {}
+
+    def add(counts):
+        for k_, v_ in counts.items():
+            totals[k_] = totals.get(k_, 0) + v_
+
+    # --- lint
+    t0 = time.perf_counter()
+    found = lint.lint_paths([os.path.join(HERE, "src", "repro_torch"),
+                             os.path.join(HERE, "chip_smoke.py")])
+    require(not found, "lint: " + "; ".join(v.format() for v in found[:5]))
+    log(f"[analysis] lint: src/repro_torch and chip_smoke.py clean "
+        f"({len(lint.RULES)} rules) in {time.perf_counter() - t0:.2f} s")
+
+    # --- the deploy cell, off then raise.  The incremental engine's fp32
+    # back-search probes its largest steps through SMW determinants that
+    # cancel, some to exactly 0 (the off run divides by it and reads the
+    # -inf probe as no improvement): raise either gives off's bits or stops
+    # with the located CheckError of that site; any other outcome fails
+    dspec = api.DataSpec(source="correlated_linear", n_attrs=D_DEPLOY,
+                         n_train=N_DEPLOY, n_test=N_TEST_DEPLOY)
+    data = dspec.build("cuda")
+    family = api.AgentSpec().resolve(n_cols=1)
+    state = icoa.init_state(family, data.xcols, data.y)
+    raise_be = api.BackendSpec(checks="raise")
+
+    def checked_call(call, engine, tag):
+        """call() under checks="raise": (result, None), or (None, the
+        CheckError) when a zero SMW pivot stopped the incremental engine."""
+        try:
+            return call(), None
+        except CheckError as e:
+            require(engine == "incremental" and e.site.startswith(SMW_SITE),
+                    f"{tag}: {e}")
+            return None, e
+
+    for engine in ("fused", "incremental"):
+        base = api.ExperimentSpec(data=dspec, solver=api.SolverSpec(
+            engine=engine, use_kernel=True, n_sweeps=2))
+        off, counts, off_s = fit_on_card(api, _build, base, data, f"analysis {engine} off")
+        add(counts)
+        require(all(math.isfinite(e) for e in off.history.eta),
+                f"deploy {engine} off: eta {off.history.eta}")
+        got, err = checked_call(
+            lambda: fit_on_card(api, _build, dataclasses.replace(base, backend=raise_be),
+                                data, f"analysis {engine} raise"),
+            engine, f"deploy {engine} raise")
+        if err is None:
+            on, counts, on_s = got
+            add(counts)
+            for key in ("train_mse", "test_mse", "eta", "bytes_transmitted"):
+                require(getattr(on.history, key) == getattr(off.history, key),
+                        f"deploy {engine}: raise {key} {getattr(on.history, key)} != off "
+                        f"{getattr(off.history, key)}")
+            require(torch.equal(on.weights, off.weights) and torch.equal(on.f, off.f),
+                    f"deploy {engine}: raise weights or f differ from off")
+            verdict = (f"raise = off bit for bit over 2 sweeps (eta {on.history.eta}, "
+                       f"bytes {on.history.bytes_transmitted}), fit {off_s:.3f} s off, "
+                       f"{on_s:.3f} s raise")
+        else:
+            verdict = (f"raise stopped the fit with CheckError {str(err)!r}; off ran "
+                       f"through it (eta {off.history.eta}, fit {off_s:.3f} s)")
+        cfgs = {mode: dataclasses.replace(base.solver.icoa_config(None), checks=mode)
+                for mode in ("off", "raise")}
+
+        def one_sweep(mode):
+            return checked_call(lambda: icoa.sweep(family, cfgs[mode], state.params,
+                                                   state.f, data.xcols, data.y),
+                                engine, f"deploy {engine} sweep {mode}")[1]
+
+        ops, errs = {}, set()
+        for mode in cfgs:
+            one_sweep(mode)
+            ops[mode] = profile_light(lambda: errs.add(str(one_sweep(mode))),
+                                      f"analysis deploy {engine} sweep checks={mode}")["ops"]
+        if engine == "fused":
+            require(ops["off"] <= DEPLOY_OPS_PER_AGENT * D_DEPLOY,
+                    f"deploy fused: checks off {ops['off'] / D_DEPLOY} device ops an "
+                    f"agent > {DEPLOY_OPS_PER_AGENT}")
+        runs = {mode: [] for mode in cfgs}
+        for p in range(ANALYSIS_PAIRS):
+            for mode in (("off", "raise") if p % 2 == 0 else ("raise", "off")):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one_sweep(mode)
+                torch.cuda.synchronize()
+                runs[mode].append((time.perf_counter() - t0) * 1e3)
+        log(f"[analysis] deploy {engine}: {verdict}; one sweep from the warm start "
+            f"{ops['off'] / D_DEPLOY:.2f} device ops an agent off, "
+            f"{ops['raise'] / D_DEPLOY:.2f} raise ({ops['raise'] - ops['off']} more; "
+            f"its CheckError: {sorted(errs - {'None'}) or 'none'}); ms a sweep "
+            f"(alternating pairs) off {statistics.median(runs['off']):.1f} "
+            f"{[round(t, 1) for t in runs['off']]}, raise "
+            f"{statistics.median(runs['raise']):.1f} {[round(t, 1) for t in runs['raise']]}")
+    del data, state
+
+    # --- the deploy batch, fused, off then raise
+    bspec = api.ExperimentSpec(data=dspec, solver=api.SolverSpec(
+        engine="fused", use_kernel=True, n_sweeps=2))
+    outs = {}
+    for mode in ("off", "raise"):
+        spec = dataclasses.replace(bspec, backend=api.BackendSpec(checks=mode))
+        outs[mode], counts, secs = batch_on_card(api, _build, spec, B_DEPLOY,
+                                                 f"analysis deploy batch {mode}")
+        add(counts)
+    for key in ("train_mse", "test_mse", "eta", "bytes_transmitted"):
+        require(np.array_equal(outs["raise"].stack(key), outs["off"].stack(key)),
+                f"deploy batch: raise {key} differs from off")
+    log(f"[analysis] deploy batch B={B_DEPLOY} fused: raise = off bit for bit (eta "
+        f"trial 0 {outs['raise'][0].history.eta})")
+    del outs
+    torch.cuda.empty_cache()
+
+    # --- the paper cell through a NaN-injecting codec, under raise
+    @dataclasses.dataclass(frozen=True)
+    class NaNCodec(tcodecs.Codec):
+        """Every delivered payload poisoned (tests/test_sanitizer.py's)."""
+
+        def decode(self, payload):
+            return payload * float("nan")
+
+        def nbytes(self, n_elems: int) -> float:
+            return float(8 * n_elems)
+
+        def is_identity_for(self, dtype) -> bool:
+            return False
+
+    ttransport.register_codec("nan_injector")(lambda: NaNCodec(name="nan_injector"))
+    nspec = api.ExperimentSpec(
+        solver=api.SolverSpec(engine="fused", use_kernel=True, n_sweeps=2),
+        transport=api.TransportSpec(codec="nan_injector"), backend=raise_be)
+    for what, call, trial in (("fit", lambda: api.fit(nspec, device="cuda"), None),
+                              ("batch_fit", lambda: api.batch_fit(nspec, B_PAPER,
+                                                                  device="cuda"), 0)):
+        err = None
+        try:
+            call()
+        except CheckError as e:
+            err = e
+        require(err is not None, f"nan codec {what}: no CheckError")
+        require(err.site == RELAY_SITE and "'nan_injector'" in str(err)
+                and err.trial == trial,
+                f"nan codec {what}: {err!s} (trial {err.trial})")
+        log(f"[analysis] nan codec {what}: CheckError {str(err)!r}")
+    tcodecs.CODECS.pop("nan_injector")
+
+    # --- the paper stream, off then raise
+    sruns = {}
+    for mode in ("off", "raise"):
+        exp = api.ExperimentSpec(data=api.DataSpec(source="cosine"),
+                                 solver=api.SolverSpec(engine="fused", use_kernel=True),
+                                 backend=api.BackendSpec(checks=mode))
+        spec = api.StreamSpec(experiment=exp, **STREAM_SPEC)
+        sruns[mode], counts, secs = stream_on_card(api, _build, spec,
+                                                   f"analysis stream {mode}")
+        sruns[mode + "_s"] = secs
+        add(counts)
+    same_records("analysis stream raise", sruns["raise"].records, sruns["off"].records)
+    require(torch.equal(sruns["raise"].weights, sruns["off"].weights)
+            and sruns["raise"].total_bytes == sruns["off"].total_bytes,
+            "analysis stream: raise weights or ledger differ from off")
+    log(f"[analysis] paper stream fused, {STREAM_SPEC['total_instances']} arrivals: "
+        f"raise = off bit for bit (records, weights, ledger {sruns['off'].total_bytes:,} "
+        f"bytes); {sruns['off_s']:.2f} s off, {sruns['raise_s']:.2f} s raise")
+    del sruns
+
+    # --- llama3-405b at full width, 2 layers: B10 at G = 16
+    add(serve_g16(lm, _build, fd_ops, fd_ref, rows))
+    log(f"[analysis] phase done in {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+def serve_g16(lm, _build, fd_ops, fd_ref, rows, batch=8, prompt_len=1024, new=16):
+    """llama3-405b's full width at 2 layers: generate through B10 at G = 16
+    (every logit finite, the launches counted), B10 at its serving shape
+    against its plain version and SDPA, then 2 fp32 layers against the
+    CPU."""
+    import torch.nn.functional as F
+
+    cfg = dataclasses.replace(lm["get_config"](ANALYSIS_ARCH), n_layers=2)
+    g = cfg.n_heads // cfg.n_kv_heads
+    require(g == 16 and cfg.resolved_head_dim == 128, f"{ANALYSIS_ARCH}: G={g}")
+    require(fd_ops.max_group() >= g, f"B10's library serves G <= {fd_ops.max_group()}")
+    model = lm["build_model"](cfg)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    prompt = lm["build_prompt"](cfg, batch, prompt_len, "cuda")
+    torch.cuda.synchronize()
+    log(f"[analysis] {ANALYSIS_ARCH} 2 of {lm['get_config'](ANALYSIS_ARCH).n_layers} layers, "
+        f"d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+        f"{cfg.param_dtype}: {sum(t.numel() for t in iter_tensors(params)) / 1e9:.3f} B "
+        f"parameters drawn on the card in {time.perf_counter() - t0:.1f} s")
+    recorder = LogitRecorder(model)
+    expect = {"flash_attention": 2, "flash_attention_tc": 2, "flash_decode": 2 * new}
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with NoSdpa():
+        out, _ = lm["ServeEngine"](recorder).generate(params, prompt, new)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+    require(counts == expect, f"{ANALYSIS_ARCH}: launch counts {counts} != {expect}")
+    require(len(recorder.logits) == new + 1
+            and bool(torch.stack([torch.isfinite(x).all() for x in recorder.logits]).all()),
+            f"{ANALYSIS_ARCH}: non-finite logits")
+    require(out.shape == (batch, new), f"{ANALYSIS_ARCH}: tokens {tuple(out.shape)}")
+    # warm: a prefill alone (median of 3), then the whole generate again
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, prompt)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+    prefill_ms = statistics.median(runs)
+    t0 = time.perf_counter()
+    again, _ = lm["ServeEngine"](model).generate(params, prompt, new)
+    torch.cuda.synchronize()
+    total_ms = (time.perf_counter() - t0) * 1e3
+    require(torch.equal(again, out), f"{ANALYSIS_ARCH}: greedy tokens differ between two runs")
+    log(f"[analysis] {ANALYSIS_ARCH} main path: generate {tuple(out.shape)} in {secs:.3f} s "
+        f"(first call), launches {json.dumps(counts)}, every logit finite; warm prefill "
+        f"{prefill_ms:.2f} ms (median of {', '.join(f'{r:.2f}' for r in runs)}), decode "
+        f"{(total_ms - prefill_ms) / new:.3f} ms a step (generate {total_ms:.1f} ms)")
+    del params, recorder, prompt, out, again
+    torch.cuda.empty_cache()
+
+    # B10 at G = 16, B = 8, cache 1088, bf16, as phase 9 times B10
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, s, idx = batch, 1088, 1087
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    bf = torch.bfloat16
+    q = torch.randn((b, hq, dh), generator=gen, dtype=torch.float32, device=dev).to(bf)
+    k = torch.empty((b, s, hkv, dh), dtype=bf, device=dev).normal_(generator=gen)
+    v = torch.empty((b, s, hkv, dh), dtype=bf, device=dev).normal_(generator=gen)
+    got = fd_ops.flash_decode(q, k, v, idx)
+    require(torch.equal(got, fd_ops.flash_decode(q, k, v, idx)),
+            "B10 G=16: a second call gave other bits")
+    err, rel = compare("B10 G=16", got, fd_ref.decode_ref(q, k, v, idx), LM_TOL[bf])
+    filled = (torch.arange(s, dtype=torch.int64, device=dev) <= idx)[None, None, None, :]
+    sq_, sk_, sv_ = sdpa_layout(q[:, None], k, v)
+    n = idx + 1
+    b_ms, b_by = bound(2.0 * (2 * b * n * hkv * dh + 2 * b * hq * dh),
+                       4.0 * b * hq * dh * n, H100_BF16_FLOPS)
+    _, nsplit = fd_ops.decode_geometry(n, b * hkv, fd_ops.tile_positions(dh, 2))
+    row = {"shape": f"{ANALYSIS_ARCH} heads ({hq}, {hkv}, {dh}), G={g}, B={b}, "
+                    f"cache {s}, idx {idx}, bf16, {nsplit} chunks",
+           "max_abs_err": err, "max_rel_err": rel,
+           "ms": time_ms(lambda: fd_ops.flash_decode(q, k, v, idx)),
+           "plain_ms": time_ms(lambda: fd_ref.decode_ref(q, k, v, idx)),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               sq_, sk_, sv_, attn_mask=filled, enable_gqa=True)),
+           "bound_ms": b_ms, "bound_by": b_by, "launches": expect["flash_decode"]}
+    log(f"[analysis] flash_decode G=16 row {json.dumps(row)}")
+    for r in rows:
+        if r["name"] == "flash_decode":
+            r["g16_row"] = row
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    two_layers_vs_cpu(lm, ANALYSIS_ARCH, steps=2, prompt_len=32)
+    return counts
+
+
+def two_layers_vs_cpu(lm, arch: str, steps: int, prompt_len: int):
+    """The architecture at full width and 2 layers in fp32, its parameters
+    drawn on the card and copied to the CPU (a full-width draw on the CPU
+    takes minutes): prefill and per-step logits within 1e-4 normwise,
+    greedy tokens equal, as serve_two_layers_vs_cpu holds them."""
+    cfg = dataclasses.replace(lm["get_config"](arch), n_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    model = lm["build_model"](cfg)
+    t0 = time.perf_counter()
+    params_gpu = model.init(seed=1, device="cuda")
+    params_cpu = to_device(params_gpu, "cpu")
+    runs = {}
+    for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+        recorder = LogitRecorder(model)
+        prompt = lm["build_prompt"](cfg, 1, prompt_len, dev)
+        out, _ = lm["ServeEngine"](recorder).generate(params, prompt, steps)
+        runs[dev] = (out.cpu(), [x.cpu() for x in recorder.logits])
+        del params, recorder
+        if dev == "cuda":
+            del params_gpu
+            torch.cuda.empty_cache()
+    del params_cpu
+    (tok_g, log_g), (tok_c, log_c) = runs["cuda"], runs["cpu"]
+    worst = max(compare(f"{arch} 2-layer step {i}", g, c, 1e-4)[1]
+                for i, (g, c) in enumerate(zip(log_g, log_c)))
+    require(torch.equal(tok_g, tok_c), f"{arch} 2-layer: tokens differ "
+            f"{tok_g.tolist()} vs {tok_c.tolist()}")
+    log(f"[analysis] {arch} 2 layers, full width, fp32: card vs cpu logits worst "
+        f"normwise {worst:.3e} over prefill ({prompt_len} tokens) + {steps} steps; "
+        f"tokens equal {tok_g[0].tolist()}; {time.perf_counter() - t0:.1f} s")
+
+
+def phase_audit(audit) -> None:
+    """The auditor's audit of the whole run (every build, library load and
+    CUDA graph capture since the imports): written to
+    chiprun_out/recompile_audit.json, printed by kind, and held to the
+    checked-in budget (src/repro_torch/analysis/recompile_budget.json)."""
+    from repro_torch.analysis import recompile
+
+    path = os.path.join(HERE, "chiprun_out", "recompile_audit.json")
+    recompile.write_audit(path, "chip_smoke", audit)
+    budget = recompile.load_budget()
+    bad = recompile.check_budget("chip_smoke", audit.total, budget)
+    log(f"[analysis] audit: {audit.total} builds, loads and captures (budget "
+        f"{budget['chip_smoke']['max_compiles']}); builds by source "
+        f"{json.dumps(audit.by_kind('build'))}; loads {json.dumps(audit.by_kind('load'))}; "
+        f"captures by site {json.dumps(audit.by_kind('capture'))}")
+    require(not bad, "audit: " + "; ".join(bad))
+
+
 # ------------------------------------------------------------ 9. LM kernels
 
 
@@ -2905,7 +3284,7 @@ def phase_lm_kernels(_build, fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref, g
     gen = torch.Generator(device=dev).manual_seed(2)
 
     def rn(*shape, dtype=torch.float32):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev).to(dtype)
 
     errs = {"flash_attention": [], "flash_decode": [], "wkv": []}
     worst = {}                      # (kernel, dtype) -> (normwise error, tolerance)
@@ -2948,7 +3327,10 @@ def phase_lm_kernels(_build, fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref, g
                                                (3, 999, 8, 1, 128, 0, 0),
                                                (1, 5000, 15, 5, 64, 4999, 0),
                                                (2, 3000, 8, 2, 128, 2500, 1000),
-                                               (1, 5000, 15, 5, 64, 4999, 0)):
+                                               (1, 5000, 15, 5, 64, 4999, 0),
+                                               (8, 1088, 128, 8, 128, 1087, 0),
+                                               (1, 5000, 16, 1, 128, 4999, 0),
+                                               (2, 300, 12, 1, 128, 299, 37)):
             q, k, v = rn(b, hq, dh, dtype=dt), rn(b, s, hkv, dh, dtype=dt), rn(b, s, hkv, dh, dtype=dt)
             _, nsplit = fd_ops.decode_geometry(
                 idx + 1 - (max(0, idx - window + 1) if window else 0), b * hkv,
@@ -3065,7 +3447,7 @@ def phase_lm_kernels(_build, fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref, g
         check("flash_decode", bf, f"timed shape {(b, s, hq, hkv, dh, idx)}",
               lambda: fd_ops.flash_decode(q, k, v, idx), fd_ref.decode_ref(q, k, v, idx),
               note=f" [{nsplit} chunks]")
-        filled = (torch.arange(s, device=dev) <= idx)[None, None, None, :]
+        filled = (torch.arange(s, dtype=torch.int64, device=dev) <= idx)[None, None, None, :]
         sq_, sk_, sv_ = sdpa_layout(q[:, None], k, v)
         n = idx + 1
         out = {"ms": time_ms(lambda: fd_ops.flash_decode(q, k, v, idx)),
@@ -3214,31 +3596,48 @@ def profile_serving(model, params, prompt, tag: str, steps: int = 4) -> float:
     return profile_window(tag, "decode steps", decode, steps)
 
 
-def prefill_split(model, params, prompt, tag: str, geometry=None) -> dict:
+def prefill_split(model, params, prompt, tag: str, launches, geometry=None) -> dict:
     """One warm prefill under torch.profiler: its wall time, the device's busy
     time, and the device time, launches and share of that busy time of the
-    WKV kernel (B11), beside its launch geometry.  Logged and returned."""
+    WKV kernel (B11), beside its launch geometry and the launches its
+    wrapper counted (`launches`: the kernel's count in _build.LAUNCHES).
+    Late in a full run the profiler misses a few dozen events at a
+    profile's start, so the profile starts with one more prefill, and only
+    the device events that start after it (and a 10 ms gap) are read.
+    Logged and returned."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     model.prefill(params, prompt)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        model.prefill(params, prompt)
+        model.prefill(params, prompt)                  # the lead-in, not read
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(10e-3)
+        before = launches()
+        with record_function("measured prefill"):
+            t0 = time.perf_counter()
+            model.prefill(params, prompt)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        counted = launches() - before
+    events = prof.events()
+    marks = [e for e in events if e.name == "measured prefill"
+             and e.device_type == DeviceType.CPU]
+    require(len(marks) == 1, f"{tag}: {len(marks)} 'measured prefill' ranges in the profile")
+    start_us = marks[0].time_range.start - 5e3          # half the gap, for clock skew
     busy = wkv = 0.0
-    launches = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+    n_wkv = 0
+    for e in events:                       # (the range's own device annotation is no kernel)
+        if (e.device_type == DeviceType.CUDA and e.time_range.start >= start_us
+                and e.name != "measured prefill"):
             busy += e.time_range.elapsed_us()
             if "wkv_kernel" in e.name:
                 wkv += e.time_range.elapsed_us()
-                launches += 1
+                n_wkv += 1
     out = {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3, "wkv_ms": wkv / 1e3,
-           "wkv_launches": launches, "wkv_share_of_busy": wkv / busy if busy else 0.0,
-           "geometry": geometry}
+           "wkv_launches": n_wkv, "wkv_wrapper_launches": counted,
+           "wkv_share_of_busy": wkv / busy if busy else 0.0, "geometry": geometry}
     log(f"[{tag}] prefill split: {json.dumps(out)}")
     return out
 
@@ -3297,7 +3696,11 @@ def serve_full(lm, _build, arch: str, expect: dict, batch=8, prompt_len=1024, ne
 
         h, dh = cfg.d_model // cfg.rwkv_head_dim, cfg.rwkv_head_dim
         split = prefill_split(model, params, prompt, arch,
+                              lambda: _build.LAUNCHES.get("wkv", 0),
                               wkv_ops.wkv_geometry(batch, prompt_len, h, dh))
+        require(split["wkv_wrapper_launches"] == expect["wkv"],
+                f"{arch}: the wrapper launched {split['wkv_wrapper_launches']} WKV "
+                f"kernels in the profiled prefill")
         require(split["wkv_launches"] == expect["wkv"],
                 f"{arch}: {split['wkv_launches']} WKV kernels in the profiled prefill")
     log(f"[{arch}] batch {batch}, prompt {prompt_len}, {new} new tokens: prefill "
@@ -3360,6 +3763,7 @@ def main() -> None:
     smi = phase_device()
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch import api
+    from repro_torch.analysis import recompile
     from repro_torch.core import icoa
     from repro_torch.data import sources as data_sources
     from repro_torch.kernels import _build
@@ -3380,6 +3784,10 @@ def main() -> None:
     lm = dict(get_config=get_config, build_model=build_model,
               build_prompt=build_prompt, ServeEngine=ServeEngine)
 
+    # the auditor counts every build, library load and graph capture of the
+    # run from here on (phase 8f writes and checks the audit at the end)
+    counting = recompile.count_compilations()     # held open to the end
+    audit = counting.__enter__()
     t_start = time.perf_counter()
     stamps = []
 
@@ -3426,14 +3834,20 @@ def main() -> None:
     for k_, v_ in phase_stream_obs(api, _build, icoa, sweep_ops).items():
         launches[k_] += v_
     stamp("stream_obs")
-    launches.update(serve_full(lm, _build, "smollm-360m",
-                               {"flash_attention": 32, "flash_attention_tc": 32,
-                                "flash_decode": 32 * 64}))
+    for k_, v_ in phase_analysis(api, _build, icoa, lm, fd_ops, fd_ref, rows).items():
+        launches[k_] += v_
+    stamp("analysis")
+    for k_, v_ in serve_full(lm, _build, "smollm-360m",
+                             {"flash_attention": 32, "flash_attention_tc": 32,
+                              "flash_decode": 32 * 64}).items():
+        launches[k_] += v_
     serve_two_layers_vs_cpu(lm, "smollm-360m")
     stamp("serve smollm")
-    launches.update(serve_full(lm, _build, "rwkv6-1.6b", {"wkv": 24}))
+    for k_, v_ in serve_full(lm, _build, "rwkv6-1.6b", {"wkv": 24}).items():
+        launches[k_] += v_
     serve_two_layers_vs_cpu(lm, "rwkv6-1.6b")
     stamp("serve rwkv6")
+    phase_audit(audit)
     require(len(rows) == 11, f"{len(rows)} kernel rows")
     for row in rows:
         row["launches"] = launches[row["name"]]

@@ -37,6 +37,12 @@ fused engines, single and batched:
 Data are drawn on the device from the JAX package's key stream, so
 `fit(spec)` reproduces `repro.api.fit(spec)` from the seed on.
 
+`BackendSpec(checks="raise")` turns on the sanitizer rail
+(repro_torch.analysis.sanitize) in fit, batch_fit, sweep and stream_fit:
+NaN from a lossy codec, a singular SMW pivot or a trial index off the
+batch raises analysis.CheckError naming the site (and the trial of a
+batch); a healthy run gives the off mode's bits.
+
 An `ObsSpec` of taps fills `Result.metrics` (every engine, single and
 batched, under any transport and FaultSpec); `stream_fit(StreamSpec(...))`
 runs the online loop (repro_torch.stream) on the card:
@@ -52,6 +58,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+from repro_torch.analysis import sanitize
 from repro_torch.api.io import load_result as load
 from repro_torch.api.io import save_result
 from repro_torch.api.result import History, Result, ResultSet
@@ -85,7 +92,9 @@ def fit(spec: ExperimentSpec, *, device="cuda",
         data: Optional[Dataset] = None) -> Result:
     """Run one experiment end to end on `device`: build the data from the
     spec (or take `data`, moved to `device`), resolve the agent family, run
-    the registered solver and return the standardised Result."""
+    the registered solver and return the standardised Result.  Under
+    `BackendSpec(checks="raise")` the solver's check sites are on, and a
+    failed one raises analysis.CheckError naming its site."""
     dev = resolve_device(device, "repro_torch.api.fit")
     spec.validate()
     with _obs_span("api.fit", solver=spec.solver.name,
@@ -97,4 +106,5 @@ def fit(spec: ExperimentSpec, *, device="cuda",
                            data.xcols_test.to(dev), data.y_test.to(dev),
                            data.groups)
         family = spec.agent.resolve(n_cols=data.xcols.shape[-1])
-        return run_solver(spec, data, family)
+        with sanitize.error_scope(spec.backend.checks):
+            return run_solver(spec, data, family)

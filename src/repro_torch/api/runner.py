@@ -31,6 +31,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.api.result import History, Result, ResultSet
 from repro_torch.api.solvers import bytes_history
 from repro_torch.api.specs import ExperimentSpec, SpecError, _not_ported
@@ -95,7 +96,10 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
     order of fp32 sums; the batched icoa path ignores `solver.eps` and
     reports fit's stopping record as History.converged_at.  Each trial
     records its own ledger's bytes (under a byte budget with greedy_eta the
-    trials' orders, and so their spends, may differ)."""
+    trials' orders, and so their spends, may differ).  Under
+    `BackendSpec(checks="raise")` the check sites fold into one error word
+    per trial, read once at the end: a failure raises analysis.CheckError
+    naming the site and the first failing trial."""
     dev = resolve_device(device, "repro_torch.api.batch_fit")
     spec.validate()
     if n_trials < 1:
@@ -110,6 +114,17 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
                                 for t in range(n_trials)])
     if not _can_compile(spec):
         raise SpecError(f"no batched runner for solver {spec.solver.name!r}")
+    with sanitize.error_scope(spec.backend.checks, n_trials):
+        return _batch(spec, n_trials, dev)
+
+
+def _batch(spec: ExperimentSpec, n_trials: int, dev: torch.device) -> ResultSet:
+    if spec.backend.checks == "raise":
+        # the JAX package's check of its padded trial vector; one card
+        # needs no padding, so every index holds
+        sanitize.check_in_bounds(
+            torch.arange(n_trials, dtype=torch.int64, device=dev), n_trials,
+            "local batch: padded trial indices (clamped tail)")
 
     dspec = spec.data
     groups = dspec.groups
@@ -129,6 +144,7 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
     taps = {}
     if solver.name == "icoa":
         cfg = solver.icoa_config(spec.resolved_transport(),
+                                 checks=spec.backend.checks,
                                  obs=spec.obs.normalized())
         params, f, weights, hist = icoa.run_scan(
             family, cfg, xcols, y, xcols_test, y_test,

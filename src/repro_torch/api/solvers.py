@@ -66,6 +66,7 @@ def bytes_history(spec: ExperimentSpec, d: int, n: int, n_records: int) -> List[
 @register_solver("icoa")
 def _fit_icoa(spec: ExperimentSpec, data: Dataset, family) -> Result:
     cfg = spec.solver.icoa_config(spec.resolved_transport(),
+                                  checks=spec.backend.checks,
                                   obs=spec.obs.normalized())
     state, weights, hist = icoa.run(family, cfg, data.xcols, data.y,
                                     data.xcols_test, data.y_test,

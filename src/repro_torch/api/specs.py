@@ -25,6 +25,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.agents import FAMILIES
+from repro_torch.analysis import sanitize
 from repro_torch.core.icoa import ICOAConfig, NotPortedError
 from repro_torch.data import sources as data_sources
 from repro_torch.data.partition import PARTITIONS, make_groups, validate_partition
@@ -43,7 +44,6 @@ __all__ = [
 
 _SOLVERS = ("icoa", "averaging", "residual_refitting")
 _BACKENDS = ("local", "shard_map")
-_CHECKS = ("off", "raise")
 _COMPUTE_DTYPES = ("bfloat16", "float32", "float64")
 
 
@@ -207,9 +207,11 @@ class SolverSpec:
             raise SpecError(f"unknown engine {self.engine!r}; pick 'dense', "
                             f"'incremental' or 'fused'")
 
-    def icoa_config(self, transport=None, obs=None) -> ICOAConfig:
+    def icoa_config(self, transport=None, checks: str = "off",
+                    obs=None) -> ICOAConfig:
         """`transport` the resolved Transport (None: the exact_f64 / full
-        default), `obs` the normalized ObsSpec (None: no taps)."""
+        default), `checks` the backend's sanitizer mode (BackendSpec.checks),
+        `obs` the normalized ObsSpec (None: no taps)."""
         return ICOAConfig(
             n_sweeps=self.n_sweeps, eps=self.eps, step0=self.step0,
             backtrack=self.backtrack, max_probes=self.max_probes,
@@ -217,7 +219,7 @@ class SolverSpec:
             minimax_steps=self.minimax_steps, minimax_lr=self.minimax_lr,
             use_kernel=self.use_kernel, accept_reject=self.accept_reject,
             row_broadcast=self.row_broadcast, engine=self.engine,
-            transport=transport, obs=obs)
+            transport=transport, checks=checks, obs=obs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,9 +290,10 @@ class BackendSpec:
     def validate(self) -> None:
         if self.name not in _BACKENDS:
             raise SpecError(f"unknown backend {self.name!r}; pick one of {_BACKENDS}")
-        if self.checks not in _CHECKS:
-            raise SpecError(f"BackendSpec.checks must be one of {_CHECKS}, "
-                            f"got {self.checks!r}")
+        try:
+            sanitize.validate_mode(self.checks, "BackendSpec.checks")
+        except ValueError as e:
+            raise SpecError(str(e)) from None
         if self.trial_devices is not None and self.trial_devices < 1:
             raise SpecError(f"trial_devices must be >= 1 (got {self.trial_devices})")
         if self.compute_dtype is not None and self.compute_dtype not in _COMPUTE_DTYPES:
@@ -298,8 +301,6 @@ class BackendSpec:
                             f"pick one of {list(_COMPUTE_DTYPES)}")
         if self.name == "shard_map":
             raise _not_ported("backend='shard_map' (multi-device)", "A11")
-        if self.checks == "raise":
-            raise _not_ported("checks='raise' (the sanitizer rail)", "A15")
 
 
 @dataclasses.dataclass(frozen=True)

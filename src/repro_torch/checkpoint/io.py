@@ -137,7 +137,7 @@ def _as_like(arr: np.ndarray, leaf) -> Any:
     if not isinstance(leaf, torch.Tensor):
         return type(leaf)(arr.item())
     np_dt = (np.float32 if leaf.dtype == torch.bfloat16     # stored as float32
-             else torch.empty((), dtype=leaf.dtype).numpy().dtype)
+             else torch.empty((), dtype=leaf.dtype, device="cpu").numpy().dtype)
     t = torch.from_numpy(np.array(arr, dtype=np_dt, order="C"))
     return t.to(device=leaf.device, dtype=leaf.dtype)
 

@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core import covariance as cov
 from repro_torch.core import ensemble
 from repro_torch.core.icoa import init_keys
@@ -40,7 +41,10 @@ def _loo_residual(codec, y: torch.Tensor, f_sum: torch.Tensor,
     algebraically equal regrouping differs by ulps)."""
     if codec is None or codec.is_identity_for(f_sum.dtype):
         return y - f_sum + f_i
-    return y - codec.roundtrip(f_sum - f_i)
+    return y - sanitize.check_finite(
+        codec.roundtrip(f_sum - f_i),
+        f"baselines leave-one-out refit: codec {codec.name!r} delivered a "
+        f"non-finite ensemble sum")
 
 
 def align_param_dtypes(params, like):

@@ -45,6 +45,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core import covariance as cov
 from repro_torch.core import minimax
 from repro_torch.core.ensemble import _JITTER
@@ -135,6 +136,9 @@ def _smw_pieces(state: CovState, i: int, u: torch.Tensor):
     k12 = 1.0 + z2[..., i]
     k22 = torch.sum(u * z2, dim=-1)
     det = k11 * k22 - k12 * k12
+    det = sanitize.check_nonzero(
+        det, "covstate._smw_pieces: SMW pivot determinant "
+        "(eta_probe / s_probe / apply_row_update divide by it)")
     return z1, z2, k11, k12, k22, det
 
 
@@ -148,6 +152,9 @@ def _smw_pieces_batched(state: CovState, i: int, u: torch.Tensor):
     k12 = 1.0 + pick(z2, i, -1)
     k22 = torch.sum(u * z2, dim=-1)
     det = k11 * k22 - k12 * k12
+    det = sanitize.check_nonzero(
+        det, "covstate._smw_pieces: SMW pivot determinant "
+        "(eta_probe / s_probe / apply_row_update divide by it)")
     return z1, z2, k11, k12, k22, det
 
 
@@ -270,6 +277,10 @@ def _rank1_inverse_update(m_inv: torch.Tensor, s: torch.Tensor,
     w = m_inv @ v
     vw = torch.dot(v, w)
     denom = 1.0 + vw if sign > 0 else 1.0 - vw    # 1 + sign * v.w, exactly
+    denom = sanitize.check_nonzero(
+        denom, "covstate._rank1_inverse_update: Sherman-Morrison pivot "
+        "(replace_col divides by it; an exactly-singular downdate means the "
+        "evicted instance carried the whole window's mass)")
     coef = sign / denom
     return m_inv - coef * torch.outer(w, w), s - (coef * torch.dot(v, s)) * w
 

@@ -103,6 +103,7 @@ import torch
 
 from repro_torch import prng
 from repro_torch import transport as transport_lib
+from repro_torch.analysis import sanitize
 from repro_torch.agents.polynomial import PolynomialFamily, _features
 from repro_torch.core import covariance as cov
 from repro_torch.core import covstate, ensemble, gradient, minimax
@@ -151,9 +152,12 @@ class ICOAConfig:
                                 # price); incremental/fused are row-wise
     engine: str = "incremental"  # "incremental" | "fused" | "dense"
     transport: Optional[transport_lib.Transport] = None  # None = default
+    checks: str = "off"         # the sanitizer rail (analysis.sanitize):
+                                # "raise" makes a failed check site an error
     obs: Optional[ObsSpec] = None  # the taps to collect (None: none)
 
     def validate(self) -> None:
+        sanitize.validate_mode(self.checks, "ICOAConfig.checks")
         if self.engine not in ("incremental", "fused", "dense"):
             raise ValueError(f"unknown engine {self.engine!r}; pick "
                              f"'incremental', 'fused' or 'dense'")
@@ -196,13 +200,14 @@ def _step_schedule(cfg: ICOAConfig, n: int, dtype: torch.dtype,
     """steps[k] = step0 * backtrack^k in the data dtype, built on the host
     as the same left-associated multiply chain the JAX back-search performs
     (step0 = cfg.step0 * sqrt(N), the scale-free start)."""
-    np_dt = np.float64 if dtype == torch.float64 else np.float32
+    np_dt, t_dt = ((np.float64, torch.float64) if dtype == torch.float64
+                   else (np.float32, torch.float32))
     step = np_dt(cfg.step0) * np.sqrt(np_dt(n))
     chain = [step]
     for _ in range(cfg.max_probes - 1):
         step = step * np_dt(cfg.backtrack)
         chain.append(step)
-    return torch.tensor(np.asarray(chain, dtype=np_dt), device=device)
+    return torch.tensor(np.asarray(chain, dtype=np_dt), dtype=t_dt, device=device)
 
 
 def _first_improving(etas: torch.Tensor, eta0: torch.Tensor,
@@ -252,8 +257,23 @@ def sweep(family, cfg: ICOAConfig, params: Any, f: torch.Tensor,
     y (B, N), key (B, 2) — runs all B trials through the batched engine,
     each with its own subsample, and carries one ledger per trial
     (TrialLedgers): under greedy_eta each trial orders its own agents, so
-    the trials' spends may differ."""
+    the trials' spends may differ.
+
+    `cfg.checks` switches the sanitizer rail for the sweep (innermost
+    wins): under "raise" its check sites fold into the run's error word, or
+    into the sweep's own, read as it returns (analysis.sanitize)."""
     cfg.validate()
+    batched = f.dim() == 3
+    with sanitize.error_scope(cfg.checks, f.shape[0] if batched else None):
+        params, f, ledger, taps = _sweep(family, cfg, params, f, xcols, y,
+                                         key, ledger, round_)
+        f = sanitize.check_finite(f, "icoa.sweep: prediction matrix f")
+    return params, f, ledger, taps
+
+
+def _sweep(family, cfg: ICOAConfig, params: Any, f: torch.Tensor,
+           xcols: torch.Tensor, y: torch.Tensor, key: Optional[torch.Tensor],
+           ledger: Optional[Union[Ledger, TrialLedgers]], round_: int):
     d, n = f.shape[-2:]
     batched = f.dim() == 3
     tp = (cfg.transport or transport_lib.default_transport(d)).validate_for(d)
@@ -926,7 +946,8 @@ def _alive(cfg: ICOAConfig, d: int, round_: int, device) -> Optional[torch.Tenso
     fl = cfg.transport.faults if cfg.transport is not None else None
     if fl is None or not fl.crash:
         return None
-    return torch.tensor(faults_trace.alive_at(fl, d, round_), device=device)
+    return torch.tensor(faults_trace.alive_at(fl, d, round_), dtype=torch.bool,
+                        device=device)
 
 
 def ensemble_predict(family, params: Any, weights: torch.Tensor,
@@ -958,14 +979,19 @@ def converged_record(eta: Union[List[float], torch.Tensor], eps: float):
     return last
 
 
-def _record_eta(cfg: ICOAConfig, r: torch.Tensor):
+def _record_eta(cfg: ICOAConfig, r: torch.Tensor, checked: bool = False):
     """A record's eta = 1 / eta_tilde of the full residual Gram of r
     (..., D, N), and its record taps (obs.taps.record_taps): the eta tap is
     this very value and the s tap the solve vector eta_tilde sums, so with
-    taps the record computes what it computes without them."""
+    taps the record computes what it computes without them.  `checked`:
+    run_scan's check site on the divisor (the JAX package checks there)."""
     a0 = cov.subsampled_gram(r, None, use_kernel=cfg.use_kernel)
     s = ensemble.solve_vec(a0)
-    eta = 1.0 / torch.sum(s, dim=-1)         # ensemble.eta_tilde's own ops
+    eta_tilde = torch.sum(s, dim=-1)         # ensemble.eta_tilde's own ops
+    if checked:
+        eta_tilde = sanitize.check_nonzero(
+            eta_tilde, "icoa.run_scan record: eta_tilde (eta = 1/eta_tilde)")
+    eta = 1.0 / eta_tilde
     return eta, obs_taps.record_taps(cfg.obs, eta, s)
 
 
@@ -1021,8 +1047,17 @@ def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     (sweep k is record k + 1; obs.taps), else {}.
     Plain float32 matrix products on the card stay full fp32: TF32 is off
     for the call (PyTorch's default) and the caller's setting is restored
-    after it."""
+    after it.  With cfg.checks="raise" the sweeps' check sites fold into
+    the run's error word, read after each record (which waits on the
+    device anyway): the first failure raises analysis.CheckError."""
     cfg.validate()
+    with sanitize.error_scope(cfg.checks) as word:
+        return _run(family, cfg, xcols, y, xcols_test, y_test, seed, word)
+
+
+def _run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
+         xcols_test: Optional[torch.Tensor], y_test: Optional[torch.Tensor],
+         seed: int, word: Optional[sanitize.ErrorWord]):
     d = xcols.shape[-3]
     state = init_state(family, xcols, y, init_keys(seed, d, y.device))
     hist = {"train_mse": [], "test_mse": [], "eta": [], "bytes": [0.0]}
@@ -1050,6 +1085,8 @@ def run(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
         ledger = led2
         state = ICOAState(params=params, f=f)
         weights, rtaps = record(params, f, k2, _alive(cfg, d, r, y.device))
+        if word is not None:
+            word.throw()
         if cfg.obs is not None:
             tap_rows.append({**etaps, **rtaps})
         eta_now = hist["eta"][-1]
@@ -1081,7 +1118,10 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
     per record (record 0: 0), and hist["bytes"], their one list when every
     trial's agree (always without a byte budget), else None; with cfg.obs,
     hist["taps"], each tap (B, n_sweeps, ...), else {}.  Nothing in the
-    loop waits for the device.  TF32 is off for the call, as in `run`."""
+    loop waits for the device.  TF32 is off for the call, as in `run`.
+    With cfg.checks="raise" the check sites fold into one error word per
+    trial, read once at the end: a failure raises analysis.CheckError
+    naming the site and the first failing trial."""
     cfg.validate()
     if xcols.dim() != 4 or y.dim() != 2:
         raise ValueError(f"run_scan: expected xcols (B, D, N, C) and y (B, N), "
@@ -1090,6 +1130,12 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
         seeds = list(range(y.shape[0]))
     if len(seeds) != y.shape[0]:
         raise ValueError(f"run_scan: {len(seeds)} seeds for {y.shape[0]} trials")
+    with sanitize.error_scope(cfg.checks, y.shape[0]):
+        return _run_scan(family, cfg, xcols, y, xcols_test, y_test, seeds)
+
+
+def _run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
+              xcols_test: torch.Tensor, y_test: torch.Tensor, seeds: List[int]):
     d = xcols.shape[-3]
     state = init_state(family, xcols, y, init_keys(seeds, d, y.device))
     recs = {"train_mse": [], "test_mse": [], "eta": []}
@@ -1102,7 +1148,7 @@ def run_scan(family, cfg: ICOAConfig, xcols: torch.Tensor, y: torch.Tensor,
             torch.mean((y - ensemble.combine(w, f)) ** 2, dim=-1))
         pred = ensemble_predict(family, params, w, xcols_test)
         recs["test_mse"].append(torch.mean((y_test - pred) ** 2, dim=-1))
-        eta, rtaps = _record_eta(cfg, y[:, None, :] - f)
+        eta, rtaps = _record_eta(cfg, y[:, None, :] - f, checked=True)
         recs["eta"].append(eta)
         return w, rtaps
 

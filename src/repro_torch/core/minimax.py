@@ -29,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis import recompile
 from repro_torch.core import covariance as cov
 from repro_torch.core import ensemble
 
@@ -121,7 +122,8 @@ def _descend_graphed(a0: torch.Tensor, a: torch.Tensor, delta: float,
     delta, steps, lr, TF32 switch), replayed on the current stream after the
     inputs are copied in; the last _GRAPHS_KEPT graphs are kept.  The TF32
     switch is part of the key because a graph replays the matmul kernels it
-    recorded, whatever the switch says at the replay."""
+    recorded, whatever the switch says at the replay.  Each capture is
+    counted for the compile and capture auditor (analysis.recompile)."""
     key = (tuple(a0.shape), a0.dtype, a0.device, float(delta), steps, float(lr),
            torch.backends.cuda.matmul.allow_tf32)
     entry = _GRAPHS.get(key)
@@ -136,6 +138,7 @@ def _descend_graphed(a0: torch.Tensor, a: torch.Tensor, delta: float,
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 out = _descend(a0_in, a_in, delta, steps, lr)
+            recompile.record("capture:minimax._descend_graphed")
         entry = _GRAPHS[key] = (graph, a0_in, a_in, out)
         if len(_GRAPHS) > _GRAPHS_KEPT:
             _GRAPHS.popitem(last=False)

@@ -29,6 +29,16 @@
 //     partial dot product summed over the group by a fixed xor butterfly,
 //     and since every lane of the group then holds the same p, P V needs no
 //     exchange at all.
+//   - A group of 9 to 16 heads (llama3-405b's 128 query heads on 8 KV
+//     heads) does not fit a lane's registers: 16 heads of q and acc slices
+//     are 256 floats at bf16 dh 128.  The block then splits its warps into
+//     two halves, each holding half of the group in the G <= 8 tier's
+//     registers, and each half reads every row of every tile from shared
+//     memory, so the cache still leaves device memory once per group.  The
+//     merge scratch stays at 8 heads a warp, within the ring it reuses, and
+//     each head is merged over its own half's warps in index order.  A
+//     group of at most 8 takes the one-half instantiation, whose code and
+//     sums are the earlier kernel's.
 //   - Each lane group runs its own online softmax over the rows it reads,
 //     rescaling its state only when the max rises; at the end of the chunk
 //     the groups of a warp merge by xor butterfly and the warps in index
@@ -48,7 +58,8 @@ namespace {
 constexpr int kThreads = 256;      // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kStages = 4;         // ring depth (tiles)
-constexpr int kMaxG = 8;           // query heads per KV head
+constexpr int kMaxG = 16;          // query heads per KV head (two halves above kRegG)
+constexpr int kRegG = 8;           // query heads a warp holds in registers
 constexpr float kNeg = -1e30f;     // the TPU kernel's finite mask value
 
 template <typename T, int DH>
@@ -63,7 +74,7 @@ struct Cfg {
   static constexpr int TILE = TP * DH * (int)sizeof(T);
   static constexpr int SMEM = kStages * 2 * TILE;
   static_assert(DH % VN == 0 && CH <= 32 && STEPS * kWarps * RPW == TP, "decode geometry");
-  static_assert(kWarps * kMaxG * (DH + 2) * 4 <= SMEM, "merge scratch");
+  static_assert(kWarps * kRegG * (DH + 2) * 4 <= SMEM, "merge scratch");
 };
 
 using repro::cp_async16;
@@ -105,8 +116,10 @@ __device__ __forceinline__ void merge(float& m, float& l, float (&acc)[VN], floa
   for (int e = 0; e < VN; ++e) acc[e] = acc[e] * wa + accb[e] * wb;
 }
 
-// GT: register slots for the G query heads (G <= GT).
-template <typename T, int DH, int GT>
+// GT: register slots a warp holds for its query heads.  HALVES: 1, every
+// warp holds all G <= GT heads; 2, warps [0, 4) hold heads [0, gh) and warps
+// [4, 8) heads [gh, G), gh = ceil(G / 2) <= GT, each half over all rows.
+template <typename T, int DH, int GT, int HALVES>
 __global__ void __launch_bounds__(kThreads)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     float* __restrict__ part, int* __restrict__ arrivals, T* __restrict__ out,
@@ -123,6 +136,11 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int grp = lane / GS, c = lane % GS;  // lane group (a row) and slice
   const bool has = c < C::CH;                // dh 80: the group's last lanes idle
+  constexpr int WH = kWarps / HALVES;        // warps of a half
+  const int wh = warp % WH;                  // this warp's place in its half
+  const int gh = HALVES == 1 ? g : (g + 1) / 2;   // heads a half holds
+  const int g0 = (warp / WH) * gh;           // this warp's first head
+  const int gn = HALVES == 1 ? g : min(gh, g - g0);   // and its count
   const size_t ld = (size_t)hkv * DH;
   const T* kb = k + (size_t)b * s * ld + (size_t)hk * DH;
   const T* vb = v + (size_t)b * s * ld + (size_t)hk * DH;
@@ -146,9 +164,9 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     l[gg] = 0.f;
 #pragma unroll
     for (int e = 0; e < VN; ++e) qf[gg][e] = acc[gg][e] = 0.f;
-    if (gg < g && has) {
+    if (gg < gn && has) {
       const uint4 raw = *reinterpret_cast<const uint4*>(
-          q + ((size_t)pair * g + gg) * DH + c * VN);
+          q + ((size_t)pair * g + g0 + gg) * DH + c * VN);
       unpack16<T>(raw, qf[gg]);
 #pragma unroll
       for (int e = 0; e < VN; ++e) qf[gg][e] *= scale;
@@ -169,8 +187,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     const uint8_t* sk = smem + (t % kStages) * 2 * C::TILE;
     const uint8_t* sv = sk + C::TILE;
 #pragma unroll
-    for (int step = 0; step < C::STEPS; ++step) {
-      const int row = (warp * C::STEPS + step) * C::RPW + grp;
+    for (int step = 0; step < C::STEPS * HALVES; ++step) {
+      const int row = (wh * C::STEPS * HALVES + step) * C::RPW + grp;
       const bool ok = p0 + t * C::TP + row < p1;     // the same for the whole group
       float kf[VN], vf[VN];
       uint4 kraw = make_uint4(0, 0, 0, 0), vraw = kraw;
@@ -183,7 +201,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       unpack16<T>(vraw, vf);
 #pragma unroll
       for (int gg = 0; gg < GT; ++gg) {
-        if (gg < g) {
+        if (gg < gn) {
           float sc = 0.f;
 #pragma unroll
           for (int e = 0; e < VN; ++e) sc = fmaf(qf[gg][e], kf[e], sc);
@@ -214,7 +232,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   for (int off = GS; off < 32; off <<= 1) {
 #pragma unroll
     for (int gg = 0; gg < GT; ++gg) {
-      if (gg < g) {
+      if (gg < gn) {
         float accb[VN];
 #pragma unroll
         for (int e = 0; e < VN; ++e) accb[e] = __shfl_xor_sync(0xffffffffu, acc[gg][e], off);
@@ -226,12 +244,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
   cp_async_wait<0>();
   __syncthreads();
-  float* red = reinterpret_cast<float*>(smem);      // [warp][g][m, l, acc]
+  float* red = reinterpret_cast<float*>(smem);      // [warp][gh][m, l, acc]
   if (grp == 0) {
 #pragma unroll
     for (int gg = 0; gg < GT; ++gg) {
-      if (gg < g) {
-        float* dst = red + (warp * g + gg) * PW;
+      if (gg < gn) {
+        float* dst = red + (warp * gh + gg) * PW;
         if (c == 0) {
           dst[0] = m[gg];
           dst[1] = l[gg];
@@ -247,11 +265,13 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   float* mine = part + ((size_t)pair * nsplit + sp) * g * PW;   // (pair, sp, g, PW)
   for (int it = threadIdx.x; it < g * DH; it += kThreads) {
     const int gg = it / DH, d = it % DH;
+    const int hf = HALVES == 1 ? 0 : gg / gh;       // the half holding head gg
+    const int lg = gg - hf * gh, w0 = hf * WH;
     float mx = kNeg;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red[(w * g + gg) * PW]);
+    for (int w = w0; w < w0 + WH; ++w) mx = fmaxf(mx, red[(w * gh + lg) * PW]);
     float den = 0.f, num = 0.f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float* src = red + (w * g + gg) * PW;
+    for (int w = w0; w < w0 + WH; ++w) {
+      const float* src = red + (w * gh + lg) * PW;
       const float wt = expf(src[0] - mx);
       den = fmaf(src[1], wt, den);
       num = fmaf(src[2 + d], wt, num);
@@ -292,12 +312,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   if (threadIdx.x == 0) arrivals[pair] = 0;        // ready for the next call
 }
 
-template <typename T, int DH, int GT>
+template <typename T, int DH, int GT, int HALVES>
 int launch(const void* q, const void* k, const void* v, float* part, int* arrivals, void* out,
            int b, int s, int hkv, int g, int lo, int hi, int chunk, int nsplit, float scale,
            cudaStream_t st) {
   constexpr int bytes = Cfg<T, DH>::SMEM;
-  auto* kern = flash_decode_kernel<T, DH, GT>;
+  auto* kern = flash_decode_kernel<T, DH, GT, HALVES>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -311,9 +331,10 @@ template <typename T, int DH>
 int by_group(int g, const void* q, const void* k, const void* v, float* part, int* arrivals,
              void* out, int b, int s, int hkv, int lo, int hi, int chunk, int nsplit,
              float scale, cudaStream_t st) {
-  if (g <= 2) return launch<T, DH, 2>(q, k, v, part, arrivals, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
-  if (g <= 4) return launch<T, DH, 4>(q, k, v, part, arrivals, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
-  return launch<T, DH, 8>(q, k, v, part, arrivals, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
+  if (g <= 2) return launch<T, DH, 2, 1>(q, k, v, part, arrivals, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
+  if (g <= 4) return launch<T, DH, 4, 1>(q, k, v, part, arrivals, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
+  if (g <= kRegG) return launch<T, DH, kRegG, 1>(q, k, v, part, arrivals, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
+  return launch<T, DH, kRegG, 2>(q, k, v, part, arrivals, out, b, s, hkv, g, lo, hi, chunk, nsplit, scale, st);
 }
 
 template <typename T>
@@ -335,7 +356,7 @@ int dispatch(int dh, const void* q, const void* k, const void* v, float* part, i
 // [lo, hi) are attended (hi = idx + 1), split into nsplit chunks of `chunk`
 // positions (a multiple of the tile; no chunk empty).  part: fp32 scratch of
 // b * hkv * nsplit * g * (dh + 2) floats (unused when nsplit == 1); arrivals:
-// b * hkv ints, zero on entry and left zero.  dh in {64, 80, 128}, 1 <= g <= 8.
+// b * hkv ints, zero on entry and left zero.  dh in {64, 80, 128}, 1 <= g <= 16.
 extern "C" int repro_flash_decode(const void* q, const void* k, const void* v, float* part,
                                   int* arrivals, void* out, int is_bf16, int b, int s, int hkv,
                                   int g, int dh, int lo, int hi, int chunk, int nsplit,

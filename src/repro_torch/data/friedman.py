@@ -110,7 +110,7 @@ def standardise(xtr: torch.Tensor, xte: torch.Tensor):
     division by a constant), the variance as a true division by N."""
     n = xtr.shape[-2]
     mu = (xla_sum(xtr, -2)
-          * (torch.ones((), dtype=xtr.dtype) / n).to(xtr.device)).unsqueeze(-2)
+          * (torch.ones((), dtype=xtr.dtype, device="cpu") / n).to(xtr.device)).unsqueeze(-2)
     cen = xtr - mu
     var = xla_sum(cen * cen, -2) / torch.full((), float(n), dtype=xtr.dtype,
                                               device=xtr.device)

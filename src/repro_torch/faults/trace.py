@@ -158,7 +158,7 @@ class Strikes:
         table, slot = self._masks
         idx = [slot.get(a, len(slot)) for a in agents]  # unstruck: the zero row
         if isinstance(agent, tuple):
-            return flip(row, table[torch.tensor(idx, device=row.device)])
+            return flip(row, table[torch.tensor(idx, dtype=torch.int64, device=row.device)])
         return flip(row, table[idx[0]])
 
 

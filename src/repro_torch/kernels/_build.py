@@ -19,6 +19,10 @@ stream from `torch.cuda.current_stream()`, and the C function's return code
 prototype of each (symbol, argument types) is set once and kept, so a launch
 costs the host one pass over its arguments.
 
+Each nvcc build and each library load is counted by source for the
+compile and capture auditor (analysis.recompile: "build:<source>",
+"load:<source>").
+
 `LAUNCHES` counts kernel launches by wrapper name.  Each ops wrapper adds one
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels (`reset_launches()` before, read after).
@@ -39,6 +43,8 @@ from pathlib import Path
 from typing import Dict, List
 
 import torch
+
+from repro_torch.analysis import recompile
 
 __all__ = ["LAUNCHES", "KernelBuildError", "arrivals", "as_f32", "build_all",
            "build_log", "check_cuda_tensor", "launch", "on_cpu", "query",
@@ -116,6 +122,7 @@ def _libraries() -> Dict[str, ctypes.CDLL]:
         cmd = [_nvcc(), *_ARCH, *_FLAGS, "-o", str(tmp), str(src)]
         procs.append((src, out, tmp, log,
                       subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT)))
+        recompile.record(f"build:{src.stem}")
     failed = []
     for src, out, tmp, log, proc in procs:
         rc = proc.wait()
@@ -127,7 +134,11 @@ def _libraries() -> Dict[str, ctypes.CDLL]:
             os.replace(tmp, out)
     if failed:
         raise KernelBuildError("nvcc failed for " + "\n".join(failed))
-    return {src.stem: ctypes.CDLL(str(out)) for src, out in todo}
+    libs = {}
+    for src, out in todo:
+        libs[src.stem] = ctypes.CDLL(str(out))
+        recompile.record(f"load:{src.stem}")
+    return libs
 
 
 def build_all() -> float:

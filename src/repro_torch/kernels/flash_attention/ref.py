@@ -16,8 +16,8 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Ten
     g = hq // hkv
     qg = q.reshape(b, sq, hkv, g, dh)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * (dh ** -0.5)
-    q_pos = torch.arange(sq, device=q.device)
-    kv_pos = torch.arange(skv, device=q.device)
+    q_pos = torch.arange(sq, dtype=torch.int64, device=q.device)
+    kv_pos = torch.arange(skv, dtype=torch.int64, device=q.device)
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
         mask &= kv_pos[None, :] <= q_pos[:, None]

@@ -17,7 +17,7 @@ def decode_ref(q, k, v, idx, *, window: int = 0) -> torch.Tensor:
     g = hq // hkv
     qg = q.reshape(b, hkv, g, dh)
     scores = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k.float()) * (dh ** -0.5)
-    pos = torch.arange(s, device=q.device)
+    pos = torch.arange(s, dtype=torch.int64, device=q.device)
     mask = pos <= idx
     if window > 0:
         mask &= pos > idx - window

@@ -56,6 +56,7 @@ from typing import NamedTuple, Tuple, Union
 
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.kernels import _build
 from repro_torch.kernels._build import as_f32
 from repro_torch.kernels.gram.ops import aligned16, row_gram_geometry
@@ -197,6 +198,15 @@ def _device_vector(x, b: int, device: torch.device) -> torch.Tensor:
     return torch.full((b,), float(x), dtype=torch.float32, device=device)
 
 
+def _plain(fn, *args):
+    """The plain version standing in for a kernel on the CPU, its check
+    sites off: the kernel checks nothing (analysis.sanitize)."""
+    if not sanitize.checks_enabled():
+        return fn(*args)
+    with sanitize.sanitize_scope("off"):
+        return fn(*args)
+
+
 def _check_batched(op: str, r: torch.Tensor, **operands) -> None:
     """Shapes of a batched call: operand name -> its shape after (B,)."""
     if r.dim() != 3:
@@ -222,8 +232,8 @@ def probe_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
     dt = r.dtype
     if _build.on_cpu(r, "probe_sweep"):
         eta32 = eta.to(torch.float32) if isinstance(eta, torch.Tensor) else eta
-        out = ref.probe_sweep_ref(as_f32(r), as_f32(m_inv), as_f32(s), eta32,
-                                  i, as_f32(steps))
+        out = _plain(ref.probe_sweep_ref, as_f32(r), as_f32(m_inv),
+                     as_f32(s), eta32, i, as_f32(steps))
         return tuple(o.to(dt) for o in out)
     d, n = r.shape
     k = steps.shape[0]
@@ -308,8 +318,8 @@ def commit_sweep(r: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
     if _build.on_cpu(r, "commit_sweep"):
         def c32(x):
             return x.to(torch.float32) if isinstance(x, torch.Tensor) else x
-        m_new, s_new, u_eff, accept, obj_post = ref.commit_sweep_ref(
-            as_f32(r), as_f32(m_inv), as_f32(s), c32(eta), i,
+        m_new, s_new, u_eff, accept, obj_post = _plain(
+            ref.commit_sweep_ref, as_f32(r), as_f32(m_inv), as_f32(s), c32(eta), i,
             as_f32(delta), c32(diag_keep), c32(diag_add), c32(threshold),
             can_tx)
         return (m_new.to(m_inv.dtype), s_new.to(s.dtype), u_eff.to(s.dtype),
@@ -383,8 +393,8 @@ def _probe_sweep_batched(r, m_inv, s, eta, i, steps):
     _check_agent("probe_sweep", i, d)
     if _build.on_cpu(r, "probe_sweep"):
         eta32 = eta.to(torch.float32) if isinstance(eta, torch.Tensor) else eta
-        out = ref.probe_sweep_batched_ref(as_f32(r), as_f32(m_inv), as_f32(s),
-                                          eta32, i, as_f32(steps))
+        out = _plain(ref.probe_sweep_batched_ref, as_f32(r), as_f32(m_inv),
+                     as_f32(s), eta32, i, as_f32(steps))
         return tuple(o.to(dt) for o in out)
     _build.check_cuda_tensor("probe_sweep: r", r)
     _build.check_cuda_tensor("probe_sweep: m_inv", m_inv)
@@ -408,8 +418,9 @@ def _commit_sweep_batched(r, m_inv, s, eta, i, delta, diag_keep, diag_add,
     if _build.on_cpu(r, "commit_sweep"):
         def c32(x):
             return x.to(torch.float32) if isinstance(x, torch.Tensor) else x
-        m_new, s_new, u_eff, accept, obj_post = ref.commit_sweep_batched_ref(
-            as_f32(r), as_f32(m_inv), as_f32(s), c32(eta), i, as_f32(delta),
+        m_new, s_new, u_eff, accept, obj_post = _plain(
+            ref.commit_sweep_batched_ref, as_f32(r), as_f32(m_inv), as_f32(s),
+            c32(eta), i, as_f32(delta),
             c32(diag_keep), c32(diag_add), c32(threshold), can_tx)
         return (m_new.to(m_inv.dtype), s_new.to(s.dtype), u_eff.to(s.dtype),
                 accept, obj_post.to(s.dtype))

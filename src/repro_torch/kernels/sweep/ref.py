@@ -24,6 +24,11 @@ kernels, and chip_smoke.py holds the CUDA kernels against them on the card.
     update in one evaluation, accept selecting the update: a rejected
     candidate leaves (m_inv, s) bitwise untouched.
 
+`probe_etas_closed` and `commit_sweep_ref` (and their batched twins) hold
+the reference's check sites on their SMW pivots (analysis.sanitize); the
+kernels' CPU paths call them with the sites off, as the kernels check
+nothing.
+
 The `_batched` versions compute the same for B independent Monte-Carlo
 trials: every operand carries a leading trial axis (eta, threshold and can_tx
 as (B,) tensors) while the step schedule is shared, and agent i is shared
@@ -35,6 +40,7 @@ from typing import Tuple, Union
 
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core.trial_index import Agent, pick, put
 
 __all__ = ["probe_etas_closed", "probe_sweep_ref", "commit_sweep_ref",
@@ -60,6 +66,9 @@ def probe_etas_closed(m_inv: torch.Tensor, s: torch.Tensor, eta: Scalar,
     k22 = steps * steps * a - 2.0 * steps * beta * b + beta * beta * c
     t2 = -steps * e + beta * t1
     det = c * k22 - k12 * k12
+    det = sanitize.check_nonzero(
+        det, "kernels.sweep probe_etas_closed: SMW pivot determinant "
+        "(the whole back-search schedule divides by it)")
     return eta - (k22 * t1 * t1 - 2.0 * k12 * t1 * t2 + c * t2 * t2) / det
 
 
@@ -108,6 +117,9 @@ def commit_sweep_ref(r_sub: torch.Tensor, m_inv: torch.Tensor, s: torch.Tensor,
     k12 = 1.0 + z2[i]
     k22 = torch.dot(u, z2)
     det = k11 * k22 - k12 * k12
+    det = sanitize.check_nonzero(
+        det, "kernels.sweep commit_sweep_ref: SMW pivot determinant "
+        "(the accept probe and the rank-2 commit divide by it)")
     t1 = s[i]
     t2 = torch.dot(u, s)
     obj_post = eta - (k22 * t1 * t1 - 2.0 * k12 * t1 * t2
@@ -160,6 +172,9 @@ def probe_etas_closed_batched(m_inv: torch.Tensor, s: torch.Tensor,
     k22 = st * st * a - 2.0 * st * beta * b + beta * beta * c
     t2 = -st * e + beta * t1
     det = c * k22 - k12 * k12
+    det = sanitize.check_nonzero(
+        det, "kernels.sweep probe_etas_closed: SMW pivot determinant "
+        "(the whole back-search schedule divides by it)")
     eta = torch.as_tensor(eta, dtype=s.dtype, device=s.device).reshape(-1, 1)
     return eta - (k22 * t1 * t1 - 2.0 * k12 * t1 * t2 + c * t2 * t2) / det
 
@@ -208,6 +223,9 @@ def commit_sweep_batched_ref(r_sub: torch.Tensor, m_inv: torch.Tensor,
     k12 = 1.0 + pick(z2, i, 1)
     k22 = _vdot(u, z2)
     det = k11 * k22 - k12 * k12
+    det = sanitize.check_nonzero(
+        det, "kernels.sweep commit_sweep_ref: SMW pivot determinant "
+        "(the accept probe and the rank-2 commit divide by it)")
     t1 = pick(s, i, 1)
     t2 = _vdot(u, s)
     obj_post = eta - (k22 * t1 * t1 - 2.0 * k12 * t1 * t2

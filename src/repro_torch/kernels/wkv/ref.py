@@ -79,7 +79,7 @@ def wkv_safe_chunked_ref(r, k, v, w, u, c: int = 16) -> Tuple[torch.Tensor, torc
         pex, pall = _running(wc)
         sfx, _ = _running(wc, reverse=True)
         a = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
-        idx = torch.arange(n, device=r.device)
+        idx = torch.arange(n, dtype=torch.int64, device=r.device)
         a[:, :, idx, idx] = (rc * u * kc).sum(-1).transpose(1, 2)
         for lo in range(0, n, m):                                    # inside the halves
             hi = min(lo + m, n)

@@ -35,7 +35,8 @@ from repro_torch.kernels.flash_decode.ops import flash_decode
 def dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = None):
     fan_in = shape[0]
     scale = scale if scale is not None else 1.0 / (fan_in**0.5)
-    return (torch.randn(shape, generator=gen, device=gen.device) * scale).to(dtype)
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=gen.device) * scale).to(dtype)
 
 
 # ------------------------------------------------------------------ RMSNorm
@@ -109,8 +110,8 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = dh**-0.5
     scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
 
-    kv_pos = torch.arange(skv, device=q.device)
-    q_pos = torch.arange(sq, device=q.device) + q_offset
+    kv_pos = torch.arange(skv, dtype=torch.int64, device=q.device)
+    q_pos = torch.arange(sq, dtype=torch.int64, device=q.device) + q_offset
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:
         mask = kv_pos[None, :] <= q_pos[:, None]

@@ -43,15 +43,15 @@ def rwkv_time_init(gen: torch.Generator, cfg) -> dict:
     dev = gen.device
     f32 = dict(dtype=torch.float32, device=dev)
     return {
-        "mu": torch.rand((5, d), generator=gen, device=dev).to(dt),  # r,k,v,g,w shift lerps
+        "mu": torch.rand((5, d), generator=gen, **f32).to(dt),    # r,k,v,g,w shift lerps
         "wr": L.dense_init(gen, (d, d), dt),
         "wk": L.dense_init(gen, (d, d), dt),
         "wv": L.dense_init(gen, (d, d), dt),
         "wg": L.dense_init(gen, (d, d), dt),
         "w0": torch.linspace(-6.0, -0.5, d, **f32),                  # base decay
         "w_lora_a": L.dense_init(gen, (d, _LORA), dt),
-        "w_lora_b": (torch.randn((_LORA, d), generator=gen, device=dev) * 0.01).to(dt),
-        "u": torch.randn((d,), generator=gen, device=dev) * 0.1,    # bonus, fp32
+        "w_lora_b": (torch.randn((_LORA, d), generator=gen, **f32) * 0.01).to(dt),
+        "u": torch.randn((d,), generator=gen, **f32) * 0.1,         # bonus, fp32
         "ln_scale": torch.ones((d,), dtype=dt, device=dev),          # per-head group norm
         "wo": L.dense_init(gen, (d, d), dt),
     }
@@ -112,7 +112,8 @@ def rwkv_chan_init(gen: torch.Generator, cfg) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     dt = cfg.pdtype()
     return {
-        "mu": torch.rand((2, d), generator=gen, device=gen.device).to(dt),  # k, r lerps
+        "mu": torch.rand((2, d), generator=gen, dtype=torch.float32,
+                         device=gen.device).to(dt),                 # k, r lerps
         "wk": L.dense_init(gen, (d, f), dt),
         "wv": L.dense_init(gen, (f, d), dt),
         "wr": L.dense_init(gen, (d, d), dt),

@@ -140,7 +140,7 @@ def decode_step(params, batch, cache, cfg) -> Tuple[torch.Tensor, list]:
     if cfg.family == "ssm" or cfg.rope_theta == 0.0:
         rope = None
     else:
-        pos = torch.arange(idx, idx + 1, device=tokens.device)
+        pos = torch.arange(idx, idx + 1, dtype=torch.int64, device=tokens.device)
         rope = L.rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
     window = _effective_window(cfg)
     new_cache = []
@@ -170,7 +170,7 @@ def prefill(params, batch, cfg) -> Tuple[torch.Tensor, list]:
     b, s, _ = x.shape
     rope = None
     if cfg.family != "ssm" and cfg.rope_theta != 0.0:
-        rope = L.rope_angles(torch.arange(s, device=tokens.device),
+        rope = L.rope_angles(torch.arange(s, dtype=torch.int64, device=tokens.device),
                              cfg.resolved_head_dim, cfg.rope_theta)
     cache = []
     for pp, kind in zip(params["layers"], cfg.layer_kinds()):

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch import prng
+from repro_torch.analysis import sanitize
 from repro_torch.core import covstate, ensemble, icoa
 from repro_torch.core.icoa import ICOAConfig
 from repro_torch.core.tree import tree_map
@@ -100,7 +101,10 @@ class Ingestor:
     s / sum(s).  The state lives on `device` (the card unless the caller
     asks for the CPU), in torch's default float dtype at construction;
     ingest and resweep compute float32 products in full fp32 (TF32 off),
-    as icoa.run does."""
+    as icoa.run does.  Under cfg.checks="raise" the check sites of both
+    fold into the run's error word (stream_fit's), or into the Ingestor's
+    own; `resweep` reads it at its end, where it has waited on the device
+    anyway, and raises analysis.CheckError on a failure."""
 
     def __init__(self, family, groups: Sequence[Sequence[int]],
                  cfg: ICOAConfig, window: int, chunk: int, seed: int = 0,
@@ -139,6 +143,8 @@ class Ingestor:
             "resweep_sweeps": obs_health.Counter(),
         }
         self.last_preq_mse = float("nan")  # prequential MSE of the last record
+        self._errors = (sanitize.ErrorWord() if cfg.checks == "raise"
+                        else None)
 
     # ------------------------------------------------------------- lifecycle
 
@@ -170,12 +176,17 @@ class Ingestor:
 
     def _alive(self, round_: int) -> torch.Tensor:
         return torch.tensor(faults_trace.alive_at(self._fl, self._d, round_),
-                            device=self.device)
+                            dtype=torch.bool, device=self.device)
 
     @icoa._full_fp32
     def ingest(self, state: StreamState, x: torch.Tensor,
                y_chunk: torch.Tensor) -> StreamState:
         """Absorb one (chunk, n_attrs) / (chunk,) micro-batch."""
+        with sanitize.error_scope(self.cfg.checks, word=self._errors):
+            return self._ingest(state, x, y_chunk)
+
+    def _ingest(self, state: StreamState, x: torch.Tensor,
+                y_chunk: torch.Tensor) -> StreamState:
         self.counters["ingest_chunks"].add(1)
         self.counters["ingest_instances"].add(self.chunk)
         n = self.chunk
@@ -225,6 +236,13 @@ class Ingestor:
     def resweep(self, state: StreamState) -> Tuple[StreamState, Dict[str, Any]]:
         """Run the cadenced training step on the warm window; returns the
         refreshed state and one history record (host values)."""
+        with sanitize.error_scope(self.cfg.checks, word=self._errors) as word:
+            out = self._resweep(state)
+            if word is not None:
+                word.throw()
+        return out
+
+    def _resweep(self, state: StreamState) -> Tuple[StreamState, Dict[str, Any]]:
         count = int(state.count)
         if count == 0:
             raise ValueError("resweep on an empty window — ingest first")

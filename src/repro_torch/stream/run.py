@@ -31,6 +31,7 @@ from typing import TYPE_CHECKING, Any, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core import icoa
 from repro_torch.faults import trace as faults_trace
 from repro_torch.obs import taps as obs_taps
@@ -95,6 +96,7 @@ def build_ingestor(spec: StreamSpec, device="cuda") -> Ingestor:
     exp = spec.experiment
     groups = exp.data.groups
     cfg = exp.solver.icoa_config(exp.resolved_transport(),
+                                 checks=exp.backend.checks,
                                  obs=exp.obs.normalized())
     # the run's worst case of sweeps: every sweep of every cadence period
     total_sweeps = max(1, (spec.total_instances // spec.resweep_every)
@@ -117,7 +119,10 @@ def stream_fit(spec: StreamSpec, *, checkpoint_dir: Optional[str] = None,
     Returns a StreamResult whose records are the per-resweep history
     (windowed train MSE, prequential test MSE, eta, measured re-sweep
     bytes, taps).  `resume=True` restores the newest checkpoint in
-    `checkpoint_dir` and continues the stream from there."""
+    `checkpoint_dir` and continues the stream from there.  Under
+    `BackendSpec(checks="raise")` the ingest's and the resweeps' check
+    sites fold into the run's error word, read after every resweep and at
+    the end: a failure raises analysis.CheckError naming its site."""
     from repro_torch.api.runner import resolve_device
 
     dev = resolve_device(device, "repro_torch.api.stream_fit")
@@ -153,7 +158,7 @@ def stream_fit(spec: StreamSpec, *, checkpoint_dir: Optional[str] = None,
 
     def publish(state: StreamState) -> None:
         alive = (torch.tensor(faults_trace.alive_at(fl, d, int(state.rounds) - 1),
-                              device=dev) if crashes else None)
+                              dtype=torch.bool, device=dev) if crashes else None)
         engine.update(state.params, state.weights, alive=alive)
 
     if engine is not None:
@@ -162,7 +167,8 @@ def stream_fit(spec: StreamSpec, *, checkpoint_dir: Optional[str] = None,
 
     records: List[Dict[str, Any]] = []
     with obs_span("stream.fit", total_instances=spec.total_instances,
-                  chunk=spec.chunk, resweep_every=spec.resweep_every):
+                  chunk=spec.chunk, resweep_every=spec.resweep_every), \
+            sanitize.error_scope(exp.backend.checks):
         for t in range(start_chunk, total_chunks):
             x, yc = source(t)
             state = ing.ingest(state, x, yc)

@@ -120,7 +120,7 @@ class ChunkSource:
     def drift_value(self, t: int) -> torch.Tensor:
         """The drifting option's float32 value at chunk t (a 0-d CPU
         tensor): fma(float32(t), slope, start), rounded once."""
-        return prng._fma(torch.tensor([float(t)], dtype=torch.float32),
+        return prng._fma(torch.tensor([float(t)], dtype=torch.float32, device="cpu"),
                          self._slope, self._start)[0]
 
     def __call__(self, t: int) -> Tuple[torch.Tensor, torch.Tensor]:

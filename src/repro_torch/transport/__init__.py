@@ -22,6 +22,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.faults.spec import FaultSpec
 from repro_torch.transport.codecs import (CODECS, Codec, ExactCodec,
                                           Int8AffineCodec, TopKSparseCodec,
@@ -89,12 +90,16 @@ class Transport:
         if isinstance(ecc, int):
             for _ in range(ecc):
                 x = rt(x)
-            return x
-        hops = (ecc if isinstance(ecc, torch.Tensor)
-                else _on_device(ecc, x.device))[:, None]
-        for h in range(self.topology.max_ecc):
-            x = torch.where(hops > h, rt(x), x)
-        return x
+        else:
+            hops = (ecc if isinstance(ecc, torch.Tensor)
+                    else _on_device(ecc, x.device))[:, None]
+            for h in range(self.topology.max_ecc):
+                x = torch.where(hops > h, rt(x), x)
+        # only lossy payloads reach here: a NaN or inf delivered out of the
+        # relay poisons the shared state a sweep later, far from its source
+        return sanitize.check_finite(
+            x, f"transport relay: codec {self.codec.name!r} delivered a "
+            f"non-finite payload over topology {self.topology.name!r}")
 
     def relay_rows(self, r: torch.Tensor) -> torch.Tensor:
         """(..., D, m) -> the same: row i as received after ecc[i] hops."""
@@ -158,7 +163,7 @@ class Transport:
 @functools.lru_cache(maxsize=None)
 def _on_device(ecc: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     """A topology's hop counts as a device tensor, copied there once."""
-    return torch.tensor(ecc, device=device)
+    return torch.tensor(ecc, dtype=torch.int64, device=device)
 
 
 @functools.lru_cache(maxsize=None)

@@ -50,7 +50,7 @@ def _reciprocal_255(dtype: torch.dtype) -> float:
     """1/255 rounded in `dtype`, as a Python number (a scalar operand: no
     host-to-device copy per round trip); exact in that dtype, so the
     product rounds once, as XLA's rewrite of (hi - lo) / 255 does."""
-    return float(torch.ones((), dtype=dtype) / 255.0)
+    return float(torch.ones((), dtype=dtype, device="cpu") / 255.0)
 
 
 @dataclasses.dataclass(frozen=True)

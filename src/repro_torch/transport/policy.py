@@ -126,7 +126,7 @@ def greedy_order(cs, step0: torch.Tensor):
     sgn = torch.sign(cs.s)
     # row i of u is agent i's probe: -(step0 sgn_i) p + e_i step0^2 / 2m
     u = -(step0 * sgn)[..., :, None] * p[..., None, :]
-    diag = torch.arange(d, device=u.device)
+    diag = torch.arange(d, dtype=torch.int64, device=u.device)
     u[..., diag, diag] += step0 * step0 / (2.0 * m)
     z2 = u @ cs.m_inv.mT                                     # row i: M u_i
     k11 = torch.diagonal(cs.m_inv, dim1=-2, dim2=-1)

@@ -147,8 +147,8 @@ def test_fit_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("change,item", [
-    pytest.param(dict(backend=tapi.BackendSpec(checks="raise")), "A15",
-                 id="change4-A15"),
+    pytest.param(dict(backend=tapi.BackendSpec(name="shard_map", checks="raise")),
+                 "A11", id="change4-A11-checked"),
     pytest.param(dict(backend=tapi.BackendSpec(name="shard_map")), "A11",
                  id="change5-A11"),
 ])

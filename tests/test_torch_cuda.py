@@ -940,6 +940,10 @@ def test_flash_attention_matches_plain(card, dtype, b, sq, skv, hq, hkv, dh,
     (8, 1088, 15, 5, 64, 517, 0),     # G = 3, idx mid-cache
     (2, 300, 3, 1, 80, 299, 64),      # the smollm smoke heads, window
     (3, 999, 8, 1, 128, 700, 0),      # G = 8
+    (8, 1088, 128, 8, 128, 1087, 0),  # G = 16: llama3-405b's serving heads
+    (2, 500, 32, 2, 64, 400, 0),      # G = 16 at dh 64
+    (1, 4000, 16, 1, 128, 3999, 0),   # G = 16 over many chunks
+    (2, 300, 12, 1, 128, 299, 37),    # G = 12: unequal halves, window
 ])
 def test_flash_decode_matches_plain(card, dtype, b, s, hq, hkv, dh, idx, window):
     q, k, v = _lm(s + idx, (b, hq, dh), (b, s, hkv, dh), (b, s, hkv, dh),
@@ -985,7 +989,7 @@ def test_decode_tile_positions(card, dh, itemsize, want):
 
     tile = tile_positions(dh, itemsize)
     assert tile == want and tile * dh * itemsize <= 8192
-    assert tile_positions(96, itemsize) == 0 and max_group() == 8
+    assert tile_positions(96, itemsize) == 0 and max_group() == 16
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -1370,3 +1374,58 @@ def test_stream_checkpoint_saved_on_card_restores_on_cpu(card, tmp_path):
     for name in back.cov._fields:
         assert torch.equal(getattr(back.cov, name),
                            getattr(got.state.cov, name).cpu()), name
+
+
+@pytest.mark.parametrize("engine", ["incremental", "fused"])
+def test_checked_fit_on_card_equals_unchecked(card, engine):
+    """checks="raise" on the card: fit and a 4-trial batch_fit give the off
+    mode's bits (the check sites only read), and launch the same kernels."""
+    spec = api.ExperimentSpec(data=api.DataSpec(n_train=1000, n_test=500),
+                              solver=api.SolverSpec(engine=engine, n_sweeps=3,
+                                                    use_kernel=True),
+                              transport=api.TransportSpec(codec="int8_affine"))
+    on = dataclasses.replace(spec, backend=api.BackendSpec(checks="raise"))
+    data = spec.data.build(card)
+    runs = []
+    for s in (spec, on):
+        _build.reset_launches()
+        runs.append((api.fit(s, device=card, data=data), dict(_build.LAUNCHES)))
+    (off, l_off), (chk, l_on) = runs
+    assert l_on == l_off
+    for key in ("train_mse", "test_mse", "eta", "bytes_transmitted"):
+        assert getattr(chk.history, key) == getattr(off.history, key), key
+    assert torch.equal(chk.weights, off.weights) and torch.equal(chk.f, off.f)
+    b_off, b_on = api.batch_fit(spec, 4, device=card), api.batch_fit(on, 4, device=card)
+    for key in ("train_mse", "test_mse", "eta", "bytes_transmitted"):
+        assert np.array_equal(b_on.stack(key), b_off.stack(key)), key
+
+
+def test_nan_codec_raises_located_error_on_card(card):
+    from repro_torch import transport
+    from repro_torch.analysis import CheckError
+    from repro_torch.transport import codecs
+
+    @dataclasses.dataclass(frozen=True)
+    class NaNCodec(codecs.Codec):
+        def decode(self, payload):
+            return payload * float("nan")
+
+        def nbytes(self, n_elems):
+            return float(8 * n_elems)
+
+        def is_identity_for(self, dtype):
+            return False
+
+    transport.register_codec("nan_on_card")(lambda: NaNCodec(name="nan_on_card"))
+    try:
+        spec = api.ExperimentSpec(
+            solver=api.SolverSpec(engine="fused", use_kernel=True, n_sweeps=2),
+            transport=api.TransportSpec(codec="nan_on_card"),
+            backend=api.BackendSpec(checks="raise"))
+        with pytest.raises(CheckError, match="codec 'nan_on_card' delivered a "
+                           "non-finite payload over topology 'full'$"):
+            api.fit(spec, device=card)
+        with pytest.raises(CheckError, match=r"\(trial 0 of 3\)$"):
+            api.batch_fit(spec, 3, device=card)
+    finally:
+        codecs.CODECS.pop("nan_on_card", None)

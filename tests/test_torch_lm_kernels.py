@@ -146,6 +146,8 @@ _DECODE_CASES = [
     (1, 160, 8, 2, 32, 159, 0),       # G = 4, idx at the end
     (2, 300, 3, 1, 80, 250, 64),      # the smollm smoke heads, window
     (1, 1088, 15, 5, 64, 1087, 0),    # the smollm serving cache
+    (1, 160, 32, 2, 128, 150, 0),     # G = 16: llama3-405b's head ratio
+    (2, 130, 16, 1, 64, 129, 40),     # G = 16 at dh 64, window
 ]
 
 

@@ -47,14 +47,16 @@ N_STEPS = 6
 # variants of the smoke configs that take the model's other attention and
 # WKV routes: chunked attention (query blocks of 8), a sliding window of 8,
 # the chunked WKV form (chunks of 8); llama3-405b also at its full config's
-# rope_theta (its smoke config keeps the default 1e4)
+# rope_theta (its smoke config keeps the default 1e4) and at its full
+# config's 16 query heads a KV head (the smoke config has 4)
 VARIANTS = {
     "smollm-360m": [{}, {"attn_impl": "chunked", "attn_q_block": 8},
                     {"sliding_window": 8}],
     "rwkv6-1.6b": [{}, {"rwkv_chunk": 8}],
     "granite-3-2b": [{}],
     "qwen1.5-4b": [{}],
-    "llama3-405b": [{}, {"rope_theta": 5e5}],   # the full config's theta
+    "llama3-405b": [{}, {"rope_theta": 5e5},    # the full config's theta
+                    {"n_heads": 32, "n_kv_heads": 2}],   # its 16 heads a KV head
 }
 BF16 = {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"}
 
