@@ -153,7 +153,8 @@ Phases, each fatal on failure (nothing is caught):
               fault_retries x the broadcast price = each sweep's retry
               bytes; the deploy cell's untapped fused sweep at most
               DEPLOY_OPS_PER_AGENT device ops an agent, and its tapped
-              sweep exactly the tap sites' own ops more.  serve_bench's
+              sweep exactly the tap sites' own ops more (all three
+              counted in one profile after a lead-in).  serve_bench's
               stream (cosine, 5 agents, window 2048, chunk 64, a resweep
               every 1024, 4096 arrivals, drift freq 1.0 -> 1.4, taps eta,
               accepts and s) fused, incremental and under the full
@@ -242,7 +243,32 @@ Phases, each fatal on failure (nothing is caught):
               its share of the busy time, beside B11's launch geometry,
               its 24 WKV launches counted both by the wrapper and in the
               profile;
-  12. the kernels line, the nvidia-smi line, and the result line
+  12. train    LM training: the B9 backward (dQ, dK, dV; three launches of
+              one C entry) at smollm-360m's training shape (B=8, S=1024,
+              15/5 heads of 64) in bf16 and fp32 and at dh 80 and 128 (B=2,
+              S=300), and the B11 backward (dr, dk, dv, dw, du) at
+              rwkv6-1.6b's (B=4, S=1024, 32 heads of 64; moderate and weak
+              decay) and at dh 32 under strong decay, each against its plain
+              closed form on the same card inputs (fp32 within TRAIN_TOL
+              normwise; bf16 within twice the plain bf16 version's own
+              distance to the fp32 gradient), the same bits twice, B9's
+              training forward the serving forward's bits, and timed beside
+              its bound and library pair (SDPA forward + backward less its
+              forward; B11: the chunked form's autograd, bracketed); each
+              model at full width and 2 layers in fp32 on the card against
+              the CPU from the same parameters and batch (loss, grad norm,
+              every parameter's gradient within TRAIN_TOL, every card
+              gradient finite and not all zero; one train_step each way);
+              then the main path, launch.train's loop on the full configs
+              (smollm-360m: 32 layers, bf16, remat in groups of 4, at B=8,
+              S=1024; rwkv6-1.6b: 24 layers at B=4, S=1024; 11 steps each),
+              every loss finite and the launch counts exact (TRAIN_MAIN:
+              with remat each layer's forward kernel runs twice a step), step
+              ms and tokens/s over the 10 steps after the first, peak memory
+              and one step under torch.profiler;
+              smollm's trained parameters written by the loop's checkpoint
+              and restored bit for bit;
+  13. the kernels line, the nvidia-smi line, and the result line
      {"ok": true, "device": {...}} last.
 
 It exits non-zero without a result when no CUDA device is present, or when
@@ -277,7 +303,8 @@ SINGLE = ("gram", "row_gram", "probe_sweep", "commit_sweep")
 BATCHED = ("gram_batched", "row_gram_batched", "probe_sweep_batched",
            "commit_sweep_batched")
 PER_TRIAL = ("probe_sweep_batched_per_trial", "commit_sweep_batched_per_trial")
-LM = ("flash_attention", "flash_attention_tc", "flash_decode", "wkv")
+LM = ("flash_attention", "flash_attention_tc", "flash_decode", "wkv", "flash_attention_bwd",
+      "wkv_bwd")
 REPS, RUNS = 20, 5
 
 
@@ -974,6 +1001,36 @@ def profile_light(fn, tag: str) -> dict:
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
         log(f"[profile] {tag}:   {us / 1e3:8.2f} ms  {name[:90]}")
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "ops": n_ops}
+
+
+def profile_segments(lead_in, segments, tag: str) -> dict:
+    """The device operations of several calls, counted in one torch.profiler
+    recording of the device.  Late in a full run the profiler misses a few
+    dozen events at a profile's start, so the recording starts with
+    `lead_in`, which is not read; each (label, fn) of `segments` then runs
+    after a marker kernel (torch.cuda._sleep's spin kernel, which none of
+    the calls launches), and the device operations between one marker and
+    the next are that call's.  Returns {label: count}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead_in()
+        for _, fn in segments:
+            torch.cuda._sleep(1000)
+            fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    ops = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(ops) if "spin_kernel" in e.name]
+    require(len(marks) == len(segments) + 1,
+            f"{tag}: {len(marks)} marker kernels in the profile, not "
+            f"{len(segments) + 1} (names {sorted({e.name[:60] for e in ops})[:12]})")
+    counts = {label: marks[k + 1] - marks[k] - 1 for k, (label, _) in enumerate(segments)}
+    log(f"[profile] {tag}: device operations after a lead-in {json.dumps(counts)}")
+    return counts
 
 
 def profile_sweep(icoa, family, cfg, params, f, xcols, y, engine: str,
@@ -2628,35 +2685,32 @@ def phase_stream_obs(api, _build, icoa, sweep_ops):
     deploy = dspec.build("cuda")
     family = api.AgentSpec().resolve(n_cols=1)
     state = icoa.init_state(family, deploy.xcols, deploy.y)
-    ops, cfgs = {}, {}
-    for label, taps in (("untapped", None), ("tapped", every)):
-        cfg = cfgs[label] = api.SolverSpec(engine="fused", use_kernel=True).icoa_config(
-            None, obs=None if taps is None else taps.normalized())
-        icoa.sweep(family, cfg, state.params, state.f, deploy.xcols, deploy.y)
-        prof = profile_light(lambda: icoa.sweep(family, cfg, state.params, state.f,
-                                                deploy.xcols, deploy.y),
-                             f"deploy fused sweep {label}")
-        ops[label] = prof["ops"]
-    # the tap sites at this sweep's shapes (the sweep-start taps, codec_error
-    # of the gathered rows, and one accept write an agent), counted as the
-    # ops they add to a profile of the untapped sweep: late in a full run
-    # the profiler misses a few dozen events at a profile's start (3,018
-    # for a sweep that reads 3,054 alone), so each count is taken from a
-    # profile that starts with the same sweep
     every_n = every.normalized()
+    cfgs = {label: api.SolverSpec(engine="fused", use_kernel=True).icoa_config(
+        None, obs=taps) for label, taps in (("untapped", None), ("tapped", every_n))}
     r0 = deploy.y[None, :] - state.f
     flag = torch.ones((), dtype=torch.bool, device="cuda")
 
-    def sweep_then_sites():
-        icoa.sweep(family, cfgs["untapped"], state.params, state.f, deploy.xcols,
-                   deploy.y)
+    def sweep(label):
+        return lambda: icoa.sweep(family, cfgs[label], state.params, state.f,
+                                  deploy.xcols, deploy.y)
+
+    def sites():
+        # the tap sites at this sweep's shapes: the sweep-start taps,
+        # codec_error of the gathered rows, and one accept write an agent
         taps = obs.taps.engine_taps(every_n, state.f, r0, r0)
         for i in range(D_DEPLOY):
             obs.taps.tap_accept(taps, every_n, i, flag)
 
-    sweep_then_sites()
-    ops["sites"] = profile_light(sweep_then_sites, "deploy untapped sweep, then the "
-                                 "tap sites")["ops"] - ops["untapped"]
+    segments = [("untapped", sweep("untapped")), ("tapped", sweep("tapped")),
+                ("sites", sites)]
+    for _, fn in segments:
+        fn()
+    # all three counted in one profile after a lead-in sweep: late in a full
+    # run the profiler misses a few dozen events at a profile's start (a
+    # sweep of 3,054 ops read 3,007-3,024 as a profile's first call)
+    ops = profile_segments(sweep("untapped"), segments, "deploy fused sweep "
+                           "untapped, tapped, the tap sites")
     require(ops["untapped"] <= DEPLOY_OPS_PER_AGENT * D_DEPLOY,
             f"deploy: untapped fused sweep {ops['untapped'] / D_DEPLOY} ops an "
             f"agent > {DEPLOY_OPS_PER_AGENT}")
@@ -3380,8 +3434,8 @@ def phase_lm_kernels(_build, fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref, g
         same inputs is the kernels line's `earlier_ms`.  Not counted."""
         b, s, hq, dh = q.shape
         out = torch.empty_like(q)
-        _build.launch("flash_attention", "repro_flash_attention", q, k, v, out, 1, b, s,
-                      s, hq, k.shape[2], dh, 1, 0, dh ** -0.5)
+        _build.launch("flash_attention", "repro_flash_attention", q, k, v, out, None, 1, b,
+                      s, s, hq, k.shape[2], dh, 1, 0, dh ** -0.5)
         return out
 
     # --- B9 at the smollm serving shape and the long row, each checked on
@@ -3758,6 +3812,295 @@ def serve_two_layers_vs_cpu(lm, arch: str, steps: int = 8, prompt_len: int = 128
         f"{worst:.3e} over prefill + {steps} steps; tokens equal {tok_g[0].tolist()}; "
         f"smallest top-2 margin {margin:.3e} of max |logit|")
 
+# ------------------------------------------------------------- 12. training
+
+
+TRAIN_TOL = 1e-4          # fp32 gradients, normwise: kernel vs plain, card vs CPU
+LSE_TOL = 1e-5            # B9's training forward's LSE vs the plain one, normwise
+# the main path: arch -> (batch, seq, steps, launches of one step).  With
+# remat every group's forward runs again in the backward: 2 forwards and 1
+# backward of each layer's kernel a step.
+TRAIN_MAIN = {
+    "smollm-360m": (8, 1024, 11, {"flash_attention": 64, "flash_attention_tc": 64,
+                                  "flash_attention_bwd": 32}),
+    "rwkv6-1.6b": (4, 1024, 11, {"wkv": 48, "wkv_bwd": 24}),
+}
+
+
+def normwise(got, want) -> float:
+    return float((got.double() - want.double()).abs().max() / want.double().abs().max())
+
+
+def hold_grads(tag, dt, got, plain, want32, errs):
+    """fp32: each gradient within TRAIN_TOL normwise of the plain version;
+    bf16: its normwise distance to the fp32 plain gradient (same bf16
+    inputs) within twice the plain bf16 version's own distance to it."""
+    for name, g, p, w in zip(("dq", "dk", "dv", "dw", "du"), got, plain, want32):
+        if dt == torch.float32:
+            errs.append(compare(f"{tag} {name}", g, p, TRAIN_TOL))
+            continue
+        mine, own = normwise(g, w), normwise(p, w)
+        require(mine <= 2 * own, f"{tag} {name}: {mine:.3e} from the fp32 gradient, over "
+                f"2 x the plain bf16 version's {own:.3e}")
+        errs.append((float((g.double() - p.double()).abs().max()), normwise(g, p)))
+
+
+def phase_train_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
+    """The two backward kernels alone against their plain versions on the
+    card, then timed (as phase 9) beside their bounds and library pairs."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+
+    def rn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, dtype=torch.float32, device=dev).to(dtype)
+
+    errs = {"flash_attention_bwd": [], "wkv_bwd": []}
+
+    def b9(b, s, hq, hkv, dh, dt, window=0, timed=False):
+        q, do = rn(b, s, hq, dh, dtype=dt), rn(b, s, hq, dh, dtype=dt)
+        k, v = rn(b, s, hkv, dh, dtype=dt), rn(b, s, hkv, dh, dtype=dt)
+        out, lse = fa_ops.flash_attention_lse(q, k, v, window=window)
+        require(torch.equal(out, fa_ops.flash_attention(q, k, v, window=window)),
+                "B9: the training forward's output is not the serving forward's")
+        tag = f"B9 backward {str(dt).removeprefix('torch.')} {(b, s, hq, hkv, dh, window)}"
+        lse_err = compare(f"{tag} forward's LSE", lse, fa_ref.attention_lse_ref(
+            q, k, v, window=window)[1], LSE_TOL)[1]
+
+        def run():
+            return fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+
+        got = run()
+        require(all(torch.equal(a, b_) for a, b_ in zip(got, run())),
+                f"B9 backward {(b, s, hq, hkv, dh)}: a second call gave other bits")
+        plain = fa_ref.attention_bwd_ref(q, k, v, out, do, lse, window=window)
+        want32 = plain if dt == torch.float32 else fa_ref.attention_bwd_ref(
+            q.float(), k.float(), v.float(), out.float(), do.float(), lse, window=window)
+        hold_grads(tag, dt, got, plain, want32, errs["flash_attention_bwd"])
+        log(f"[train] {tag}: against the plain version {max(e[1] for e in errs['flash_attention_bwd'][-3:]):.3e} normwise, same bits twice; the forward's LSE {lse_err:.3e} normwise")
+        del plain, want32
+        if not timed:
+            return None
+        leaves = [x.transpose(1, 2).detach().requires_grad_(True) for x in (q, k, v)]
+        do_t = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+
+        esize = q.element_size()
+        case = {"ms": time_ms(run), "plain_ms": time_ms(lambda: fa_ref.attention_bwd_ref(
+                    q, k, v, out, do, lse), reps=2),
+                "library_ms": (time_ms(lambda: torch.autograd.grad(sdpa(), leaves, do_t))
+                               - time_ms(sdpa)),
+                "n_bytes": esize * (5 * b * s * hq * dh + 4 * b * s * hkv * dh) + 4 * b * hq * s,
+                "flops": 10.0 * b * hq * dh * s * (s + 1) / 2}
+        del leaves
+        return case
+
+    # smollm-360m's training shape in bf16 (the main path) and fp32, then
+    # dh 80 and 128 at a small shape
+    main = b9(8, 1024, 15, 5, 64, bf, timed=True)
+    fp32 = b9(8, 1024, 15, 5, 64, torch.float32, timed=True)
+    for dt in (bf, torch.float32):
+        b9(2, 300, 6, 2, 80, dt, window=64)
+        b9(2, 300, 8, 2, 128, dt)
+    record_row = row_recorder(rows)
+    record_row("flash_attention_bwd", "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:74", errs["flash_attention_bwd"],
+               main["ms"], main["plain_ms"], main["library_ms"], main["n_bytes"],
+               main["flops"], H100_BF16_FLOPS,
+               note="backward (dQ, dK, dV) of B9, which the TPU package does not have; "
+                    "library_ms: SDPA forward + backward less its forward")
+    b_ms, b_by = bound(fp32["n_bytes"], fp32["flops"], H100_FP32_FLOPS)
+    rows[-1]["fp32_row"] = {"shape": "fp32, B=8, S=1024", "ms": fp32["ms"],
+                            "plain_ms": fp32["plain_ms"], "library_ms": fp32["library_ms"],
+                            "bound_ms": b_ms, "bound_by": b_by}
+    log(f"[train] flash_attention_bwd fp32 row {json.dumps(rows[-1]['fp32_row'])}")
+    torch.cuda.empty_cache()
+
+    # B11 at rwkv6-1.6b's training shape (and dh 32, a ragged tail)
+    def b11(b, s, h, dh, decay):
+        r, k, v, g = rn(b, s, h, dh), rn(b, s, h, dh), rn(b, s, h, dh), rn(b, s, h, dh)
+        w = wkv_decay(rn(b, s, h, dh), decay)
+        u = 0.1 * rn(h, dh)
+
+        def run():
+            return wkv_ops.wkv_bwd(r, k, v, w, u, g)
+
+        got = run()
+        require(all(torch.equal(a, b_) for a, b_ in zip(got, run())),
+                f"B11 backward {(b, s, h, dh)}: a second call gave other bits")
+        tag = f"B11 backward {(b, s, h, dh)} {decay} decay"
+        hold_grads(tag, torch.float32, got, wkv_ref.wkv_bwd_ref(r, k, v, w, u, g), got,
+                   errs["wkv_bwd"])
+        log(f"[train] {tag}: against the plain version {max(e[1] for e in errs['wkv_bwd'][-5:]):.3e} normwise, same bits twice")
+        return r, k, v, w, u, g
+
+    b11(2, 77, 4, 32, "strong")
+    b11(4, 1024, 32, 64, "weak")
+    r, k, v, w, u, g = b11(4, 1024, 32, 64, "moderate")
+    b, s, h, dh = r.shape
+    leaves = [x.detach().requires_grad_(True) for x in (r, k, v, w, u)]
+
+    def chunked():
+        return wkv_ref.wkv_chunked_ref(*leaves, 64)[0]
+
+    pair_ms = time_ms(lambda: torch.autograd.grad(chunked(), leaves, g), reps=3) - time_ms(
+        chunked, reps=3)
+    record_row("wkv_bwd", "src/repro_torch/csrc/wkv.cu", "src/repro/kernels/wkv/kernel.py:67",
+               errs["wkv_bwd"], time_ms(lambda: wkv_ops.wkv_bwd(r, k, v, w, u, g)),
+               time_ms(lambda: wkv_ref.wkv_bwd_ref(r, k, v, w, u, g), reps=1), None,
+               4.0 * (9 * b * s * h * dh + 2 * h * dh), 10.0 * b * h * s * dh * dh,
+               note=f"backward (dr, dk, dv, dw, du) of B11, which the TPU package does not "
+                    f"have; the chunked form's autograd backward (wkv_chunked_ref, c=64, "
+                    f"forward + backward less forward): {pair_ms:.4f} ms")
+    rows[-1].update(chunked_form_bwd_ms=pair_ms)
+    del leaves, r, k, v, w, u, g
+    torch.cuda.empty_cache()
+
+
+def train_two_layers_vs_cpu(lm, arch: str, batch: int = 2, seq: int = 128):
+    """The architecture at full width and 2 layers in fp32 (the fma route
+    of B9, B11), from the same parameters and batch on the card and the
+    CPU: the loss, the grad norm and every parameter's gradient within
+    TRAIN_TOL, every card gradient finite and not all zero; then one
+    train_step each way (loss, grad norm, lr within TRAIN_TOL)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.optim import AdamWConfig, adamw_init, global_norm
+    from repro_torch.optim.clip import tree_leaves, tree_map
+    from repro_torch.train import TrainState, make_train_step
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(lm["get_config"](arch), n_layers=2, param_dtype="float32",
+                              compute_dtype="float32")
+    model = lm["build_model"](cfg)
+    params = model.init(seed=1, device="cpu")
+    data = next(lm_batches(model, seq=seq, batch=batch, device="cpu"))
+    out = {}
+    for where in ("cuda", "cpu"):
+        tree = tree_map(lambda t: t.to(where).requires_grad_(True), params)
+        loss, _ = model.loss(tree, {k_: t.to(where) for k_, t in data.items()})
+        grads = [x.detach().cpu() for x in torch.autograd.grad(loss, list(tree_leaves(tree)))]
+        out[where] = (float(loss.detach()), grads)
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    require(abs(lg - lc) <= TRAIN_TOL * abs(lc), f"{arch} 2-layer: loss {lg} vs {lc}")
+    worst = 0.0
+    for i, (a, c) in enumerate(zip(gg, gc)):
+        require(bool(torch.isfinite(a).all()) and bool((a != 0).any()),
+                f"{arch} 2-layer: card gradient leaf {i} not finite or all zero")
+        worst = max(worst, compare(f"{arch} 2-layer gradient leaf {i}", a, c, TRAIN_TOL)[1])
+    norms = [float(global_norm(x)) for x in (gg, gc)]
+    require(abs(norms[0] - norms[1]) <= TRAIN_TOL * norms[1], f"{arch} 2-layer: grad norm {norms}")
+    run = RunConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    step = make_train_step(model, run)
+    mets = []
+    for where in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(where), params)
+        state = TrainState(p, adamw_init(p, AdamWConfig(moment_dtype=cfg.moment_dtype)),
+                           torch.zeros((), dtype=torch.int32, device=where))
+        _, met = step(state, {k_: t.to(where) for k_, t in data.items()})
+        mets.append({k_: float(x) for k_, x in met.items()})
+    for key in ("loss", "grad_norm", "lr"):
+        require(abs(mets[0][key] - mets[1][key]) <= TRAIN_TOL * abs(mets[1][key]),
+                f"{arch} 2-layer train_step {key}: {mets[0][key]} vs {mets[1][key]}")
+    log(f"[train] {arch} 2 layers, full width, fp32: card vs cpu loss {lg:.6f} / {lc:.6f}, "
+        f"{len(gg)} gradient leaves worst normwise {worst:.3e}, grad norm {norms[0]:.6f} / "
+        f"{norms[1]:.6f}, one train_step {json.dumps(mets[0])} ({time.perf_counter() - t0:.1f} s)")
+
+
+def train_full(lm, _build, arch: str, smi: str) -> dict:
+    """The main path: launch.train's loop (train.make_train_step on
+    data.lm.lm_batches) on the full config, launch counts read just after
+    it; step ms, tokens/s, peak memory, one more step under the profiler;
+    smollm's trained parameters through the checkpoint written by the loop
+    and restored."""
+    import shutil
+
+    from repro_torch.checkpoint.io import restore_checkpoint
+    from repro_torch.configs import RunConfig
+    from repro_torch.convert import lm_params_from_numpy, lm_params_to_tree
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.launch import train as launch_train
+    from repro_torch.optim.clip import tree_leaves
+    from repro_torch.train import make_train_step
+
+    batch, seq, steps, per_step = TRAIN_MAIN[arch]
+    argv = ["--arch", arch, "--steps", str(steps), "--seq", str(seq), "--batch", str(batch)]
+    ckpt = os.path.join(HERE, "build", "train_ckpt")
+    if arch == "smollm-360m":
+        shutil.rmtree(ckpt, ignore_errors=True)
+        argv += ["--ckpt-dir", ckpt, "--ckpt-every", str(steps)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with NoSdpa():
+        model, state, steps_log = launch_train.run(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = {k_: v_ for k_, v_ in _build.LAUNCHES.items() if v_}
+    expect = {k_: v_ * steps for k_, v_ in per_step.items()}
+    log(f"[train] {arch} main path: {steps} steps of launch.train at B={batch}, S={seq} in "
+        f"{secs:.1f} s, launches {json.dumps(counts)}, expected {json.dumps(expect)}")
+    require(counts == expect, f"{arch} training: launch counts {counts} != {expect}")
+    for rec in steps_log:
+        require(all(math.isfinite(rec[k_]) for k_ in ("loss", "grad_norm", "lr")),
+                f"{arch} training: step {rec['step']} {rec}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    window = [rec["ms"] for rec in steps_log[1:]]      # the steps after the first
+    step_ms = sum(window) / len(window)
+    cfg = model.cfg
+    run = RunConfig(learning_rate=1e-3, warmup_steps=2, total_steps=steps)
+    step = make_train_step(model, run)
+    extra = next(lm_batches(model, seq=seq, batch=batch, seed=1, device="cuda"))
+    busy = profile_window(f"train_{arch.replace('.', '_')}", "training step",
+                          lambda: step(state, extra), 1)
+    out = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.param_dtype, "remat": cfg.remat, "scan_block": cfg.scan_block,
+           "batch": batch, "seq": seq, "steps": steps,
+           "losses": [round(r_["loss"], 6) for r_ in steps_log],
+           "step_ms": [round(r_["ms"], 2) for r_ in steps_log],
+           "timed_steps": len(window), "window_ms": sum(window), "step_ms_mean": step_ms,
+           "tokens_per_s": batch * seq * len(window) / sum(window) * 1e3,
+           "peak_gib": peak, "device_busy": busy, "card": smi}
+    log(f"[train] {arch}: {json.dumps(out)}")
+    if arch == "smollm-360m":
+        t1 = time.perf_counter()
+        like = lm_params_to_tree(cfg, state.params)
+        back = lm_params_from_numpy(cfg, restore_checkpoint(ckpt, steps, like), "cuda")
+        same = all(torch.equal(a, b_) for a, b_ in zip(tree_leaves(back),
+                                                      tree_leaves(state.params)))
+        require(same, "smollm-360m: the restored checkpoint differs from the trained params")
+        size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+        log(f"[train] {arch}: checkpoint of step {steps} ({size / 2**30:.2f} GiB) restored "
+            f"bit for bit in {time.perf_counter() - t1:.1f} s")
+        shutil.rmtree(ckpt, ignore_errors=True)
+        del like, back
+    del model, state, step, extra
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, lm, rows, smi) -> dict:
+    """Phase 12: the backward kernels alone, 2 fp32 layers card vs CPU, the
+    full configs' training on the main path."""
+    t0 = time.perf_counter()
+    phase_train_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref, rows)
+    log(f"[train] kernels checked and timed at {time.perf_counter() - t0:.1f} s")
+    for arch in TRAIN_MAIN:
+        train_two_layers_vs_cpu(lm, arch)
+    log(f"[train] 2-layer card vs cpu done at {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for arch in TRAIN_MAIN:
+        for k_, v_ in train_full(lm, _build, arch, smi).items():
+            launches[k_] = launches.get(k_, 0) + v_
+    log(f"[train] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
 
 def main() -> None:
     smi = phase_device()
@@ -3847,8 +4190,11 @@ def main() -> None:
         launches[k_] += v_
     serve_two_layers_vs_cpu(lm, "rwkv6-1.6b")
     stamp("serve rwkv6")
+    for k_, v_ in phase_train(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, lm, rows, smi).items():
+        launches[k_] += v_
+    stamp("train")
     phase_audit(audit)
-    require(len(rows) == 11, f"{len(rows)} kernel rows")
+    require(len(rows) == 13, f"{len(rows)} kernel rows")
     for row in rows:
         row["launches"] = launches[row["name"]]
         require(row["launches"] > 0, f"{row['name']} never launched on the main path")

@@ -1,9 +1,10 @@
 """Host-gather numpy checkpointing (twin of repro.checkpoint.io).
 
 A tree of dicts, lists, tuples and NamedTuples of tensors is flattened
-with its paths into one compressed .npz per step plus a small JSON
-manifest, in the JAX package's layout, so either package reads the other's
-files:
+with its paths into one .npz per step plus a small JSON manifest, in the
+JAX package's layout, so either package reads the other's files (the port
+stores the arrays uncompressed, as np.savez: zlib takes minutes for an
+LM's parameters and saves little on float data; np.load reads both):
 
     ckpt_%08d.npz    one array per leaf, keyed by its path: dict keys in
                      sorted order, list / tuple positions and NamedTuple
@@ -109,7 +110,7 @@ def save_checkpoint(directory: str, step: int, tree: Any) -> str:
     os.makedirs(directory, exist_ok=True)
     flat = {_SEP.join(p): _to_numpy(leaf) for p, leaf in _leaves(tree)}
     path = os.path.join(directory, f"ckpt_{step:08d}.npz")
-    np.savez_compressed(path, **flat)
+    np.savez(path, **flat)
     manifest = {"step": step, "keys": sorted(flat),
                 "treedef": f"PyTreeDef({_treedef(tree)})"}
     with open(os.path.join(directory, f"ckpt_{step:08d}.json"), "w") as fh:

@@ -7,7 +7,10 @@ the arrays keep their dtype and move to `device`.  `batch_from_numpy`
 stacks numpy trial datasets into the (B, ...) tensors of icoa.run_scan, so
 the port's batch and `jax.vmap` over the JAX package's run_scan see the same
 arrays.  `lm_params_from_numpy` turns the JAX package's `Model.init` tree
-into the port's per-layer LM parameters.
+into the port's per-layer LM parameters, `lm_params_to_tree` the port's
+back into the JAX package's stacked layout (what the LM checkpoints store,
+so that either package restores the other's), and `train_state_from_numpy`
+carries a JAX TrainState (params, AdamW moments, counts) across.
 """
 from __future__ import annotations
 
@@ -22,10 +25,13 @@ from repro_torch.models.model import check_ported
 from repro_torch.models.transformer import pattern_period
 
 __all__ = ["batch_from_numpy", "dataset_from_numpy", "lm_params_from_numpy",
-           "params_from_numpy", "state_from_numpy"]
+           "lm_params_to_tree", "params_from_numpy", "state_from_numpy",
+           "train_state_from_numpy"]
 
 
 def _tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone().to(device)
     a = np.array(a, copy=True)
     if a.dtype.name == "bfloat16":       # numpy has no bf16: move the bits
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
@@ -102,3 +108,45 @@ def lm_params_from_numpy(cfg, tree, device="cpu") -> dict:
               for i in range(cfg.n_layers)]
     return {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"]),
             "layers": layers}
+
+
+def lm_params_to_tree(cfg, params) -> dict:
+    """The JAX package's `Model.init` layout of the port's LM parameters
+    (or of any tree of their structure, AdamW's moments say):
+    blocks/pos<p>/... stacked over the repetitions, as new tensors on the
+    parameters' device.  The inverse of lm_params_from_numpy, which also
+    takes these tensors."""
+    check_ported(cfg)
+    period = pattern_period(cfg)
+
+    def stack(nodes) -> Any:
+        if isinstance(nodes[0], dict):
+            return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
+        return torch.stack([n.detach() for n in nodes])
+
+    layers = params["layers"]
+    blocks = {f"pos{p}": stack(layers[p::period]) for p in range(period)}
+    def clone(node) -> Any:
+        if isinstance(node, dict):
+            return {k: clone(v) for k, v in node.items()}
+        return node.detach().clone()
+
+    return {"embed": clone(params["embed"]), "final_norm": clone(params["final_norm"]),
+            "blocks": blocks}
+
+
+def train_state_from_numpy(cfg, params, opt, step, device="cpu"):
+    """A train.TrainState from the JAX package's TrainState as numpy arrays:
+    `params` and `opt`'s mu / nu in the `Model.init` layout, `opt`'s count
+    and `step` int32 scalars (each leaf keeps its dtype)."""
+    from repro_torch.train.step import TrainState   # train imports the model code
+
+    def scalar(x) -> torch.Tensor:
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=device)
+
+    return TrainState(
+        params=lm_params_from_numpy(cfg, params, device),
+        opt={"mu": lm_params_from_numpy(cfg, opt["mu"], device),
+             "nu": lm_params_from_numpy(cfg, opt["nu"], device),
+             "count": scalar(opt["count"])},
+        step=scalar(step))

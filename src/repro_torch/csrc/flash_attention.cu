@@ -98,9 +98,9 @@ constexpr int smem_bytes() {
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int sq,
-                       int skv, int hq, int hkv, int causal, int window,
-                       float scale) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int sq, int skv, int hq, int hkv,
+                       int causal, int window, float scale) {
   constexpr int DP = DH + 1;     // padded rows: conflict-free column reads
   constexpr int NC = DH / 16;    // output columns per thread
   extern __shared__ float smem[];
@@ -219,13 +219,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       T* dst = o + (((size_t)b * sq + s) * hq + h) * DH;
 #pragma unroll
       for (int j = 0; j < NC; ++j) dst[tx + 16 * j] = repro::from_f32<T>(acc[i][j] / denom);
+      if (lse != nullptr && tx == 0) lse[((size_t)b * hq + h) * sq + s] = m[i] + logf(denom);
     }
   }
 }
 
 template <typename T, int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int sq,
-           int skv, int hq, int hkv, int causal, int window, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+           int sq, int skv, int hq, int hkv, int causal, int window, float scale,
            cudaStream_t st) {
   constexpr int bytes = smem_bytes<DH>();
   auto* kern = flash_attention_kernel<T, DH>;
@@ -235,19 +236,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq,
   dim3 grid((sq + kBq - 1) / kBq, hq, b);
   kern<<<grid, kThreads, bytes, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, hq, hkv, causal,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, skv, hq, hkv, causal,
       window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(int dh, const void* q, const void* k, const void* v, void* o,
+int dispatch(int dh, const void* q, const void* k, const void* v, void* o, float* lse,
              int b, int sq, int skv, int hq, int hkv, int causal, int window,
              float scale, cudaStream_t st) {
   switch (dh) {
-    case 64: return launch<T, 64>(q, k, v, o, b, sq, skv, hq, hkv, causal, window, scale, st);
-    case 80: return launch<T, 80>(q, k, v, o, b, sq, skv, hq, hkv, causal, window, scale, st);
-    case 128: return launch<T, 128>(q, k, v, o, b, sq, skv, hq, hkv, causal, window, scale, st);
+    case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, skv, hq, hkv, causal, window, scale, st);
+    case 80: return launch<T, 80>(q, k, v, o, lse, b, sq, skv, hq, hkv, causal, window, scale, st);
+    case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, skv, hq, hkv, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -264,6 +265,7 @@ constexpr int kBk = 64;              // keys per tile
 constexpr int kThreads = 256;
 constexpr float kNeg = -1e30f;       // the TPU kernel's finite mask value
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DH>
 struct Cfg {
@@ -438,8 +440,8 @@ template <int DH>
 __global__ void __launch_bounds__(kThreads, DH == 64 ? 2 : 1)
 flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                           const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                          int sq, int skv, int hq, int hkv, int causal, int window,
-                          float scale_log2) {
+                          float* __restrict__ lse, int sq, int skv, int hq, int hkv,
+                          int causal, int window, float scale_log2) {
   using C = Cfg<DH>;
   constexpr int NO = DH / 2;         // O accumulator floats per thread
   constexpr int KS = DH / 16;        // k-steps of Q K^T
@@ -642,13 +644,17 @@ flash_attention_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat
       for (int j = 0; j < DH / 8; ++j)
         *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
             __floats2bfloat162_rn(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+      // the row's natural log-sum-exp of the scaled scores: m is in the
+      // log2 domain, l sums the unrounded p
+      if (lse != nullptr && (lane & 3) == 0)
+        lse[((size_t)b * hq + h) * sq + row] = (m[r] + log2f(fmaxf(t, 1e-30f))) * kLn2;
     }
   }
 }
 
 template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv,
-           int hq, int hkv, int causal, int window, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int sq,
+           int skv, int hq, int hkv, int causal, int window, float scale, cudaStream_t st) {
   constexpr int bytes = Cfg<DH>::kSmem;
   auto* kern = flash_attention_tc_kernel<DH>;
   cudaError_t err =
@@ -657,39 +663,422 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq, 
   dim3 grid(b * hq, (sq + kBq - 1) / kBq);
   kern<<<grid, kThreads, bytes, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), sq, skv, hq, hkv,
-      causal, window, scale * kLog2e);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, sq, skv, hq,
+      hkv, causal, window, scale * kLog2e);
   return cudaGetLastError();
 }
 
 }  // namespace tc
 
+// ---------------------------------------------------------------------------
+// The backward: dQ, dK, dV of the same attention.
+//
+// Nothing of the TPU package is its twin: repro/kernels/flash_attention has
+// no backward, and the JAX package's training differentiates XLA's plain
+// attention.  The port's training runs B9 on the card, so its gradient is a
+// kernel too (kernels/flash_attention/ops.py flash_attention_train, a
+// torch.autograd.Function).  With the forward's row log-sum-exp L_i saved:
+//   P_ij  = exp(scale q_i . k_j - L_i)            (0 where masked)
+//   D_i   = dO_i . O_i                             (the pre-pass below)
+//   dS_ij = P_ij (dO_i . v_j - D_i)
+//   dV_j  = sum_i P_ij dO_i,  dK_j = scale sum_i dS_ij q_i,
+//   dQ_i  = scale sum_j dS_ij k_j,
+// sums over the query heads of k_j's group too.  P is recomputed in fp32
+// from L and treated as unrounded (the tensor-core forward rounds it to
+// bf16 before P V).  Three kernels, one launch each, in this order:
+//   delta_kernel  D (b, hq, sq) fp32, one warp a row, a fixed butterfly;
+//   dkdv_kernel   a block per (batch, KV head, 64-key tile) that loops over
+//                 the group's G query heads and then its visible query tiles
+//                 in order: dK and dV stay in registers and are summed in a
+//                 fixed order inside the block, with no atomics;
+//   dq_kernel     a block per (batch, query head, 64-query tile) over its
+//                 visible key tiles, in order.
+// Bound on an H100: the five products of 2 dh FLOPs per visible (i, j) and
+// query head (S and dP recomputed, dV, dK, dQ), against the inputs' type's
+// peak; the bytes (q, k, v, o, dO, L read once; dQ, dK, dV written once)
+// are far below.  The kernels are the forward FMA kernel's shape, fp32 FMA
+// on the CUDA cores from shared memory: bound by the shared-memory pipe, far
+// below either peak (a tensor-core form is later work).  dkdv_kernel and
+// dq_kernel each recompute S and dP; fp32 accumulation, the gradients
+// written in the inputs' dtype.
+namespace bwd {
+
+constexpr int kB = 64;           // queries or keys per tile
+constexpr int kThreads = 256;    // 16 x 16 threads: 4 x 4 scores each
+constexpr int kPs = kB + 1;      // padded row of the P and dS tiles
+
+template <int DH>
+constexpr int smem_bytes() {
+  return (4 * kB * (DH + 1) + 2 * kB * kPs + 2 * kB) * (int)sizeof(float);
+}
+
+__device__ __forceinline__ bool visible(int i, int j, int sq, int skv, int causal, int window) {
+  return i < sq && j < skv && (!causal || j <= i) && (window <= 0 || j > i - window);
+}
+
+// rows [row0, row0 + kB) of (b, S, H, DH) tensor x at head h into tile dst
+// [kB][DH + 1] as fp32; rows >= limit are zero
+template <typename T, int DH>
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ x, int b, int row0,
+                                          int limit, int heads, int h) {
+  constexpr int DP = DH + 1;
+  for (int e = threadIdx.x; e < kB * DH; e += kThreads) {
+    const int r = e / DH, d = e % DH, s = row0 + r;
+    dst[r * DP + d] =
+        s < limit ? repro::to_f32(x[(((size_t)b * limit + s) * heads + h) * DH + d]) : 0.f;
+  }
+}
+
+// D = rowsum(dO o O) in fp32: one warp a (b, i, h) row of (b, sq, hq, DH)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
+             int rows, int sq, int hq, int dh) {
+  const int row = blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows) return;                      // the whole warp leaves together
+  const T* po = o + (size_t)row * dh;
+  const T* pd = dout + (size_t)row * dh;
+  float acc = 0.f;
+  for (int d = lane; d < dh; d += 32) acc = fmaf(repro::to_f32(pd[d]), repro::to_f32(po[d]), acc);
+  acc = repro::warp_sum(acc);
+  if (lane == 0) {
+    const int h = row % hq, i = (row / hq) % sq, b = row / (hq * sq);
+    delta[((size_t)b * hq + h) * sq + i] = acc;
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            const T* __restrict__ dout, const float* __restrict__ lse,
+            const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv, int sq,
+            int skv, int hq, int hkv, int causal, int window, float scale) {
+  constexpr int DP = DH + 1;
+  constexpr int NC = DH / 16;    // gradient columns per thread
+  extern __shared__ float smem[];
+  float* sK = smem;              // [kB][DP]
+  float* sV = sK + kB * DP;
+  float* sQ = sV + kB * DP;
+  float* sO = sQ + kB * DP;      // dO
+  float* sP = sO + kB * DP;      // P^T  [key][query]
+  float* sS = sP + kB * kPs;     // dS^T [key][query]
+  float* sL = sS + kB * kPs;     // L of the query tile
+  float* sD = sL + kB;           // D of the query tile
+
+  const int b = blockIdx.z, hk = blockIdx.y, kv0 = blockIdx.x * kB;
+  const int g = hq / hkv;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  load_rows<T, DH>(sK, k, b, kv0, skv, hkv, hk);
+  load_rows<T, DH>(sV, v, b, kv0, skv, hkv, hk);
+
+  float gk[4][NC], gv[4][NC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) gk[a][n] = gv[a][n] = 0.f;
+
+  // the queries that can see a key of this tile
+  const int kv_last = min(kv0 + kB, skv) - 1;
+  const int q_begin = causal ? kv0 : 0;
+  const int q_end = window > 0 ? min(sq, kv_last + window) : sq;
+  for (int gi = 0; gi < g; ++gi) {
+    const int h = hk * g + gi;
+    for (int q0 = (q_begin / kB) * kB; q0 < q_end; q0 += kB) {
+      __syncthreads();           // the previous tile's Q, dO, P, dS are consumed
+      load_rows<T, DH>(sQ, q, b, q0, sq, hq, h);
+      load_rows<T, DH>(sO, dout, b, q0, sq, hq, h);
+      if (threadIdx.x < kB) {
+        const int i = q0 + threadIdx.x;
+        sL[threadIdx.x] = i < sq ? lse[((size_t)b * hq + h) * sq + i] : 0.f;
+        sD[threadIdx.x] = i < sq ? delta[((size_t)b * hq + h) * sq + i] : 0.f;
+      }
+      __syncthreads();
+
+      // keys ty + 16 a against queries tx + 16 c: S and dP
+      float sc[4][4], dp[4][4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) sc[a][c] = dp[a][c] = 0.f;
+#pragma unroll 4
+      for (int d = 0; d < DH; ++d) {
+        float kk[4], vv[4], qq[4], oo[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          kk[a] = sK[(ty + 16 * a) * DP + d];
+          vv[a] = sV[(ty + 16 * a) * DP + d];
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          qq[c] = sQ[(tx + 16 * c) * DP + d];
+          oo[c] = sO[(tx + 16 * c) * DP + d];
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            sc[a][c] = fmaf(kk[a], qq[c], sc[a][c]);
+            dp[a][c] = fmaf(vv[a], oo[c], dp[a][c]);
+          }
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const int jl = ty + 16 * a;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int il = tx + 16 * c;
+          const bool ok = visible(q0 + il, kv0 + jl, sq, skv, causal, window);
+          const float p = ok ? expf(fmaf(sc[a][c], scale, -sL[il])) : 0.f;
+          sP[jl * kPs + il] = p;
+          sS[jl * kPs + il] = p * (dp[a][c] - sD[il]);
+        }
+      }
+      __syncthreads();
+
+      // dV += P^T dO, dK += dS^T Q: keys ty + 16 a, columns tx + 16 n
+#pragma unroll 4
+      for (int i = 0; i < kB; ++i) {
+        float pp[4], ss[4], oo[NC], qq[NC];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          pp[a] = sP[(ty + 16 * a) * kPs + i];
+          ss[a] = sS[(ty + 16 * a) * kPs + i];
+        }
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          oo[n] = sO[i * DP + tx + 16 * n];
+          qq[n] = sQ[i * DP + tx + 16 * n];
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int n = 0; n < NC; ++n) {
+            gv[a][n] = fmaf(pp[a], oo[n], gv[a][n]);
+            gk[a][n] = fmaf(ss[a], qq[n], gk[a][n]);
+          }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int j = kv0 + ty + 16 * a;
+    if (j < skv) {
+      const size_t off = (((size_t)b * skv + j) * hkv + hk) * DH;
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        dk[off + tx + 16 * n] = repro::from_f32<T>(gk[a][n] * scale);
+        dv[off + tx + 16 * n] = repro::from_f32<T>(gv[a][n]);
+      }
+    }
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+          const T* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, T* __restrict__ dq, int sq, int skv, int hq,
+          int hkv, int causal, int window, float scale) {
+  constexpr int DP = DH + 1;
+  constexpr int NC = DH / 16;
+  extern __shared__ float smem[];
+  float* sQ = smem;              // [kB][DP]
+  float* sO = sQ + kB * DP;      // dO
+  float* sK = sO + kB * DP;
+  float* sV = sK + kB * DP;
+  float* sS = sV + kB * DP;      // dS [query][key]
+  float* sL = sS + 2 * kB * kPs; // (the layout of dkdv_kernel's smem_bytes)
+  float* sD = sL + kB;
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kB;
+  const int hk = h / (hq / hkv);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  load_rows<T, DH>(sQ, q, b, q0, sq, hq, h);
+  load_rows<T, DH>(sO, dout, b, q0, sq, hq, h);
+  if (threadIdx.x < kB) {
+    const int i = q0 + threadIdx.x;
+    sL[threadIdx.x] = i < sq ? lse[((size_t)b * hq + h) * sq + i] : 0.f;
+    sD[threadIdx.x] = i < sq ? delta[((size_t)b * hq + h) * sq + i] : 0.f;
+  }
+
+  float gq[4][NC];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int n = 0; n < NC; ++n) gq[a][n] = 0.f;
+
+  // the keys this query tile can see (the forward kernel's range)
+  const int q_hi = min(q0 + kB, sq) - 1;
+  const int kv_end = causal ? min(skv, q_hi + 1) : skv;
+  const int kv_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  for (int kv0 = (kv_begin / kB) * kB; kv0 < kv_end; kv0 += kB) {
+    __syncthreads();             // the previous tile's K, V and dS are consumed
+    load_rows<T, DH>(sK, k, b, kv0, skv, hkv, hk);
+    load_rows<T, DH>(sV, v, b, kv0, skv, hkv, hk);
+    __syncthreads();
+
+    // queries ty + 16 a against keys tx + 16 c
+    float sc[4][4], dp[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[a][c] = dp[a][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DH; ++d) {
+      float qq[4], oo[4], kk[4], vv[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        qq[a] = sQ[(ty + 16 * a) * DP + d];
+        oo[a] = sO[(ty + 16 * a) * DP + d];
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        kk[c] = sK[(tx + 16 * c) * DP + d];
+        vv[c] = sV[(tx + 16 * c) * DP + d];
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sc[a][c] = fmaf(qq[a], kk[c], sc[a][c]);
+          dp[a][c] = fmaf(oo[a], vv[c], dp[a][c]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const int il = ty + 16 * a;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int jl = tx + 16 * c;
+        const bool ok = visible(q0 + il, kv0 + jl, sq, skv, causal, window);
+        const float p = ok ? expf(fmaf(sc[a][c], scale, -sL[il])) : 0.f;
+        sS[il * kPs + jl] = p * (dp[a][c] - sD[il]);
+      }
+    }
+    __syncthreads();
+
+    // dQ += dS K: queries ty + 16 a, columns tx + 16 n
+#pragma unroll 4
+    for (int j = 0; j < kB; ++j) {
+      float ss[4], kk[NC];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) ss[a] = sS[(ty + 16 * a) * kPs + j];
+#pragma unroll
+      for (int n = 0; n < NC; ++n) kk[n] = sK[j * DP + tx + 16 * n];
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int n = 0; n < NC; ++n) gq[a][n] = fmaf(ss[a], kk[n], gq[a][n]);
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = q0 + ty + 16 * a;
+    if (i < sq) {
+      const size_t off = (((size_t)b * sq + i) * hq + h) * DH;
+#pragma unroll
+      for (int n = 0; n < NC; ++n) dq[off + tx + 16 * n] = repro::from_f32<T>(gq[a][n] * scale);
+    }
+  }
+}
+
+template <typename T, int DH>
+int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           const float* lse, float* delta, void* dq, void* dk, void* dv, int b, int sq,
+           int skv, int hq, int hkv, int causal, int window, float scale, cudaStream_t st) {
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+          *tv = static_cast<const T*>(v), *to = static_cast<const T*>(dout);
+  const int rows = b * sq * hq;
+  delta_kernel<T><<<(rows + kThreads / 32 - 1) / (kThreads / 32), kThreads, 0, st>>>(
+      static_cast<const T*>(o), to, delta, rows, sq, hq, DH);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  constexpr int bytes = smem_bytes<DH>();
+  auto* kv_kern = dkdv_kernel<T, DH>;
+  auto* q_kern = dq_kernel<T, DH>;
+  err = cudaFuncSetAttribute(kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(q_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  kv_kern<<<dim3((skv + kB - 1) / kB, hkv, b), kThreads, bytes, st>>>(
+      tq, tk, tv, to, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, hq, hkv,
+      causal, window, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  q_kern<<<dim3((sq + kB - 1) / kB, hq, b), kThreads, bytes, st>>>(
+      tq, tk, tv, to, lse, delta, static_cast<T*>(dq), sq, skv, hq, hkv, causal, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T>
+int dispatch(int dh, const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const float* lse, float* delta, void* dq, void* dk, void* dv,
+             int b, int sq, int skv, int hq, int hkv, int causal, int window, float scale,
+             cudaStream_t st) {
+  switch (dh) {
+    case 64: return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq,
+                                  hkv, causal, window, scale, st);
+    case 80: return launch<T, 80>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq,
+                                  hkv, causal, window, scale, st);
+    case 128: return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq,
+                                    hkv, causal, window, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd
+
 // q (b, sq, hq, dh); k, v (b, skv, hkv, dh); o (b, sq, hq, dh); all
 // contiguous, of one dtype: bf16 when is_bf16, else fp32.  dh in {64, 80,
 // 128} (the configs' head dims); hq a multiple of hkv.  Query row i sits at
-// position i; window <= 0 means no window.
+// position i; window <= 0 means no window.  lse (b, hq, sq) fp32, or null:
+// when given (training), each row's natural log-sum-exp of its scaled
+// scores is written there; o does not depend on it.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int is_bf16,
+                                     const void* v, void* o, float* lse, int is_bf16,
                                      int b, int sq, int skv, int hq, int hkv,
                                      int dh, int causal, int window,
                                      float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch<__nv_bfloat16>(dh, q, k, v, o, b, sq, skv, hq, hkv, causal,
+    return dispatch<__nv_bfloat16>(dh, q, k, v, o, lse, b, sq, skv, hq, hkv, causal,
                                    window, scale, st);
-  return dispatch<float>(dh, q, k, v, o, b, sq, skv, hq, hkv, causal, window,
+  return dispatch<float>(dh, q, k, v, o, lse, b, sq, skv, hq, hkv, causal, window,
                          scale, st);
 }
 
-// The tensor-core kernel: q, k, v, o as for repro_flash_attention, all bf16,
-// dh 64 or 128, 16-byte aligned.
+// The tensor-core kernel: q, k, v, o, lse as for repro_flash_attention, all
+// bf16, dh 64 or 128, 16-byte aligned.
 extern "C" int repro_flash_attention_tc(const void* q, const void* k, const void* v, void* o,
-                                        int b, int sq, int skv, int hq, int hkv, int dh,
-                                        int causal, int window, float scale, void* stream) {
+                                        float* lse, int b, int sq, int skv, int hq, int hkv,
+                                        int dh, int causal, int window, float scale,
+                                        void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 64: return tc::launch<64>(q, k, v, o, b, sq, skv, hq, hkv, causal, window, scale, st);
-    case 128: return tc::launch<128>(q, k, v, o, b, sq, skv, hq, hkv, causal, window, scale, st);
+    case 64: return tc::launch<64>(q, k, v, o, lse, b, sq, skv, hq, hkv, causal, window, scale, st);
+    case 128: return tc::launch<128>(q, k, v, o, lse, b, sq, skv, hq, hkv, causal, window, scale, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The backward: q, k, v, o, dout of the forward's shapes and dtype (bf16
+// when is_bf16, else fp32), lse (b, hq, sq) fp32 from the forward, delta a
+// (b, hq, sq) fp32 scratch, dq (b, sq, hq, dh) and dk, dv (b, skv, hkv, dh)
+// written in the inputs' dtype.  Three launches (delta, dK/dV, dQ), each
+// checked.
+extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
+                                         const void* o, const void* dout, const float* lse,
+                                         float* delta, void* dq, void* dk, void* dv,
+                                         int is_bf16, int b, int sq, int skv, int hq, int hkv,
+                                         int dh, int causal, int window, float scale,
+                                         void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return bwd::dispatch<__nv_bfloat16>(dh, q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq,
+                                        skv, hq, hkv, causal, window, scale, st);
+  return bwd::dispatch<float>(dh, q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq,
+                              hkv, causal, window, scale, st);
 }

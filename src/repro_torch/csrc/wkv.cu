@@ -550,3 +550,264 @@ extern "C" int repro_wkv_smem(int dh) {
     default: return 0;
   }
 }
+
+// ---------------------------------------------------------------------------
+// The backward: dr, dk, dv, dw, du of the same recurrence, given dO.
+//
+// Nothing of the TPU package is its twin: repro/kernels/wkv has no backward,
+// and the JAX package's training differentiates its plain scan.  The port's
+// training runs B11 on the card, so its gradient is a kernel too
+// (kernels/wkv/ops.py wkv_train, a torch.autograd.Function).  With G_t =
+// dL/dS_t (G_{S-1} = 0: the final state is not an output of the training
+// call), the recurrence's reverse form:
+//   a_t = v_t . g_t,  b_t = sum_i r_t[i] u[i] k_t[i]      (g_t = dO_t)
+//   dr_t[i] = sum_j S_{t-1}[i][j] g_t[j] + u[i] k_t[i] a_t
+//   dk_t[i] = sum_j G_t[i][j] v_t[j]     + r_t[i] u[i] a_t
+//   dv_t[j] = sum_i G_t[i][j] k_t[i]     + g_t[j] b_t
+//   dw_t[i] = sum_j G_t[i][j] S_{t-1}[i][j]
+//   du[i]   = sum_b sum_t r_t[i] k_t[i] a_t
+//   G_{t-1} = diag(w_t) G_t + r_t g_t^T.
+// S_{t-1} is recomputed forward, never recovered by dividing by w (w =
+// exp(-exp(.)) reaches 0 in fp32): a first pass over the sequence writes the
+// state at the start of every kCk-token chunk to a scratch; the reverse pass
+// then, chunk by chunk from the last, recomputes the chunk's kCk states
+// from its start into shared memory and walks its tokens backward.
+//
+// Bound on an H100: the reverse form's five dh x dh updates and reductions,
+// 10 B H S dh^2 FLOPs, against fp32's 67 TFLOP/s, and 36 B H S dh bytes (r,
+// k, v, w, dO read, dr, dk, dv, dw written); the states' recomputation (2 B
+// H S dh^2 more) and the scratch (4 B H ceil(S / kCk) dh^2 bytes each way)
+// come on top.  The design is the simple one: a block per (batch, head),
+// sequential in t.  Thread (i, quarter) owns row i of S and G, columns
+// [quarter dh / 4, +dh / 4): S and G update elementwise, the row sums (dr,
+// dk, dw) reduce over the row's 4 lanes by a fixed butterfly, and the column
+// sums (dv) over the warp's 8 rows by a transposed butterfly (each step
+// halves the values a lane holds), then over the warps in index order.
+// du's per-(batch, head) partials are summed over the batch in order by a
+// second launch.  No float atomics: the same bits on every run.
+namespace wkvb {
+
+constexpr int kCk = 8;      // tokens per chunk of the reverse pass
+
+template <int DH>
+struct Cfg {
+  static constexpr int threads = 4 * DH;
+  static constexpr int warps = threads / 32;
+  static constexpr int E = DH / 4;                    // columns a thread owns
+  static constexpr int states = kCk * E * threads;    // thread-private S_{t-1}
+  static constexpr int inputs = 5 * kCk * DH;         // r, k, v, w, g of a chunk
+  static constexpr int floats = states + inputs + 2 * kCk + kCk * warps * DH + DH;
+  static constexpr size_t bytes = sizeof(float) * floats;
+};
+
+// tokens [t0, t0 + n) of (b, s, h, DH) tensor x at (b, h) into dst [kCk][DH]
+template <int DH>
+__device__ __forceinline__ void load_chunk(float* dst, const float* __restrict__ x, int b, int t0,
+                                           int n, int s, int h, int hh) {
+  for (int e = threadIdx.x; e < n * DH; e += Cfg<DH>::threads) {
+    const int t = e / DH, d = e % DH;
+    dst[e] = x[(((size_t)b * s + t0 + t) * h + hh) * DH + d];
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(Cfg<DH>::threads, 1)
+wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
+               const float* __restrict__ v, const float* __restrict__ w,
+               const float* __restrict__ u, const float* __restrict__ dout,
+               float* __restrict__ ckpt, float* __restrict__ dr, float* __restrict__ dk,
+               float* __restrict__ dv, float* __restrict__ dw, float* __restrict__ du_part,
+               int s, int h) {
+  using C = Cfg<DH>;
+  constexpr int NT = C::threads, E = C::E;
+  extern __shared__ float smem[];
+  float* sSt = smem;                   // [kCk][E][NT]
+  float* sr = sSt + C::states;         // [kCk][DH] each
+  float* sk = sr + kCk * DH;
+  float* sv = sk + kCk * DH;
+  float* sw = sv + kCk * DH;
+  float* sg = sw + kCk * DH;
+  float* sA = sg + kCk * DH;           // a_t = v_t . g_t
+  float* sB = sA + kCk;                // b_t = sum_i r_t u k_t
+  float* sDv = sB + kCk;               // [kCk][warps][DH] per-warp column sums
+  float* su = sDv + kCk * C::warps * DH;
+
+  const int hh = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i = tid >> 2, j0 = (tid & 3) * E;
+  const int nck = (s + kCk - 1) / kCk;
+  float* my_ckpt = ckpt + ((size_t)b * h + hh) * nck * DH * DH;
+  for (int d = tid; d < DH; d += NT) su[d] = u[hh * DH + d];
+
+  // pass 1: the state at the start of every chunk
+  float st[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) st[e] = 0.f;
+  for (int c = 0; c < nck; ++c) {
+    const int t0 = c * kCk, n = min(kCk, s - t0);
+    __syncthreads();
+    load_chunk<DH>(sk, k, b, t0, n, s, h, hh);
+    load_chunk<DH>(sv, v, b, t0, n, s, h, hh);
+    load_chunk<DH>(sw, w, b, t0, n, s, h, hh);
+    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < E; ++e) my_ckpt[(size_t)c * DH * DH + e * NT + tid] = st[e];
+    for (int t = 0; t < n; ++t) {
+      const float wi = sw[t * DH + i], ki = sk[t * DH + i];
+#pragma unroll
+      for (int e = 0; e < E; ++e) st[e] = fmaf(wi, st[e], ki * sv[t * DH + j0 + e]);
+    }
+  }
+
+  // pass 2: backward, chunk by chunk from the last
+  float gs[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) gs[e] = 0.f;
+  float du_acc = 0.f;
+  for (int c = nck - 1; c >= 0; --c) {
+    const int t0 = c * kCk, n = min(kCk, s - t0);
+    __syncthreads();                   // the previous chunk's shared data is consumed
+    load_chunk<DH>(sr, r, b, t0, n, s, h, hh);
+    load_chunk<DH>(sk, k, b, t0, n, s, h, hh);
+    load_chunk<DH>(sv, v, b, t0, n, s, h, hh);
+    load_chunk<DH>(sw, w, b, t0, n, s, h, hh);
+    load_chunk<DH>(sg, dout, b, t0, n, s, h, hh);
+    __syncthreads();
+    for (int t = warp; t < n; t += C::warps) {   // the bonus term's two dots
+      float a = 0.f, bb = 0.f;
+      for (int d = lane; d < DH; d += 32) {
+        a = fmaf(sv[t * DH + d], sg[t * DH + d], a);
+        bb = fmaf(sr[t * DH + d] * su[d], sk[t * DH + d], bb);
+      }
+      a = repro::warp_sum(a);
+      bb = repro::warp_sum(bb);
+      if (lane == 0) {
+        sA[t] = a;
+        sB[t] = bb;
+      }
+    }
+    // this thread's S_{t-1} for the chunk's tokens, from the chunk's start
+#pragma unroll
+    for (int e = 0; e < E; ++e) st[e] = my_ckpt[(size_t)c * DH * DH + e * NT + tid];
+    for (int t = 0; t < n; ++t) {
+      const float wi = sw[t * DH + i], ki = sk[t * DH + i];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        sSt[(t * E + e) * NT + tid] = st[e];
+        st[e] = fmaf(wi, st[e], ki * sv[t * DH + j0 + e]);
+      }
+    }
+    __syncthreads();                   // sA, sB
+
+    for (int t = n - 1; t >= 0; --t) {
+      const float ri = sr[t * DH + i], ki = sk[t * DH + i], wi = sw[t * DH + i];
+      float sp[E], vv[E], gg[E], cs[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        sp[e] = sSt[(t * E + e) * NT + tid];
+        vv[e] = sv[t * DH + j0 + e];
+        gg[e] = sg[t * DH + j0 + e];
+      }
+      float rw = 0.f, rk = 0.f, rr = 0.f;   // row partials of dw, dk, dr
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        rw = fmaf(gs[e], sp[e], rw);
+        rk = fmaf(gs[e], vv[e], rk);
+        rr = fmaf(sp[e], gg[e], rr);
+        cs[e] = gs[e] * ki;                 // column partials of dv
+      }
+#pragma unroll
+      for (int o = 1; o <= 2; o <<= 1) {
+        rw += __shfl_xor_sync(0xffffffffu, rw, o);
+        rk += __shfl_xor_sync(0xffffffffu, rk, o);
+        rr += __shfl_xor_sync(0xffffffffu, rr, o);
+      }
+      // the warp's 8 rows: a transposed butterfly over lane bits 4, 3, 2;
+      // after it this lane holds columns j0 + cb + [0, E / 8)
+      int cb = 0;
+#pragma unroll
+      for (int step = 0; step < 3; ++step) {
+        const int half = E >> (step + 1), mask = 16 >> step;
+        const bool hi = lane & mask;
+#pragma unroll
+        for (int e = 0; e < half; ++e) {
+          const float send = hi ? cs[e] : cs[e + half];
+          const float keep = hi ? cs[e + half] : cs[e];
+          cs[e] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+        }
+        if (hi) cb += half;
+      }
+#pragma unroll
+      for (int e = 0; e < E / 8; ++e) sDv[(t * C::warps + warp) * DH + j0 + cb + e] = cs[e];
+      const size_t row = (((size_t)b * s + t0 + t) * h + hh) * DH + i;
+      const float at = sA[t];
+      switch (tid & 3) {
+        case 0:
+          dr[row] = rr + su[i] * ki * at;
+          du_acc = fmaf(ri * ki, at, du_acc);
+          break;
+        case 1: dk[row] = rk + ri * su[i] * at; break;
+        case 2: dw[row] = rw; break;
+        default: break;
+      }
+#pragma unroll
+      for (int e = 0; e < E; ++e) gs[e] = fmaf(wi, gs[e], ri * gg[e]);
+    }
+    __syncthreads();                   // sDv
+    for (int e = tid; e < n * DH; e += NT) {
+      const int t = e / DH, j = e % DH;
+      float acc = 0.f;
+      for (int q = 0; q < C::warps; ++q) acc += sDv[(t * C::warps + q) * DH + j];
+      dv[(((size_t)b * s + t0 + t) * h + hh) * DH + j] = acc + sg[e] * sB[t];
+    }
+  }
+  if ((tid & 3) == 0) du_part[((size_t)b * h + hh) * DH + i] = du_acc;
+}
+
+// du[hh][i] = sum over b of du_part[b][hh][i], b in order
+__global__ void wkv_du_kernel(const float* __restrict__ du_part, float* __restrict__ du, int b,
+                              int hdh) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= hdh) return;
+  float acc = 0.f;
+  for (int q = 0; q < b; ++q) acc += du_part[(size_t)q * hdh + e];
+  du[e] = acc;
+}
+
+template <int DH>
+int launch(const float* r, const float* k, const float* v, const float* w, const float* u,
+           const float* dout, float* ckpt, float* dr, float* dk, float* dv, float* dw,
+           float* du_part, float* du, int b, int s, int h, cudaStream_t st) {
+  using C = Cfg<DH>;
+  auto* kern = wkv_bwd_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::bytes);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(h, b), C::threads, C::bytes, st>>>(r, k, v, w, u, dout, ckpt, dr, dk, dv, dw,
+                                                 du_part, s, h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int hdh = h * DH;
+  wkv_du_kernel<<<(hdh + 127) / 128, 128, 0, st>>>(du_part, du, b, hdh);
+  return cudaGetLastError();
+}
+
+}  // namespace wkvb
+
+// The backward of repro_wkv: r, k, v, w, dout, dr, dk, dv, dw (b, s, h, dh);
+// u, du (h, dh); ckpt a (b, h, ceil(s / 8), dh, dh) scratch and du_part a
+// (b, h, dh) scratch; all fp32 and contiguous, dh in {32, 64}.  Two launches
+// (the reverse pass, the sum of du over b), each checked.
+extern "C" int repro_wkv_bwd(const float* r, const float* k, const float* v, const float* w,
+                             const float* u, const float* dout, float* ckpt, float* dr,
+                             float* dk, float* dv, float* dw, float* du_part, float* du, int b,
+                             int s, int h, int dh, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 32: return wkvb::launch<32>(r, k, v, w, u, dout, ckpt, dr, dk, dv, dw, du_part, du,
+                                     b, s, h, st);
+    case 64: return wkvb::launch<64>(r, k, v, w, u, dout, ckpt, dr, dk, dv, dw, du_part, du,
+                                     b, s, h, st);
+    default: return cudaErrorInvalidValue;
+  }
+}

@@ -27,6 +27,8 @@ compile and capture auditor (analysis.recompile: "build:<source>",
 where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels (`reset_launches()` before, read after).
 "flash_attention_tc" counts the tensor-core launches among "flash_attention"'s;
+"flash_attention_bwd" and "wkv_bwd" the calls of the backward kernels
+(each one C entry: three launches for attention, two for WKV);
 "probe_sweep_batched_per_trial" and "commit_sweep_batched_per_trial" the
 batched launches with one agent per trial among theirs.
 """
@@ -65,7 +67,7 @@ LAUNCHES: Dict[str, int] = {"gram": 0, "row_gram": 0, "probe_sweep": 0,
                             "commit_sweep_batched_per_trial": 0,
                             "flash_attention": 0,
                             "flash_attention_tc": 0, "flash_decode": 0,
-                            "wkv": 0}
+                            "wkv": 0, "flash_attention_bwd": 0, "wkv_bwd": 0}
 
 
 class KernelBuildError(RuntimeError):

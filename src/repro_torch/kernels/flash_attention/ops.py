@@ -20,20 +20,32 @@ Two kernels serve the call, chosen by `ROUTES`, an explicit table of
          bf16 at dh 80 (the smoke config's heads, which do not fill the tc
          kernel's 128-byte rows): fp32 FMA on the CUDA cores.
 
-`_build.LAUNCHES["flash_attention"]` counts every launch, and
+`_build.LAUNCHES["flash_attention"]` counts every forward launch, and
 `_build.LAUNCHES["flash_attention_tc"]` the tensor-core ones among them.
 
-A CPU tensor runs the plain version (ref.py); a CUDA tensor launches a
+Training (`flash_attention_train`, a torch.autograd.Function): the forward
+is the same launch with an LSE buffer, into which the kernel also writes
+each row's log-sum-exp (B, Hq, Sq) fp32; the output is the same bits as
+without it.  The backward, `flash_attention_bwd`, is one C entry of three
+launches (D = rowsum(dO o O), then dK/dV, then dQ; csrc/flash_attention.cu
+namespace bwd) on the CUDA cores in fp32, for every (dtype, dh) of ROUTES;
+`_build.LAUNCHES["flash_attention_bwd"]` counts its calls.
+
+A CPU tensor runs the plain versions (ref.py); a CUDA tensor launches a
 kernel or raises.  There is no fallback between them.
 """
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attention_lse_ref,
+                                                     attention_ref)
 
-__all__ = ["flash_attention", "HEAD_DIMS", "ROUTES", "route"]
+__all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_train", "HEAD_DIMS",
+           "ROUTES", "route"]
 
 HEAD_DIMS = (64, 80, 128)    # the dh values of the configs' attention heads
 
@@ -74,30 +86,106 @@ def check_lm_operands(op: str, tensors) -> bool:
     return dtypes == {torch.bfloat16}
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
-    """GQA attention: q (B,Sq,Hq,dh), k,v (B,Skv,Hkv,dh), Hq % Hkv == 0 ->
-    (B,Sq,Hq,dh) in q's dtype.  `window` > 0 limits lookback."""
+def _check_shapes(op: str, q, k, v) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: expected q (B,Sq,Hq,dh) and k, v "
+        raise ValueError(f"{op}: expected q (B,Sq,Hq,dh) and k, v "
                          f"(B,Skv,Hkv,dh), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, hq, dh = q.shape
     _, skv, hkv, _ = k.shape
     if k.shape[0] != b or k.shape[3] != dh or hq % hkv:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not fit "
+        raise ValueError(f"{op}: q {tuple(q.shape)} does not fit "
                          f"k, v {tuple(k.shape)}")
-    if _build.on_cpu(q, "flash_attention"):
-        return attention_ref(q, k, v, causal=causal, window=window)
+    if min(b, sq, skv) == 0 and q.device.type == "cuda":
+        raise ValueError(f"{op}: empty operand {tuple(q.shape)}, {tuple(k.shape)}")
+
+
+def _forward(q, k, v, causal: bool, window: int, lse: Optional[torch.Tensor]):
+    """The forward launch on CUDA tensors; `lse` None (serving) or a
+    (B, Hq, Sq) fp32 buffer the kernel fills (training)."""
+    b, sq, hq, dh = q.shape
+    _, skv, hkv, _ = k.shape
     bf16 = check_lm_operands("flash_attention", (("q", q), ("k", k), ("v", v)))
     kernel = route(q.dtype, dh)
-    if min(b, sq, skv) == 0:
-        raise ValueError(f"flash_attention: empty operand {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}")
     out = torch.empty_like(q)
     dtype_flag = () if kernel == "tc" else (int(bf16),)
-    _build.launch("flash_attention", _SYMBOLS[kernel], q, k, v, out, *dtype_flag,
+    _build.launch("flash_attention", _SYMBOLS[kernel], q, k, v, out, lse, *dtype_flag,
                   b, sq, skv, hq, hkv, dh, int(causal), int(window), dh ** -0.5)
     _build.LAUNCHES["flash_attention"] += 1
     if kernel == "tc":
         _build.LAUNCHES["flash_attention_tc"] += 1
     return out
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """GQA attention: q (B,Sq,Hq,dh), k,v (B,Skv,Hkv,dh), Hq % Hkv == 0 ->
+    (B,Sq,Hq,dh) in q's dtype.  `window` > 0 limits lookback."""
+    _check_shapes("flash_attention", q, k, v)
+    if _build.on_cpu(q, "flash_attention"):
+        return attention_ref(q, k, v, causal=causal, window=window)
+    return _forward(q, k, v, causal, window, None)
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True,
+                        window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(flash_attention's output, the same bits, and each row's log-sum-exp
+    (B, Hq, Sq) fp32): the training forward."""
+    _check_shapes("flash_attention", q, k, v)
+    if _build.on_cpu(q, "flash_attention"):
+        return attention_lse_ref(q, k, v, causal=causal, window=window)
+    b, sq, hq, _ = q.shape
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    return _forward(q, k, v, causal, window, lse), lse
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        window: int = 0) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of flash_attention at (q, k, v) against the output's
+    gradient `do`, from the forward's output `o` and `lse`; in the inputs'
+    dtype, accumulated in fp32."""
+    _check_shapes("flash_attention_bwd", q, k, v)
+    b, sq, hq, dh = q.shape
+    _, skv, hkv, _ = k.shape
+    if o.shape != q.shape or do.shape != q.shape or tuple(lse.shape) != (b, hq, sq):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do {tuple(do.shape)} "
+                         f"and lse {tuple(lse.shape)} do not fit q {tuple(q.shape)}")
+    if _build.on_cpu(q, "flash_attention_bwd"):
+        return attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
+    bf16 = check_lm_operands("flash_attention_bwd", (("q", q), ("k", k), ("v", v),
+                                                     ("o", o), ("do", do)))
+    route(q.dtype, dh)                       # the (dtype, dh) pairs of the forward
+    _build.check_cuda_tensor("flash_attention_bwd: lse", lse, (b, hq, sq))
+    if lse.dtype != torch.float32:
+        raise TypeError(f"flash_attention_bwd: lse must be fp32, got {lse.dtype}")
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _build.launch("flash_attention", "repro_flash_attention_bwd", q, k, v, o, do, lse, delta,
+                  dq, dk, dv, int(bf16), b, sq, skv, hq, hkv, dh, int(causal), int(window),
+                  dh ** -0.5)
+    _build.LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """flash_attention with its backward kernel: the forward saves q, k, v,
+    the output and the rows' log-sum-exp."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do.contiguous(), lse,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_train(q, k, v, *, causal: bool = True, window: int = 0) -> torch.Tensor:
+    """flash_attention, differentiable through the backward kernel (its
+    plain version on CPU tensors)."""
+    return _FlashAttention.apply(q, k, v, causal, window)

@@ -14,19 +14,30 @@ algorithm out in PyTorch).  The JAX package's chunked form divides by the
 cumulative decay and overflows fp32 at strong decay; the port keeps it only
 as a twin (ref.wkv_chunked_ref), never as a route, also for configs with
 rwkv_chunk > 0.  There is no fallback between the two devices.
+
+Training (`wkv_train`, a torch.autograd.Function): the forward is the same
+launch; the backward, `wkv_bwd`, is one C entry of two launches
+(csrc/wkv.cu namespace wkvb: a block per (batch, head) walks the sequence
+forward to save the state at every BWD_CHUNK tokens, then backward through
+the recurrence's reverse form; then du's per-batch partials summed over the
+batch in order).  `_build.LAUNCHES["wkv_bwd"]` counts its calls.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.wkv.ref import wkv_ref
+from repro_torch.kernels.wkv.ref import wkv_bwd_ref, wkv_ref
 
-__all__ = ["wkv_chunked", "wkv_geometry", "wkv_smem_bytes", "CHUNK", "HEAD_DIMS"]
+__all__ = ["wkv_chunked", "wkv_bwd", "wkv_train", "wkv_geometry", "wkv_smem_bytes",
+           "CHUNK", "BWD_CHUNK", "HEAD_DIMS"]
 
 HEAD_DIMS = (32, 64)    # the rwkv configs' head dims
 CHUNK = 16              # tokens per chunk of the kernel (its MMA row tile)
 RAW_STAGES = 3          # chunks of r, k, v, w in shared memory (1 loading ahead)
+BWD_CHUNK = 8           # tokens between the backward's saved states
 _PAD, _SCORE_ROW = 8, 20
 
 
@@ -51,20 +62,29 @@ def wkv_geometry(b: int, s: int, h: int, dh: int) -> dict:
             "smem_bytes": wkv_smem_bytes(dh)}
 
 
-def wkv_chunked(r, k, v, w, u):
-    """(out (B,S,H,dh) fp32, final state (B,H,dh,dh) fp32)."""
+def _check(op: str, r, k, v, w, u) -> Tuple[int, int, int, int]:
     if r.dim() != 4 or not (r.shape == k.shape == v.shape == w.shape):
-        raise ValueError(f"wkv: expected r, k, v, w of one shape (B,S,H,dh), got "
+        raise ValueError(f"{op}: expected r, k, v, w of one shape (B,S,H,dh), got "
                          f"{[tuple(t.shape) for t in (r, k, v, w)]}")
     b, s, h, dh = r.shape
     if tuple(u.shape) != (h, dh):
-        raise ValueError(f"wkv: expected u of shape {(h, dh)}, got {tuple(u.shape)}")
+        raise ValueError(f"{op}: expected u of shape {(h, dh)}, got {tuple(u.shape)}")
+    return b, s, h, dh
+
+
+def _check_cuda(op: str, named) -> None:
+    for name, t in named:
+        _build.check_cuda_tensor(f"{op}: {name}", t)
+        if t.dtype != torch.float32:
+            raise TypeError(f"{op}: {name} must be fp32, got {t.dtype}")
+
+
+def wkv_chunked(r, k, v, w, u):
+    """(out (B,S,H,dh) fp32, final state (B,H,dh,dh) fp32)."""
+    b, s, h, dh = _check("wkv", r, k, v, w, u)
     if _build.on_cpu(r, "wkv"):
         return wkv_ref(r, k, v, w, u)
-    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
-        _build.check_cuda_tensor(f"wkv: {name}", t)
-        if t.dtype != torch.float32:
-            raise TypeError(f"wkv: {name} must be fp32, got {t.dtype}")
+    _check_cuda("wkv", (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)))
     if dh not in HEAD_DIMS:
         raise ValueError(f"wkv: head dim {dh} not in {HEAD_DIMS}")
     if b * s * h == 0:
@@ -75,3 +95,50 @@ def wkv_chunked(r, k, v, w, u):
     _build.launch("wkv", "repro_wkv", r, k, v, w, u, out, state, b, s, h, dh, aligned)
     _build.LAUNCHES["wkv"] += 1
     return out, state
+
+
+def wkv_bwd(r, k, v, w, u, dout) -> Tuple[torch.Tensor, ...]:
+    """(dr, dk, dv, dw (B,S,H,dh), du (H,dh)) fp32: the gradient of
+    wkv_chunked's output at (r, k, v, w, u) against its gradient `dout`."""
+    b, s, h, dh = _check("wkv_bwd", r, k, v, w, u)
+    if dout.shape != r.shape:
+        raise ValueError(f"wkv_bwd: dout {tuple(dout.shape)} does not fit r {tuple(r.shape)}")
+    if _build.on_cpu(r, "wkv_bwd"):
+        return wkv_bwd_ref(r, k, v, w, u, dout)
+    _check_cuda("wkv_bwd", (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+                            ("dout", dout)))
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"wkv_bwd: head dim {dh} not in {HEAD_DIMS}")
+    if b * s * h == 0:
+        raise ValueError(f"wkv_bwd: empty operand {tuple(r.shape)}")
+    f32 = dict(dtype=torch.float32, device=r.device)
+    ckpt = torch.empty((b, h, -(-s // BWD_CHUNK), dh, dh), **f32)
+    du_part = torch.empty((b, h, dh), **f32)
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.empty((h, dh), **f32)
+    _build.launch("wkv", "repro_wkv_bwd", r, k, v, w, u, dout, ckpt, dr, dk, dv, dw, du_part,
+                  du, b, s, h, dh)
+    _build.LAUNCHES["wkv_bwd"] += 1
+    return dr, dk, dv, dw, du
+
+
+class _Wkv(torch.autograd.Function):
+    """wkv_chunked with its backward kernel; the final state is an output
+    that carries no gradient (the prefill's cache)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u):
+        out, state = wkv_chunked(r, k, v, w, u)
+        ctx.save_for_backward(r, k, v, w, u)
+        ctx.mark_non_differentiable(state)
+        return out, state
+
+    @staticmethod
+    def backward(ctx, dout, _dstate):
+        return wkv_bwd(*ctx.saved_tensors, dout.contiguous())
+
+
+def wkv_train(r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wkv_chunked's (out, final state), the output differentiable through
+    the backward kernel (its plain version on CPU tensors)."""
+    return _Wkv.apply(r, k, v, w, u)

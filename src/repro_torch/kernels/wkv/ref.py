@@ -13,6 +13,11 @@ within-chunk cumulative decay, whose exp(-log P) overflows fp32 once a
 chunk's summed log-decay passes about -88.  The port routes neither chunked
 form; they hold the kernel's algorithm and the port's recurrence to the JAX
 package.
+
+`wkv_bwd_ref` is the closed-form gradient of the recurrence that the
+backward kernel computes (the JAX package has no backward kernel; its
+training differentiates the plain scan, and tests hold this against
+jax.grad of wkv_ref).
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["wkv_ref", "wkv_safe_chunked_ref", "wkv_chunked_ref"]
+__all__ = ["wkv_ref", "wkv_safe_chunked_ref", "wkv_chunked_ref", "wkv_bwd_ref"]
 
 
 def wkv_ref(r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -127,3 +132,36 @@ def wkv_chunked_ref(r, k, v, w, u, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
                  + torch.einsum("bshk,bshv->bhkv", k_end, vch))
         outs.append(out)
     return torch.cat(outs, dim=1), state
+
+
+def wkv_bwd_ref(r, k, v, w, u, dout) -> Tuple[torch.Tensor, ...]:
+    """The gradient of wkv_ref's output at (r, k, v, w, u) against its
+    gradient `dout` (B,S,H,dh), in closed form (not autograd): the
+    recurrence's reverse form, with G_t = dL/dS_t (G_{S-1} = 0), g_t = dout_t,
+    a_t = v_t . g_t and b_t = sum_i r_t[i] u[i] k_t[i],
+        dr_t = S_{t-1} g_t + u k_t a_t,    dk_t = G_t v_t + r_t u a_t,
+        dv_t = G_t^T k_t + g_t b_t,        dw_t = rowsum(G_t o S_{t-1}),
+        du   = sum_b sum_t r_t k_t a_t,    G_{t-1} = diag(w_t) G_t + r_t g_t^T,
+    S_{t-1} from a forward pass (never divided out of S_t) ->
+    (dr, dk, dv, dw (B,S,H,dh), du (H,dh)), fp32."""
+    b, s, h, dh = r.shape
+    prev = []                                   # S_{t-1} for every t
+    state = torch.zeros((b, h, dh, dh), dtype=r.dtype, device=r.device)
+    for t in range(s):
+        prev.append(state)
+        state = w[:, t][..., :, None] * state + k[:, t][..., :, None] * v[:, t][..., None, :]
+    grads = [torch.empty_like(r) for _ in range(4)]
+    dr, dk, dv, dw = grads
+    du = torch.zeros_like(u)
+    gstate = torch.zeros_like(state)
+    for t in range(s - 1, -1, -1):
+        rt, kt, vt, wt, gt = r[:, t], k[:, t], v[:, t], w[:, t], dout[:, t]
+        a = (vt * gt).sum(-1, keepdim=True)                          # (B,H,1)
+        bonus = (rt * u * kt).sum(-1, keepdim=True)
+        dr[:, t] = torch.einsum("bhij,bhj->bhi", prev[t], gt) + u * kt * a
+        dk[:, t] = torch.einsum("bhij,bhj->bhi", gstate, vt) + rt * u * a
+        dv[:, t] = torch.einsum("bhij,bhi->bhj", gstate, kt) + gt * bonus
+        dw[:, t] = (gstate * prev[t]).sum(-1)
+        du = du + (rt * kt * a).sum(0)
+        gstate = wt[..., :, None] * gstate + rt[..., :, None] * gt[..., None, :]
+    return dr, dk, dv, dw, du

@@ -10,9 +10,11 @@ Conventions, as in the JAX package:
 
 Attention on a CUDA tensor runs the hand-written kernels: one query token
 (decode) goes to flash_decode (B10), a query block that starts at position
-0 (prefill) to flash_attention (B9).  A longer block later in the sequence
-(chunked prefill) has no kernel yet and raises NotPortedError (A16).  On a
-CPU tensor it runs the plain functions here.
+0 (prefill) to flash_attention (B9), and, when grad is enabled and an
+operand requires it (training), to flash_attention_train (B9 with its
+backward kernel).  A longer block later in the sequence (chunked prefill)
+has no kernel yet and raises NotPortedError (A16).  On a CPU tensor it runs
+the plain functions here, which autograd differentiates.
 The JAX package's sharding constraints are gone (one device; sharding is
 ROADMAP A11).  `mrope_angles`, `gelu_mlp` and `sinusoidal_positions` wait for
 the VLM and enc-dec slice (A16).
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.icoa import NotPortedError
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention, flash_attention_train
 from repro_torch.kernels.flash_decode.ops import flash_decode
 
 # ---------------------------------------------------------------- init utils
@@ -84,6 +86,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 # ---------------------------------------------------------------- attention
 
 
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Grad is enabled and one of `tensors` requires it: a training call,
+    which takes a kernel's autograd.Function on the card (serving, whose
+    parameters require no grad, keeps the forward-only launch)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool, window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """Grouped-query attention.
@@ -102,6 +111,8 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise NotPortedError(
                 f"attention of a {q.shape[1]}-token query block at position "
                 f"{q_offset} on the card (chunked prefill) waits for ROADMAP A16")
+        if needs_grad(q, k, v):
+            return flash_attention_train(q, k, v, causal=causal, window=window)
         return flash_attention(q, k, v, causal=causal, window=window)
     b, sq, hq, dh = q.shape
     _, skv, hkv, _ = k.shape

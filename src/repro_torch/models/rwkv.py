@@ -5,9 +5,11 @@ State per layer is O(1) in sequence length: head-wise (dh, dh) outer-product
 matrices.  The full-sequence time-mix runs its WKV through
 kernels.wkv.ops.wkv_chunked: on a CUDA tensor the hand-written kernel (B11),
 which also returns the final state for the decode cache; on a CPU tensor the
-plain recurrence.  Configs with rwkv_chunk > 0, for which the JAX package
-takes the chunked form of the same function, run the exact recurrence
-too.  Decode is the single-step state update in plain PyTorch, as in
+plain recurrence, which autograd differentiates.  A training call on the
+card (grad enabled, an operand requiring it) goes through wkv_train, B11
+with its backward kernel, and returns the same state, which carries no
+gradient.  Configs with rwkv_chunk > 0, for which the JAX package takes
+the chunked form of the same function, run the exact recurrence too.  Decode is the single-step state update in plain PyTorch, as in
 the JAX package, which has no kernel for it.
 
 The simplifications against the released checkpoint are the JAX package's:
@@ -20,7 +22,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.wkv.ops import wkv_chunked
+from repro_torch.kernels.wkv.ops import wkv_chunked, wkv_train
 from repro_torch.models import layers as L
 
 __all__ = [
@@ -86,9 +88,9 @@ def _group_norm(p, x: torch.Tensor, h: int, dh: int, eps: float) -> torch.Tensor
 
 def rwkv_time_apply(p: dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence time-mix. x: (B, S, D) -> ((B, S, D), the final WKV
-    state (B, H, dh, dh) fp32).  The JAX twin returns the output only and
-    its prefill replays the recurrence for the state
-    (transformer._rwkv_final_state)."""
+    state (B, H, dh, dh) fp32).
+    The JAX twin returns the output only and its prefill replays the
+    recurrence for the state (transformer._rwkv_final_state)."""
     # the exact recurrence on both devices, also where cfg.rwkv_chunk > 0
     # makes the JAX package take the chunked form (the same function)
     b, s, d = x.shape
@@ -102,7 +104,8 @@ def rwkv_time_apply(p: dict, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.
     w = _decay(p, xw).reshape(b, s, h, dh)                          # (B,S,H,dh)
     u = p["u"].reshape(h, dh)
 
-    out, state = wkv_chunked(r, k, v, w, u)
+    train = r.is_cuda and L.needs_grad(r, k, v, w, u)
+    out, state = (wkv_train if train else wkv_chunked)(r, k, v, w, u)
     out = out.reshape(b, s, d)
     out = _group_norm(p, out.to(x.dtype), h, dh, cfg.norm_eps) * g
     return out @ p["wo"], state

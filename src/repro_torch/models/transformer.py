@@ -11,20 +11,30 @@ in the compute dtype, RWKV layers wkv (B, H, dh, dh), shift_t and shift_c
 place (the JAX step returns updated copies), which keeps a long cache from
 being copied once per token.
 
-`forward` and the remat machinery (training) wait for the training slice;
-the moe, hybrid, enc-dec and vlm families and the ring-buffer window cache
-for later slices of A16 (models.model.build_model refuses them).
+`forward` is the training pass.  The JAX package's two-level remat (the
+layer stack reshaped to (n_out, scan_block), the inner scan under
+jax.checkpoint) is torch.utils.checkpoint (non-reentrant) over each group
+of scan_block pattern repetitions: the backward keeps the residual stream
+at each group's input and recomputes inside the group, so with remat on
+every kernel of a group's forward runs twice a step.  The JAX package's
+sharding constraints are the identity here (one device; sharding waits for
+ROADMAP A11).
+
+The moe, hybrid, enc-dec and vlm families and the ring-buffer window cache
+wait for later slices of A16 (models.model.build_model refuses them).
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as R
 
-__all__ = ["pattern_period", "init", "prefill", "decode_step", "cache_shapes"]
+__all__ = ["pattern_period", "init", "forward", "prefill", "decode_step", "cache_shapes"]
 
 
 # ----------------------------------------------------------------- pattern
@@ -74,6 +84,75 @@ def init(gen: torch.Generator, cfg) -> dict:
         "final_norm": L.rmsnorm_init(cfg.d_model, cfg.pdtype(), gen.device),
         "layers": [_layer_init(gen, cfg, kind) for kind in cfg.layer_kinds()],
     }
+
+
+# ----------------------------------------------------------------- forward
+
+
+def _attn_train(pp, x, cfg, rope, window: int):
+    q, k, v = L.qkv(pp, x, cfg)
+    if rope is not None:
+        cos, sin = rope
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+    out = _attention(q, k, v, cfg, causal=True, window=window)
+    b, s, _, _ = out.shape
+    return out.reshape(b, s, -1) @ pp["wo"]
+
+
+def _apply_layer_train(pp, x, cfg, kind: str, rope, window: int):
+    """One layer of the training forward (twin of the JAX package's, whose
+    aux loss is 0 for these families)."""
+    h = L.rmsnorm(pp["norm1"], x, cfg.norm_eps)
+    if kind == "attn":
+        mix = _attn_train(pp["mixer"], h, cfg, rope, window)
+    else:
+        mix, _ = R.rwkv_time_apply(pp["mixer"], h, cfg)
+    x = x + mix
+    h = L.rmsnorm(pp["norm2"], x, cfg.norm_eps)
+    if kind == "rwkv":
+        ffn = R.rwkv_chan_apply(pp["ffn"], h, cfg)
+    else:
+        ffn = L.mlp(pp["ffn"], h)
+    return x + ffn
+
+
+def _run_group(x, layers, kinds, cfg, rope, window: int):
+    for pp, kind in zip(layers, kinds):
+        x = _apply_layer_train(pp, x, cfg, kind, rope, window)
+    return x
+
+
+def _run_layers_train(params, x, cfg, rope) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer stack in groups of scan_block pattern repetitions (the JAX
+    package's inner scan length: the largest divisor of the repetitions up
+    to scan_block), each group under a checkpoint when cfg.remat."""
+    period = pattern_period(cfg)
+    n_rep = cfg.n_layers // period
+    n_in = min(cfg.scan_block, n_rep)
+    while n_rep % n_in:
+        n_in -= 1
+    group = n_in * period
+    window = _effective_window(cfg)
+    kinds = cfg.layer_kinds()
+    for g0 in range(0, cfg.n_layers, group):
+        run = functools.partial(_run_group, layers=params["layers"][g0:g0 + group],
+                                kinds=kinds[g0:g0 + group], cfg=cfg, rope=rope, window=window)
+        x = checkpoint(run, x, use_reentrant=False) if cfg.remat else run(x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward(params, batch, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence causal forward. Returns (logits (B, S, V), aux)."""
+    tokens = batch["tokens"]
+    x = L.embed(params["embed"], tokens, cfg)
+    rope = None
+    if cfg.family != "ssm" and cfg.rope_theta != 0.0:
+        rope = L.rope_angles(torch.arange(x.shape[1], dtype=torch.int64, device=tokens.device),
+                             cfg.resolved_head_dim, cfg.rope_theta)
+    x, aux = _run_layers_train(params, x, cfg, rope)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return L.unembed(params["embed"], x, cfg), aux
 
 
 # ------------------------------------------------------------------- cache

@@ -583,8 +583,9 @@ def test_port_imports_no_jax_and_no_repro():
                     bad.append(f"{path.relative_to(REPO)}:{node.lineno} {name}")
     assert len(_port_files()) > 20
     names = {p.relative_to(REPO).as_posix() for p in _port_files()}
-    for pkg in ("obs", "stream"):           # the observability and stream slices
+    for pkg in ("obs", "stream", "optim", "train"):   # the later slices' packages
         assert f"src/repro_torch/{pkg}/__init__.py" in names
+    assert "src/repro_torch/launch/train.py" in names
     assert bad == []
 
 
@@ -601,10 +602,13 @@ def test_port_runs_with_jax_unimportable():
         "s = api.stream_fit(api.StreamSpec(window=64, chunk=32, resweep_every=64,\n"
         "    total_instances=64), device='cpu')\n"
         "assert len(s.records) == 1\n"
+        "from repro_torch.launch import train\n"
+        "assert train.main(['--arch', 'rwkv6-1.6b', '--smoke', '--device', 'cpu',\n"
+        "                   '--steps', '1', '--seq', '8', '--batch', '1']) == 0\n"
         "assert 'jax' not in [m.split('.')[0] for m in sys.modules if sys.modules[m]]\n"
         "print('ok', len(r.history.eta))\n")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.strip() == "ok 3"
+    assert out.stdout.strip().splitlines()[-1] == "ok 3"

@@ -51,6 +51,13 @@ and records within 1e-8, in float32 on the kernels its accept flags and
 bytes and records within 4x the CPU's spread between its two engines;
 stream_fit under a caller's TF32 gives the bits it gives without; a stream
 checkpoint saved on the card restores on the CPU with the same leaves.
+LM training: B9's training forward gives the serving forward's bits and
+the rows' log-sum-exp; the B9 and B11 backward kernels give the same bits
+twice and hold to their plain closed forms on the same inputs (fp32 within
+1e-4 normwise; bf16 within twice the plain bf16 version's own distance to
+the fp32 gradient); the smoke configs' loss and every gradient on the card
+(fp32) within 1e-4 of the CPU's, one train_step likewise; init_state and
+launch.train run on the card by default.
 """
 import dataclasses
 import math
@@ -184,7 +191,8 @@ def test_kernels_match_plain(card, d, n):
         "gram_batched": 0, "row_gram_batched": 0, "probe_sweep_batched": 0,
         "commit_sweep_batched": 0, "probe_sweep_batched_per_trial": 0,
         "commit_sweep_batched_per_trial": 0, "flash_attention": 0,
-        "flash_attention_tc": 0, "flash_decode": 0, "wkv": 0}
+        "flash_attention_tc": 0, "flash_decode": 0, "wkv": 0, "flash_attention_bwd": 0,
+        "wkv_bwd": 0}
 
 
 COMMIT_CASES = [(100, 262144), (100, 20001), (129, 4096), (300, 20001), (5, 600)]
@@ -1101,8 +1109,8 @@ def test_lm_wrappers_refuse_bad_card_inputs(card):
         layers.attention_scores(q, k, v, causal=True, q_offset=8)
     with pytest.raises(ValueError, match="contiguous"):
         flash_decode(q[:, 0], k.transpose(1, 2).contiguous().transpose(1, 2), v, 3)
-    with pytest.raises(ValueError, match="group"):             # G = 16 > 8
-        qq = _lm(1, (1, 16, 64), dtype=torch.float32, device=card)[0]
+    with pytest.raises(ValueError, match="group"):             # G = 32 > 16
+        qq = _lm(1, (1, 32, 64), dtype=torch.float32, device=card)[0]
         flash_decode(qq, k[:, :, :1].contiguous(), v[:, :, :1].contiguous(), 3)
     r = _lm(2, (1, 16, 2, 64), dtype=torch.float32, device=card)[0]
     u = torch.zeros((2, 64), device=card)
@@ -1429,3 +1437,145 @@ def test_nan_codec_raises_located_error_on_card(card):
             api.batch_fit(spec, 3, device=card)
     finally:
         codecs.CODECS.pop("nan_on_card", None)
+
+
+# ------------------------------------------------------------ LM training
+
+
+B9_BWD_CASES = [
+    (2, 150, 150, 15, 5, 64, True, 0),      # G = 3, ragged tiles
+    (1, 77, 77, 3, 1, 80, True, 16),        # the smollm smoke heads, window
+    (2, 40, 93, 4, 2, 64, False, 0),        # non-causal, ragged Skv
+    (1, 96, 96, 8, 1, 128, True, 32),       # G = 8, window inside a tile
+    (1, 200, 200, 2, 2, 128, True, 0),      # G = 1
+    (1, 1, 5, 4, 4, 64, False, 0),          # one query row against 5 keys
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,dh,causal,window", B9_BWD_CASES)
+def test_flash_attention_train_forward_and_backward(card, dtype, b, sq, skv, hq, hkv, dh,
+                                                    causal, window):
+    """B9's training forward gives the serving forward's bits and the rows'
+    log-sum-exp (1e-5 of the plain version's, relative); its backward the
+    same bits twice and, against the plain closed form on the same inputs
+    (q, k, v, o, dO, L), fp32 gradients within 1e-4 normwise, bf16 ones
+    within twice the plain version's own bf16 rounding of the fp32 gradient."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention import ref as fa_ref
+
+    q, k, v, do = _lm(7, (b, sq, hq, dh), (b, skv, hkv, dh), (b, skv, hkv, dh),
+                      (b, sq, hq, dh), dtype=dtype, device=card)
+    out = fa_ops.flash_attention(q, k, v, causal=causal, window=window)
+    out2, lse = fa_ops.flash_attention_lse(q, k, v, causal=causal, window=window)
+    assert torch.equal(out, out2)
+    _, lse_ref = fa_ref.attention_lse_ref(q, k, v, causal=causal, window=window)
+    _close(lse, lse_ref, 1e-5, "lse")
+    _build.reset_launches()
+    got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    again = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
+    launched = _build.LAUNCHES["flash_attention_bwd"]
+    plain = fa_ref.attention_bwd_ref(q, k, v, out, do, lse, causal=causal, window=window)
+    want32 = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
+                                      do.float(), lse, causal=causal, window=window)
+    for name, g, g2, p, w in zip(("dq", "dk", "dv"), got, again, plain, want32):
+        assert g.dtype == dtype and torch.equal(g, g2), name
+        if dtype == torch.float32:
+            _close(g, p, 1e-4, name)
+        else:
+            # the plain bf16 version's own distance to the fp32 gradient
+            err, own = _normwise(g, w), _normwise(p, w)
+            assert err <= 2 * own, f"{name}: {err:.3e} > 2 x {own:.3e}"
+    assert launched == 2
+
+
+@pytest.mark.parametrize("b,s,h,dh,decay", [(2, 333, 4, 64, "moderate"), (1, 77, 8, 32, "strong"),
+                                             (1, 1, 2, 64, "weak"), (2, 9, 3, 32, "moderate"),
+                                             (1, 8, 2, 64, "strong"), (1, 200, 2, 64, "weak")])
+def test_wkv_backward_matches_plain(card, b, s, h, dh, decay):
+    """B11's backward against its plain closed form on the same inputs
+    (fp32, 1e-4 normwise), the same bits twice, and wkv_train's gradients
+    on the card against the CPU's (the plain version) at 1e-4; its final
+    state is wkv_chunked's and carries no gradient."""
+    from repro_torch.kernels.wkv.ops import wkv_bwd, wkv_chunked, wkv_train
+    from repro_torch.kernels.wkv.ref import wkv_bwd_ref
+
+    r, k, v, z, g = _lm(11, *[(b, s, h, dh)] * 5, dtype=torch.float32, device=card)
+    w = torch.exp(-torch.exp(z + {"strong": 1.0, "moderate": -1.0, "weak": -6.0}[decay]))
+    u = 0.1 * _lm(12, (h, dh), dtype=torch.float32, device=card)[0]
+    _build.reset_launches()
+    got, again = wkv_bwd(r, k, v, w, u, g), wkv_bwd(r, k, v, w, u, g)
+    launched = _build.LAUNCHES["wkv_bwd"]
+    for name, a, a2, p in zip(("dr", "dk", "dv", "dw", "du"), got, again,
+                              wkv_bwd_ref(r, k, v, w, u, g)):
+        assert torch.equal(a, a2), name
+        _close(a, p, 1e-4, name)
+    leaves = [t.clone().requires_grad_(True) for t in (r, k, v, w, u)]
+    out, state = wkv_train(*leaves)
+    assert not state.requires_grad
+    assert torch.equal(state, wkv_chunked(r, k, v, w, u)[1])
+    card_grads = torch.autograd.grad(out, leaves, g)
+    cpu = [t.cpu().requires_grad_(True) for t in (r, k, v, w, u)]
+    cpu_grads = torch.autograd.grad(wkv_train(*cpu)[0], cpu, g.cpu())
+    for name, a, c in zip("rkvwu", card_grads, cpu_grads):
+        _close(a.cpu(), c, 1e-4, f"d{name}")
+    assert launched == 2
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-1.6b"])
+def test_loss_and_gradients_on_card_match_cpu(card, arch):
+    """The smoke config's Model.loss and every parameter's gradient on the
+    card (B9 / B11 and their backward kernels) against the CPU from the same
+    parameters and batch: fp32, 1e-4 normwise, every card gradient finite
+    and not all zero; then one train_step each way (loss, grad norm, lr)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.clip import tree_leaves, tree_map
+    from repro_torch.train import TrainState, make_train_step
+
+    model = build_model(get_config(arch, smoke=True))
+    params = model.init(seed=0, device="cpu")
+    batch = next(lm_batches(model, seq=48, batch=2, device="cpu"))
+    grads, losses, launched = {}, {}, {}
+    for where, dev in (("card", card), ("cpu", torch.device("cpu"))):
+        tree = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+        leaves = list(tree_leaves(tree))
+        _build.reset_launches()
+        loss, _ = model.loss(tree, {k: t.to(dev) for k, t in batch.items()})
+        grads[where] = [x.cpu() for x in torch.autograd.grad(loss, leaves)]
+        losses[where] = float(loss.detach())
+        launched[where] = {k: n for k, n in _build.LAUNCHES.items() if n}
+    assert abs(losses["card"] - losses["cpu"]) <= 1e-5 * abs(losses["cpu"])
+    for i, (g, c) in enumerate(zip(grads["card"], grads["cpu"])):
+        assert bool(torch.isfinite(g).all()) and bool((g != 0).any()), i
+        _close(g, c, 1e-4, f"gradient leaf {i}")
+    run = RunConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+    step = make_train_step(model, run)
+    mets = {}
+    for where, dev in (("card", card), ("cpu", torch.device("cpu"))):
+        p = _to(params, dev)
+        state = TrainState(p, adamw_init(p, AdamWConfig(moment_dtype=model.cfg.moment_dtype)),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        _, met = step(state, {k: t.to(dev) for k, t in batch.items()})
+        mets[where] = {k: float(x) for k, x in met.items()}
+    for key in ("loss", "grad_norm", "lr"):
+        assert abs(mets["card"][key] - mets["cpu"][key]) <= 1e-4 * abs(mets["cpu"][key]), key
+    n = model.cfg.n_layers
+    assert launched["card"] == ({"flash_attention": n, "flash_attention_bwd": n}
+                                if arch.startswith("smollm") else {"wkv": n, "wkv_bwd": n})
+
+
+def test_training_entry_points_run_on_card(card, tmp_path):
+    """init_state and launch.train default to the card: three smoke steps
+    there, a checkpoint written and restored."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import init_state
+
+    state = init_state(build_model(get_config("smollm-360m", smoke=True)), 0, RunConfig())
+    assert state.step.is_cuda and state.params["embed"]["tok"].is_cuda
+    args = ["--arch", "rwkv6-1.6b", "--smoke", "--steps", "3", "--seq", "32", "--batch", "2",
+            "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
+    assert launch_train.main(args) == 0
+    assert launch_train.main(args[:4] + ["1"] + args[5:]) == 0

@@ -137,3 +137,38 @@ def test_upper_bound_matches_jax(alpha):
     got = tmm.upper_bound(torch.from_numpy(a_ini), alpha, 2000, steps=STEPS)
     want = jmm.upper_bound(jnp.asarray(a_ini), alpha, 2000, steps=STEPS)
     assert abs(got - want) <= 1e-12 * abs(want)
+
+
+def _rand_cov_f32(seed, d):
+    """tests/test_minimax.py's draw (float32, jax.random from PRNGKey(seed))."""
+    with jax.enable_x64(False):
+        m = jax.random.normal(jax.random.PRNGKey(seed), (d, 2 * d))
+        return np.asarray(m @ m.T / (2 * d) + 1e-4 * jnp.eye(d))
+
+
+@pytest.mark.parametrize("seed,d,delta", [(3288, 2, 0.1), (1341, 2, 0.05)])
+def test_robust_weights_worse_than_uniform_draws_match_jax(seed, d, delta):
+    """ROADMAP C8, pinned: two draws of the JAX package's hypothesis test
+    test_minimax.py::test_robust_weights_feasible_and_no_worse_than_uniform
+    on which its robust weights (200 steps, float32) are worse than uniform
+    weights, so that test fails whenever it draws them.  The fault is the
+    reference's: its PGD starts from the unprotected closed form and keeps
+    its best iterate, and the uniform weights are never a candidate
+    (repro/core/minimax.py:49-73).  The port keeps the reference's
+    behaviour, so its weights equal the reference's (2e-6, float32) and are
+    worse than uniform on the same draws."""
+    a0 = _rand_cov_f32(seed, d)
+    assert a0.dtype == np.float32
+    with jax.enable_x64(False):
+        want = np.asarray(jmm.robust_weights(jnp.asarray(a0), delta, steps=200))
+        uni = jnp.ones((d,), jnp.float32) / d
+        j_obj = float(jmm.robust_objective(jnp.asarray(want), jnp.asarray(a0), delta))
+        j_uni = float(jmm.robust_objective(uni, jnp.asarray(a0), delta))
+    ta0 = torch.from_numpy(a0)
+    got = tmm.robust_weights(ta0, delta, steps=200)
+    assert got.dtype == torch.float32
+    assert np.max(np.abs(got.numpy() - want)) <= 2e-6
+    t_obj = float(tmm.robust_objective(got, ta0, delta))
+    t_uni = float(tmm.robust_objective(torch.full((d,), 1.0 / d, dtype=torch.float32), ta0,
+                                       delta))
+    assert j_obj > j_uni + 1e-5 and t_obj > t_uni + 1e-5
