@@ -244,11 +244,15 @@ Phases, each fatal on failure (nothing is caught):
               its 24 WKV launches counted both by the wrapper and in the
               profile;
   12. train    LM training: the B9 backward (dQ, dK, dV; three launches of
-              one C entry) at smollm-360m's training shape (B=8, S=1024,
-              15/5 heads of 64) in bf16 and fp32 and at dh 80 and 128 (B=2,
-              S=300), and the B11 backward (dr, dk, dv, dw, du) at
+              one C entry; bf16 at dh 64 and 128 on the tensor-core route,
+              its counter checked) at smollm-360m's training shape (B=8,
+              S=1024, 15/5 heads of 64) in bf16 (and the earlier FMA kernel
+              on the same inputs) and fp32, bf16 at dh 128 (B=4, S=2048,
+              32/8 heads), and at dh 80 and 128 (B=2, S=300; a window across
+              128-key tiles), and the B11 backward (dr, dk, dv, dw, du) at
               rwkv6-1.6b's (B=4, S=1024, 32 heads of 64; moderate and weak
-              decay) and at dh 32 under strong decay, each against its plain
+              decay), at dh 32 under strong decay and with w exactly 0 in
+              places, each against its plain
               closed form on the same card inputs (fp32 within TRAIN_TOL
               normwise; bf16 within twice the plain bf16 version's own
               distance to the fp32 gradient), the same bits twice, B9's
@@ -265,7 +269,8 @@ Phases, each fatal on failure (nothing is caught):
               every loss finite and the launch counts exact (TRAIN_MAIN:
               with remat each layer's forward kernel runs twice a step), step
               ms and tokens/s over the 10 steps after the first, peak memory
-              and one step under torch.profiler;
+              and one step under torch.profiler (busy share, the backward
+              kernels' device ms a step);
               smollm's trained parameters written by the loop's checkpoint
               and restored bit for bit;
   13. the kernels line, the nvidia-smi line, and the result line
@@ -304,7 +309,7 @@ BATCHED = ("gram_batched", "row_gram_batched", "probe_sweep_batched",
            "commit_sweep_batched")
 PER_TRIAL = ("probe_sweep_batched_per_trial", "commit_sweep_batched_per_trial")
 LM = ("flash_attention", "flash_attention_tc", "flash_decode", "wkv", "flash_attention_bwd",
-      "wkv_bwd")
+      "flash_attention_bwd_tc", "wkv_bwd")
 REPS, RUNS = 20, 5
 
 
@@ -3599,11 +3604,13 @@ class LogitRecorder:
         return out, cache
 
 
-def profile_window(tag: str, what: str, run, steps: int) -> float:
+def profile_window(tag: str, what: str, run, steps: int, groups=None):
     """torch.profiler around run() (`steps` steps of `what`): device busy
     share against the wall clock and the top device operations, no library
     attention kernel among them; the table goes to
-    chiprun_out/profile_<tag>.txt.  Returns the busy share."""
+    chiprun_out/profile_<tag>.txt.  Returns the busy share, and with
+    `groups` ({label: substrings of kernel names}) also each group's device
+    ms a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3628,7 +3635,13 @@ def profile_window(tag: str, what: str, run, steps: int) -> float:
     require(not bad, f"{tag}: a library attention kernel ran: {bad}")
     with open(os.path.join(HERE, "chiprun_out", f"profile_{tag}.txt"), "w") as fh:
         fh.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=30))
-    return busy_ms / wall_ms
+    if groups is None:
+        return busy_ms / wall_ms
+    per_group = {label: sum(us for name, us in by_kernel.items()
+                            if any(x in name for x in names)) / 1e3 / steps
+                 for label, names in groups.items()}
+    log(f"[profile] {tag}: device ms a step by group {json.dumps(per_group)}")
+    return busy_ms / wall_ms, per_group
 
 
 def profile_serving(model, params, prompt, tag: str, steps: int = 4) -> float:
@@ -3822,9 +3835,14 @@ LSE_TOL = 1e-5            # B9's training forward's LSE vs the plain one, normwi
 # backward of each layer's kernel a step.
 TRAIN_MAIN = {
     "smollm-360m": (8, 1024, 11, {"flash_attention": 64, "flash_attention_tc": 64,
-                                  "flash_attention_bwd": 32}),
+                                  "flash_attention_bwd": 32, "flash_attention_bwd_tc": 32}),
     "rwkv6-1.6b": (4, 1024, 11, {"wkv": 48, "wkv_bwd": 24}),
 }
+
+
+# the backward kernels' device names, for phase 12's device ms a step
+BWD_KERNELS = {"B9b": ("delta_kernel", "delta_tc_kernel", "dkdv_", "dq_tc_kernel", "dq_kernel"),
+               "B11b": ("wkv_states_kernel", "wkv_bwd_kernel", "wkv_bwd_finish_kernel")}
 
 
 def normwise(got, want) -> float:
@@ -3845,7 +3863,7 @@ def hold_grads(tag, dt, got, plain, want32, errs):
         errs.append((float((g.double() - p.double()).abs().max()), normwise(g, p)))
 
 
-def phase_train_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
+def phase_train_kernels(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
     """The two backward kernels alone against their plain versions on the
     card, then timed (as phase 9) beside their bounds and library pairs."""
     import torch.nn.functional as F
@@ -3859,20 +3877,37 @@ def phase_train_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
 
     errs = {"flash_attention_bwd": [], "wkv_bwd": []}
 
-    def b9(b, s, hq, hkv, dh, dt, window=0, timed=False):
+    def fma_bwd(q, k, v, out, do, lse):
+        """B9's earlier backward (the fp32-FMA one, which BWD_ROUTES now gives
+        fp32 and dh 80 only) on bf16 inputs, launched directly: its time on
+        the same inputs is the row's `earlier_ms`.  Not counted."""
+        b, s, hq, dh = q.shape
+        delta = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        _build.launch("flash_attention", "repro_flash_attention_bwd", q, k, v, out, do, lse,
+                      delta, dq, dk, dv, 1, b, s, s, hq, k.shape[2], dh, 1, 0, dh ** -0.5)
+        return dq, dk, dv
+
+    def b9(b, s, hq, hkv, dh, dt, window=0, timed=False, earlier=False):
         q, do = rn(b, s, hq, dh, dtype=dt), rn(b, s, hq, dh, dtype=dt)
         k, v = rn(b, s, hkv, dh, dtype=dt), rn(b, s, hkv, dh, dtype=dt)
         out, lse = fa_ops.flash_attention_lse(q, k, v, window=window)
         require(torch.equal(out, fa_ops.flash_attention(q, k, v, window=window)),
                 "B9: the training forward's output is not the serving forward's")
-        tag = f"B9 backward {str(dt).removeprefix('torch.')} {(b, s, hq, hkv, dh, window)}"
+        route = fa_ops.bwd_route(dt, dh)
+        tag = (f"B9 backward {str(dt).removeprefix('torch.')} {(b, s, hq, hkv, dh, window)} "
+               f"[route {route}]")
         lse_err = compare(f"{tag} forward's LSE", lse, fa_ref.attention_lse_ref(
             q, k, v, window=window)[1], LSE_TOL)[1]
 
         def run():
             return fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
 
+        tc0 = _build.LAUNCHES["flash_attention_bwd_tc"]
         got = run()
+        require(_build.LAUNCHES["flash_attention_bwd_tc"] - tc0 == int(route == "tc"),
+                f"{tag}: the tensor-core counter moved "
+                f"{_build.LAUNCHES['flash_attention_bwd_tc'] - tc0} times")
         require(all(torch.equal(a, b_) for a, b_ in zip(got, run())),
                 f"B9 backward {(b, s, hq, hkv, dh)}: a second call gave other bits")
         plain = fa_ref.attention_bwd_ref(q, k, v, out, do, lse, window=window)
@@ -3880,6 +3915,9 @@ def phase_train_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
             q.float(), k.float(), v.float(), out.float(), do.float(), lse, window=window)
         hold_grads(tag, dt, got, plain, want32, errs["flash_attention_bwd"])
         log(f"[train] {tag}: against the plain version {max(e[1] for e in errs['flash_attention_bwd'][-3:]):.3e} normwise, same bits twice; the forward's LSE {lse_err:.3e} normwise")
+        if earlier:
+            hold_grads(f"{tag} [earlier FMA kernel]", dt, fma_bwd(q, k, v, out, do, lse),
+                       plain, want32, [])
         del plain, want32
         if not timed:
             return None
@@ -3890,22 +3928,37 @@ def phase_train_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
             return F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
 
         esize = q.element_size()
-        case = {"ms": time_ms(run), "plain_ms": time_ms(lambda: fa_ref.attention_bwd_ref(
-                    q, k, v, out, do, lse), reps=2),
+        case = {"route": route, "ms": time_ms(run),
+                "plain_ms": time_ms(lambda: fa_ref.attention_bwd_ref(q, k, v, out, do, lse),
+                                    reps=2),
                 "library_ms": (time_ms(lambda: torch.autograd.grad(sdpa(), leaves, do_t))
                                - time_ms(sdpa)),
                 "n_bytes": esize * (5 * b * s * hq * dh + 4 * b * s * hkv * dh) + 4 * b * hq * s,
                 "flops": 10.0 * b * hq * dh * s * (s + 1) / 2}
+        if earlier:
+            case["earlier_ms"] = time_ms(lambda: fma_bwd(q, k, v, out, do, lse))
+        log(f"[train] {tag}: {case['ms']:.4f} ms a call")
         del leaves
         return case
 
-    # smollm-360m's training shape in bf16 (the main path) and fp32, then
-    # dh 80 and 128 at a small shape
-    main = b9(8, 1024, 15, 5, 64, bf, timed=True)
+    def extra_row(shape, case, peak):
+        b_ms, b_by = bound(case["n_bytes"], case["flops"], peak)
+        return {"shape": shape, "route": case["route"], "ms": case["ms"],
+                "plain_ms": case["plain_ms"], "library_ms": case["library_ms"],
+                "bound_ms": b_ms, "bound_by": b_by}
+
+    # smollm-360m's training shape in bf16 (the main path, tensor cores; and
+    # the earlier FMA kernel on the same inputs) and fp32 (the FMA route),
+    # bf16 at dh 128 (32/8 heads, B=4, S=2048), then dh 80 and 128 at a small
+    # shape, with a window and one across 128-key tiles
+    main = b9(8, 1024, 15, 5, 64, bf, timed=True, earlier=True)
+    dh128 = b9(4, 2048, 32, 8, 128, bf, timed=True)
+    torch.cuda.empty_cache()
     fp32 = b9(8, 1024, 15, 5, 64, torch.float32, timed=True)
     for dt in (bf, torch.float32):
         b9(2, 300, 6, 2, 80, dt, window=64)
         b9(2, 300, 8, 2, 128, dt)
+        b9(1, 300, 4, 1, 128, dt, window=130)
     record_row = row_recorder(rows)
     record_row("flash_attention_bwd", "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:74", errs["flash_attention_bwd"],
@@ -3913,17 +3966,22 @@ def phase_train_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
                main["flops"], H100_BF16_FLOPS,
                note="backward (dQ, dK, dV) of B9, which the TPU package does not have; "
                     "library_ms: SDPA forward + backward less its forward")
-    b_ms, b_by = bound(fp32["n_bytes"], fp32["flops"], H100_FP32_FLOPS)
-    rows[-1]["fp32_row"] = {"shape": "fp32, B=8, S=1024", "ms": fp32["ms"],
-                            "plain_ms": fp32["plain_ms"], "library_ms": fp32["library_ms"],
-                            "bound_ms": b_ms, "bound_by": b_by}
-    log(f"[train] flash_attention_bwd fp32 row {json.dumps(rows[-1]['fp32_row'])}")
+    rows[-1].update(variant=main["route"], earlier_ms=main["earlier_ms"],
+                    earlier="the FMA backward on the same inputs, this run",
+                    dh128_row=extra_row("bf16, 32/8 heads of 128, B=4, S=2048", dh128,
+                                        H100_BF16_FLOPS),
+                    fp32_row=extra_row("fp32, B=8, S=1024", fp32, H100_FP32_FLOPS))
+    for key in ("dh128_row", "fp32_row"):
+        log(f"[train] flash_attention_bwd {key} {json.dumps(rows[-1][key])}")
     torch.cuda.empty_cache()
 
-    # B11 at rwkv6-1.6b's training shape (and dh 32, a ragged tail)
+    # B11 at rwkv6-1.6b's training shape (weak and moderate decay), at dh 32
+    # under strong decay, and with w exactly 0 in places and a ragged tail
     def b11(b, s, h, dh, decay):
         r, k, v, g = rn(b, s, h, dh), rn(b, s, h, dh), rn(b, s, h, dh), rn(b, s, h, dh)
-        w = wkv_decay(rn(b, s, h, dh), decay)
+        w = wkv_decay(rn(b, s, h, dh), "strong" if decay == "zeros" else decay)
+        if decay == "zeros":
+            w[:, ::5, :, ::3] = 0.0
         u = 0.1 * rn(h, dh)
 
         def run():
@@ -3939,6 +3997,7 @@ def phase_train_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
         return r, k, v, w, u, g
 
     b11(2, 77, 4, 32, "strong")
+    b11(1, 333, 8, 64, "zeros")
     b11(4, 1024, 32, 64, "weak")
     r, k, v, w, u, g = b11(4, 1024, 32, 64, "moderate")
     b, s, h, dh = r.shape
@@ -3956,7 +4015,10 @@ def phase_train_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
                note=f"backward (dr, dk, dv, dw, du) of B11, which the TPU package does not "
                     f"have; the chunked form's autograd backward (wkv_chunked_ref, c=64, "
                     f"forward + backward less forward): {pair_ms:.4f} ms")
-    rows[-1].update(chunked_form_bwd_ms=pair_ms)
+    rows[-1].update(chunked_form_bwd_ms=pair_ms, geometry=wkv_ops.wkv_bwd_geometry(b, s, h, dh))
+    log(f"[train] wkv_bwd {(b, s, h, dh)}: {rows[-1]['ms']:.4f} ms a call (PR 26's "
+        f"sequential kernel, no longer in the tree: 2.7259 ms in its archive run 3), "
+        f"geometry {json.dumps(rows[-1]['geometry'])}")
     del leaves, r, k, v, w, u, g
     torch.cuda.empty_cache()
 
@@ -4057,8 +4119,8 @@ def train_full(lm, _build, arch: str, smi: str) -> dict:
     run = RunConfig(learning_rate=1e-3, warmup_steps=2, total_steps=steps)
     step = make_train_step(model, run)
     extra = next(lm_batches(model, seq=seq, batch=batch, seed=1, device="cuda"))
-    busy = profile_window(f"train_{arch.replace('.', '_')}", "training step",
-                          lambda: step(state, extra), 1)
+    busy, bwd_ms = profile_window(f"train_{arch.replace('.', '_')}", "training step",
+                                  lambda: step(state, extra), 1, groups=BWD_KERNELS)
     out = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
            "dtype": cfg.param_dtype, "remat": cfg.remat, "scan_block": cfg.scan_block,
            "batch": batch, "seq": seq, "steps": steps,
@@ -4066,7 +4128,9 @@ def train_full(lm, _build, arch: str, smi: str) -> dict:
            "step_ms": [round(r_["ms"], 2) for r_ in steps_log],
            "timed_steps": len(window), "window_ms": sum(window), "step_ms_mean": step_ms,
            "tokens_per_s": batch * seq * len(window) / sum(window) * 1e3,
-           "peak_gib": peak, "device_busy": busy, "card": smi}
+           "peak_gib": peak, "device_busy": busy,
+           "bwd_kernel_ms_per_step": bwd_ms[{"smollm-360m": "B9b", "rwkv6-1.6b": "B11b"}[arch]],
+           "card": smi}
     log(f"[train] {arch}: {json.dumps(out)}")
     if arch == "smollm-360m":
         t1 = time.perf_counter()
@@ -4089,7 +4153,7 @@ def phase_train(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, lm, rows, smi) -> dict
     """Phase 12: the backward kernels alone, 2 fp32 layers card vs CPU, the
     full configs' training on the main path."""
     t0 = time.perf_counter()
-    phase_train_kernels(fa_ops, fa_ref, wkv_ops, wkv_ref, rows)
+    phase_train_kernels(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, rows)
     log(f"[train] kernels checked and timed at {time.perf_counter() - t0:.1f} s")
     for arch in TRAIN_MAIN:
         train_two_layers_vs_cpu(lm, arch)

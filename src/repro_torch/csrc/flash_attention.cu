@@ -60,6 +60,10 @@
 //   so the per-row rescale needs no exchange).  It is bound by the
 //   shared-memory pipe (2 FMAs per shared load), far below either peak.
 //
+// The backward (dQ, dK, dV, for training) follows the forward kernels, on
+// the same two routes: see "The backward" and "The tensor-core backward"
+// below.
+//
 // Every sum over lanes uses a fixed xor butterfly and the MMAs a fixed
 // order: the same bits on every run.
 #include <cuda_runtime.h>
@@ -684,8 +688,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 //   dV_j  = sum_i P_ij dO_i,  dK_j = scale sum_i dS_ij q_i,
 //   dQ_i  = scale sum_j dS_ij k_j,
 // sums over the query heads of k_j's group too.  P is recomputed in fp32
-// from L and treated as unrounded (the tensor-core forward rounds it to
-// bf16 before P V).  Three kernels, one launch each, in this order:
+// from L.  Two routes, one table (kernels/flash_attention/ops.py
+// BWD_ROUTES): the tensor-core backward (namespace tc below, bf16 at dh 64
+// and 128, every config that trains) and this one, fp32 at every head dim
+// and bf16 at dh 80.  Each is three launches, in this order:
 //   delta_kernel  D (b, hq, sq) fp32, one warp a row, a fixed butterfly;
 //   dkdv_kernel   a block per (batch, KV head, 64-key tile) that loops over
 //                 the group's G query heads and then its visible query tiles
@@ -696,11 +702,13 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // Bound on an H100: the five products of 2 dh FLOPs per visible (i, j) and
 // query head (S and dP recomputed, dV, dK, dQ), against the inputs' type's
 // peak; the bytes (q, k, v, o, dO, L read once; dQ, dK, dV written once)
-// are far below.  The kernels are the forward FMA kernel's shape, fp32 FMA
-// on the CUDA cores from shared memory: bound by the shared-memory pipe, far
-// below either peak (a tensor-core form is later work).  dkdv_kernel and
-// dq_kernel each recompute S and dP; fp32 accumulation, the gradients
-// written in the inputs' dtype.
+// are far below.  These kernels are the forward FMA kernel's shape, fp32
+// FMA on the CUDA cores from shared memory: bound by the shared-memory pipe,
+// far below either peak (3.2485 ms in fp32 at smollm's training shape, B=8,
+// S=1024, 15/5 heads of 64, against a bound of 0.6016; chip_smoke phase 12
+// on an H100 80GB HBM3 at 700 W).  They keep fp32's 1e-4 parity, which TF32
+// tensor cores would break.  dkdv_kernel and dq_kernel each recompute S and
+// dP; fp32 accumulation, the gradients written in the inputs' dtype.
 namespace bwd {
 
 constexpr int kB = 64;           // queries or keys per tile
@@ -1031,6 +1039,497 @@ int dispatch(int dh, const void* q, const void* k, const void* v, const void* o,
 
 }  // namespace bwd
 
+// ---------------------------------------------------------------------------
+// The tensor-core backward: bf16 at dh 64 and 128, the same function on
+// wgmma, redesigned for the H100 from the FMA kernels above.
+// Bound: the five products against 989 TFLOP/s of bf16 tensor cores (0.0408
+//   ms at smollm's training shape; the bytes are far below).  Besides the
+//   products, one exp per score (both kernels recompute P) on the 16-lane
+//   unit, and the elementwise P / dS work on the fragments.
+// Design: each product is one of the forward's two shapes, built from its
+//   pieces (swizzled tiles, descriptors, the cp.async ring, wgmma_ss_n64
+//   and wgmma_pv):
+//   dkdv_tc_kernel  a block per (batch, KV head, 128-key tile), two
+//                   warpgroups of 64 keys.  K and V stay in shared memory;
+//                   Q, dO, L and D of 64-query tiles stream through a 3-stage
+//                   ring, for each of the group's G query heads, then each
+//                   visible tile, in order (GQA's sum stays in the block).
+//                   S^T = K Q^T and dP^T = V dO^T read both operands from
+//                   shared memory (the forward's Q K^T); P^T and dS^T are
+//                   formed on the fp32 fragments and packed to bf16 A
+//                   fragments; dV += P^T dO and dK += dS^T Q read dO and Q
+//                   through the transposed descriptor (the forward's P V).
+//   dq_tc_kernel    a block per (batch, query head, 128-query tile), two
+//                   blocks an SM at dh 64: Q and dO stay, K and V stream;
+//                   S = Q K^T, dP = dO V^T, then dQ += dS K with K read as
+//                   the forward reads V.
+//   D = rowsum(dO o O) stays a pre-pass of its own: the dK/dV launch, which
+//   runs before dQ's, reads every row's D, so folding D into dQ would need
+//   dQ first and dK/dV after it, for a pass that reads O and dO once.  It is
+//   delta_tc_kernel, bwd::delta_kernel with 16-byte loads (DH / 8 lanes a
+//   row): the FMA route's warp a row of 2-byte loads is far from the
+//   memory's rate.
+//   Rounding: P and dS are carried as two bf16 halves each, hi = x rounded
+//   to bf16 and lo = (x - hi) rounded again, with two wgmma per product:
+//   rounding P alone to bf16 (what the forward does) already breaks the
+//   gradient's bound (twice the plain bf16 version's own rounding) on short
+//   rows, where a gradient is one or two terms
+//   (tests/test_torch_train_kernels.py).  With both halves the products
+//   carry ~16 bits of P and dS; all sums are fp32.
+//   Causal grids launch their heaviest tiles first: key tile 0 first in
+//   dK/dV, the last query tile first in dQ.  No float atomics, fixed orders:
+//   the same bits on every call.
+// Measured (chip_smoke phase 12, H100 80GB HBM3, 700 W): 0.3181 ms at
+//   smollm's training shape (the FMA kernels 3.2573 before; SDPA's backward
+//   0.2143), 1.6888 ms at dh 128 (B=4, S=2048, 32/8 heads; SDPA's 0.9287).
+//   Each warpgroup runs its products and its elementwise work in turn, so
+//   the tensor cores idle while P and dS are formed: the next step is to
+//   overlap one tile's products with the next tile's exp.
+namespace tc {
+
+constexpr int kBwdKeys = 128;        // keys a dK/dV block: two warpgroups of 64
+constexpr int kBwdQ = 64;            // queries a tile streamed through dK/dV
+
+template <int DH>
+struct BwdCfg {
+  static constexpr int kStages = 3;                  // tile t resident, t+1 and t+2 landing
+  static constexpr int kBig = kBwdKeys * DH * 2;     // a 128-row tile (K, V of dK/dV; Q, dO of dQ)
+  static constexpr int kTile = 64 * DH * 2;          // a 64-row tile
+  static constexpr int kStageKV = 2 * kTile + 1024;  // Q, dO, L and D (64 floats each), 1 KB aligned
+  static constexpr int kSmemKV = 2 * kBig + kStages * kStageKV + 1024;
+  static constexpr int kSmemQ = 2 * kBig + kStages * 2 * kTile + 1024;
+};
+
+// 4-byte cp.async; valid == false writes zero and reads nothing.
+__device__ __forceinline__ void cp_async4z(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// x0, x1 as two bf16 pairs: hi = each rounded to bf16 (to nearest, ties away
+// from zero, by integer ops), lo = the remainders x - hi rounded the same way.
+__device__ __forceinline__ void pack_split(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const uint32_t b0 = (__float_as_uint(x0) + 0x8000u) & 0xffff0000u;
+  const uint32_t b1 = (__float_as_uint(x1) + 0x8000u) & 0xffff0000u;
+  hi = __byte_perm(b0, b1, 0x7632);
+  lo = pack_bf16(x0 - __uint_as_float(b0), x1 - __uint_as_float(b1));
+}
+
+// A 64 x 64 fp32 fragment as the A operands of four k-steps, hi and lo.
+__device__ __forceinline__ void pack_frag(const float (&x)[32], uint32_t (&fr)[2][4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pack_split(x[8 * kk + 2 * e], x[8 * kk + 2 * e + 1], fr[0][kk][e], fr[1][kk][e]);
+}
+
+__device__ __forceinline__ void hold(uint32_t (&a)[2][4][4]) {
+  hold(a[0]);
+  hold(a[1]);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+dkdv_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+               const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int sq, int skv,
+               int hq, int hkv, int causal, int window, float scale_log2, float scale) {
+  using C = BwdCfg<DH>;
+  constexpr int NO = DH / 2;         // dK or dV accumulator floats per thread
+  constexpr int KS = DH / 16;        // k-steps of K Q^T
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw0 = (uint32_t)__cvta_generic_to_shared(smem_raw);
+  const uint32_t base = (raw0 + 1023u) & ~1023u;
+  const uint8_t* gbase = smem_raw + (base - raw0);
+  const uint32_t sK = base, sV = base + C::kBig, ring = base + 2 * C::kBig;
+
+  const int b = blockIdx.x / hkv, hk = blockIdx.x % hkv;
+  const int kv0 = blockIdx.y * kBwdKeys;             // key tile 0 (the heaviest) first
+  const int g = hq / hkv;
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const size_t ldq = (size_t)hq * DH, ldk = (size_t)hkv * DH;
+  const __nv_bfloat16* kb = k + (size_t)b * skv * ldk + (size_t)hk * DH;
+  const __nv_bfloat16* vb = v + (size_t)b * skv * ldk + (size_t)hk * DH;
+
+  // the queries that can see a key of the block, in 64-row tiles
+  const int kv_last = min(kv0 + kBwdKeys, skv) - 1;
+  const int q_begin = causal ? kv0 : 0;
+  const int q_end = window > 0 ? min(sq, kv_last + window) : sq;
+  const int qt0 = q_begin / kBwdQ;
+  const int n_qt = q_end > qt0 * kBwdQ ? (q_end - qt0 * kBwdQ + kBwdQ - 1) / kBwdQ : 0;
+  const int n_items = g * n_qt;                      // (query head, query tile) in order
+  const int w_lo = kv0 + wg * 64;                    // this warpgroup's keys
+  const int w_hi = min(w_lo + 63, skv - 1);
+
+  auto item_h = [&](int t) { return hk * g + t / n_qt; };
+  auto item_q0 = [&](int t) { return (qt0 + t % n_qt) * kBwdQ; };
+  auto stage = [&](int t) { return ring + (t % C::kStages) * C::kStageKV; };
+  // this thread's 16-byte chunks of a 64-row tile (the forward's load_kv)
+  constexpr int CPR = DH / 8, RP = kThreads / CPR, NCH = 64 / RP;
+  const int row0 = threadIdx.x / CPR, j0 = threadIdx.x % CPR;
+  const uint32_t soff0 = swz(row0, j0, 64);
+  auto load_item = [&](int t) {
+    const int h = item_h(t), q0 = item_q0(t);
+    const size_t head = (size_t)b * sq * ldq + (size_t)h * DH;
+    const uint32_t st = stage(t);
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      const int row = q0 + row0 + i * RP;
+      const bool ok = row < sq;
+      const size_t off = head + (size_t)row * ldq + j0 * 8;
+      const uint32_t dst = st + soff0 + i * RP * 128;
+      cp_async16(dst, ok ? q + off : q, ok);
+      cp_async16(dst + C::kTile, ok ? dout + off : dout, ok);
+    }
+    if (threadIdx.x < 2 * kBwdQ) {                   // L, then D, of the tile's rows
+      const int e = threadIdx.x & (kBwdQ - 1), row = q0 + e;
+      const bool ok = row < sq;
+      const float* src = (threadIdx.x < kBwdQ ? lse : delta) + ((size_t)b * hq + h) * sq + row;
+      cp_async4z(st + 2 * C::kTile + (threadIdx.x / kBwdQ) * 256 + 4 * e, ok ? src : lse, ok);
+    }
+  };
+  auto visible = [&](int t) {        // does any key of this warpgroup see tile t?
+    const int q0 = item_q0(t), q_hi = min(q0 + kBwdQ, sq) - 1;
+    return w_lo <= w_hi && (!causal || q_hi >= w_lo) && (window <= 0 || q0 < w_hi + window);
+  };
+
+  load_tile<DH>(sK, kb, ldk, kv0, kBwdKeys, skv);
+  load_tile<DH>(sV, vb, ldk, kv0, kBwdKeys, skv);
+#pragma unroll
+  for (int t = 0; t < C::kStages - 1; ++t) {
+    if (t < n_items) load_item(t);
+    cp_async_commit();               // group t (group 0 also holds K and V)
+  }
+
+  float dka[NO], dva[NO], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dka[i] = dva[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+  uint32_t fr[2][4][4];
+  const int r0 = w_lo + warp * 16 + (lane >> 2);     // this thread's keys: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);                     // and queries c0, c0 + 1 of each 8
+
+  for (int t = 0; t < n_items; ++t) {
+    cp_async_wait<C::kStages - 2>();                 // item t has landed (this thread's copies)
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();                                 // everyone's; item t-1's slot consumed
+    if (t + C::kStages - 1 < n_items) load_item(t + C::kStages - 1);
+    cp_async_commit();
+    if (!visible(t)) continue;
+    const uint32_t st = stage(t);
+    // S^T = K Q^T and dP^T = V dO^T, all K-major: 16 columns are 32 bytes
+    hold(sc);
+    hold(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss_n64(sc, desc(sK + (kk >> 2) * kBwdKeys * 128 + wg * 64 * 128 + off, 16, 1024),
+                   desc(st + (kk >> 2) * 64 * 128 + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss_n64(dp, desc(sV + (kk >> 2) * kBwdKeys * 128 + wg * 64 * 128 + off, 16, 1024),
+                   desc(st + C::kTile + (kk >> 2) * 64 * 128 + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait<0>();
+    hold(sc);
+    hold(dp);
+    // P^T and dS^T on the fragment: sc[4j + e] is key r0 + 8 (e >> 1), query
+    // q0 + 8 j + c0 + (e & 1); only a tile crossing a mask edge pays for the mask
+    const int q0 = item_q0(t);
+    const float* sl = reinterpret_cast<const float*>(gbase + (st - base) + 2 * C::kTile);
+    const float* sd = sl + kBwdQ;
+    const bool edge = q0 + kBwdQ > sq || w_lo + 64 > skv || (causal && w_lo + 63 > q0) ||
+                      (window > 0 && w_lo <= q0 + 63 - window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lv = *reinterpret_cast<const float2*>(sl + 8 * j + c0);
+      const float2 dd = *reinterpret_cast<const float2*>(sd + 8 * j + c0);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * j + e;
+        float p = ex2(fmaf(sc[i], scale_log2, -((e & 1) ? lv.y : lv.x) * kLog2e));
+        if (edge) {
+          const int kp = r0 + 8 * (e >> 1), qp = q0 + 8 * j + c0 + (e & 1);
+          if (!(qp < sq && kp < skv && (!causal || kp <= qp) && (window <= 0 || kp > qp - window)))
+            p = 0.f;
+        }
+        sc[i] = p;
+        dp[i] = p * (dp[i] - ((e & 1) ? dd.y : dd.x));
+      }
+    }
+    // dV += P^T dO (hi, then lo), then dK += dS^T Q; dO and Q MN-major: 16
+    // queries are 2 KB down the tile, the next 64 columns (dh 128) the next
+    // column block, 64 * 128 bytes on
+    pack_frag(sc, fr);
+    hold(fr);
+    hold(dva);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t d = desc(st + C::kTile + kk * 16 * 128, 64 * 128, 1024);
+      wgmma_pv<DH>(dva, fr[0][kk], d);
+      wgmma_pv<DH>(dva, fr[1][kk], d);
+    }
+    wg_commit();
+    wg_wait<0>();
+    hold(dva);
+    hold(fr);
+    pack_frag(dp, fr);
+    hold(fr);
+    hold(dka);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t d = desc(st + kk * 16 * 128, 64 * 128, 1024);
+      wgmma_pv<DH>(dka, fr[0][kk], d);
+      wgmma_pv<DH>(dka, fr[1][kk], d);
+    }
+    wg_commit();
+    wg_wait<0>();
+    hold(dka);
+    hold(fr);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row < skv && w_lo <= w_hi) {
+      const size_t off = ((size_t)b * skv + row) * ldk + (size_t)hk * DH + c0;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j) {
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + 8 * j) =
+            __floats2bfloat162_rn(dka[4 * j + 2 * r] * scale, dka[4 * j + 2 * r + 1] * scale);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + 8 * j) =
+            __floats2bfloat162_rn(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, DH == 64 ? 2 : 1)
+dq_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+             const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ delta,
+             __nv_bfloat16* __restrict__ dq, int sq, int skv, int hq, int hkv, int causal,
+             int window, float scale_log2, float scale) {
+  using C = BwdCfg<DH>;
+  constexpr int NO = DH / 2;
+  constexpr int KS = DH / 16;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base =
+      ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base, sO = base + C::kBig, ring = base + 2 * C::kBig;
+
+  const int h = blockIdx.x % hq, b = blockIdx.x / hq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBq;   // the longest causal rows first
+  const int hk = h / (hq / hkv);
+  const int wg = threadIdx.x >> 7, warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const size_t ldq = (size_t)hq * DH, ldk = (size_t)hkv * DH;
+  const __nv_bfloat16* qb = q + (size_t)b * sq * ldq + (size_t)h * DH;
+  const __nv_bfloat16* ob = dout + (size_t)b * sq * ldq + (size_t)h * DH;
+  const __nv_bfloat16* kb = k + (size_t)b * skv * ldk + (size_t)hk * DH;
+  const __nv_bfloat16* vb = v + (size_t)b * skv * ldk + (size_t)hk * DH;
+
+  // the forward's key tiles of the block and this warpgroup's visible keys
+  const int q_last = min(q0 + kBq, sq) - 1;
+  const int kv_end = causal ? min(skv, q_last + 1) : skv;
+  const int t_first = (window > 0 ? max(0, q0 - window + 1) : 0) / kBk;
+  const int n_tiles = kv_end > t_first * kBk ? (kv_end - t_first * kBk + kBk - 1) / kBk : 0;
+  const int w_lo = q0 + wg * 64;
+  const int w_hi = min(w_lo + 63, sq - 1);
+  const int wk_begin = window > 0 ? max(0, w_lo - window + 1) : 0;
+  const int wk_end = causal ? min(skv, w_hi + 1) : skv;
+
+  auto key0 = [&](int t) { return (t_first + t) * kBk; };
+  auto stage = [&](int t) { return ring + (t % C::kStages) * 2 * C::kTile; };
+  constexpr int CPR = DH / 8, RP = kThreads / CPR, NCH = kBk / RP;
+  const int row0 = threadIdx.x / CPR, j0 = threadIdx.x % CPR;
+  const uint32_t soff0 = swz(row0, j0, kBk);
+  const int goff0 = row0 * (int)ldk + j0 * 8;
+  auto load_kv = [&](int t) {
+    const int kv0 = key0(t);
+    const __nv_bfloat16* kt = kb + (size_t)kv0 * ldk;
+    const __nv_bfloat16* vt = vb + (size_t)kv0 * ldk;
+#pragma unroll
+    for (int i = 0; i < NCH; ++i) {
+      const bool ok = kv0 + row0 + i * RP < skv;
+      const int off = goff0 + i * RP * (int)ldk;
+      const uint32_t dst = stage(t) + soff0 + i * RP * 128;
+      cp_async16(dst, ok ? kt + off : kb, ok);
+      cp_async16(dst + C::kTile, ok ? vt + off : vb, ok);
+    }
+  };
+  auto visible = [&](int t) {
+    const int kv0 = key0(t);
+    return w_lo <= w_hi && kv0 + kBk > wk_begin && kv0 < wk_end;
+  };
+
+  load_tile<DH>(sQ, qb, ldq, q0, kBq, sq);
+  load_tile<DH>(sO, ob, ldq, q0, kBq, sq);
+#pragma unroll
+  for (int t = 0; t < C::kStages - 1; ++t) {
+    if (t < n_tiles) load_kv(t);
+    cp_async_commit();
+  }
+
+  const int r0 = w_lo + warp * 16 + (lane >> 2);     // this thread's rows: r0, r0 + 8
+  const int c0 = 2 * (lane & 3);
+  float ll[2], dd[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    const size_t o = ((size_t)b * hq + h) * sq + row;
+    ll[r] = row < sq ? lse[o] * kLog2e : 0.f;
+    dd[r] = row < sq ? delta[o] : 0.f;
+  }
+  float dqa[NO], sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dqa[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+  uint32_t fr[2][4][4];
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<C::kStages - 2>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+    if (t + C::kStages - 1 < n_tiles) load_kv(t + C::kStages - 1);
+    cp_async_commit();
+    if (!visible(t)) continue;
+    const uint32_t st = stage(t);
+    hold(sc);
+    hold(dp);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss_n64(sc, desc(sQ + (kk >> 2) * kBq * 128 + wg * 64 * 128 + off, 16, 1024),
+                   desc(st + (kk >> 2) * kBk * 128 + off, 16, 1024), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t off = (kk & 3) * 32;
+      wgmma_ss_n64(dp, desc(sO + (kk >> 2) * kBq * 128 + wg * 64 * 128 + off, 16, 1024),
+                   desc(st + C::kTile + (kk >> 2) * kBk * 128 + off, 16, 1024), kk > 0);
+    }
+    wg_commit();
+    wg_wait<0>();
+    hold(sc);
+    hold(dp);
+    // dS on the fragment: sc[4j + e] is row r0 + 8 (e >> 1), key key0(t) + 8 j + c0 + (e & 1)
+    const int kv0 = key0(t);
+    const bool edge = kv0 + kBk > skv || (causal && kv0 + kBk - 1 > w_lo) ||
+                      (window > 0 && kv0 <= w_hi - window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      float p = ex2(fmaf(sc[i], scale_log2, -ll[r]));
+      if (edge) {
+        const int kp = kv0 + 8 * (i >> 2) + c0 + (i & 1), qp = r0 + 8 * r;
+        if (!(kp < skv && (!causal || kp <= qp) && (window <= 0 || kp > qp - window))) p = 0.f;
+      }
+      dp[i] = p * (dp[i] - dd[r]);
+    }
+    // dQ += dS K (hi, then lo), K MN-major as the forward reads V
+    pack_frag(dp, fr);
+    hold(fr);
+    hold(dqa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t d = desc(st + kk * 16 * 128, kBk * 128, 1024);
+      wgmma_pv<DH>(dqa, fr[0][kk], d);
+      wgmma_pv<DH>(dqa, fr[1][kk], d);
+    }
+    wg_commit();
+    wg_wait<0>();
+    hold(dqa);
+    hold(fr);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row < sq && w_lo <= w_hi) {
+      __nv_bfloat16* dst = dq + ((size_t)b * sq + row) * ldq + (size_t)h * DH + c0;
+#pragma unroll
+      for (int j = 0; j < DH / 8; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) =
+            __floats2bfloat162_rn(dqa[4 * j + 2 * r] * scale, dqa[4 * j + 2 * r + 1] * scale);
+    }
+  }
+}
+
+// D = rowsum(dO o O) of bf16 rows of DH: DH / 8 lanes a row, one 16-byte
+// chunk of O and of dO each, summed in order and then by a fixed butterfly
+// over the row's lanes.
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+delta_tc_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+                float* __restrict__ delta, int rows, int sq, int hq) {
+  constexpr int L = DH / 8;
+  const int row = (blockIdx.x * kThreads + threadIdx.x) / L, c = threadIdx.x % L;
+  float acc = 0.f;
+  if (row < rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + (size_t)row * DH + 8 * c);
+    const uint4 d = *reinterpret_cast<const uint4*>(dout + (size_t)row * DH + 8 * c);
+    const __nv_bfloat162* pa = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* pd = reinterpret_cast<const __nv_bfloat162*>(&d);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 x = __bfloat1622float2(pa[e]), y = __bfloat1622float2(pd[e]);
+      acc = fmaf(y.y, x.y, fmaf(y.x, x.x, acc));
+    }
+  }
+#pragma unroll
+  for (int off = L / 2; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && c == 0) {
+    const int h = row % hq, i = (row / hq) % sq, b = row / (hq * sq);
+    delta[((size_t)b * hq + h) * sq + i] = acc;
+  }
+}
+
+template <int DH>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, float* delta, void* dq, void* dk, void* dv, int b, int sq,
+               int skv, int hq, int hkv, int causal, int window, float scale, cudaStream_t st) {
+  using C = BwdCfg<DH>;
+  using T = __nv_bfloat16;
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+          *tv = static_cast<const T*>(v), *to = static_cast<const T*>(dout);
+  const int rows = b * sq * hq;
+  const long long lanes = (long long)rows * (DH / 8);
+  delta_tc_kernel<DH><<<(unsigned)((lanes + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      static_cast<const T*>(o), to, delta, rows, sq, hq);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  auto* kv_kern = dkdv_tc_kernel<DH>;
+  auto* q_kern = dq_tc_kernel<DH>;
+  err = cudaFuncSetAttribute(kv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemKV);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(q_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemQ);
+  if (err != cudaSuccess) return err;
+  kv_kern<<<dim3(b * hkv, (skv + kBwdKeys - 1) / kBwdKeys), kThreads, C::kSmemKV, st>>>(
+      tq, tk, tv, to, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sq, skv, hq, hkv,
+      causal, window, scale * kLog2e, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  q_kern<<<dim3(b * hq, (sq + kBq - 1) / kBq), kThreads, C::kSmemQ, st>>>(
+      tq, tk, tv, to, lse, delta, static_cast<T*>(dq), sq, skv, hq, hkv, causal, window,
+      scale * kLog2e, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 // q (b, sq, hq, dh); k, v (b, skv, hkv, dh); o (b, sq, hq, dh); all
 // contiguous, of one dtype: bf16 when is_bf16, else fp32.  dh in {64, 80,
 // 128} (the configs' head dims); hq a multiple of hkv.  Query row i sits at
@@ -1081,4 +1580,22 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
                                         skv, hq, hkv, causal, window, scale, st);
   return bwd::dispatch<float>(dh, q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq,
                               hkv, causal, window, scale, st);
+}
+
+// The tensor-core backward: the operands of repro_flash_attention_bwd, all
+// bf16, dh 64 or 128, 16-byte aligned.  Three launches (delta, dK/dV, dQ),
+// each checked.
+extern "C" int repro_flash_attention_bwd_tc(const void* q, const void* k, const void* v,
+                                            const void* o, const void* dout, const float* lse,
+                                            float* delta, void* dq, void* dk, void* dv, int b,
+                                            int sq, int skv, int hq, int hkv, int dh, int causal,
+                                            int window, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 64: return tc::launch_bwd<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv, hq,
+                                       hkv, causal, window, scale, st);
+    case 128: return tc::launch_bwd<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, skv,
+                                         hq, hkv, causal, window, scale, st);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -219,14 +219,16 @@ __device__ __forceinline__ void load_chunk(float* raw, const float* r, const flo
 // down.  Then all of them form the scores across the halves (t >= 8 > s)
 // through the midpoint, as dots of r_t prod_{8<=u<t} w_u and k_s
 // prod_{s<u<8} w_u, both factors <= 1.
-template <int DH>
+// WS is the tile slot of w in the raw stage (the forward's stage holds r, k,
+// v, w; the backward's r, k, w).
+template <int DH, int WS = 3>
 __device__ __forceinline__ void prep_chunk(const float* raw, Stage<DH> st, float* cross,
                                            const float* su, int pt) {
   using W = Wkv<DH>;
   constexpr int P = W::P;
   const float* R = raw;
   const float* K = raw + W::tile;
-  const float* Wd = raw + 3 * W::tile;
+  const float* Wd = raw + WS * W::tile;
   float* R8 = cross;                                 // rows t = 8 .. 15
   float* K8 = cross + kH * W::P;                    // rows s = 0 .. 7
 
@@ -551,6 +553,7 @@ extern "C" int repro_wkv_smem(int dh) {
   }
 }
 
+
 // ---------------------------------------------------------------------------
 // The backward: dr, dk, dv, dw, du of the same recurrence, given dO.
 //
@@ -558,256 +561,599 @@ extern "C" int repro_wkv_smem(int dh) {
 // and the JAX package's training differentiates its plain scan.  The port's
 // training runs B11 on the card, so its gradient is a kernel too
 // (kernels/wkv/ops.py wkv_train, a torch.autograd.Function).  With G_t =
-// dL/dS_t (G_{S-1} = 0: the final state is not an output of the training
-// call), the recurrence's reverse form:
-//   a_t = v_t . g_t,  b_t = sum_i r_t[i] u[i] k_t[i]      (g_t = dO_t)
-//   dr_t[i] = sum_j S_{t-1}[i][j] g_t[j] + u[i] k_t[i] a_t
-//   dk_t[i] = sum_j G_t[i][j] v_t[j]     + r_t[i] u[i] a_t
-//   dv_t[j] = sum_i G_t[i][j] k_t[i]     + g_t[j] b_t
-//   dw_t[i] = sum_j G_t[i][j] S_{t-1}[i][j]
-//   du[i]   = sum_b sum_t r_t[i] k_t[i] a_t
-//   G_{t-1} = diag(w_t) G_t + r_t g_t^T.
-// S_{t-1} is recomputed forward, never recovered by dividing by w (w =
-// exp(-exp(.)) reaches 0 in fp32): a first pass over the sequence writes the
-// state at the start of every kCk-token chunk to a scratch; the reverse pass
-// then, chunk by chunk from the last, recomputes the chunk's kCk states
-// from its start into shared memory and walks its tokens backward.
+// dL/dS_t (zero after the last token: the final state is not an output of
+// the training call) and g_t = dO_t, the reverse form is
+//   G_{t-1} = diag(w_t) G_t + r_t g_t^T,   a_t = v_t . g_t,
+//   dr_t = S_{t-1} g_t + u k_t a_t,   dk_t = G_t v_t + r_t u a_t,
+//   dv_t = G_t^T k_t + g_t b_t (b_t the bonus score),
+//   dw_t = rowsum(G_t o S_{t-1}),     du = sum_b sum_t r_t k_t a_t.
 //
-// Bound on an H100: the reverse form's five dh x dh updates and reductions,
-// 10 B H S dh^2 FLOPs, against fp32's 67 TFLOP/s, and 36 B H S dh bytes (r,
-// k, v, w, dO read, dr, dk, dv, dw written); the states' recomputation (2 B
-// H S dh^2 more) and the scratch (4 B H ceil(S / kCk) dh^2 bytes each way)
-// come on top.  The design is the simple one: a block per (batch, head),
-// sequential in t.  Thread (i, quarter) owns row i of S and G, columns
-// [quarter dh / 4, +dh / 4): S and G update elementwise, the row sums (dr,
-// dk, dw) reduce over the row's 4 lanes by a fixed butterfly, and the column
-// sums (dv) over the warp's 8 rows by a transposed butterfly (each step
-// halves the values a lane holds), then over the warps in index order.
-// du's per-(batch, head) partials are summed over the batch in order by a
-// second launch.  No float atomics: the same bits on every run.
+// Bound on an H100: 36 B H S dh bytes (r, k, v, w, dO read once; dr, dk,
+//   dv, dw written once) against ~10 B H S dh^2 FLOPs of the reverse form:
+//   the bytes bound it (0.0902 ms at rwkv6's training shape, B=4, S=1024,
+//   32 heads of 64).  A walk token by token cannot get near it: every token
+//   is a dependent step through a dh x dh state.
+//
+// Design: the chunked form of the reverse recurrence, the mirror of the
+//   forward's, chunks of kC = 16 tokens walked from the last, with G = dL/dS
+//   carried backward across chunks by one product a chunk:
+//     G_start = diag(Pall) G_end + (r o Pex)^T g.
+//   - Rows i of S and G evolve independently given w[i], r[i], k[i] and all
+//     of v and g, so a block owns kI = 32 key rows of one (batch, head):
+//     dh / 32 blocks a head (two at dh 64: 256 blocks at rwkv6's training
+//     shape, two an SM).  dr, dk, dw and du are then row-local and final;
+//     dv = sum_i G[i] k[i] is a sum over the blocks, written per block and
+//     summed in block order by a last launch.  (Splitting the value columns
+//     instead would leave dr, dk and dw partial, three arrays to sum, and
+//     every block would form the whole chunk's scores.)
+//   - Per chunk of n tokens, with S0 the state before it (saved by a first
+//     launch, wkv_states_kernel) and G_end from the chunk after it, the
+//     tensor-core products (mma.sync m16n8k8 TF32, 3xTF32 split as in the
+//     forward) are X = g S0^T, Y = v G_end^T, B = g v^T (C x C), dv's
+//     kS G_end + A^T g (A: the block's rows' share of the forward's scores,
+//     bonus on the diagonal, formed by the forward's prep_chunk) and the G
+//     update, whose accumulators start from diag(Pall) G_end.
+//   - What remains is per row i and needs no other row: over the chunk's
+//     tokens t, two recursions, Q[s] <- w_t Q[s] + k_t B[s][t] (from X[s])
+//     and Z <- w_t Z + k_t Y_t (from c0 = rowsum(G_end o S0)), and an upward
+//     walk h = prod_{t<u<s} w_u:
+//       dr_t = Q[t] + u k_t a_t,  dk_t = Sfx_t Y_t + sum_{s>t} h r_s B[s][t] + r_t u a_t,
+//       dw_t = Sfx_t Z + sum_{s>t} h r_s Q[s]   (Sfx_t = the walk's last h).
+//     Every decay factor is a product of w's inside the chunk; dw_t's
+//     factors leave w_t out (Q holds the factors before t, h those after),
+//     so w = 0 needs no care: nothing is divided by w or by a product of w.
+//     Four threads per row take the tokens t = 0, 1, 2, 3 mod 4.
+//   - Two prep warps turn chunk c's r, k, w into the forward's operands
+//     (r Pex, k Sfx, Pall, the scores) while four consumer warps run chunk
+//     c + 1's products (G double-buffered in shared memory, so that each
+//     warp takes its share of every product) and then its walks; r, k, w
+//     arrive by cp.async in three raw stages (loading, prepared, walked),
+//     v, g and S0 in two.  Two blocks an SM (168 registers a thread).
+//   - The chunk-start states come from wkv_states_kernel, a block per 32
+//     rows and 16 columns of a head's state: 134 MB at rwkv6's training
+//     shape, half the former every-8-token scratch.
+//   Every sum has a fixed order and no float atomics are used: the same bits
+//   on every run.
+// Measured (chip_smoke phase 12, H100 80GB HBM3, 700 W): 0.5515 ms at
+//   rwkv6's training shape (the sequential kernel 2.7259 before); by launch
+//   (tools/wkv_bwd_ablate.py, which also times the reverse pass with parts
+//   switched off) the states 0.108 ms, their 268 MB of traffic near the
+//   memory's rate, the reverse pass 0.410, dv's sum 0.033.  The reverse pass
+//   is bound by its consumer warps' dependent chains, the walks first, then
+//   the products' 3xTF32 mma.sync sequences; the prep warps hide behind
+//   them.
 namespace wkvb {
 
-constexpr int kCk = 8;      // tokens per chunk of the reverse pass
+constexpr int kI = 32;                 // key rows of a block
+constexpr int kCP = Wkv<kI>::P;        // padded row of the r, k, w slices (40)
+constexpr int kXP = kI + 4;            // padded row of X and Y
+constexpr int kBP = 20;                // padded row of B
 
 template <int DH>
-struct Cfg {
-  static constexpr int threads = 4 * DH;
-  static constexpr int warps = threads / 32;
-  static constexpr int E = DH / 4;                    // columns a thread owns
-  static constexpr int states = kCk * E * threads;    // thread-private S_{t-1}
-  static constexpr int inputs = 5 * kCk * DH;         // r, k, v, w, g of a chunk
-  static constexpr int floats = states + inputs + 2 * kCk + kCk * warps * DH + DH;
+struct Bwd {
+  static constexpr int NS = DH / kI;                  // blocks a head
+  static constexpr int NT = DH / 8;                   // 8-column tiles of v, g, G
+  static constexpr int VP = DH + 8;                   // padded row of v, g, S0, G
+  static constexpr int threads = 192;                 // 2 prep warps, 4 consumer warps
+  static constexpr int rkw = 3 * Wkv<kI>::tile;       // a raw stage: r, k, w
+  static constexpr int cons = 2 * kC * VP + kI * VP;  // a consumer stage: v, g, S0
+  static constexpr int floats = kRaw * rkw + 2 * cons + 2 * Wkv<kI>::stage + Wkv<kI>::cross +
+                                kI /* u */ + 2 * kI * VP /* G, two buffers */ +
+                                2 * kC * kXP /* X, Y */ + kC * kBP /* B */ + kI /* c0 */ +
+                                4 * kI /* du */;
   static constexpr size_t bytes = sizeof(float) * floats;
+  // the first launch: 16 value columns a block, three stages of the k, w
+  // slices and those columns of v (2 chunks loading ahead), then k Sfx, Pall
+  static constexpr int NJ = DH / 16;
+  static constexpr int st_stage = 2 * kC * kCP + kC * 24;
+  static constexpr size_t st_bytes = sizeof(float) * (3 * st_stage + kC * kCP + kI);
 };
 
-// tokens [t0, t0 + n) of (b, s, h, DH) tensor x at (b, h) into dst [kCk][DH]
+__device__ __forceinline__ void bar_cons() {
+  asm volatile("bar.sync 2, 128;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void split4(float x0, float x1, float x2, float x3, uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  split(x0, big[0], small[0]);
+  split(x1, big[1], small[1]);
+  split(x2, big[2], small[2]);
+  split(x3, big[3], small[3]);
+}
+
+// A chunk's slices of `nsrc` (B, S, H, DH) tensors (columns [col, col + kI)
+// of a token row) into tiles of kC rows of kCP floats at dst; rows past n
+// are filled with fill[a].  One cp.async group, by `nt` threads from t0.
+template <int NSRC>
+__device__ __forceinline__ void load_slices(float* dst, const float* const (&src)[NSRC],
+                                            const float (&fill)[NSRC], size_t base, size_t tok,
+                                            int n, int tid, int nt) {
+  constexpr int row = kI / 4;
+#pragma unroll
+  for (int a = 0; a < NSRC; ++a)
+    for (int e = tid; e < kC * row; e += nt) {
+      const int t = e / row, d = (e % row) * 4;
+      float* to = dst + a * kC * kCP + t * kCP + d;
+      if (t < n) {
+        repro::cp_async16(smem_addr(to), src[a] + base + (size_t)t * tok + d);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) to[q] = fill[a];
+      }
+    }
+}
+
+// A chunk's rows of v and g (all DH columns, zero past n) into tiles of kC
+// rows of VP floats at dst.
 template <int DH>
-__device__ __forceinline__ void load_chunk(float* dst, const float* __restrict__ x, int b, int t0,
-                                           int n, int s, int h, int hh) {
-  for (int e = threadIdx.x; e < n * DH; e += Cfg<DH>::threads) {
-    const int t = e / DH, d = e % DH;
-    dst[e] = x[(((size_t)b * s + t0 + t) * h + hh) * DH + d];
+__device__ __forceinline__ void load_rows(float* dst, const float* v, const float* g, size_t base,
+                                          size_t tok, int n, int tid, int nt) {
+  constexpr int VP = Bwd<DH>::VP, row = DH / 4;
+  for (int e = tid; e < 2 * kC * row; e += nt) {
+    const int a = e / (kC * row), t = (e / row) % kC, d = (e % row) * 4;
+    const float* src = a == 0 ? v : g;
+    const bool ok = t < n;
+    repro::cp_async16(smem_addr(dst + a * kC * VP + t * VP + d),
+                      ok ? src + base + (size_t)t * tok + d : src, ok);
+  }
+}
+
+// First launch: the state S0 at the start of every chunk, for the block's
+// kI rows and 16 of the DH columns, into states (B, H, NS, nch, kI, DH).
+// Two warps, each holding 16 rows of S in MMA accumulators: S <- diag(Pall)
+// S + (k Sfx)^T v per chunk, Sfx and Pall running products of w by one
+// thread a row.  Rows and columns of S evolve independently, so a head's
+// state is split over NS x NJ blocks: enough loads in flight to stream the
+// states out at the memory's rate.
+template <int DH>
+__global__ void __launch_bounds__(64)
+wkv_states_kernel(const float* __restrict__ k, const float* __restrict__ w,
+                  const float* __restrict__ v, float* __restrict__ states, int s, int h) {
+  using C = Bwd<DH>;
+  constexpr int VJ = 24;                             // padded row of v's 16 columns
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  float* kd = sm + 3 * C::st_stage;                  // k Sfx [t][i]
+  float* pall = kd + kC * kCP;
+  const int jb = blockIdx.x % C::NJ, is = (blockIdx.x / C::NJ) % C::NS;
+  const int hh = blockIdx.x / (C::NJ * C::NS), b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const int nch = (s + kC - 1) / kC;
+  const size_t tok = (size_t)h * DH;
+  const size_t head0 = (size_t)b * s * tok + (size_t)hh * DH;
+  float* out = states + ((size_t)(b * h + hh) * C::NS + is) * nch * kI * DH + 16 * jb;
+
+  auto load = [&](int c) {
+    float* stg = sm + (c % 3) * C::st_stage;
+    const int n = min(kC, s - c * kC);
+    const float* const src[2] = {k, w};
+    const float fill[2] = {0.f, 1.f};
+    load_slices<2>(stg, src, fill, head0 + (size_t)c * kC * tok + kI * is, tok, n, threadIdx.x, 64);
+    const int t = threadIdx.x >> 2, d = (threadIdx.x & 3) * 4;   // 16 rows of 4 copies
+    const bool ok = t < n;
+    repro::cp_async16(smem_addr(stg + 2 * kC * kCP + t * VJ + d),
+                      ok ? v + head0 + (size_t)(c * kC + t) * tok + 16 * jb + d : v, ok);
+    repro::cp_async_commit();
+  };
+
+  float S[2][4];
+#pragma unroll
+  for (int n = 0; n < 2; ++n) S[n][0] = S[n][1] = S[n][2] = S[n][3] = 0.f;
+  const int i0 = 16 * warp + gid;
+  load(0);
+  if (nch > 1) load(1);
+  else repro::cp_async_commit();
+  for (int c = 0; c < nch; ++c) {
+    if (c + 2 < nch) load(c + 2);
+    else repro::cp_async_commit();
+    repro::cp_async_wait<2>();
+    __syncthreads();
+    const float* K = sm + (c % 3) * C::st_stage;
+    const float* Wt = K + kC * kCP;
+    const float* V = K + 2 * kC * kCP;
+    if (threadIdx.x < kI) {
+      const int i = threadIdx.x;
+      float back = 1.f;
+#pragma unroll
+      for (int t = kC - 1; t >= 0; --t) {
+        kd[t * kCP + i] = K[t * kCP + i] * back;
+        back *= Wt[t * kCP + i];
+      }
+      pall[i] = back;
+    }
+    float* dst = out + (size_t)c * kI * DH;
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      *reinterpret_cast<float2*>(dst + (size_t)i0 * DH + 8 * n + 2 * tig) = make_float2(S[n][0], S[n][1]);
+      *reinterpret_cast<float2*>(dst + (size_t)(i0 + 8) * DH + 8 * n + 2 * tig) =
+          make_float2(S[n][2], S[n][3]);
+    }
+    __syncthreads();
+    const float pl = pall[i0], ph = pall[i0 + 8];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      S[n][0] *= pl; S[n][1] *= pl; S[n][2] *= ph; S[n][3] *= ph;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const float* a0 = kd + (8 * kk + tig) * kCP + 16 * warp + gid;
+      uint32_t ab[4], as[4];
+      split4(a0[0], a0[8], a0[4 * kCP], a0[4 * kCP + 8], ab, as);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float* b0 = V + (8 * kk + tig) * VJ + 8 * n + gid;
+        uint32_t bb[2], bs[2];
+        split2(b0[0], b0[4 * VJ], bb, bs);
+        mma3(S[n], ab, as, bb, bs);
+      }
+    }
+    __syncthreads();                   // kd and pall are consumed
   }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(Cfg<DH>::threads, 1)
+__global__ void __launch_bounds__(Bwd<DH>::threads, 2)
 wkv_bwd_kernel(const float* __restrict__ r, const float* __restrict__ k,
                const float* __restrict__ v, const float* __restrict__ w,
                const float* __restrict__ u, const float* __restrict__ dout,
-               float* __restrict__ ckpt, float* __restrict__ dr, float* __restrict__ dk,
-               float* __restrict__ dv, float* __restrict__ dw, float* __restrict__ du_part,
-               int s, int h) {
-  using C = Cfg<DH>;
-  constexpr int NT = C::threads, E = C::E;
-  extern __shared__ float smem[];
-  float* sSt = smem;                   // [kCk][E][NT]
-  float* sr = sSt + C::states;         // [kCk][DH] each
-  float* sk = sr + kCk * DH;
-  float* sv = sk + kCk * DH;
-  float* sw = sv + kCk * DH;
-  float* sg = sw + kCk * DH;
-  float* sA = sg + kCk * DH;           // a_t = v_t . g_t
-  float* sB = sA + kCk;                // b_t = sum_i r_t u k_t
-  float* sDv = sB + kCk;               // [kCk][warps][DH] per-warp column sums
-  float* su = sDv + kCk * C::warps * DH;
+               const float* __restrict__ states, float* __restrict__ dr, float* __restrict__ dk,
+               float* __restrict__ dw, float* __restrict__ dv_part, float* __restrict__ du_part,
+               int bsz, int s, int h) {
+  using Wk = Wkv<kI>;
+  using C = Bwd<DH>;
+  constexpr int VP = C::VP, NS = C::NS;
+  constexpr int NC = C::threads - 64;                // consumer threads
+  extern __shared__ float4 smem4[];
+  float* raw = reinterpret_cast<float*>(smem4);      // kRaw stages of r, k, w
+  float* cons = raw + kRaw * C::rkw;                 // 2 stages of v, g, S0
+  float* ops = cons + 2 * C::cons;                   // 2 operand stages
+  float* cross = ops + 2 * Wk::stage;
+  float* su = cross + Wk::cross;
+  float* sG = su + kI;                               // 2 buffers of G [i][j]
+  float* sX = sG + 2 * kI * VP;                      // X [t][i]
+  float* sY = sX + kC * kXP;                         // Y [t][i]
+  float* sB = sY + kC * kXP;                         // B [t][s]
+  float* sc0 = sB + kC * kBP;
+  float* sdu = sc0 + kI;
 
-  const int hh = blockIdx.x, b = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int i = tid >> 2, j0 = (tid & 3) * E;
-  const int nck = (s + kCk - 1) / kCk;
-  float* my_ckpt = ckpt + ((size_t)b * h + hh) * nck * DH * DH;
-  for (int d = tid; d < DH; d += NT) su[d] = u[hh * DH + d];
+  const int is = blockIdx.x % NS, hh = blockIdx.x / NS, b = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const bool is_prep = warp < 2;
+  const int cw = warp - 2;                           // consumer warp 0 .. 3
+  const int ct = threadIdx.x - 64;                   // consumer thread
+  const int nch = (s + kC - 1) / kC;
+  const size_t tok = (size_t)h * DH;
+  const size_t head0 = (size_t)b * s * tok + (size_t)hh * DH;
+  const float* st_bh = states + ((size_t)(b * h + hh) * NS + is) * nch * kI * DH;
 
-  // pass 1: the state at the start of every chunk
-  float st[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) st[e] = 0.f;
-  for (int c = 0; c < nck; ++c) {
-    const int t0 = c * kCk, n = min(kCk, s - t0);
-    __syncthreads();
-    load_chunk<DH>(sk, k, b, t0, n, s, h, hh);
-    load_chunk<DH>(sv, v, b, t0, n, s, h, hh);
-    load_chunk<DH>(sw, w, b, t0, n, s, h, hh);
-    __syncthreads();
-#pragma unroll
-    for (int e = 0; e < E; ++e) my_ckpt[(size_t)c * DH * DH + e * NT + tid] = st[e];
-    for (int t = 0; t < n; ++t) {
-      const float wi = sw[t * DH + i], ki = sk[t * DH + i];
-#pragma unroll
-      for (int e = 0; e < E; ++e) st[e] = fmaf(wi, st[e], ki * sv[t * DH + j0 + e]);
-    }
+  for (int e = threadIdx.x; e < 2 * kC * kPA; e += C::threads) {
+    Stage<kI> st(ops + (e / (kC * kPA)) * Wk::stage);
+    st.ab[e % (kC * kPA)] = 0u;
+    st.as[e % (kC * kPA)] = 0u;
   }
-
-  // pass 2: backward, chunk by chunk from the last
-  float gs[E];
-#pragma unroll
-  for (int e = 0; e < E; ++e) gs[e] = 0.f;
+  for (int e = threadIdx.x; e < kI * VP; e += C::threads) sG[e] = 0.f;   // G after the last token
+  auto n_of = [&](int c) { return min(kC, s - c * kC); };
+  auto load_rkw = [&](int c, int slot) {            // prep threads
+    const float* const src[3] = {r, k, w};
+    const float fill[3] = {0.f, 0.f, 1.f};
+    load_slices<3>(raw + slot * C::rkw, src, fill, head0 + (size_t)c * kC * tok + kI * is, tok,
+                   n_of(c), threadIdx.x, 64);
+    repro::cp_async_commit();
+  };
+  auto load_cons = [&](int c, int slot) {           // consumer threads
+    float* dst = cons + slot * C::cons;
+    load_rows<DH>(dst, v, dout, head0 + (size_t)c * kC * tok, tok, n_of(c), ct, NC);
+    const float* s0 = st_bh + (size_t)c * kI * DH;
+    constexpr int row = DH / 4;
+    for (int e = ct; e < kI * row; e += NC) {
+      const int i = e / row, d = (e % row) * 4;
+      repro::cp_async16(smem_addr(dst + 2 * kC * VP + i * VP + d), s0 + (size_t)i * DH + d);
+    }
+    repro::cp_async_commit();
+  };
+  if (is_prep) {
+    if (threadIdx.x < kI) su[threadIdx.x] = u[(size_t)hh * DH + kI * is + threadIdx.x];
+    load_rkw(nch - 1, 0);
+  } else {
+    load_cons(nch - 1, 0);
+  }
+  __syncthreads();
   float du_acc = 0.f;
-  for (int c = nck - 1; c >= 0; --c) {
-    const int t0 = c * kCk, n = min(kCk, s - t0);
-    __syncthreads();                   // the previous chunk's shared data is consumed
-    load_chunk<DH>(sr, r, b, t0, n, s, h, hh);
-    load_chunk<DH>(sk, k, b, t0, n, s, h, hh);
-    load_chunk<DH>(sv, v, b, t0, n, s, h, hh);
-    load_chunk<DH>(sw, w, b, t0, n, s, h, hh);
-    load_chunk<DH>(sg, dout, b, t0, n, s, h, hh);
-    __syncthreads();
-    for (int t = warp; t < n; t += C::warps) {   // the bonus term's two dots
-      float a = 0.f, bb = 0.f;
-      for (int d = lane; d < DH; d += 32) {
-        a = fmaf(sv[t * DH + d], sg[t * DH + d], a);
-        bb = fmaf(sr[t * DH + d] * su[d], sk[t * DH + d], bb);
-      }
-      a = repro::warp_sum(a);
-      bb = repro::warp_sum(bb);
-      if (lane == 0) {
-        sA[t] = a;
-        sB[t] = bb;
-      }
-    }
-    // this thread's S_{t-1} for the chunk's tokens, from the chunk's start
-#pragma unroll
-    for (int e = 0; e < E; ++e) st[e] = my_ckpt[(size_t)c * DH * DH + e * NT + tid];
-    for (int t = 0; t < n; ++t) {
-      const float wi = sw[t * DH + i], ki = sk[t * DH + i];
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        sSt[(t * E + e) * NT + tid] = st[e];
-        st[e] = fmaf(wi, st[e], ki * sv[t * DH + j0 + e]);
-      }
-    }
-    __syncthreads();                   // sA, sB
 
-    for (int t = n - 1; t >= 0; --t) {
-      const float ri = sr[t * DH + i], ki = sk[t * DH + i], wi = sw[t * DH + i];
-      float sp[E], vv[E], gg[E], cs[E];
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        sp[e] = sSt[(t * E + e) * NT + tid];
-        vv[e] = sv[t * DH + j0 + e];
-        gg[e] = sg[t * DH + j0 + e];
+  // iteration it: the prep warps prepare chunk nch - 1 - it; the consumer
+  // warps consume chunk nch - it, prepared in iteration it - 1
+  for (int it = 0; it <= nch; ++it) {
+    if (is_prep) {
+      if (it < nch) {
+        const int c = nch - 1 - it;
+        repro::cp_async_wait<0>();                   // chunk c has landed (own copies)
+        bar_prep(64);                                // ... and every prep thread's
+        if (c > 0) load_rkw(c - 1, (it + 1) % kRaw);
+        prep_chunk<kI, 2>(raw + (it % kRaw) * C::rkw, Stage<kI>(ops + (it & 1) * Wk::stage),
+                          cross, su, threadIdx.x);
       }
-      float rw = 0.f, rk = 0.f, rr = 0.f;   // row partials of dw, dk, dr
+    } else if (it > 0) {
+      const int c = nch - it, n = n_of(c), t0 = c * kC;
+      if (c > 0) load_cons(c - 1, it & 1);
+      else repro::cp_async_commit();                 // an empty group keeps the count
+      repro::cp_async_wait<1>();                     // chunk c's v, g, S0 (own copies)
+      bar_cons();                                    // ... and the other consumer warps'
+      const float* R = raw + ((it - 1) % kRaw) * C::rkw;
+      const float* Kr = R + Wk::tile;
+      const float* Wr = R + 2 * Wk::tile;
+      Stage<kI> op(ops + ((it - 1) & 1) * Wk::stage);
+      const float* V = cons + ((it - 1) & 1) * C::cons;
+      const float* Gt = V + kC * VP;                 // dO
+      const float* S0 = V + 2 * kC * VP;
+      const float* Ge = sG + ((it - 1) & 1) * kI * VP;   // G_end of chunk c
+      float* Gs = sG + (it & 1) * kI * VP;               // G_start of chunk c
+
+      // c0 = rowsum(G_end o S0): four threads a row, a quarter of the columns each
+      {
+        const int i = ct >> 2, j0 = (ct & 3) * (DH / 4);
+        float acc = 0.f;
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        rw = fmaf(gs[e], sp[e], rw);
-        rk = fmaf(gs[e], vv[e], rk);
-        rr = fmaf(sp[e], gg[e], rr);
-        cs[e] = gs[e] * ki;                 // column partials of dv
-      }
-#pragma unroll
-      for (int o = 1; o <= 2; o <<= 1) {
-        rw += __shfl_xor_sync(0xffffffffu, rw, o);
-        rk += __shfl_xor_sync(0xffffffffu, rk, o);
-        rr += __shfl_xor_sync(0xffffffffu, rr, o);
-      }
-      // the warp's 8 rows: a transposed butterfly over lane bits 4, 3, 2;
-      // after it this lane holds columns j0 + cb + [0, E / 8)
-      int cb = 0;
-#pragma unroll
-      for (int step = 0; step < 3; ++step) {
-        const int half = E >> (step + 1), mask = 16 >> step;
-        const bool hi = lane & mask;
-#pragma unroll
-        for (int e = 0; e < half; ++e) {
-          const float send = hi ? cs[e] : cs[e + half];
-          const float keep = hi ? cs[e + half] : cs[e];
-          cs[e] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+        for (int j = 0; j < DH / 4; j += 4) {
+          const float4 a = *reinterpret_cast<const float4*>(Ge + i * VP + j0 + j);
+          const float4 bb = *reinterpret_cast<const float4*>(S0 + i * VP + j0 + j);
+          acc = repro::dot4(a, bb, acc);
         }
-        if (hi) cb += half;
+        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+        if ((ct & 3) == 0) sc0[i] = acc;
       }
+
+      // Y = v G_end^T (warps 0, 1) or X = g S0^T and B = g v^T (warps 2, 3):
+      // (t x i) tiles 2 (cw & 1), 2 (cw & 1) + 1; B's (t x s) tile cw & 1;
+      // k-steps over the value columns j
+      {
+        const bool is_y = cw < 2;
+        const float* A = is_y ? V : Gt;              // v or g rows
+        const float* Bm = is_y ? Ge : S0;            // G_end or S0 rows i
+        float acc[2][4] = {}, bq[4] = {};
 #pragma unroll
-      for (int e = 0; e < E / 8; ++e) sDv[(t * C::warps + warp) * DH + j0 + cb + e] = cs[e];
-      const size_t row = (((size_t)b * s + t0 + t) * h + hh) * DH + i;
-      const float at = sA[t];
-      switch (tid & 3) {
-        case 0:
-          dr[row] = rr + su[i] * ki * at;
-          du_acc = fmaf(ri * ki, at, du_acc);
-          break;
-        case 1: dk[row] = rk + ri * su[i] * at; break;
-        case 2: dw[row] = rw; break;
-        default: break;
+        for (int kk = 0; kk < DH / 8; ++kk) {
+          const float* a0 = A + gid * VP + 8 * kk + tig;
+          uint32_t ab[4], as[4], bb[2], bs[2];
+          split4(a0[0], a0[8 * VP], a0[4], a0[8 * VP + 4], ab, as);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            const float* b0 = Bm + (8 * (2 * (cw & 1) + q) + gid) * VP + 8 * kk + tig;
+            split2(b0[0], b0[4], bb, bs);
+            mma3(acc[q], ab, as, bb, bs);
+          }
+          if (!is_y) {
+            const float* b0 = V + (8 * (cw & 1) + gid) * VP + 8 * kk + tig;
+            split2(b0[0], b0[4], bb, bs);
+            mma3(bq, ab, as, bb, bs);
+          }
+        }
+        float* out = is_y ? sY : sX;
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const int i = 8 * (2 * (cw & 1) + q) + 2 * tig;
+          *reinterpret_cast<float2*>(out + gid * kXP + i) = make_float2(acc[q][0], acc[q][1]);
+          *reinterpret_cast<float2*>(out + (gid + 8) * kXP + i) = make_float2(acc[q][2], acc[q][3]);
+        }
+        if (!is_y) {
+          const int sc = 8 * (cw & 1) + 2 * tig;
+          *reinterpret_cast<float2*>(sB + gid * kBP + sc) = make_float2(bq[0], bq[1]);
+          *reinterpret_cast<float2*>(sB + (gid + 8) * kBP + sc) = make_float2(bq[2], bq[3]);
+        }
       }
+
+      // dv's share of this block, kS G_end + A^T g: value tiles 2 cw, 2 cw + 1
+      {
+        uint32_t kb[4][4], ks[4][4], tb[2][4], ts[2][4];
 #pragma unroll
-      for (int e = 0; e < E; ++e) gs[e] = fmaf(wi, gs[e], ri * gg[e]);
+        for (int kk = 0; kk < 4; ++kk) {
+          const float* a0 = op.kd + gid * kCP + 8 * kk + tig;
+          split4(a0[0], a0[8 * kCP], a0[4], a0[8 * kCP + 4], kb[kk], ks[kk]);
+        }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const int o = (8 * kk + tig) * kPA + gid;
+          tb[kk][0] = op.ab[o]; tb[kk][1] = op.ab[o + 8];
+          tb[kk][2] = op.ab[o + 4 * kPA]; tb[kk][3] = op.ab[o + 4 * kPA + 8];
+          ts[kk][0] = op.as[o]; ts[kk][1] = op.as[o + 8];
+          ts[kk][2] = op.as[o + 4 * kPA]; ts[kk][3] = op.as[o + 4 * kPA + 8];
+        }
+        float* dvp = dv_part + (size_t)is * bsz * s * tok + head0 + (size_t)t0 * tok;
+#pragma unroll
+        for (int q = 0; q < DH / 32; ++q) {
+          const int nn = (DH / 32) * cw + q;
+          float d[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) {
+            const float* b0 = Ge + (8 * kk + tig) * VP + 8 * nn + gid;
+            uint32_t bb[2], bs[2];
+            split2(b0[0], b0[4 * VP], bb, bs);
+            mma3(d, kb[kk], ks[kk], bb, bs);
+          }
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            const float* b0 = Gt + (8 * kk + tig) * VP + 8 * nn + gid;
+            uint32_t bb[2], bs[2];
+            split2(b0[0], b0[4 * VP], bb, bs);
+            mma3(d, tb[kk], ts[kk], bb, bs);
+          }
+          const int j = 8 * nn + 2 * tig;
+          if (gid < n) *reinterpret_cast<float2*>(dvp + (size_t)gid * tok + j) = make_float2(d[0], d[1]);
+          if (gid + 8 < n)
+            *reinterpret_cast<float2*>(dvp + (size_t)(gid + 8) * tok + j) = make_float2(d[2], d[3]);
+        }
+      }
+
+      // G_start = diag(Pall) G_end + (r Pex)^T g: rows 16 (cw >> 1) + [0, 16),
+      // value tiles (cw & 1) DH / 16 + [0, DH / 16)
+      {
+        constexpr int NQ = DH / 16;
+        const int i0 = 16 * (cw >> 1) + gid;
+        const float pl = op.pall[i0], ph = op.pall[i0 + 8];
+        float g4[NQ][4];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int j = 8 * ((cw & 1) * NQ + q) + 2 * tig;
+          const float2 lo = *reinterpret_cast<const float2*>(Ge + i0 * VP + j);
+          const float2 hi = *reinterpret_cast<const float2*>(Ge + (i0 + 8) * VP + j);
+          g4[q][0] = lo.x * pl; g4[q][1] = lo.y * pl; g4[q][2] = hi.x * ph; g4[q][3] = hi.y * ph;
+        }
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const float* a0 = op.rd + (8 * kk + tig) * kCP + i0;
+          uint32_t ab[4], as[4];
+          split4(a0[0], a0[8], a0[4 * kCP], a0[4 * kCP + 8], ab, as);
+#pragma unroll
+          for (int q = 0; q < NQ; ++q) {
+            const float* b0 = Gt + (8 * kk + tig) * VP + 8 * ((cw & 1) * NQ + q) + gid;
+            uint32_t bb[2], bs[2];
+            split2(b0[0], b0[4 * VP], bb, bs);
+            mma3(g4[q], ab, as, bb, bs);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int j = 8 * ((cw & 1) * NQ + q) + 2 * tig;
+          *reinterpret_cast<float2*>(Gs + i0 * VP + j) = make_float2(g4[q][0], g4[q][1]);
+          *reinterpret_cast<float2*>(Gs + (i0 + 8) * VP + j) = make_float2(g4[q][2], g4[q][3]);
+        }
+      }
+      bar_cons();                                    // sX, sY, sB, sc0
+
+      // the walks of row il, tokens t = cw mod 4 (one copy of the code for
+      // the four: a copy per parity, pruned, ran slower)
+      {
+        const int il = lane, par = cw;
+        float rr[kC], kk_[kC], ww[kC], yy[kC], q[kC];
+#pragma unroll
+        for (int t = 0; t < kC; ++t) {
+          rr[t] = R[t * kCP + il];
+          kk_[t] = Kr[t * kCP + il];
+          ww[t] = Wr[t * kCP + il];
+          yy[t] = sY[t * kXP + il];
+          q[t] = sX[t * kXP + il];
+        }
+        const float ui = su[il];
+        float z = sc0[il];
+        const size_t col = head0 + (size_t)t0 * tok + kI * is + il;
+#pragma unroll
+        for (int t = 0; t < kC; ++t) {
+          float bc[kC];
+#pragma unroll
+          for (int s2 = t + 1; s2 < kC; ++s2) bc[s2] = sB[s2 * kBP + t];
+          const float at = sB[t * kBP + t];
+          if ((t & 3) == par) {
+            float hw = 1.f, ak = 0.f, aw = 0.f;
+#pragma unroll
+            for (int s2 = t + 1; s2 < kC; ++s2) {
+              const float hr = hw * rr[s2];
+              ak = fmaf(hr, bc[s2], ak);
+              aw = fmaf(hr, q[s2], aw);
+              hw *= ww[s2];
+            }
+            if (t < n) {
+              const size_t o = col + (size_t)t * tok;
+              dr[o] = fmaf(ui * kk_[t], at, q[t]);
+              dk[o] = fmaf(rr[t] * ui, at, fmaf(hw, yy[t], ak));
+              dw[o] = fmaf(hw, z, aw);
+            }
+            du_acc = fmaf(rr[t] * kk_[t], at, du_acc);
+          }
+          z = fmaf(ww[t], z, kk_[t] * yy[t]);
+#pragma unroll
+          for (int s2 = t + 1; s2 < kC; ++s2) q[s2] = fmaf(ww[t], q[s2], kk_[t] * bc[s2]);
+        }
+      }
     }
-    __syncthreads();                   // sDv
-    for (int e = tid; e < n * DH; e += NT) {
-      const int t = e / DH, j = e % DH;
-      float acc = 0.f;
-      for (int q = 0; q < C::warps; ++q) acc += sDv[(t * C::warps + q) * DH + j];
-      dv[(((size_t)b * s + t0 + t) * h + hh) * DH + j] = acc + sg[e] * sB[t];
-    }
+    __syncthreads();
   }
-  if ((tid & 3) == 0) du_part[((size_t)b * h + hh) * DH + i] = du_acc;
+  if (!is_prep) {
+    sdu[cw * kI + lane] = du_acc;
+    bar_cons();
+    if (cw == 0)
+      du_part[((size_t)b * h + hh) * DH + kI * is + lane] =
+          ((sdu[lane] + sdu[kI + lane]) + sdu[2 * kI + lane]) + sdu[3 * kI + lane];
+  }
 }
 
-// du[hh][i] = sum over b of du_part[b][hh][i], b in order
-__global__ void wkv_du_kernel(const float* __restrict__ du_part, float* __restrict__ du, int b,
-                              int hdh) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= hdh) return;
-  float acc = 0.f;
-  for (int q = 0; q < b; ++q) acc += du_part[(size_t)q * hdh + e];
-  du[e] = acc;
+// dv = the blocks' shares summed in block order (float4 at a time); du =
+// du_part summed over the batch in order.
+template <int NS>
+__global__ void wkv_bwd_finish_kernel(const float4* __restrict__ dv_part, float4* __restrict__ dv,
+                                      size_t n4, const float* __restrict__ du_part,
+                                      float* __restrict__ du, int bsz, int hdh) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < n4) {
+    float4 acc = dv_part[e];
+#pragma unroll
+    for (int q = 1; q < NS; ++q) {
+      const float4 x = dv_part[(size_t)q * n4 + e];
+      acc.x += x.x; acc.y += x.y; acc.z += x.z; acc.w += x.w;
+    }
+    dv[e] = acc;
+  } else if (e - n4 < (size_t)hdh) {
+    const int j = (int)(e - n4);
+    float acc = 0.f;
+    for (int q = 0; q < bsz; ++q) acc += du_part[(size_t)q * hdh + j];
+    du[j] = acc;
+  }
 }
 
 template <int DH>
 int launch(const float* r, const float* k, const float* v, const float* w, const float* u,
-           const float* dout, float* ckpt, float* dr, float* dk, float* dv, float* dw,
-           float* du_part, float* du, int b, int s, int h, cudaStream_t st) {
-  using C = Cfg<DH>;
-  auto* kern = wkv_bwd_kernel<DH>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)C::bytes);
+           const float* dout, float* states, float* dv_part, float* du_part, float* dr, float* dk,
+           float* dv, float* dw, float* du, int b, int s, int h, cudaStream_t st) {
+  using C = Bwd<DH>;
+  auto* skern = wkv_states_kernel<DH>;
+  cudaError_t err = cudaFuncSetAttribute(skern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)C::st_bytes);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(h, b), C::threads, C::bytes, st>>>(r, k, v, w, u, dout, ckpt, dr, dk, dv, dw,
-                                                 du_part, s, h);
+  skern<<<dim3(C::NJ * C::NS * h, b), 64, C::st_bytes, st>>>(k, w, v, states, s, h);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  auto* kern = wkv_bwd_kernel<DH>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::bytes);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(C::NS * h, b), C::threads, C::bytes, st>>>(r, k, v, w, u, dout, states, dr, dk, dw,
+                                                        dv_part, du_part, b, s, h);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t n4 = (size_t)b * s * h * DH / 4;
   const int hdh = h * DH;
-  wkv_du_kernel<<<(hdh + 127) / 128, 128, 0, st>>>(du_part, du, b, hdh);
+  const size_t total = n4 + hdh;
+  wkv_bwd_finish_kernel<C::NS><<<(unsigned)((total + 255) / 256), 256, 0, st>>>(
+      reinterpret_cast<const float4*>(dv_part), reinterpret_cast<float4*>(dv), n4, du_part, du,
+      b, hdh);
   return cudaGetLastError();
 }
 
 }  // namespace wkvb
 
 // The backward of repro_wkv: r, k, v, w, dout, dr, dk, dv, dw (b, s, h, dh);
-// u, du (h, dh); ckpt a (b, h, ceil(s / 8), dh, dh) scratch and du_part a
-// (b, h, dh) scratch; all fp32 and contiguous, dh in {32, 64}.  Two launches
-// (the reverse pass, the sum of du over b), each checked.
+// u, du (h, dh); all fp32, contiguous and 16-byte aligned, dh in {32, 64}.
+// Scratch: states (b, h, dh / 32, ceil(s / 16), 32, dh), dv_part (dh / 32,
+// b, s, h, dh) and du_part (b, h, dh).  Three launches (the chunk-start
+// states, the reverse pass, the sums of dv over row blocks and of du over
+// the batch), each checked.
 extern "C" int repro_wkv_bwd(const float* r, const float* k, const float* v, const float* w,
-                             const float* u, const float* dout, float* ckpt, float* dr,
-                             float* dk, float* dv, float* dw, float* du_part, float* du, int b,
-                             int s, int h, int dh, void* stream) {
+                             const float* u, const float* dout, float* states, float* dv_part,
+                             float* du_part, float* dr, float* dk, float* dv, float* dw,
+                             float* du, int b, int s, int h, int dh, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 32: return wkvb::launch<32>(r, k, v, w, u, dout, ckpt, dr, dk, dv, dw, du_part, du,
-                                     b, s, h, st);
-    case 64: return wkvb::launch<64>(r, k, v, w, u, dout, ckpt, dr, dk, dv, dw, du_part, du,
-                                     b, s, h, st);
+    case 32: return wkvb::launch<32>(r, k, v, w, u, dout, states, dv_part, du_part, dr, dk, dv,
+                                     dw, du, b, s, h, st);
+    case 64: return wkvb::launch<64>(r, k, v, w, u, dout, states, dv_part, du_part, dr, dk, dv,
+                                     dw, du, b, s, h, st);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+// The reverse pass's dynamic shared memory per block at head dim dh (0: no kernel).
+extern "C" int repro_wkv_bwd_smem(int dh) {
+  switch (dh) {
+    case 32: return (int)wkvb::Bwd<32>::bytes;
+    case 64: return (int)wkvb::Bwd<64>::bytes;
+    default: return 0;
   }
 }

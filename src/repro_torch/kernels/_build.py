@@ -28,7 +28,8 @@ where it launches its kernel and nowhere else, so a run can show that its
 main path went through the kernels (`reset_launches()` before, read after).
 "flash_attention_tc" counts the tensor-core launches among "flash_attention"'s;
 "flash_attention_bwd" and "wkv_bwd" the calls of the backward kernels
-(each one C entry: three launches for attention, two for WKV);
+(each one C entry of three launches), "flash_attention_bwd_tc" the
+tensor-core calls among "flash_attention_bwd"'s;
 "probe_sweep_batched_per_trial" and "commit_sweep_batched_per_trial" the
 batched launches with one agent per trial among theirs.
 """
@@ -67,7 +68,8 @@ LAUNCHES: Dict[str, int] = {"gram": 0, "row_gram": 0, "probe_sweep": 0,
                             "commit_sweep_batched_per_trial": 0,
                             "flash_attention": 0,
                             "flash_attention_tc": 0, "flash_decode": 0,
-                            "wkv": 0, "flash_attention_bwd": 0, "wkv_bwd": 0}
+                            "wkv": 0, "flash_attention_bwd": 0,
+                            "flash_attention_bwd_tc": 0, "wkv_bwd": 0}
 
 
 class KernelBuildError(RuntimeError):

@@ -27,9 +27,22 @@ Training (`flash_attention_train`, a torch.autograd.Function): the forward
 is the same launch with an LSE buffer, into which the kernel also writes
 each row's log-sum-exp (B, Hq, Sq) fp32; the output is the same bits as
 without it.  The backward, `flash_attention_bwd`, is one C entry of three
-launches (D = rowsum(dO o O), then dK/dV, then dQ; csrc/flash_attention.cu
-namespace bwd) on the CUDA cores in fp32, for every (dtype, dh) of ROUTES;
-`_build.LAUNCHES["flash_attention_bwd"]` counts its calls.
+launches (D = rowsum(dO o O), then dK/dV, then dQ), chosen by `BWD_ROUTES`,
+its own (dtype, head dim) table; a pair not in it raises:
+
+  "tc"   bf16 at dh 64 and 128: dK/dV and dQ on wgmma (csrc/flash_attention.cu
+         namespace tc, dkdv_tc_kernel and dq_tc_kernel).  P and dS enter
+         their products as two bf16 halves each (hi + lo), so the gradient
+         stays within twice the plain bf16 version's own rounding.  Bound
+         by the tensor cores' rate (0.0408 ms at smollm's training shape,
+         B=8, S=1024, 15/5 heads of 64); 0.3181 ms there on an H100 (SDPA's
+         backward 0.2143; the FMA route 3.2573 before; chip_smoke phase 12).
+  "fma"  fp32 at every head dim and bf16 at dh 80: fp32 FMA on the CUDA
+         cores (namespace bwd).
+
+`_build.LAUNCHES["flash_attention_bwd"]` counts every backward call, and
+`_build.LAUNCHES["flash_attention_bwd_tc"]` the tensor-core ones among them.
+The route is the table's: nothing falls back from one kernel to the other.
 
 A CPU tensor runs the plain versions (ref.py); a CUDA tensor launches a
 kernel or raises.  There is no fallback between them.
@@ -45,7 +58,7 @@ from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref, attentio
                                                      attention_ref)
 
 __all__ = ["flash_attention", "flash_attention_bwd", "flash_attention_train", "HEAD_DIMS",
-           "ROUTES", "route"]
+           "ROUTES", "BWD_ROUTES", "route", "bwd_route"]
 
 HEAD_DIMS = (64, 80, 128)    # the dh values of the configs' attention heads
 
@@ -59,17 +72,37 @@ ROUTES = {
     (torch.float32, 128): "fma",
 }
 _SYMBOLS = {"tc": "repro_flash_attention_tc", "fma": "repro_flash_attention"}
+# (dtype, head dim) -> the backward kernel that runs it; _BWD_SYMBOLS names its C entry.
+BWD_ROUTES = {
+    (torch.bfloat16, 64): "tc",
+    (torch.bfloat16, 128): "tc",
+    (torch.bfloat16, 80): "fma",
+    (torch.float32, 64): "fma",
+    (torch.float32, 80): "fma",
+    (torch.float32, 128): "fma",
+}
+_BWD_SYMBOLS = {"tc": "repro_flash_attention_bwd_tc", "fma": "repro_flash_attention_bwd"}
+
+
+def _lookup(op: str, table: dict, dtype: torch.dtype, dh: int) -> str:
+    try:
+        return table[(dtype, dh)]
+    except KeyError:
+        raise ValueError(f"{op}: head dim {dh} in {dtype} not in "
+                         f"the kernels' table {sorted((str(t), d) for t, d in table)} "
+                         f"(head dims {HEAD_DIMS})") from None
 
 
 def route(dtype: torch.dtype, dh: int) -> str:
     """The kernel ("tc" or "fma") that runs (dtype, dh); raises for a pair
     outside ROUTES."""
-    try:
-        return ROUTES[(dtype, dh)]
-    except KeyError:
-        raise ValueError(f"flash_attention: head dim {dh} in {dtype} not in "
-                         f"the kernels' table {sorted((str(t), d) for t, d in ROUTES)} "
-                         f"(head dims {HEAD_DIMS})") from None
+    return _lookup("flash_attention", ROUTES, dtype, dh)
+
+
+def bwd_route(dtype: torch.dtype, dh: int) -> str:
+    """The backward kernel ("tc" or "fma") that runs (dtype, dh); raises for
+    a pair outside BWD_ROUTES."""
+    return _lookup("flash_attention_bwd", BWD_ROUTES, dtype, dh)
 
 
 def check_lm_operands(op: str, tensors) -> bool:
@@ -153,16 +186,19 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         return attention_bwd_ref(q, k, v, o, do, lse, causal=causal, window=window)
     bf16 = check_lm_operands("flash_attention_bwd", (("q", q), ("k", k), ("v", v),
                                                      ("o", o), ("do", do)))
-    route(q.dtype, dh)                       # the (dtype, dh) pairs of the forward
+    kernel = bwd_route(q.dtype, dh)
     _build.check_cuda_tensor("flash_attention_bwd: lse", lse, (b, hq, sq))
     if lse.dtype != torch.float32:
         raise TypeError(f"flash_attention_bwd: lse must be fp32, got {lse.dtype}")
     delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    _build.launch("flash_attention", "repro_flash_attention_bwd", q, k, v, o, do, lse, delta,
-                  dq, dk, dv, int(bf16), b, sq, skv, hq, hkv, dh, int(causal), int(window),
+    dtype_flag = () if kernel == "tc" else (int(bf16),)
+    _build.launch("flash_attention", _BWD_SYMBOLS[kernel], q, k, v, o, do, lse, delta,
+                  dq, dk, dv, *dtype_flag, b, sq, skv, hq, hkv, dh, int(causal), int(window),
                   dh ** -0.5)
     _build.LAUNCHES["flash_attention_bwd"] += 1
+    if kernel == "tc":
+        _build.LAUNCHES["flash_attention_bwd_tc"] += 1
     return dq, dk, dv
 
 

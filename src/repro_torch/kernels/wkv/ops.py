@@ -16,11 +16,19 @@ as a twin (ref.wkv_chunked_ref), never as a route, also for configs with
 rwkv_chunk > 0.  There is no fallback between the two devices.
 
 Training (`wkv_train`, a torch.autograd.Function): the forward is the same
-launch; the backward, `wkv_bwd`, is one C entry of two launches
-(csrc/wkv.cu namespace wkvb: a block per (batch, head) walks the sequence
-forward to save the state at every BWD_CHUNK tokens, then backward through
-the recurrence's reverse form; then du's per-batch partials summed over the
-batch in order).  `_build.LAUNCHES["wkv_bwd"]` counts its calls.
+launch; the backward, `wkv_bwd`, is one C entry of three launches
+(csrc/wkv.cu namespace wkvb): the state at the start of every BWD_CHUNK-token
+chunk; the reverse pass, the chunked form of the reverse recurrence on the
+tensor cores (mma.sync 3xTF32), a block per BWD_ROWS key rows of a (batch,
+head) carrying dL/dS backward across chunks (ref.wkv_bwd_chunked_ref spells
+the algorithm out); then dv summed over a head's row blocks and du over the
+batch, in order.  Every decay factor is a product of w's inside a chunk, and
+dw leaves w_t out by products too: nothing is divided by w, which reaches 0
+in fp32.  Bound by the bytes (0.0902 ms at rwkv6's training shape, B=4,
+S=1024, 32 heads of 64); 0.5515 ms there on an H100 (the sequential kernel
+2.7259 before; chip_smoke phase 12).  `wkv_bwd_geometry` gives the launch
+and the scratch; misaligned operands are copied to aligned storage first.
+`_build.LAUNCHES["wkv_bwd"]` counts its calls.
 """
 from __future__ import annotations
 
@@ -32,12 +40,14 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.wkv.ref import wkv_bwd_ref, wkv_ref
 
 __all__ = ["wkv_chunked", "wkv_bwd", "wkv_train", "wkv_geometry", "wkv_smem_bytes",
-           "CHUNK", "BWD_CHUNK", "HEAD_DIMS"]
+           "wkv_bwd_geometry", "wkv_bwd_smem_bytes", "CHUNK", "BWD_CHUNK", "BWD_ROWS",
+           "HEAD_DIMS"]
 
 HEAD_DIMS = (32, 64)    # the rwkv configs' head dims
 CHUNK = 16              # tokens per chunk of the kernel (its MMA row tile)
 RAW_STAGES = 3          # chunks of r, k, v, w in shared memory (1 loading ahead)
-BWD_CHUNK = 8           # tokens between the backward's saved states
+BWD_CHUNK = CHUNK       # tokens a chunk of the backward (its saved states' spacing)
+BWD_ROWS = 32           # key rows of S and G a block of the backward owns
 _PAD, _SCORE_ROW = 8, 20
 
 
@@ -60,6 +70,39 @@ def wkv_geometry(b: int, s: int, h: int, dh: int) -> dict:
         raise ValueError(f"wkv: head dim {dh} not in {HEAD_DIMS}")
     return {"grid": (h, b), "threads": 4 * dh, "chunks": -(-s // CHUNK),
             "smem_bytes": wkv_smem_bytes(dh)}
+
+
+def wkv_bwd_smem_bytes(dh: int) -> int:
+    """Dynamic shared memory of one reverse-pass block at head dim dh
+    (csrc/wkv.cu wkvb::Bwd): three raw stages of the r, k, w slices (CHUNK
+    rows of BWD_ROWS + 8 floats), two stages of v, g (CHUNK rows of dh + 8)
+    and S0 (BWD_ROWS rows), two operand stages of the forward's prep at
+    BWD_ROWS columns, its cross factors, u, two buffers of G (BWD_ROWS
+    rows), X and Y (CHUNK rows of BWD_ROWS + 4), B (CHUNK rows of 20), c0
+    and the four consumer warps' du."""
+    tile = CHUNK * (BWD_ROWS + _PAD)
+    vp = dh + _PAD
+    stage = 2 * tile + 2 * CHUNK * _SCORE_ROW + BWD_ROWS
+    cross = 2 * (CHUNK // 2) * (BWD_ROWS + _PAD)
+    return 4 * (RAW_STAGES * 3 * tile + 2 * (2 * CHUNK * vp + BWD_ROWS * vp) + 2 * stage
+                + cross + BWD_ROWS + 2 * BWD_ROWS * vp + 2 * CHUNK * (BWD_ROWS + 4)
+                + CHUNK * _SCORE_ROW + 5 * BWD_ROWS)
+
+
+def wkv_bwd_geometry(b: int, s: int, h: int, dh: int) -> dict:
+    """The reverse pass of one call: a block of 192 threads (two prep warps,
+    four consumer warps) per BWD_ROWS key rows of a (head, batch), dh /
+    BWD_ROWS blocks a head, walking ceil(s / BWD_CHUNK) chunks from the
+    last; and its scratch in floats: the chunk-start states (B, H, splits,
+    chunks, BWD_ROWS, dh), dv's per-block shares (splits, B, S, H, dh) and
+    du's per-batch ones (B, H, dh).  It depends on the shape alone."""
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"wkv_bwd: head dim {dh} not in {HEAD_DIMS}")
+    splits, chunks = dh // BWD_ROWS, -(-s // BWD_CHUNK)
+    return {"grid": (splits * h, b), "threads": 192, "chunks": chunks, "splits": splits,
+            "smem_bytes": wkv_bwd_smem_bytes(dh),
+            "states": (b, h, splits, chunks, BWD_ROWS, dh),
+            "dv_part": (splits, b, s, h, dh), "du_part": (b, h, dh)}
 
 
 def _check(op: str, r, k, v, w, u) -> Tuple[int, int, int, int]:
@@ -111,13 +154,17 @@ def wkv_bwd(r, k, v, w, u, dout) -> Tuple[torch.Tensor, ...]:
         raise ValueError(f"wkv_bwd: head dim {dh} not in {HEAD_DIMS}")
     if b * s * h == 0:
         raise ValueError(f"wkv_bwd: empty operand {tuple(r.shape)}")
+    geo = wkv_bwd_geometry(b, s, h, dh)
+    r, k, v, w, u, dout = (t if t.data_ptr() % 16 == 0 else t.clone()
+                           for t in (r, k, v, w, u, dout))
     f32 = dict(dtype=torch.float32, device=r.device)
-    ckpt = torch.empty((b, h, -(-s // BWD_CHUNK), dh, dh), **f32)
-    du_part = torch.empty((b, h, dh), **f32)
+    states = torch.empty(geo["states"], **f32)
+    dv_part = torch.empty(geo["dv_part"], **f32)
+    du_part = torch.empty(geo["du_part"], **f32)
     dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
     du = torch.empty((h, dh), **f32)
-    _build.launch("wkv", "repro_wkv_bwd", r, k, v, w, u, dout, ckpt, dr, dk, dv, dw, du_part,
-                  du, b, s, h, dh)
+    _build.launch("wkv", "repro_wkv_bwd", r, k, v, w, u, dout, states, dv_part, du_part,
+                  dr, dk, dv, dw, du, b, s, h, dh)
     _build.LAUNCHES["wkv_bwd"] += 1
     return dr, dk, dv, dw, du
 

@@ -14,10 +14,13 @@ chunk's summed log-decay passes about -88.  The port routes neither chunked
 form; they hold the kernel's algorithm and the port's recurrence to the JAX
 package.
 
-`wkv_bwd_ref` is the closed-form gradient of the recurrence that the
-backward kernel computes (the JAX package has no backward kernel; its
-training differentiates the plain scan, and tests hold this against
-jax.grad of wkv_ref).
+`wkv_bwd_ref` is the closed-form gradient of the recurrence, token by
+token (the JAX package has no backward kernel; its training differentiates
+the plain scan, and tests hold this against jax.grad of wkv_ref): the CPU
+path of kernels.wkv.ops.wkv_bwd and the backward kernel's yardstick on the
+card.  `wkv_bwd_chunked_ref` spells out the backward kernel's algorithm:
+chunks walked from the last, dL/dS carried across them, per-row recursions
+whose decay factors are products of w, never quotients.
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ from typing import Tuple
 
 import torch
 
-__all__ = ["wkv_ref", "wkv_safe_chunked_ref", "wkv_chunked_ref", "wkv_bwd_ref"]
+__all__ = ["wkv_ref", "wkv_safe_chunked_ref", "wkv_chunked_ref", "wkv_bwd_ref",
+           "wkv_bwd_chunked_ref"]
 
 
 def wkv_ref(r, k, v, w, u) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -58,6 +62,30 @@ def _running(wc, reverse=False):
     return torch.stack(out, dim=1), run
 
 
+def _safe_scores(rc, kc, wc, u, m: int) -> torch.Tensor:
+    """The chunk's scores A (B,H,n,n) of wkv_safe_chunked_ref from its r, k, w
+    (B,n,H,dh) and u (H,dh): A[t, t] = sum_i r_t u k_t, A[t, s] (s < t) =
+    sum_i r_t k_s prod_{s<u<t} w_u by running products inside the halves of
+    m tokens and through the midpoint across them, the strict upper triangle
+    zero; no product of w is divided by another."""
+    b, n, h, _ = rc.shape
+    a = torch.zeros((b, h, n, n), dtype=torch.float32, device=rc.device)
+    idx = torch.arange(n, dtype=torch.int64, device=rc.device)
+    a[:, :, idx, idx] = (rc * u * kc).sum(-1).transpose(1, 2)
+    for lo in range(0, n, m):                                        # inside the halves
+        hi = min(lo + m, n)
+        hcur = rc[:, lo:hi].clone()                                  # lag t - s = 1
+        for d in range(1, hi - lo):
+            a[:, :, idx[lo + d:hi], idx[lo:hi - d]] = (
+                (hcur[:, d:] * kc[:, lo:hi - d]).sum(-1).transpose(1, 2))
+            hcur[:, d:] = hcur[:, d:] * wc[:, lo:hi - d]
+    if n > m:                                                        # across them
+        r8 = rc[:, m:] * _running(wc[:, m:])[0]
+        k8 = kc[:, :m] * _running(wc[:, :m], reverse=True)[0]
+        a[:, :, m:, :m] = torch.einsum("bthd,bshd->bhts", r8, k8)
+    return a
+
+
 def wkv_safe_chunked_ref(r, k, v, w, u, c: int = 16) -> Tuple[torch.Tensor, torch.Tensor]:
     """The CUDA kernel's overflow-safe chunked WKV, in its order of
     operations: r/k/v/w (B,S,H,dh) fp32, u (H,dh), any S >= 1 (the last
@@ -83,20 +111,7 @@ def wkv_safe_chunked_ref(r, k, v, w, u, c: int = 16) -> Tuple[torch.Tensor, torc
         n = rc.shape[1]
         pex, pall = _running(wc)
         sfx, _ = _running(wc, reverse=True)
-        a = torch.zeros((b, h, n, n), dtype=torch.float32, device=r.device)
-        idx = torch.arange(n, dtype=torch.int64, device=r.device)
-        a[:, :, idx, idx] = (rc * u * kc).sum(-1).transpose(1, 2)
-        for lo in range(0, n, m):                                    # inside the halves
-            hi = min(lo + m, n)
-            hcur = rc[:, lo:hi].clone()                              # lag t - s = 1
-            for d in range(1, hi - lo):
-                a[:, :, idx[lo + d:hi], idx[lo:hi - d]] = (
-                    (hcur[:, d:] * kc[:, lo:hi - d]).sum(-1).transpose(1, 2))
-                hcur[:, d:] = hcur[:, d:] * wc[:, lo:hi - d]
-        if n > m:                                                    # across them
-            r8 = rc[:, m:] * _running(wc[:, m:])[0]
-            k8 = kc[:, :m] * _running(wc[:, :m], reverse=True)[0]
-            a[:, :, m:, :m] = torch.einsum("bthd,bshd->bhts", r8, k8)
+        a = _safe_scores(rc, kc, wc, u, m)
         outs.append(torch.einsum("bthk,bhkv->bthv", rc * pex, state)
                     + torch.einsum("bhts,bshv->bthv", a, vc))
         state = pall[..., None] * state + torch.einsum("bshk,bshv->bhkv", kc * sfx, vc)
@@ -164,4 +179,90 @@ def wkv_bwd_ref(r, k, v, w, u, dout) -> Tuple[torch.Tensor, ...]:
         dw[:, t] = (gstate * prev[t]).sum(-1)
         du = du + (rt * kt * a).sum(0)
         gstate = wt[..., :, None] * gstate + rt[..., :, None] * gt[..., None, :]
+    return dr, dk, dv, dw, du
+
+
+def wkv_bwd_chunked_ref(r, k, v, w, u, dout, c: int = 16,
+                        rows: int = 32) -> Tuple[torch.Tensor, ...]:
+    """The backward kernel's algorithm (csrc/wkv.cu namespace wkvb), in its
+    order of operations: the gradient of wkv_ref's output against `dout`,
+    as wkv_bwd_ref gives it, from chunks of c tokens walked from the last,
+    with every decay factor a product of w's and none divided by another.
+
+    A first pass saves the state S0 at every chunk's start.  Per chunk of
+    n <= c tokens (tokens past n count as r = k = v = g = 0, w = 1), with
+    G_end = dL/dS after its last token (0 after the sequence), and per block
+    of `rows` key rows i (a CUDA block's slice; every quantity below but the
+    scores and dv is per row):
+        B[t, s] = g_t . v_s,  a_t = B[t, t],  X = g S0^T,  Y = v G_end^T,
+        c0 = rowsum(G_end o S0),  rP = r Pex,  kS = k Sfx,  A = the rows'
+        share of the forward's scores (_safe_scores, bonus on the diagonal);
+        dv      = sum over row blocks, in order, of kS G_end + A^T g;
+        G_start = diag(Pall) G_end + rP^T g;
+    and per row i two recursions over t = 0 .. n-1, Q[s] (from X[s]) and
+    Z (from c0), with an upward walk h = prod_{t<u<s} w_u:
+        dr_t = Q[t] + u k_t a_t,
+        dk_t = Sfx_t Y_t + sum_{s>t} h r_s B[s, t] + r_t u a_t,
+        dw_t = Sfx_t Z + sum_{s>t} h r_s Q[s],
+        then Z <- w_t Z + k_t Y_t,  Q[s] <- w_t Q[s] + k_t B[s, t] (s > t);
+    Sfx_t is the walk's last h.  Q[s] holds Pex_t X_s plus the chunk's own
+    states' share of dr_s, Z the boundary and in-chunk share of dw's
+    sum_j G_t[i, j] S_{t-1}[i, j] with the factor w_t left out: no quotient.
+    -> (dr, dk, dv, dw (B,S,H,dh), du (H,dh)), fp32."""
+    b, s, h, dh = r.shape
+    m = c // 2
+    z4 = dict(dtype=torch.float32, device=r.device)
+    starts = []                                          # S0 of every chunk
+    state = torch.zeros((b, h, dh, dh), **z4)
+    for t0 in range(0, s, c):
+        starts.append(state)
+        kc, vc, wc = (x[:, t0:t0 + c] for x in (k, v, w))
+        sfx, pall = _running(wc, reverse=True)
+        state = pall[..., None] * state + torch.einsum("bshk,bshv->bhkv", kc * sfx, vc)
+    dr, dk, dv, dw = (torch.zeros_like(r) for _ in range(4))
+    du = torch.zeros_like(u)
+    gstate = torch.zeros((b, h, dh, dh), **z4)
+    for ci in range(len(starts) - 1, -1, -1):
+        t0 = ci * c
+        n = min(c, s - t0)
+        rc, kc, vc, wc, gc = (x[:, t0:t0 + n] for x in (r, k, v, w, dout))
+        if n < c:                                        # the masked tail of the kernel
+            tail = torch.zeros((b, c - n, h, dh), **z4)
+            rc, kc, vc, gc = (torch.cat([x, tail], dim=1) for x in (rc, kc, vc, gc))
+            wc = torch.cat([wc, tail + 1.0], dim=1)
+        s0 = starts[ci]
+        pex, pall = _running(wc)
+        sfx, _ = _running(wc, reverse=True)
+        bm = torch.einsum("bthj,bshj->bhts", gc, vc)     # B[t, s] = g_t . v_s
+        x_ = torch.einsum("bthj,bhij->bthi", gc, s0)     # X[t, i]
+        y_ = torch.einsum("bthj,bhij->bthi", vc, gstate)  # Y[t, i]
+        c0 = (gstate * s0).sum(-1)                       # (B,H,dh)
+        dvc = torch.zeros_like(vc)
+        for i0 in range(0, dh, rows):                    # the row blocks, in order
+            sl = slice(i0, i0 + rows)
+            a = _safe_scores(rc[..., sl], kc[..., sl], wc[..., sl], u[:, sl], m)
+            dvc = dvc + (torch.einsum("bthi,bhij->bthj", (kc * sfx)[..., sl], gstate[:, :, sl])
+                         + torch.einsum("bhst,bshj->bthj", a, gc))
+        at = torch.diagonal(bm, dim1=-2, dim2=-1).transpose(1, 2)[..., None]   # (B,c,H,1)
+        q = [x_[:, t] for t in range(c)]                 # Q[s], (B,H,dh) each
+        z = c0
+        for t in range(c):
+            hh = torch.ones_like(z)
+            ak = torch.zeros_like(z)
+            aw = torch.zeros_like(z)
+            for s_ in range(t + 1, c):
+                hr = hh * rc[:, s_]
+                ak = ak + hr * bm[:, :, s_, t][..., None]
+                aw = aw + hr * q[s_]
+                hh = hh * wc[:, s_]
+            if t < n:
+                dr[:, t0 + t] = q[t] + u * kc[:, t] * at[:, t]
+                dk[:, t0 + t] = hh * y_[:, t] + ak + rc[:, t] * u * at[:, t]
+                dw[:, t0 + t] = hh * z + aw
+                du = du + (rc[:, t] * kc[:, t] * at[:, t]).sum(0)
+            z = wc[:, t] * z + kc[:, t] * y_[:, t]
+            for s_ in range(t + 1, c):
+                q[s_] = wc[:, t] * q[s_] + kc[:, t] * bm[:, :, s_, t][..., None]
+        dv[:, t0:t0 + n] = dvc[:, :n]
+        gstate = pall[..., None] * gstate + torch.einsum("bthi,bthj->bhij", rc * pex, gc)
     return dr, dk, dv, dw, du

@@ -192,7 +192,7 @@ def test_kernels_match_plain(card, d, n):
         "commit_sweep_batched": 0, "probe_sweep_batched_per_trial": 0,
         "commit_sweep_batched_per_trial": 0, "flash_attention": 0,
         "flash_attention_tc": 0, "flash_decode": 0, "wkv": 0, "flash_attention_bwd": 0,
-        "wkv_bwd": 0}
+        "flash_attention_bwd_tc": 0, "wkv_bwd": 0}
 
 
 COMMIT_CASES = [(100, 262144), (100, 20001), (129, 4096), (300, 20001), (5, 600)]
@@ -1449,6 +1449,8 @@ B9_BWD_CASES = [
     (1, 96, 96, 8, 1, 128, True, 32),       # G = 8, window inside a tile
     (1, 200, 200, 2, 2, 128, True, 0),      # G = 1
     (1, 1, 5, 4, 4, 64, False, 0),          # one query row against 5 keys
+    (1, 300, 300, 4, 1, 128, True, 130),    # a window across 128-key tiles
+    (1, 1024, 1024, 15, 5, 64, True, 0),    # smollm's heads at S = 1024
 ]
 
 
@@ -1460,7 +1462,9 @@ def test_flash_attention_train_forward_and_backward(card, dtype, b, sq, skv, hq,
     log-sum-exp (1e-5 of the plain version's, relative); its backward the
     same bits twice and, against the plain closed form on the same inputs
     (q, k, v, o, dO, L), fp32 gradients within 1e-4 normwise, bf16 ones
-    within twice the plain version's own bf16 rounding of the fp32 gradient."""
+    within twice the plain version's own bf16 rounding of the fp32 gradient.
+    bf16 at dh 64 and 128 runs the tensor-core backward (its counter moves),
+    fp32 and bf16 at dh 80 the FMA one."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_attention import ref as fa_ref
 
@@ -1475,6 +1479,7 @@ def test_flash_attention_train_forward_and_backward(card, dtype, b, sq, skv, hq,
     got = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
     again = fa_ops.flash_attention_bwd(q, k, v, out, do, lse, causal=causal, window=window)
     launched = _build.LAUNCHES["flash_attention_bwd"]
+    launched_tc = _build.LAUNCHES["flash_attention_bwd_tc"]
     plain = fa_ref.attention_bwd_ref(q, k, v, out, do, lse, causal=causal, window=window)
     want32 = fa_ref.attention_bwd_ref(q.float(), k.float(), v.float(), out.float(),
                                       do.float(), lse, causal=causal, window=window)
@@ -1487,21 +1492,29 @@ def test_flash_attention_train_forward_and_backward(card, dtype, b, sq, skv, hq,
             err, own = _normwise(g, w), _normwise(p, w)
             assert err <= 2 * own, f"{name}: {err:.3e} > 2 x {own:.3e}"
     assert launched == 2
+    assert launched_tc == (2 if fa_ops.bwd_route(dtype, dh) == "tc" else 0)
+    assert (fa_ops.bwd_route(dtype, dh) == "tc") == (dtype == torch.bfloat16 and dh != 80)
 
 
 @pytest.mark.parametrize("b,s,h,dh,decay", [(2, 333, 4, 64, "moderate"), (1, 77, 8, 32, "strong"),
                                              (1, 1, 2, 64, "weak"), (2, 9, 3, 32, "moderate"),
-                                             (1, 8, 2, 64, "strong"), (1, 200, 2, 64, "weak")])
+                                             (1, 8, 2, 64, "strong"), (1, 200, 2, 64, "weak"),
+                                             (2, 75, 3, 64, "zeros"), (1, 21, 2, 32, "zeros")])
 def test_wkv_backward_matches_plain(card, b, s, h, dh, decay):
     """B11's backward against its plain closed form on the same inputs
     (fp32, 1e-4 normwise), the same bits twice, and wkv_train's gradients
     on the card against the CPU's (the plain version) at 1e-4; its final
-    state is wkv_chunked's and carries no gradient."""
+    state is wkv_chunked's and carries no gradient.  "zeros": strong decay
+    with w exactly 0 at every 5th token and 3rd row, S not a multiple of
+    the backward's 16-token chunk."""
     from repro_torch.kernels.wkv.ops import wkv_bwd, wkv_chunked, wkv_train
     from repro_torch.kernels.wkv.ref import wkv_bwd_ref
 
     r, k, v, z, g = _lm(11, *[(b, s, h, dh)] * 5, dtype=torch.float32, device=card)
-    w = torch.exp(-torch.exp(z + {"strong": 1.0, "moderate": -1.0, "weak": -6.0}[decay]))
+    shift = {"strong": 1.0, "moderate": -1.0, "weak": -6.0, "zeros": 1.0}[decay]
+    w = torch.exp(-torch.exp(z + shift))
+    if decay == "zeros":
+        w[:, ::5, :, ::3] = 0.0
     u = 0.1 * _lm(12, (h, dh), dtype=torch.float32, device=card)[0]
     _build.reset_launches()
     got, again = wkv_bwd(r, k, v, w, u, g), wkv_bwd(r, k, v, w, u, g)
@@ -1520,6 +1533,15 @@ def test_wkv_backward_matches_plain(card, b, s, h, dh, decay):
     for name, a, c in zip("rkvwu", card_grads, cpu_grads):
         _close(a.cpu(), c, 1e-4, f"d{name}")
     assert launched == 2
+
+
+def test_wkv_backward_geometry_matches_library(card):
+    """The reverse pass's shared memory as the library reports it equals
+    the pure-Python wkv_bwd_smem_bytes, at both head dims."""
+    from repro_torch.kernels.wkv.ops import wkv_bwd_smem_bytes
+
+    for dh in HEAD_DIMS:
+        assert _build.query("wkv", "repro_wkv_bwd_smem", dh) == wkv_bwd_smem_bytes(dh)
 
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-1.6b"])

@@ -17,6 +17,10 @@ KERNEL is a key of CASES:
              serving shape (B=8, cache 1088, 15/5 heads of 64), G = 1, 2, 4
              and 8 at dh 64 and 128, dh 80 with a sliding window, and a
              cache cut into many chunks (B=1, S=20000);
+  wkv        the WKV forward (B11) as the rwkv prefill calls it, out and
+             final state: rwkv6's serving shape (B=8, S=1024, 32 heads of
+             64), dh 32, ragged lengths, strong and weak decay, w exactly 0
+             in places, and operands off 16-byte alignment (4-byte copies);
   sweep      the probe (B5) and the commit (B7) at D = 5, 100 and 300 (both
              probe routes), the commit with can_tx true and false, by value
              and as device tensors, and with the alpha > 1 diagonal
@@ -84,6 +88,27 @@ def decode(cs, dev) -> dict:
     return saved
 
 
+def wkv(cs, dev) -> dict:
+    from repro_torch.kernels.wkv import ops
+
+    # (b, s, h, dh, decay shift of w = exp(-exp(z + shift)), zeros, 4-byte copies)
+    cases = [(8, 1024, 32, 64, -1.0, 0, 0), (2, 333, 4, 64, 1.0, 0, 0),
+             (1, 77, 8, 32, 1.0, 5, 0), (1, 5, 2, 64, -6.0, 0, 0),
+             (2, 17, 3, 32, -1.0, 0, 1), (1, 100, 2, 64, 1.0, 3, 1)]
+    saved = {}
+    for b, s, h, dh, shift, zeros, off in cases:
+        r, k, v, z = _qkv(dev, torch.float32, b * s + h * dh, [(b, s, h, dh)] * 4)
+        w = torch.exp(-torch.exp(z + shift))
+        if zeros:
+            w[:, ::zeros, :, ::3] = 0.0
+        u = 0.1 * _qkv(dev, torch.float32, s + dh, [(h, dh)])[0]
+        if off:                                   # views that start 4 bytes in
+            r, k, v, w = (torch.empty(x.numel() + 1, device=dev)[1:].view(x.shape).copy_(x)
+                          for x in (r, k, v, w))
+        saved[str((b, s, h, dh, shift, zeros, off))] = list(ops.wkv_chunked(r, k, v, w, u))
+    return saved
+
+
 def sweep(cs, dev) -> dict:
     from repro_torch.kernels.sweep import ops
 
@@ -121,7 +146,7 @@ def sweep(cs, dev) -> dict:
     return saved
 
 
-CASES = {"attention": attention, "decode": decode, "sweep": sweep}
+CASES = {"attention": attention, "decode": decode, "wkv": wkv, "sweep": sweep}
 
 
 def run(kernel: str, tree: str, out: str) -> None:
