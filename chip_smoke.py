@@ -243,6 +243,20 @@ Phases, each fatal on failure (nothing is caught):
               its share of the busy time, beside B11's launch geometry,
               its 24 WKV launches counted both by the wrapper and in the
               profile;
+  11b. serve moe/hybrid  the same for the moe and hybrid families at full
+              width, 8 of their 32 layers (random bf16 weights, B=8, a
+              1024-token prompt, 64 greedy tokens): phi3.5-moe-42b-a6.6b
+              (16 experts top-2, 32/8 heads of 128; exactly 8 flash
+              attention launches, all tensor-core, and 8 x 64 flash decode)
+              and jamba-v0.1-52b's first Jamba block (7 Mamba layers, one
+              attention layer, 4 MoE FFNs; 1, 1 and 64), each with one more
+              warm prefill timed by part (attention, the MoE's routing,
+              dispatch einsum, expert FFNs and combine einsum, the Mamba
+              mixer and its scan: CUDA events around each call); then each
+              at full width and 2 layers in fp32 on the card against the CPU
+              (phi3.5-moe; Jamba with attn_period 2: a Mamba layer, then
+              attention with a 16-expert MoE; 32-token prompt, 2 steps:
+              logits within 1e-4, tokens equal);
   12. train    LM training: the B9 backward (dQ, dK, dV; three launches of
               one C entry; bf16 at dh 64 and 128 on the tensor-core route,
               its counter checked) at smollm-360m's training shape (B=8,
@@ -3266,13 +3280,15 @@ def serve_g16(lm, _build, fd_ops, fd_ref, rows, batch=8, prompt_len=1024, new=16
     return counts
 
 
-def two_layers_vs_cpu(lm, arch: str, steps: int, prompt_len: int):
-    """The architecture at full width and 2 layers in fp32, its parameters
-    drawn on the card and copied to the CPU (a full-width draw on the CPU
-    takes minutes): prefill and per-step logits within 1e-4 normwise,
-    greedy tokens equal, as serve_two_layers_vs_cpu holds them."""
+def two_layers_vs_cpu(lm, arch: str, steps: int, prompt_len: int, tag: str = "analysis",
+                      **over):
+    """The architecture at full width and 2 layers in fp32 (`over`: more
+    config fields), its parameters drawn on the card and copied to the CPU
+    (a full-width draw on the CPU takes minutes): prefill and per-step
+    logits within 1e-4 normwise, greedy tokens equal, as
+    serve_two_layers_vs_cpu holds them."""
     cfg = dataclasses.replace(lm["get_config"](arch), n_layers=2, param_dtype="float32",
-                              compute_dtype="float32")
+                              compute_dtype="float32", **over)
     model = lm["build_model"](cfg)
     t0 = time.perf_counter()
     params_gpu = model.init(seed=1, device="cuda")
@@ -3293,8 +3309,8 @@ def two_layers_vs_cpu(lm, arch: str, steps: int, prompt_len: int):
                 for i, (g, c) in enumerate(zip(log_g, log_c)))
     require(torch.equal(tok_g, tok_c), f"{arch} 2-layer: tokens differ "
             f"{tok_g.tolist()} vs {tok_c.tolist()}")
-    log(f"[analysis] {arch} 2 layers, full width, fp32: card vs cpu logits worst "
-        f"normwise {worst:.3e} over prefill ({prompt_len} tokens) + {steps} steps; "
+    log(f"[{tag}] {arch} 2 layers {cfg.layer_kinds()}, full width, fp32: card vs cpu "
+        f"logits worst normwise {worst:.3e} over prefill ({prompt_len} tokens) + {steps} steps; "
         f"tokens equal {tok_g[0].tolist()}; {time.perf_counter() - t0:.1f} s")
 
 
@@ -3709,16 +3725,21 @@ def prefill_split(model, params, prompt, tag: str, launches, geometry=None) -> d
     return out
 
 
-def serve_full(lm, _build, arch: str, expect: dict, batch=8, prompt_len=1024, new=64):
-    """The main path: ServeEngine.generate on the full config, launch
-    counts read just after it; then the timings and a profile."""
-    cfg = lm["get_config"](arch)
+def serve_full(lm, _build, arch: str, expect: dict, batch=8, prompt_len=1024, new=64,
+               layers=None, parts=()):
+    """The main path: ServeEngine.generate on the full config (its first
+    `layers` layers when given), launch counts read just after it; then the
+    timings, a profile, and with `parts` one more warm prefill timed by
+    part (prefill_parts)."""
+    full = lm["get_config"](arch)
+    cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
     model = lm["build_model"](cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device="cuda")
     prompt = lm["build_prompt"](cfg, batch, prompt_len, "cuda")
     torch.cuda.synchronize()
-    log(f"[{arch}] {cfg.n_layers} layers, d={cfg.d_model}, {cfg.param_dtype}: "
+    log(f"[{arch}] {cfg.n_layers} of {full.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.param_dtype}: "
         f"{sum(t.numel() for t in iter_tensors(params)) / 1e9:.3f} B parameters made "
         f"in {time.perf_counter() - t0:.1f} s")
     recorder = LogitRecorder(model)
@@ -3770,6 +3791,8 @@ def serve_full(lm, _build, arch: str, expect: dict, batch=8, prompt_len=1024, ne
                 f"kernels in the profiled prefill")
         require(split["wkv_launches"] == expect["wkv"],
                 f"{arch}: {split['wkv_launches']} WKV kernels in the profiled prefill")
+    if parts:
+        prefill_parts(model, params, prompt, arch, parts)
     log(f"[{arch}] batch {batch}, prompt {prompt_len}, {new} new tokens: prefill "
         f"{prefill_ms:.2f} ms ({batch * prompt_len / prefill_ms * 1e3:.0f} prompt tokens/s), "
         f"decode {decode_ms:.3f} ms per step ({batch / decode_ms * 1e3:.1f} tokens/s), "
@@ -3824,6 +3847,89 @@ def serve_two_layers_vs_cpu(lm, arch: str, steps: int = 8, prompt_len: int = 128
     log(f"[{arch}] 2 layers, full width, fp32: card vs cpu logits worst normwise "
         f"{worst:.3e} over prefill + {steps} steps; tokens equal {tok_g[0].tolist()}; "
         f"smallest top-2 margin {margin:.3e} of max |logit|")
+
+# ----------------------------------------------------- 11b. serve moe / hybrid
+
+
+# the moe and hybrid families' main path: arch -> (layers kept of the
+# config's 32, the launches of one generate at B=8, a 1024-token prompt and
+# 64 new tokens).  phi3.5-moe: 32/8 heads of 128 in every layer; Jamba's 8
+# layers are one Jamba block, attention at layer 4 only.
+SERVE_MOE = {
+    "phi3.5-moe-42b-a6.6b": (8, {"flash_attention": 8, "flash_attention_tc": 8,
+                                 "flash_decode": 8 * 64}),
+    "jamba-v0.1-52b": (8, {"flash_attention": 1, "flash_attention_tc": 1,
+                           "flash_decode": 64}),
+}
+
+
+def timed_parts(targets, run):
+    """run() with each module function in `targets` ((module, name) pairs)
+    bracketed by CUDA events on the current stream (the functions are put
+    back after).  Returns the host-timed wall ms of run() and each name's
+    device ms summed over its calls (the span between the events, gaps
+    included; a part called inside another counts in both)."""
+    spans = {name: [] for _, name in targets}
+    saved = []
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return call
+
+    try:
+        for mod, name in targets:
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, timed(name, getattr(mod, name)))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return wall_ms, {name: sum(a.elapsed_time(b) for a, b in v) for name, v in spans.items()}
+
+
+def prefill_parts(model, params, prompt, tag: str, parts) -> dict:
+    """One warm prefill with its parts timed (timed_parts): each part's
+    device ms and share of the prefill's wall time, logged."""
+    model.prefill(params, prompt)
+    wall_ms, by = timed_parts(parts, lambda: model.prefill(params, prompt))
+    out = {"wall_ms": wall_ms,
+           "parts": {name: {"ms": ms, "share": ms / wall_ms} for name, ms in by.items() if ms}}
+    log(f"[{tag}] prefill by part: {json.dumps(out)}")
+    return out
+
+
+def phase_serve_moe(lm, _build) -> dict:
+    """The moe and hybrid families: ServeEngine.generate on phi3.5-moe and
+    Jamba at full width, 8 of their 32 layers (serve_full, a prefill timed
+    by part), then each at 2 layers in fp32 on the card against the CPU."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba as M
+    from repro_torch.models import moe as MOE
+
+    parts = [(L, "attention_scores"), (MOE, "moe_apply"), (MOE, "_slots"),
+             (MOE, "_dispatch"), (MOE, "_expert_ffn"), (MOE, "_combine"),
+             (M, "mamba_apply"), (M, "_scan_states")]
+    launches = {}
+    for arch, (layers, expect) in SERVE_MOE.items():
+        for k_, v_ in serve_full(lm, _build, arch, expect, layers=layers,
+                                 parts=parts).items():
+            launches[k_] = launches.get(k_, 0) + v_
+    two_layers_vs_cpu(lm, "phi3.5-moe-42b-a6.6b", steps=2, prompt_len=32, tag="serve moe")
+    # a Mamba layer, then attention with a 16-expert MoE FFN
+    two_layers_vs_cpu(lm, "jamba-v0.1-52b", steps=2, prompt_len=32, tag="serve moe",
+                      attn_period=2)
+    return launches
+
 
 # ------------------------------------------------------------- 12. training
 
@@ -4254,6 +4360,9 @@ def main() -> None:
         launches[k_] += v_
     serve_two_layers_vs_cpu(lm, "rwkv6-1.6b")
     stamp("serve rwkv6")
+    for k_, v_ in phase_serve_moe(lm, _build).items():
+        launches[k_] += v_
+    stamp("serve moe/hybrid")
     for k_, v_ in phase_train(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, lm, rows, smi).items():
         launches[k_] += v_
     stamp("train")

@@ -1,10 +1,15 @@
 """Serving launcher (twin of repro.launch.serve): batched prefill + decode
-for the ported architectures (the dense and ssm families).
+for the ported architectures (the dense, ssm, moe and hybrid families).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --batch 8 --prompt-len 1024 --new-tokens 64          # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
         --smoke --batch 4 --prompt-len 64 --new-tokens 32 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+        --smoke --device cpu
+
+The full moe and hybrid configs (mixtral-8x22b, phi3.5-moe, jamba-v0.1-52b)
+hold 84–282 GB of bf16 parameters, more than one 80 GB card.
 
 Parameters are random, drawn from a torch.Generator seeded with 0 (the JAX
 launcher's PRNGKey(0) gives other numbers); prompts come from the same

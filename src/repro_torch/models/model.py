@@ -6,16 +6,16 @@
     logits, cache = model.prefill(params, {"tokens": tokens})
     logits, cache = model.decode_step(params, {"tokens": tok, "idx": i}, cache)
 
-`build_model` takes the families the port runs, `dense` and `ssm`; the
-others, and the ring-buffer decode of `window_cache=True`, raise
-NotPortedError naming ROADMAP item A16.  `loss` is the JAX package's: fp32
-log-sum-exp over the padded vocabulary, ce + aux with aux = 0 for these
-families.  `input_specs` returns `Spec(shape, dtype)` records (the JAX
-package's ShapeDtypeStructs), with int64 token ids, the port's index
-dtype.  Parameters come from a torch.Generator (`init`), so they are not
-the JAX package's draws from the same seed;
-repro_torch.convert.lm_params_from_numpy carries the JAX package's
-parameters across instead.
+`build_model` takes the families the port runs, `dense`, `ssm`, `moe` and
+`hybrid`; the others (`encdec`, `vlm`), and the ring-buffer decode of
+`window_cache=True`, raise NotPortedError naming ROADMAP item A16.  `loss`
+is the JAX package's: fp32 log-sum-exp over the padded vocabulary, ce + aux,
+aux the MoE layers' router losses (0 without MoE layers).  `input_specs`
+returns `Spec(shape, dtype)` records (the JAX package's ShapeDtypeStructs),
+with int64 token ids, the port's index dtype.  Parameters come from a
+torch.Generator (`init`), so they are not the JAX package's draws from the
+same seed; repro_torch.convert.lm_params_from_numpy carries the JAX
+package's parameters across instead.
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ class Spec(NamedTuple):
     dtype: torch.dtype
 
 
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "moe", "hybrid")
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -46,7 +46,7 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotPortedError(
             f"{cfg.arch_id}: family {cfg.family!r} waits for ROADMAP A16 (the "
-            f"port serves the {' and '.join(PORTED_FAMILIES)} families)")
+            f"port serves the {', '.join(PORTED_FAMILIES)} families)")
     if cfg.window_cache:
         raise NotPortedError(
             f"{cfg.arch_id}: window_cache=True (the ring-buffer decode with a "

@@ -1,27 +1,31 @@
-"""Decoder-only transformer assembly for serving (twin of
-repro.models.transformer), for the `dense` and `ssm` (RWKV-6) families.
+"""Decoder-only transformer assembly (twin of repro.models.transformer) for
+the `dense`, `moe`, `ssm` (RWKV-6) and `hybrid` (Jamba) families.
 
 The JAX package stacks each pattern position's parameters over the layer
 repetitions and consumes the stack with `lax.scan`; here the parameters are
 a list with one dict per layer and a Python loop runs them (PyTorch runs
 eagerly; repro_torch.convert unstacks the JAX tree).  The decode cache is a
 list of per-layer dicts likewise: attention layers hold k, v (B, S, Hkv, dh)
-in the compute dtype, RWKV layers wkv (B, H, dh, dh), shift_t and shift_c
-(B, D) in fp32.  A decode step writes the new K/V into the cache tensors in
-place (the JAX step returns updated copies), which keeps a long cache from
-being copied once per token.
+in the compute dtype, Mamba layers h (B, di, n) and conv (B, d_conv - 1, di)
+in fp32, RWKV layers wkv (B, H, dh, dh), shift_t and shift_c (B, D) in fp32.
+Layer i's mixer is cfg.layer_kinds()[i] and its FFN the MoE one where
+cfg.layer_is_moe(i) (Jamba: attention at i % 8 == 4, MoE at odd i).  A
+decode step writes the new K/V into the cache tensors in place (the JAX
+step returns updated copies), which keeps a long cache from being copied
+once per token.
 
 `forward` is the training pass.  The JAX package's two-level remat (the
 layer stack reshaped to (n_out, scan_block), the inner scan under
 jax.checkpoint) is torch.utils.checkpoint (non-reentrant) over each group
 of scan_block pattern repetitions: the backward keeps the residual stream
 at each group's input and recomputes inside the group, so with remat on
-every kernel of a group's forward runs twice a step.  The JAX package's
-sharding constraints are the identity here (one device; sharding waits for
-ROADMAP A11).
+every kernel of a group's forward runs twice a step.  The aux loss is the
+sum of the MoE layers' router losses in layer order (the JAX carry's).  The
+JAX package's sharding constraints are the identity here (one device;
+sharding waits for ROADMAP A11).
 
-The moe, hybrid, enc-dec and vlm families and the ring-buffer window cache
-wait for later slices of A16 (models.model.build_model refuses them).
+The enc-dec and vlm families and the ring-buffer window cache wait for
+later slices of A16 (models.model.build_model refuses them).
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import layers as L
+from repro_torch.models import mamba as M
+from repro_torch.models import moe as MOE
 from repro_torch.models import rwkv as R
 
 __all__ = ["pattern_period", "init", "forward", "prefill", "decode_step", "cache_shapes"]
@@ -62,19 +68,29 @@ def _effective_window(cfg) -> int:
 # -------------------------------------------------------------------- init
 
 
-def _layer_init(gen: torch.Generator, cfg, kind: str) -> dict:
+def _layer_init(gen: torch.Generator, cfg, kind: str, is_moe: bool) -> dict:
     dt = cfg.pdtype()
     p: Dict[str, Any] = {"norm1": L.rmsnorm_init(cfg.d_model, dt, gen.device),
                          "norm2": L.rmsnorm_init(cfg.d_model, dt, gen.device)}
     if kind == "attn":
         p["mixer"] = L.attn_proj_init(gen, cfg)
-        p["ffn"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
+    elif kind == "mamba":
+        p["mixer"] = M.mamba_init(gen, cfg)
     elif kind == "rwkv":
         p["mixer"] = R.rwkv_time_init(gen, cfg)
-        p["ffn"] = R.rwkv_chan_init(gen, cfg)
     else:
         raise ValueError(kind)
+    if is_moe:
+        p["ffn"] = MOE.moe_init(gen, cfg)
+    elif kind == "rwkv":
+        p["ffn"] = R.rwkv_chan_init(gen, cfg)
+    else:
+        p["ffn"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, dt)
     return p
+
+
+def _layer_moes(cfg) -> List[bool]:
+    return [cfg.layer_is_moe(i) for i in range(cfg.n_layers)]
 
 
 def init(gen: torch.Generator, cfg) -> dict:
@@ -82,7 +98,8 @@ def init(gen: torch.Generator, cfg) -> dict:
     return {
         "embed": L.embed_init(gen, cfg),
         "final_norm": L.rmsnorm_init(cfg.d_model, cfg.pdtype(), gen.device),
-        "layers": [_layer_init(gen, cfg, kind) for kind in cfg.layer_kinds()],
+        "layers": [_layer_init(gen, cfg, kind, is_moe)
+                   for kind, is_moe in zip(cfg.layer_kinds(), _layer_moes(cfg))],
     }
 
 
@@ -100,27 +117,34 @@ def _attn_train(pp, x, cfg, rope, window: int):
     return out.reshape(b, s, -1) @ pp["wo"]
 
 
-def _apply_layer_train(pp, x, cfg, kind: str, rope, window: int):
-    """One layer of the training forward (twin of the JAX package's, whose
-    aux loss is 0 for these families)."""
+def _apply_layer_train(pp, x, cfg, kind: str, is_moe: bool, rope, window: int):
+    """One layer of the training forward: (x, the MoE layer's aux loss, or
+    None without an MoE FFN)."""
+    aux = None
     h = L.rmsnorm(pp["norm1"], x, cfg.norm_eps)
     if kind == "attn":
         mix = _attn_train(pp["mixer"], h, cfg, rope, window)
+    elif kind == "mamba":
+        mix = M.mamba_apply(pp["mixer"], h, cfg)
     else:
         mix, _ = R.rwkv_time_apply(pp["mixer"], h, cfg)
     x = x + mix
     h = L.rmsnorm(pp["norm2"], x, cfg.norm_eps)
-    if kind == "rwkv":
+    if is_moe:
+        ffn, aux = MOE.moe_apply(pp["ffn"], h, cfg)
+    elif kind == "rwkv":
         ffn = R.rwkv_chan_apply(pp["ffn"], h, cfg)
     else:
         ffn = L.mlp(pp["ffn"], h)
-    return x + ffn
+    return x + ffn, aux
 
 
-def _run_group(x, layers, kinds, cfg, rope, window: int):
-    for pp, kind in zip(layers, kinds):
-        x = _apply_layer_train(pp, x, cfg, kind, rope, window)
-    return x
+def _run_group(x, aux, layers, kinds, moes, cfg, rope, window: int):
+    for pp, kind, is_moe in zip(layers, kinds, moes):
+        x, a = _apply_layer_train(pp, x, cfg, kind, is_moe, rope, window)
+        if a is not None:
+            aux = aux + a
+    return x, aux
 
 
 def _run_layers_train(params, x, cfg, rope) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -134,12 +158,14 @@ def _run_layers_train(params, x, cfg, rope) -> Tuple[torch.Tensor, torch.Tensor]
         n_in -= 1
     group = n_in * period
     window = _effective_window(cfg)
-    kinds = cfg.layer_kinds()
+    kinds, moes = cfg.layer_kinds(), _layer_moes(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for g0 in range(0, cfg.n_layers, group):
         run = functools.partial(_run_group, layers=params["layers"][g0:g0 + group],
-                                kinds=kinds[g0:g0 + group], cfg=cfg, rope=rope, window=window)
-        x = checkpoint(run, x, use_reentrant=False) if cfg.remat else run(x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+                                kinds=kinds[g0:g0 + group], moes=moes[g0:g0 + group],
+                                cfg=cfg, rope=rope, window=window)
+        x, aux = checkpoint(run, x, aux, use_reentrant=False) if cfg.remat else run(x, aux)
+    return x, aux
 
 
 def forward(params, batch, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -166,6 +192,9 @@ def cache_shapes(cfg, batch: int, max_len: int) -> List[Dict[str, Tuple[tuple, t
         if kind == "attn":
             out.append({"k": ((batch, max_len, hkv, dh), cfg.cdtype()),
                         "v": ((batch, max_len, hkv, dh), cfg.cdtype())})
+        elif kind == "mamba":
+            out.append({k: (v, torch.float32)
+                        for k, v in M.mamba_cache_shape(cfg, batch).items()})
         else:
             out.append({k: (v, torch.float32)
                         for k, v in R.rwkv_cache_shape(cfg, batch).items()})
@@ -181,7 +210,7 @@ def _attention(q, k, v, cfg, **kw):
     return L.attention_scores(q, k, v, **kw)
 
 
-def _apply_layer_decode(pp, x, cache, idx: int, cfg, kind, rope, window):
+def _apply_layer_decode(pp, x, cache, idx: int, cfg, kind, is_moe, rope, window):
     h = L.rmsnorm(pp["norm1"], x, cfg.norm_eps)
     if kind == "attn":
         q, k, v = L.qkv(pp["mixer"], h, cfg)
@@ -197,11 +226,15 @@ def _apply_layer_decode(pp, x, cache, idx: int, cfg, kind, rope, window):
         vc[:, idx] = v[:, 0].to(vc.dtype)
         out = _attention(q, kc, vc, cfg, causal=True, window=window, q_offset=idx)
         mix = out.reshape(x.shape[0], 1, -1) @ pp["mixer"]["wo"]
+    elif kind == "mamba":
+        mix, cache = M.mamba_decode(pp["mixer"], h, cache, cfg)
     else:
         mix, cache = R.rwkv_time_decode(pp["mixer"], h, cache, cfg)
     x = x + mix
     h = L.rmsnorm(pp["norm2"], x, cfg.norm_eps)
-    if kind == "rwkv":
+    if is_moe:
+        ffn, _ = MOE.moe_apply(pp["ffn"], h, cfg, decode=True)
+    elif kind == "rwkv":
         ffn, cache = R.rwkv_chan_decode(pp["ffn"], h, cache, cfg)
     else:
         ffn = L.mlp(pp["ffn"], h)
@@ -223,8 +256,9 @@ def decode_step(params, batch, cache, cfg) -> Tuple[torch.Tensor, list]:
         rope = L.rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
     window = _effective_window(cfg)
     new_cache = []
-    for pp, c, kind in zip(params["layers"], cache, cfg.layer_kinds()):
-        x, c = _apply_layer_decode(pp, x, c, idx, cfg, kind, rope, window)
+    for pp, c, kind, is_moe in zip(params["layers"], cache, cfg.layer_kinds(),
+                                   _layer_moes(cfg)):
+        x, c = _apply_layer_decode(pp, x, c, idx, cfg, kind, is_moe, rope, window)
         new_cache.append(c)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = L.unembed(params["embed"], x, cfg)
@@ -252,7 +286,7 @@ def prefill(params, batch, cfg) -> Tuple[torch.Tensor, list]:
         rope = L.rope_angles(torch.arange(s, dtype=torch.int64, device=tokens.device),
                              cfg.resolved_head_dim, cfg.rope_theta)
     cache = []
-    for pp, kind in zip(params["layers"], cfg.layer_kinds()):
+    for pp, kind, is_moe in zip(params["layers"], cfg.layer_kinds(), _layer_moes(cfg)):
         h = L.rmsnorm(pp["norm1"], x, cfg.norm_eps)
         if kind == "attn":
             q, k, v = L.qkv(pp["mixer"], h, cfg)
@@ -263,12 +297,16 @@ def prefill(params, batch, cfg) -> Tuple[torch.Tensor, list]:
             out = _attention(q, k, v, cfg, causal=True, window=window)
             mix = out.reshape(b, s, -1) @ pp["mixer"]["wo"]
             c = {"k": k.to(cfg.cdtype()), "v": v.to(cfg.cdtype())}
+        elif kind == "mamba":
+            mix, c = M.mamba_apply(pp["mixer"], h, cfg, final_state=True)
         else:
             mix, state = R.rwkv_time_apply(pp["mixer"], h, cfg)
             c = _rwkv_final_state(state, h)
         x = x + mix
         h = L.rmsnorm(pp["norm2"], x, cfg.norm_eps)
-        if kind == "rwkv":
+        if is_moe:
+            ffn, _ = MOE.moe_apply(pp["ffn"], h, cfg)
+        elif kind == "rwkv":
             ffn = R.rwkv_chan_apply(pp["ffn"], h, cfg)
             c["shift_c"] = h[:, -1].float()
         else:

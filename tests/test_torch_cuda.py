@@ -1,6 +1,7 @@
 """repro_torch on the card: the CUDA kernels against their plain versions,
 `api.fit` and `api.batch_fit` on the card against the same runs on the CPU,
-and the LM serving path (smoke configs) on the card against the CPU.
+and the LM serving path (the smoke configs of the dense, ssm, moe and hybrid
+families) on the card against the CPU.
 
 Every test here is marked `cuda` and skips without a CUDA device: the
 kernels have no CPU mode.  The file imports neither jax nor repro, so it
@@ -1120,28 +1121,34 @@ def test_lm_wrappers_refuse_bad_card_inputs(card):
         wkv_chunked(r, r, r, r, torch.zeros((2, 32), device=card))
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-1.6b", "mixtral-8x22b",
+                                  "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b"])
 def test_serve_smoke_on_card_matches_cpu(card, arch):
     """The smoke config's prefill and greedy decode on the card (the LM
     kernels) against the CPU (plain versions) from the same parameters:
-    logits within 1e-4 normwise, tokens equal, the kernels launched."""
+    logits within 1e-4 normwise, tokens equal, the kernels launched (once a
+    prefill and once a step in each attention layer: Jamba's smoke config
+    has one, beside a Mamba layer).  mixtral's 80-token prompt passes its
+    sliding window of 64."""
     model = build_model(get_config(arch, smoke=True))
     params = model.init(seed=0, device="cpu")
+    prompt_len = 80 if arch.startswith("mixtral") else 24
     runs = {}
     for dev in ("cuda", "cpu"):
         recorder = _LogitRecorder(model)
         p = params if dev == "cpu" else _to(params, card)
         _build.reset_launches()
-        out, _ = ServeEngine(recorder).generate(p, build_prompt(model.cfg, 2, 24, dev), 5)
+        out, _ = ServeEngine(recorder).generate(
+            p, build_prompt(model.cfg, 2, prompt_len, dev), 5)
         runs[dev] = (out.cpu(), [lg.cpu() for lg in recorder.logits],
                      dict(_build.LAUNCHES))
     (tok_g, log_g, launched), (tok_c, log_c, _) = runs["cuda"], runs["cpu"]
     for g, c in zip(log_g, log_c):
         _close(g, c, 1e-4, f"{arch} logits")
     assert torch.equal(tok_g, tok_c)
-    n = model.cfg.n_layers
-    want = ({"flash_attention": n, "flash_decode": 5 * n} if arch.startswith("smollm")
-            else {"wkv": n})
+    n_attn = model.cfg.layer_kinds().count("attn")
+    want = ({"flash_attention": n_attn, "flash_decode": 5 * n_attn} if n_attn
+            else {"wkv": model.cfg.n_layers})
     assert {k: v for k, v in launched.items() if v} == want
 
 

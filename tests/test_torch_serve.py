@@ -1,5 +1,7 @@
 """repro_torch LM serving (prefill + decode) against the JAX package, on the
-CPU, at the smoke configs of smollm-360m (dense, GQA) and rwkv6-1.6b (ssm).
+CPU, at the smoke configs of smollm-360m (dense, GQA), rwkv6-1.6b (ssm),
+mixtral-8x22b and phi3.5-moe (moe) and jamba-v0.1-52b (hybrid: a Mamba layer,
+then attention with an MoE FFN).
 
 The JAX package's `Model.init` parameters are carried across with
 `convert.lm_params_from_numpy` (no arithmetic), so both packages compute
@@ -11,6 +13,11 @@ engine's tokens, and at each step the top-2 logit margin must exceed 10x
 that tolerance, so that a mismatch means a fault and not a near-tie.  The
 three other served dense configs (granite-3-2b: an odd vocab; qwen1.5-4b:
 qkv_bias with MHA; llama3-405b: rope_theta 5e5) take the same checks.
+mixtral's prompt (80 tokens) is longer than its sliding window of 64; phi3.5-moe
+also runs its MoE prefill in groups of 8 tokens with tokens dropped past
+capacity (capacity_factor 0.5); Jamba also with the chunked scan.  The hybrid
+cache is per pattern position: every position's layers are held to the JAX
+cache's `pos<p>` leaves.  `Model.loss` gives the JAX package's ce and aux.
 
 bf16, the dtype of every full config, is held to the reference's own
 bf16-vs-fp32 gap (test_bf16_serving_within_the_reference_gap).
@@ -32,7 +39,7 @@ from repro.serve import ServeEngine as JaxServeEngine
 from repro.serve.engine import _pad_cache as jax_pad_cache
 from repro_torch.api import NotPortedError
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, get_config
-from repro_torch.convert import lm_params_from_numpy
+from repro_torch.convert import lm_params_from_numpy, lm_params_to_tree
 from repro_torch.data.lm import MarkovStream
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import build_model
@@ -41,7 +48,9 @@ from repro_torch.serve import ServeEngine, greedy_sample
 from repro_torch.serve.engine import _pad_cache
 
 TOL = 1e-4
-ARCHS = ["smollm-360m", "rwkv6-1.6b", "granite-3-2b", "qwen1.5-4b", "llama3-405b"]
+ARCHS = ["smollm-360m", "rwkv6-1.6b", "granite-3-2b", "qwen1.5-4b", "llama3-405b",
+         "mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b"]
+MOE_ARCHS = ["mixtral-8x22b", "phi3.5-moe-42b-a6.6b", "jamba-v0.1-52b"]
 N_STEPS = 6
 
 # variants of the smoke configs that take the model's other attention and
@@ -57,7 +66,12 @@ VARIANTS = {
     "qwen1.5-4b": [{}],
     "llama3-405b": [{}, {"rope_theta": 5e5},    # the full config's theta
                     {"n_heads": 32, "n_kv_heads": 2}],   # its 16 heads a KV head
+    "mixtral-8x22b": [{}],
+    "phi3.5-moe-42b-a6.6b": [{}, {"moe_group_size": 8, "capacity_factor": 0.5}],
+    "jamba-v0.1-52b": [{}, {"mamba_chunk": 8}],
 }
+# prompt lengths other than 16: mixtral's passes its window of 64
+PROMPT_LEN = {"mixtral-8x22b": 80}
 BF16 = {"param_dtype": "bfloat16", "compute_dtype": "bfloat16"}
 
 
@@ -85,10 +99,14 @@ def _prompt(cfg, b=2, s=16, seed=1):
 
 
 def _stack_cache(cache, jcache):
-    """The port's per-layer cache as the JAX pattern layout's leaves (pos0,
-    stacked over the layers), beside the JAX leaves."""
-    for name in jcache["pos0"]:
-        yield name, torch.stack([layer[name] for layer in cache]), jcache["pos0"][name]
+    """The port's per-layer cache as the JAX pattern layout's leaves (each
+    position pos<p> stacked over its repetitions: layers p, p + period,
+    ...), beside the JAX leaves."""
+    period = len(jcache)
+    for p in range(period):
+        for name, want in jcache[f"pos{p}"].items():
+            got = torch.stack([layer[name] for layer in cache[p::period]])
+            yield f"pos{p}/{name}", got, want
 
 
 CASES = [(a, i) for a in ARCHS for i in range(len(VARIANTS[a]))]
@@ -97,7 +115,7 @@ CASES = [(a, i) for a in ARCHS for i in range(len(VARIANTS[a]))]
 @pytest.mark.parametrize("arch,variant", CASES)
 def test_prefill_and_decode_match_jax(arch, variant):
     jmodel, jparams, model, params = _pair(arch, **VARIANTS[arch][variant])
-    toks = _prompt(model.cfg)
+    toks = _prompt(model.cfg, s=PROMPT_LEN.get(arch, 16))
     jlogits, jcache = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)})
     logits, cache = model.prefill(params, {"tokens": torch.from_numpy(toks).long()})
     _close(logits, jlogits, TOL, "prefill logits")
@@ -184,7 +202,7 @@ def _torch_forced(model, params, toks, forced):
     return [x.float().numpy().astype(np.float64) for x in out]
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "rwkv6-1.6b"] + MOE_ARCHS)
 def test_bf16_serving_within_the_reference_gap(arch):
     """bf16 smoke config, the port against the JAX package from the same
     bf16 parameters: prefill and 4 decode steps (both fed the JAX bf16
@@ -277,20 +295,23 @@ def test_convert_carries_bf16_params_bit_for_bit():
 def test_cache_shapes_match_jax(arch):
     cfg, jcfg = get_config(arch), jax_get_config(arch)
     shapes = transformer.cache_shapes(cfg, 8, 1088)
-    jshapes = jtransformer.cache_shapes(jcfg, 8, 1088)["pos0"]
+    jshapes = jtransformer.cache_shapes(jcfg, 8, 1088)
+    period = len(jshapes)
     assert len(shapes) == cfg.n_layers
-    for name, (jshape, jdtype) in jshapes.items():
-        shape, dtype = shapes[0][name]
-        assert (cfg.n_layers, *shape) == tuple(jshape)
-        assert str(dtype).removeprefix("torch.") == jnp.dtype(jdtype).name
+    for i, layer in enumerate(shapes):
+        jlayer = jshapes[f"pos{i % period}"]
+        assert set(layer) == set(jlayer), i
+        for name, (jshape, jdtype) in jlayer.items():
+            shape, dtype = layer[name]
+            assert (cfg.n_layers // period, *shape) == tuple(jshape)
+            assert str(dtype).removeprefix("torch.") == jnp.dtype(jdtype).name
     model = build_model(get_config(arch, smoke=True))
     cache = model.make_cache(dataclasses.replace(INPUT_SHAPES["decode_32k"],
                                                  seq_len=64, global_batch=2), device="cpu")
     assert all(float(t.abs().sum()) == 0.0 for layer in cache for t in layer.values())
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "jamba-v0.1-52b", "whisper-medium",
-                                  "qwen2-vl-7b", "phi3.5-moe-42b-a6.6b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-7b"])
 def test_unported_families_raise(arch):
     with pytest.raises(NotPortedError, match="A16"):
         build_model(get_config(arch, smoke=True))
@@ -311,3 +332,51 @@ def test_cuda_without_a_card_raises():
         model.init(seed=0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_serve.main(["--arch", "smollm-360m", "--smoke"])
+
+
+LOSS_CASES = [(a, i) for a in MOE_ARCHS for i in range(len(VARIANTS[a]))]
+
+
+@pytest.mark.parametrize("arch,variant", LOSS_CASES)
+def test_loss_matches_jax(arch, variant):
+    """Model.loss on a training batch: ce and aux (the MoE layers' router
+    losses, non-zero here) equal the JAX package's."""
+    jmodel, jparams, model, params = _pair(arch, **VARIANTS[arch][variant])
+    rng = np.random.default_rng(8)
+    toks = rng.integers(0, model.cfg.vocab_size, (2, 17)).astype(np.int32)
+    jloss, jm = jmodel.loss(jparams, {"tokens": jnp.asarray(toks[:, :-1]),
+                                      "labels": jnp.asarray(toks[:, 1:])})
+    batch = {"tokens": torch.from_numpy(toks[:, :-1]).long(),
+             "labels": torch.from_numpy(toks[:, 1:]).long()}
+    with torch.no_grad():
+        loss, m = model.loss(params, batch)
+    assert float(m["aux"]) > 0
+    for name, got, want in (("loss", loss, jloss), ("ce", m["ce"], jm["ce"]),
+                            ("aux", m["aux"], jm["aux"])):
+        assert got.dtype == torch.float32
+        assert abs(float(got) - float(want)) <= 1e-5 * abs(float(want)), (name, got, want)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_convert_round_trips_moe_and_mamba_leaves(arch):
+    """A bf16 JAX tree with MoE (and Mamba) leaves crosses to the port's
+    layers and back to the stacked layout bit for bit, every leaf in its
+    own dtype (the router, a_log, dt_bias and d_skip fp32)."""
+    over = dict(param_dtype="bfloat16", compute_dtype="bfloat16")
+    jcfg = dataclasses.replace(jax_get_config(arch, smoke=True), **over)
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **over)
+    tree = jax.tree.map(np.asarray, jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+    params = lm_params_from_numpy(cfg, tree)
+    moe_layers = [i for i in range(cfg.n_layers) if cfg.layer_is_moe(i)]
+    assert moe_layers and params["layers"][moe_layers[0]]["ffn"]["router"].dtype == torch.float32
+    back = lm_params_to_tree(cfg, params)
+    flat, _ = jax.tree_util.tree_flatten_with_path(tree)
+    got = dict(jax.tree_util.tree_flatten_with_path(back)[0])
+    assert len(got) == len(flat)
+    for path, want in flat:
+        t = got[path]
+        assert str(t.dtype).removeprefix("torch.") == want.dtype.name, path
+        if want.dtype.name == "bfloat16":
+            np.testing.assert_array_equal(t.view(torch.int16).numpy(), want.view(np.int16))
+        else:
+            np.testing.assert_array_equal(t.numpy(), want)
