@@ -257,6 +257,22 @@ Phases, each fatal on failure (nothing is caught):
               (phi3.5-moe; Jamba with attn_period 2: a Mamba layer, then
               attention with a 16-expert MoE; 32-token prompt, 2 steps:
               logits within 1e-4, tokens equal);
+  11c. serve encdec/vlm  the encdec and vlm families at full size, every
+              layer (random bf16 weights, B=8, 64 greedy tokens, the frames
+              and vision embeddings seeded normals): whisper-medium (24 + 24
+              layers, 1500 frames, a 384-token prompt: exactly 72 flash
+              attention launches, all tensor-core, 24 encoder and 2 x 24
+              decoder, and 2 x 24 x 64 flash decode, self and cross) and
+              qwen2-vl-7b (28 layers, G = 7, a 1024-token prompt after its
+              1024-token vision prefix: 28, 28 and 28 x 64), each with a
+              prefill timed by part (whisper's encoder, attention, the
+              MLPs; M-RoPE); B9 at whisper's encoder shape and B10 over its
+              1500 cross keys and at G = 7 held to their plain versions and
+              timed beside SDPA and their bounds; then each at full width
+              in fp32 on the card against the CPU (whisper at 2 + 2 layers
+              over 1500 frames; qwen2-vl at 2 layers, its vision prefix cut
+              to 256 tokens for the CPU's sake; 32-token prompt, 2 steps:
+              logits within 1e-4, tokens equal);
   12. train    LM training: the B9 backward (dQ, dK, dV; three launches of
               one C entry; bf16 at dh 64 and 128 on the tensor-core route,
               its counter checked) at smollm-360m's training shape (B=8,
@@ -3269,7 +3285,7 @@ def serve_g16(lm, _build, fd_ops, fd_ref, rows, batch=8, prompt_len=1024, new=16
            "plain_ms": time_ms(lambda: fd_ref.decode_ref(q, k, v, idx)),
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                sq_, sk_, sv_, attn_mask=filled, enable_gqa=True)),
-           "bound_ms": b_ms, "bound_by": b_by, "launches": expect["flash_decode"]}
+           "bound_ms": b_ms, "bound_by": b_by, "launches": counts["flash_decode"]}
     log(f"[analysis] flash_decode G=16 row {json.dumps(row)}")
     for r in rows:
         if r["name"] == "flash_decode":
@@ -3296,7 +3312,7 @@ def two_layers_vs_cpu(lm, arch: str, steps: int, prompt_len: int, tag: str = "an
     runs = {}
     for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
         recorder = LogitRecorder(model)
-        prompt = lm["build_prompt"](cfg, 1, prompt_len, dev)
+        prompt = lm["build_prompt"](cfg, 1, prompt_len, dev, seed=0)
         out, _ = lm["ServeEngine"](recorder).generate(params, prompt, steps)
         runs[dev] = (out.cpu(), [x.cpu() for x in recorder.logits])
         del params, recorder
@@ -3607,7 +3623,7 @@ class LogitRecorder:
     and decode steps; ServeEngine drives it like the model itself."""
 
     def __init__(self, model):
-        self.model, self.logits = model, []
+        self.model, self.cfg, self.logits = model, model.cfg, []
 
     def prefill(self, params, batch):
         out, cache = self.model.prefill(params, batch)
@@ -3672,8 +3688,11 @@ def profile_serving(model, params, prompt, tag: str, steps: int = 4) -> float:
 
     def decode():
         for i in range(steps):
-            out, state["cache"] = model.decode_step(
-                params, {"tokens": state["tok"], "idx": s0 + i}, state["cache"])
+            batch = {"tokens": state["tok"], "idx": s0 + i}
+            if model.cfg.family == "vlm":
+                batch["pos_ids"] = torch.full((3, state["tok"].shape[0], 1), s0 + i,
+                                              dtype=torch.int64, device="cuda")
+            out, state["cache"] = model.decode_step(params, batch, state["cache"])
             state["tok"] = out.argmax(-1)[:, None]
 
     return profile_window(tag, "decode steps", decode, steps)
@@ -3736,7 +3755,7 @@ def serve_full(lm, _build, arch: str, expect: dict, batch=8, prompt_len=1024, ne
     model = lm["build_model"](cfg)
     t0 = time.perf_counter()
     params = model.init(seed=0, device="cuda")
-    prompt = lm["build_prompt"](cfg, batch, prompt_len, "cuda")
+    prompt = lm["build_prompt"](cfg, batch, prompt_len, "cuda", seed=0)
     torch.cuda.synchronize()
     log(f"[{arch}] {cfg.n_layers} of {full.n_layers} layers, d={cfg.d_model}, "
         f"{cfg.param_dtype}: "
@@ -3793,8 +3812,12 @@ def serve_full(lm, _build, arch: str, expect: dict, batch=8, prompt_len=1024, ne
                 f"{arch}: {split['wkv_launches']} WKV kernels in the profiled prefill")
     if parts:
         prefill_parts(model, params, prompt, arch, parts)
-    log(f"[{arch}] batch {batch}, prompt {prompt_len}, {new} new tokens: prefill "
-        f"{prefill_ms:.2f} ms ({batch * prompt_len / prefill_ms * 1e3:.0f} prompt tokens/s), "
+    # the decoder's prompt positions (vlm: the vision prefix and the text)
+    n_pos = prompt["pos_ids"].shape[-1] if "pos_ids" in prompt else prompt_len
+    stub = {k: tuple(prompt[k].shape) for k in ("frames", "vision_embeds") if k in prompt}
+    log(f"[{arch}] batch {batch}, prompt {prompt_len} tokens ({n_pos} positions; seeded "
+        f"{json.dumps(stub)}), {new} new tokens: prefill "
+        f"{prefill_ms:.2f} ms ({batch * n_pos / prefill_ms * 1e3:.0f} prompt positions/s), "
         f"decode {decode_ms:.3f} ms per step ({batch / decode_ms * 1e3:.1f} tokens/s), "
         f"generate {total_ms:.1f} ms ({batch * new / total_ms * 1e3:.1f} new tokens/s end "
         f"to end); decode device busy {100 * busy:.1f}%; peak memory {peak:.2f} GiB")
@@ -3928,6 +3951,141 @@ def phase_serve_moe(lm, _build) -> dict:
     # a Mamba layer, then attention with a 16-expert MoE FFN
     two_layers_vs_cpu(lm, "jamba-v0.1-52b", steps=2, prompt_len=32, tag="serve moe",
                       attn_period=2)
+    return launches
+
+
+# ----------------------------------------------------- 11c. serve encdec / vlm
+
+
+# the encdec and vlm families' main path at full size: arch -> (prompt
+# tokens, the launches of one generate at B=8 and 64 new tokens).
+# whisper-medium: 24 encoder and 24 decoder layers, 16/16 heads of 64; its
+# prefill runs B9 in each encoder layer (1500 frames, non-causal) and twice
+# in each decoder layer (causal self, non-causal cross over the 1500
+# frames), each decode step B10 twice a decoder layer (self at idx, cross
+# at 1499); a 384-token prompt, 448 positions with the 64 new tokens (the
+# published decoder context).  qwen2-vl-7b: 28 layers, 28/4 heads of 128
+# (G = 7), a 1024-token text prompt after its 1024-token vision prefix.
+SERVE_ENCDEC_VLM = {
+    "whisper-medium": (384, {"flash_attention": 24 + 2 * 24, "flash_attention_tc": 24 + 2 * 24,
+                             "flash_decode": 2 * 24 * 64}),
+    "qwen2-vl-7b": (1024, {"flash_attention": 28, "flash_attention_tc": 28,
+                           "flash_decode": 28 * 64}),
+}
+VLM_CPU_VISION = 256     # the vision prefix of qwen2-vl's fp32 check (the CPU's share)
+
+
+def time_encdec_vlm_kernels(lm, fa_ops, fa_ref, fd_ops, fd_ref, rows, launched) -> None:
+    """B9 at whisper-medium's encoder shape (B=8, 1500 frames, non-causal,
+    16/16 heads of 64, bf16), B10 over its 1500 cross keys (idx 1499, G =
+    1) and at qwen2-vl-7b's heads (28/4 of 128, G = 7; cache 2048, idx 1087:
+    the main path's last step, ROADMAP C9), each against its plain version
+    on the same card inputs (twice, the same bits), then timed beside its
+    plain version, SDPA and its bound; the rows join the kernels line under
+    flash_attention / flash_decode.  Each row's `launches` is the count that
+    its model's main path read (`launched`: arch -> serve_full's counts),
+    over every shape of that kernel in the model, as `launches_of` says."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+
+    def rn(*shape):
+        return torch.empty(shape, dtype=bf, device=dev).normal_(generator=gen)
+
+    def held(name, fn, want):
+        got = fn()
+        require(torch.equal(got, fn()), f"{name}: a second call gave other bits")
+        return compare(name, got, want, LM_TOL[bf])
+
+    whisper = lm["get_config"]("whisper-medium")
+    hq, hkv, dh = whisper.n_heads, whisper.n_kv_heads, whisper.resolved_head_dim
+    b, s = 8, whisper.n_frames
+    q, k, v = rn(b, s, hq, dh), rn(b, s, hkv, dh), rn(b, s, hkv, dh)
+    route = fa_ops.route(bf, dh)
+    err, rel = held("B9 whisper encoder", lambda: fa_ops.flash_attention(q, k, v, causal=False),
+                    fa_ref.attention_ref(q, k, v, causal=False))
+    sq_, sk_, sv_ = sdpa_layout(q, k, v)
+    b_ms, b_by = bound(2.0 * (2 * b * s * hq * dh + 2 * b * s * hkv * dh),
+                       4.0 * b * hq * dh * s * s, H100_BF16_FLOPS)
+    enc_row = {"shape": f"whisper-medium encoder, heads ({hq}, {hkv}, {dh}), G=1, B={b}, "
+                        f"Sq=Skv={s}, non-causal, bf16", "route": route,
+               "max_abs_err": err, "max_rel_err": rel,
+               "ms": time_ms(lambda: fa_ops.flash_attention(q, k, v, causal=False)),
+               "plain_ms": time_ms(lambda: fa_ref.attention_ref(q, k, v, causal=False)),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(sq_, sk_, sv_)),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "launches": launched["whisper-medium"]["flash_attention"],
+               "launches_of": "whisper-medium's main path, every B9 call: encoder, decoder "
+                              "self and cross"}
+    del q, k, v
+
+    def b10_row(tag, b, s, idx, heads, launches, launches_of):
+        hq, hkv, dh = heads
+        q, k, v = rn(b, hq, dh), rn(b, s, hkv, dh), rn(b, s, hkv, dh)
+        err, rel = held(f"B10 {tag}", lambda: fd_ops.flash_decode(q, k, v, idx),
+                        fd_ref.decode_ref(q, k, v, idx))
+        filled = (torch.arange(s, dtype=torch.int64, device=dev) <= idx)[None, None, None, :]
+        sq_, sk_, sv_ = sdpa_layout(q[:, None], k, v)
+        n = idx + 1
+        b_ms, b_by = bound(2.0 * (2 * b * n * hkv * dh + 2 * b * hq * dh),
+                           4.0 * b * hq * dh * n, H100_BF16_FLOPS)
+        _, nsplit = fd_ops.decode_geometry(n, b * hkv, fd_ops.tile_positions(dh, 2))
+        return {"shape": f"{tag}, heads {heads}, G={hq // hkv}, B={b}, cache {s}, idx {idx}, "
+                         f"bf16, {nsplit} chunks", "max_abs_err": err, "max_rel_err": rel,
+                "ms": time_ms(lambda: fd_ops.flash_decode(q, k, v, idx)),
+                "plain_ms": time_ms(lambda: fd_ref.decode_ref(q, k, v, idx)),
+                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                    sq_, sk_, sv_, attn_mask=filled, enable_gqa=True)),
+                "bound_ms": b_ms, "bound_by": b_by, "launches": launches,
+                "launches_of": launches_of}
+
+    cross_row = b10_row("whisper-medium cross-attention", 8, s, s - 1, (hq, hkv, dh),
+                        launched["whisper-medium"]["flash_decode"],
+                        "whisper-medium's main path, every B10 call: decoder self and cross")
+    qwen = lm["get_config"]("qwen2-vl-7b")
+    heads = (qwen.n_heads, qwen.n_kv_heads, qwen.resolved_head_dim)
+    require(heads[0] // heads[1] == 7 and heads[2] == 128, f"qwen2-vl-7b heads {heads}")
+    g7_row = b10_row("qwen2-vl-7b", 8, 2048, 1087, heads,
+                     launched["qwen2-vl-7b"]["flash_decode"],
+                     "qwen2-vl-7b's main path, every B10 call")
+    for r in rows:
+        if r["name"] == "flash_attention":
+            r["whisper_encoder_row"] = enc_row
+        elif r["name"] == "flash_decode":
+            r["whisper_cross_row"], r["g7_row"] = cross_row, g7_row
+    for tag, row in (("flash_attention whisper encoder", enc_row),
+                     ("flash_decode whisper cross", cross_row), ("flash_decode G=7", g7_row)):
+        log(f"[serve encdec/vlm] {tag} row {json.dumps(row)}")
+    torch.cuda.empty_cache()
+
+
+def phase_serve_encdec_vlm(lm, _build, fa_ops, fa_ref, fd_ops, fd_ref, rows) -> dict:
+    """The encdec and vlm families at full size, every layer: whisper-medium
+    and qwen2-vl-7b through ServeEngine.generate (serve_full, seeded frames
+    and vision embeddings, a prefill timed by part: the encoder, attention
+    (B9), the MLPs, M-RoPE), their B9 and B10 shapes timed
+    (time_encdec_vlm_kernels), then each at full width in fp32 on the card
+    against the CPU: whisper at 2 + 2 layers over its 1500 frames, qwen2-vl
+    at 2 layers with its vision prefix cut to VLM_CPU_VISION tokens."""
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+
+    parts = {"whisper-medium": [(ED, "encode"), (L, "attention_scores"), (L, "gelu_mlp")],
+             "qwen2-vl-7b": [(L, "attention_scores"), (L, "mlp"), (L, "mrope_angles")]}
+    launched = {arch: serve_full(lm, _build, arch, expect, prompt_len=prompt_len,
+                                 parts=parts[arch])
+                for arch, (prompt_len, expect) in SERVE_ENCDEC_VLM.items()}
+    launches = {}
+    for counts in launched.values():
+        for k_, v_ in counts.items():
+            launches[k_] = launches.get(k_, 0) + v_
+    time_encdec_vlm_kernels(lm, fa_ops, fa_ref, fd_ops, fd_ref, rows, launched)
+    two_layers_vs_cpu(lm, "whisper-medium", steps=2, prompt_len=32, tag="serve encdec/vlm",
+                      n_enc_layers=2)
+    two_layers_vs_cpu(lm, "qwen2-vl-7b", steps=2, prompt_len=32, tag="serve encdec/vlm",
+                      n_vision_tokens=VLM_CPU_VISION)
     return launches
 
 
@@ -4363,6 +4521,10 @@ def main() -> None:
     for k_, v_ in phase_serve_moe(lm, _build).items():
         launches[k_] += v_
     stamp("serve moe/hybrid")
+    for k_, v_ in phase_serve_encdec_vlm(lm, _build, fa_ops, fa_ref, fd_ops, fd_ref,
+                                         rows).items():
+        launches[k_] += v_
+    stamp("serve encdec/vlm")
     for k_, v_ in phase_train(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, lm, rows, smi).items():
         launches[k_] += v_
     stamp("train")

@@ -85,6 +85,13 @@ def batch_from_numpy(xcols, y, xcols_test, y_test, device="cpu"
     return out
 
 
+# the stacked subtrees of the JAX package's LM tree and the port's per-layer
+# lists; every other top-level entry (embed, the norms, vlm's vision_proj)
+# crosses as it is
+_STACKED = ("blocks", "enc_layers", "dec_layers")
+_LISTS = ("layers", "enc_layers", "dec_layers")
+
+
 def lm_params_from_numpy(cfg, tree, device="cpu") -> dict:
     """The port's LM parameters from the JAX package's `Model.init` tree
     (as numpy arrays, e.g. `jax.tree.map(np.asarray, params)`).
@@ -92,47 +99,56 @@ def lm_params_from_numpy(cfg, tree, device="cpu") -> dict:
     The JAX tree stacks each pattern position over the layer repetitions,
     `blocks/pos<p>/...` with a leading n_rep axis (e.g. mixer/wq of shape
     (L, d, Hq*dh) for a dense model); the port keeps one dict per layer, and
-    layer i is repetition i // period of position i % period.  Weights keep
+    layer i is repetition i // period of position i % period.  The encdec
+    tree's `enc_layers` and `dec_layers` are stacked over their layers and
+    become lists the same way.  Weights keep
     the JAX layout (x @ w), so the conversion only slices: no arithmetic,
     and both packages compute with the same numbers."""
     check_ported(cfg)
-    period = pattern_period(cfg)
 
     def conv(node, pick=None) -> Any:
         if isinstance(node, dict):
             return {k: conv(v, pick) for k, v in node.items()}
         return _tensor(node if pick is None else node[pick], device)
 
-    blocks = tree["blocks"]
-    layers = [conv(blocks[f"pos{i % period}"], i // period)
-              for i in range(cfg.n_layers)]
-    return {"embed": conv(tree["embed"]), "final_norm": conv(tree["final_norm"]),
-            "layers": layers}
+    out = {k: conv(v) for k, v in tree.items() if k not in _STACKED}
+    if cfg.family == "encdec":
+        out["enc_layers"] = [conv(tree["enc_layers"], i) for i in range(cfg.n_enc_layers)]
+        out["dec_layers"] = [conv(tree["dec_layers"], i) for i in range(cfg.n_layers)]
+    else:
+        period, blocks = pattern_period(cfg), tree["blocks"]
+        out["layers"] = [conv(blocks[f"pos{i % period}"], i // period)
+                         for i in range(cfg.n_layers)]
+    return out
 
 
 def lm_params_to_tree(cfg, params) -> dict:
     """The JAX package's `Model.init` layout of the port's LM parameters
     (or of any tree of their structure, AdamW's moments say):
-    blocks/pos<p>/... stacked over the repetitions, as new tensors on the
+    blocks/pos<p>/... stacked over the repetitions (encdec: enc_layers and
+    dec_layers stacked over their layers), as new tensors on the
     parameters' device.  The inverse of lm_params_from_numpy, which also
     takes these tensors."""
     check_ported(cfg)
-    period = pattern_period(cfg)
 
     def stack(nodes) -> Any:
         if isinstance(nodes[0], dict):
             return {k: stack([n[k] for n in nodes]) for k in nodes[0]}
         return torch.stack([n.detach() for n in nodes])
 
-    layers = params["layers"]
-    blocks = {f"pos{p}": stack(layers[p::period]) for p in range(period)}
     def clone(node) -> Any:
         if isinstance(node, dict):
             return {k: clone(v) for k, v in node.items()}
         return node.detach().clone()
 
-    return {"embed": clone(params["embed"]), "final_norm": clone(params["final_norm"]),
-            "blocks": blocks}
+    out = {k: clone(v) for k, v in params.items() if k not in _LISTS}
+    if cfg.family == "encdec":
+        out["enc_layers"] = stack(params["enc_layers"])
+        out["dec_layers"] = stack(params["dec_layers"])
+    else:
+        period, layers = pattern_period(cfg), params["layers"]
+        out["blocks"] = {f"pos{p}": stack(layers[p::period]) for p in range(period)}
+    return out
 
 
 def train_state_from_numpy(cfg, params, opt, step, device="cpu"):

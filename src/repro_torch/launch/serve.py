@@ -1,5 +1,6 @@
 """Serving launcher (twin of repro.launch.serve): batched prefill + decode
-for the ported architectures (the dense, ssm, moe and hybrid families).
+for every architecture (the dense, ssm, moe, hybrid, encdec and vlm
+families).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --batch 8 --prompt-len 1024 --new-tokens 64          # on the card
@@ -7,13 +8,19 @@ for the ported architectures (the dense, ssm, moe and hybrid families).
         --smoke --batch 4 --prompt-len 64 --new-tokens 32 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+        --batch 8 --prompt-len 384 --new-tokens 64           # on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-vl-7b \
+        --smoke --device cpu
 
 The full moe and hybrid configs (mixtral-8x22b, phi3.5-moe, jamba-v0.1-52b)
 hold 84–282 GB of bf16 parameters, more than one 80 GB card.
 
 Parameters are random, drawn from a torch.Generator seeded with 0 (the JAX
 launcher's PRNGKey(0) gives other numbers); prompts come from the same
-MarkovStream as the JAX launcher's.
+MarkovStream as the JAX launcher's, with its zero frames (encdec: 1500 of
+them at the full config) or zero vision embeddings before the text and
+M-RoPE positions 0..v+S-1 on all three streams (vlm).
 """
 from __future__ import annotations
 
@@ -30,10 +37,33 @@ from repro_torch.models import build_model
 from repro_torch.serve import ServeEngine
 
 
-def build_prompt(cfg, batch: int, prompt_len: int, device="cpu"):
+def build_prompt(cfg, batch: int, prompt_len: int, device="cpu", seed=None):
+    """The JAX launcher's prompt: prompt_len MarkovStream tokens (B, S),
+    with zero frames (B, n_frames, D) for encdec, and zero vision embeddings
+    (B, v, D) and pos_ids (3, B, v + S) for vlm.  With `seed` the frames or
+    vision embeddings are float32 normals from a CPU generator seeded so,
+    cast to the compute dtype (the same numbers on every device; zeros make
+    every encoder row, or every vision token, alike)."""
     stream = MarkovStream(cfg.vocab_size, seed=0)
     toks = stream.sample(np.random.default_rng(0), batch, prompt_len)
-    return {"tokens": torch.from_numpy(toks[:, :-1]).long().to(device)}
+    prompt = {"tokens": torch.from_numpy(toks[:, :-1]).long().to(device)}
+
+    def stub(shape):
+        if seed is None:
+            return torch.zeros(shape, dtype=cfg.cdtype(), device=device)
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        return torch.randn(shape, generator=gen, dtype=torch.float32, device="cpu").to(
+            device=device, dtype=cfg.cdtype())
+
+    if cfg.family == "encdec":
+        prompt["frames"] = stub((batch, cfg.n_frames, cfg.d_model))
+    if cfg.family == "vlm":
+        v = cfg.n_vision_tokens
+        prompt["vision_embeds"] = stub((batch, v, cfg.d_model))
+        s = prompt["tokens"].shape[1] + v
+        prompt["pos_ids"] = torch.arange(s, dtype=torch.int64, device=device).expand(
+            3, batch, s).contiguous()
+    return prompt
 
 
 def main(argv=None):

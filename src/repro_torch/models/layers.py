@@ -8,16 +8,10 @@ Conventions, as in the JAX package:
   * compute dtype from cfg.compute_dtype, fp32 for norms and softmax, the
     result cast back to the input's dtype
 
-Attention on a CUDA tensor runs the hand-written kernels: one query token
-(decode) goes to flash_decode (B10), a query block that starts at position
-0 (prefill) to flash_attention (B9), and, when grad is enabled and an
-operand requires it (training), to flash_attention_train (B9 with its
-backward kernel).  A longer block later in the sequence (chunked prefill)
-has no kernel yet and raises NotPortedError (A16).  On a CPU tensor it runs
-the plain functions here, which autograd differentiates.
-The JAX package's sharding constraints are gone (one device; sharding is
-ROADMAP A11).  `mrope_angles`, `gelu_mlp` and `sinusoidal_positions` wait for
-the VLM and enc-dec slice (A16).
+Attention on a CUDA tensor runs the hand-written kernels (the routes are
+listed in `attention_scores`).  On a CPU tensor it runs the plain functions
+here, which autograd differentiates.  The JAX package's sharding
+constraints are gone (one device; sharding is ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -83,6 +77,29 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     return out.to(x.dtype)
 
 
+def mrope_angles(pos_ids: torch.Tensor, head_dim: int, theta: float,
+                 sections: Tuple[int, int, int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL M-RoPE: pos_ids (3, B, S), the temporal / height / width
+    position ids -> cos/sin (B, S, head_dim//2), fp32.
+
+    The head_dim//2 frequency slots are split into `sections` (t, h, w);
+    each slot takes its angle from its section's position stream.  The JAX
+    twin picks the stream with a one-hot einsum (a product by 1.0 plus two
+    by 0.0: exact); the gather here gives the same fp32 numbers."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not sum to {half}")
+    slot = torch.arange(half, dtype=torch.int64, device=pos_ids.device)
+    freqs = 1.0 / (theta ** (slot.float() / half))
+    ang = pos_ids.float()[..., None] * freqs                    # (3, B, S, half)
+    # each slot's stream, 0 / 1 / 2, from comparisons on the device (no host
+    # sync: repeat_interleave with tensor repeats would read their sum back)
+    t, h, _ = sections
+    sec_idx = (slot >= t).long() + (slot >= t + h).long()
+    ang_sel = torch.gather(ang, 0, sec_idx.expand(1, *ang.shape[1:]))[0]
+    return torch.cos(ang_sel), torch.sin(ang_sel)
+
+
 # ---------------------------------------------------------------- attention
 
 
@@ -100,13 +117,26 @@ def attention_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, Sq, Hq, dh); k, v: (B, Skv, Hkv, dh); Hq = Hkv * G.  `q_offset`
     (a host int) is the absolute position of q[0] (decode: the fill
     position).  Sliding `window` > 0 limits lookback.  `causal` masks keys
-    after each query (the JAX twin masks unless `bidirectional`, which only
-    its ring-buffer decode sets, together with causal=False; that decode
-    waits for A16, and with it `kv_mask`).
+    after each query; causal=False attends to every key (the JAX twin's
+    bidirectional=True, which its encoder and cross-attention pass beside
+    causal=False; its ring-buffer decode's `kv_mask` waits for A16(f)).
+
+    On a CUDA tensor:
+      * one causal query token (decode) -> flash_decode (B10) at q_offset;
+      * one non-causal query token (cross-attention decode) -> flash_decode
+        at Skv - 1 with no window: every key of the cache, exactly;
+      * a query block at position 0 (prefill; the encoder and
+        cross-attention, causal or not) -> flash_attention (B9), or, when
+        grad is enabled and an operand requires it (training),
+        flash_attention_train (B9 with its backward kernel);
+      * a block later in the sequence (chunked prefill) has no kernel yet
+        and raises NotPortedError (A16).
     """
     if not _build.on_cpu(q, "attention_scores"):
         if q.shape[1] == 1 and causal:
             return flash_decode(q[:, 0], k, v, q_offset, window=window)[:, None]
+        if q.shape[1] == 1 and window == 0 and not needs_grad(q, k, v):
+            return flash_decode(q[:, 0], k, v, k.shape[1] - 1)[:, None]
         if q_offset:
             raise NotPortedError(
                 f"attention of a {q.shape[1]}-token query block at position "
@@ -194,6 +224,15 @@ def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     return h @ p["wo"]
 
 
+def gelu_mlp_init(gen: torch.Generator, d: int, f: int, dtype) -> dict:
+    return {"wi": dense_init(gen, (d, f), dtype), "wo": dense_init(gen, (f, d), dtype)}
+
+
+def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default is the tanh approximation (torch's is erf)."""
+    return F.gelu(x @ p["wi"], approximate="tanh") @ p["wo"]
+
+
 # --------------------------------------------------------------- embeddings
 
 
@@ -212,3 +251,13 @@ def embed(p: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
 def unembed(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     w = p["tok"].T if cfg.tie_embeddings else p["out"]
     return x @ w.to(cfg.cdtype())
+
+
+def sinusoidal_positions(s: int, d: int, device) -> torch.Tensor:
+    """Whisper-style absolute sinusoidal embeddings (fp32, (S, D)):
+    [sin | cos], freqs exp(-k ln(1e4) / (D/2 - 1)) computed in fp32."""
+    half = d // 2
+    step = torch.log(torch.tensor(10000.0, dtype=torch.float32, device=device)) / (half - 1)
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32, device=device) * step)
+    ang = torch.arange(s, dtype=torch.float32, device=device)[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

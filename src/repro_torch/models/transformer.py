@@ -1,5 +1,6 @@
 """Decoder-only transformer assembly (twin of repro.models.transformer) for
-the `dense`, `moe`, `ssm` (RWKV-6) and `hybrid` (Jamba) families.
+the `dense`, `moe`, `ssm` (RWKV-6), `hybrid` (Jamba) and `vlm` (Qwen2-VL's
+language path) families.
 
 The JAX package stacks each pattern position's parameters over the layer
 repetitions and consumes the stack with `lax.scan`; here the parameters are
@@ -24,8 +25,12 @@ sum of the MoE layers' router losses in layer order (the JAX carry's).  The
 JAX package's sharding constraints are the identity here (one device;
 sharding waits for ROADMAP A11).
 
-The enc-dec and vlm families and the ring-buffer window cache wait for
-later slices of A16 (models.model.build_model refuses them).
+The vlm family's vision tower is a stub, as in the JAX package: the batch
+carries vision embeddings (B, n_vision_tokens, D), projected by
+`vision_proj` and put before the text, and M-RoPE position ids
+`pos_ids` (3, B, S) (a decode step's (3, B, 1)).  The enc-dec family is
+models/encdec.py; the ring-buffer window cache waits for A16(f)
+(models.model.build_model refuses it).
 """
 from __future__ import annotations
 
@@ -95,12 +100,15 @@ def _layer_moes(cfg) -> List[bool]:
 
 def init(gen: torch.Generator, cfg) -> dict:
     """Random parameters drawn from `gen`, on the generator's device."""
-    return {
+    params = {
         "embed": L.embed_init(gen, cfg),
         "final_norm": L.rmsnorm_init(cfg.d_model, cfg.pdtype(), gen.device),
         "layers": [_layer_init(gen, cfg, kind, is_moe)
                    for kind, is_moe in zip(cfg.layer_kinds(), _layer_moes(cfg))],
     }
+    if cfg.family == "vlm":
+        params["vision_proj"] = L.dense_init(gen, (cfg.d_model, cfg.d_model), cfg.pdtype())
+    return params
 
 
 # ----------------------------------------------------------------- forward
@@ -168,14 +176,32 @@ def _run_layers_train(params, x, cfg, rope) -> Tuple[torch.Tensor, torch.Tensor]
     return x, aux
 
 
+def _rope_for(cfg, batch, start: int, s: int):
+    """(cos, sin) at positions start..start+s-1, or M-RoPE at
+    batch["pos_ids"] for the vlm family; None for rwkv and without RoPE."""
+    if cfg.family == "ssm" or cfg.rope_theta == 0.0:
+        return None
+    dh = cfg.resolved_head_dim
+    if cfg.family == "vlm":
+        return L.mrope_angles(batch["pos_ids"], dh, cfg.rope_theta, cfg.mrope_sections)
+    pos = torch.arange(start, start + s, dtype=torch.int64, device=batch["tokens"].device)
+    return L.rope_angles(pos, dh, cfg.rope_theta)
+
+
+def _embed_inputs(params, batch, cfg) -> torch.Tensor:
+    """tokens (after the projected vision embeddings for vlm) -> (B, S_total, D)."""
+    x = L.embed(params["embed"], batch["tokens"], cfg)
+    if cfg.family == "vlm":
+        cdt = cfg.cdtype()
+        v = batch["vision_embeds"].to(cdt) @ params["vision_proj"].to(cdt)
+        x = torch.cat([v, x], dim=1)          # vision tokens prefix the text
+    return x
+
+
 def forward(params, batch, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence causal forward. Returns (logits (B, S, V), aux)."""
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens, cfg)
-    rope = None
-    if cfg.family != "ssm" and cfg.rope_theta != 0.0:
-        rope = L.rope_angles(torch.arange(x.shape[1], dtype=torch.int64, device=tokens.device),
-                             cfg.resolved_head_dim, cfg.rope_theta)
+    """Full-sequence causal forward. Returns (logits (B, S_total, V), aux)."""
+    x = _embed_inputs(params, batch, cfg)
+    rope = _rope_for(cfg, batch, 0, x.shape[1])
     x, aux = _run_layers_train(params, x, cfg, rope)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return L.unembed(params["embed"], x, cfg), aux
@@ -242,18 +268,14 @@ def _apply_layer_decode(pp, x, cache, idx: int, cfg, kind, is_moe, rope, window)
 
 
 def decode_step(params, batch, cache, cfg) -> Tuple[torch.Tensor, list]:
-    """One new token against the cache. batch: {"tokens": (B,1), "idx": int}.
+    """One new token against the cache. batch: {"tokens": (B,1), "idx": int},
+    and for vlm "pos_ids" (3, B, 1).
 
     Returns (logits (B, V), cache).  `idx` is the current fill length, a
     host int (or a one-element integer tensor)."""
     idx = int(batch["idx"])
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens, cfg)
-    if cfg.family == "ssm" or cfg.rope_theta == 0.0:
-        rope = None
-    else:
-        pos = torch.arange(idx, idx + 1, dtype=torch.int64, device=tokens.device)
-        rope = L.rope_angles(pos, cfg.resolved_head_dim, cfg.rope_theta)
+    x = L.embed(params["embed"], batch["tokens"], cfg)
+    rope = _rope_for(cfg, batch, idx, 1)
     window = _effective_window(cfg)
     new_cache = []
     for pp, c, kind, is_moe in zip(params["layers"], cache, cfg.layer_kinds(),
@@ -278,13 +300,9 @@ def _rwkv_final_state(wkv_state, h):
 def prefill(params, batch, cfg) -> Tuple[torch.Tensor, list]:
     """Forward over the prompt, building the cache. Returns (last logits, cache)."""
     window = _effective_window(cfg)
-    tokens = batch["tokens"]
-    x = L.embed(params["embed"], tokens, cfg)
+    x = _embed_inputs(params, batch, cfg)
     b, s, _ = x.shape
-    rope = None
-    if cfg.family != "ssm" and cfg.rope_theta != 0.0:
-        rope = L.rope_angles(torch.arange(s, dtype=torch.int64, device=tokens.device),
-                             cfg.resolved_head_dim, cfg.rope_theta)
+    rope = _rope_for(cfg, batch, 0, s)
     cache = []
     for pp, kind, is_moe in zip(params["layers"], cfg.layer_kinds(), _layer_moes(cfg)):
         h = L.rmsnorm(pp["norm1"], x, cfg.norm_eps)

@@ -5,6 +5,13 @@ Sampling is greedy, or by temperature from an explicit torch.Generator
 (which cannot reproduce jax.random.categorical's draws: the tests compare
 greedy decoding with the JAX package).  The decode loop keeps everything on
 the device: the fill position is a host int, and no step waits for the card.
+
+As in the JAX engine, decode step i writes at position s0 + i, s0 the
+prompt's text tokens, and a vlm step's M-RoPE position ids are all s0 + i.
+The vlm prefill's cache holds the vision prefix before the text, so these
+steps overwrite the prompt's text slots from s0 on and attend to positions
+<= s0 + i (ROADMAP C9, a fault of the reference that the port keeps for
+parity).
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ class ServeEngine:
 
     def generate(self, params, prompt_batch: dict, max_new_tokens: int,
                  generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Any]:
-        """prompt_batch: {"tokens": (B, S) integer tensor} on the params' device.
+        """prompt_batch: the model's prompt (tokens (B, S), and the frames,
+        or the vision embeddings and pos_ids) on the params' device.
 
         Returns (generated tokens (B, max_new_tokens), final cache).  The
         prefill cache is padded along the sequence axis to S +
@@ -39,22 +47,28 @@ class ServeEngine:
         logits, cache = self.model.prefill(params, prompt_batch)
         s0 = prompt_batch["tokens"].shape[1]
         cache = _pad_cache(cache, s0 + max_new_tokens)
+        vlm = self.model.cfg.family == "vlm"
         toks = []
         tok = greedy_sample(logits, generator, self.temperature)[:, None]
         for i in range(max_new_tokens):
             toks.append(tok)
-            logits, cache = self.model.decode_step(params, {"tokens": tok, "idx": s0 + i},
-                                                   cache)
+            batch = {"tokens": tok, "idx": s0 + i}
+            if vlm:
+                batch["pos_ids"] = torch.full((3, tok.shape[0], 1), s0 + i,
+                                              dtype=torch.int64, device=tok.device)
+            logits, cache = self.model.decode_step(params, batch, cache)
             tok = greedy_sample(logits, generator, self.temperature)[:, None]
         return torch.cat(toks, dim=1), cache
 
 
 def _pad_cache(cache, target_len: int):
     """Grow attention K/V caches (B, S, Hkv, dh) along S to target_len, as
-    fresh contiguous tensors; other entries pass through."""
+    fresh contiguous tensors (the enc-dec decoder's self_k / self_v too, never
+    its cross caches); other entries pass through."""
 
     def one(name, leaf):
-        if name in ("k", "v") and leaf.dim() == 4 and leaf.shape[1] < target_len:
+        if (name in ("k", "v", "self_k", "self_v") and leaf.dim() == 4
+                and leaf.shape[1] < target_len):
             out = leaf.new_zeros((leaf.shape[0], target_len, *leaf.shape[2:]))
             out[:, : leaf.shape[1]] = leaf
             return out

@@ -66,13 +66,18 @@ def train_state_specs(model, run: RunConfig) -> TrainState:
 
 
 def _microbatches(batch: dict, n: int) -> dict:
-    """Split the leading batch dim into n chunks -> leaves (n, b/n, ...).
-    (The JAX twin also splits the vlm family's pos_ids (3, B, S) at dim 1;
-    that family waits for ROADMAP A16(e).)"""
+    """Split the batch dim into n chunks -> leaves (n, b/n, ...); the vlm
+    family's pos_ids (3, B, S) split at dim 1 -> (n, 3, B/n, S).  (The JAX
+    twin picks the axis by shape: dim 0 wherever n divides it, which for
+    pos_ids is dim 1 at the configs' n of 1 and 2, and dim 0 at n = 3.)"""
+    out = {}
     for k, x in batch.items():
-        if x.shape[0] % n:
-            raise ValueError(f"microbatch: {k} of batch {x.shape[0]} does not split into {n}")
-    return {k: x.reshape(n, x.shape[0] // n, *x.shape[1:]) for k, x in batch.items()}
+        dim = 1 if k == "pos_ids" else 0
+        if x.shape[dim] % n:
+            raise ValueError(f"microbatch: {k} of batch {x.shape[dim]} does not split into {n}")
+        split = x.reshape(*x.shape[:dim], n, x.shape[dim] // n, *x.shape[dim + 1:])
+        out[k] = split.movedim(dim, 0)
+    return out
 
 
 def make_train_step(model, run: RunConfig) -> Callable:

@@ -1152,6 +1152,49 @@ def test_serve_smoke_on_card_matches_cpu(card, arch):
     assert {k: v for k, v in launched.items() if v} == want
 
 
+@pytest.mark.parametrize("arch", ["whisper-medium", "qwen2-vl-7b"])
+def test_serve_encdec_and_vlm_smoke_on_card_matches_cpu(card, arch):
+    """The enc-dec and vlm smoke configs served on the card (B9 for the
+    encoder, the decoder's self and cross prefill; B10 for decode self at
+    idx and cross at n_frames - 1) against the CPU from the same parameters
+    and prompt: logits within 1e-4 normwise, tokens equal, the launches
+    exactly those of the layers' attention calls."""
+    model = build_model(get_config(arch, smoke=True))
+    params = model.init(seed=0, device="cpu")
+    prompt = build_prompt(model.cfg, 2, 24, "cpu", seed=0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        recorder = _LogitRecorder(model)
+        _build.reset_launches()
+        out, _ = ServeEngine(recorder).generate(_to(params, dev), _to(prompt, dev), 5)
+        runs[dev] = (out.cpu(), [lg.cpu() for lg in recorder.logits],
+                     dict(_build.LAUNCHES))
+    (tok_g, log_g, launched), (tok_c, log_c, _) = runs["cuda"], runs["cpu"]
+    for g, c in zip(log_g, log_c):
+        _close(g, c, 1e-4, f"{arch} logits")
+    assert torch.equal(tok_g, tok_c)
+    cfg = model.cfg
+    calls = (cfg.n_enc_layers + 2 * cfg.n_layers, 2 * cfg.n_layers) if arch.startswith(
+        "whisper") else (cfg.n_layers, cfg.n_layers)
+    assert {k: v for k, v in launched.items() if v} == {
+        "flash_attention": calls[0], "flash_decode": 5 * calls[1]}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_decode_is_b10_over_every_key(card, dtype):
+    """One non-causal query token over whisper's 1500 encoder keys (G = 1,
+    dh 64): on the card one B10 launch at idx 1499, against the CPU's
+    non-causal plain attention (fp32 1e-5, bf16 8e-3 normwise)."""
+    gen = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(shape, generator=gen, dtype=torch.float32, device="cpu").to(dtype)
+               for shape in ((3, 1, 16, 64), (3, 1500, 16, 64), (3, 1500, 16, 64)))
+    want = layers.attention_scores(q.float(), k.float(), v.float(), causal=False)
+    _build.reset_launches()
+    got = layers.attention_scores(q.to(card), k.to(card), v.to(card), causal=False)
+    assert {n: c for n, c in _build.LAUNCHES.items() if c} == {"flash_decode": 1}
+    _close(got.float().cpu(), want, 1e-5 if dtype == torch.float32 else 8e-3, "cross decode")
+
+
 def _forced_logits(model, params, prompt, forced):
     """Prefill logits, then one decode step per column of `forced` (B, K)
     fed those tokens, as fp32 CPU tensors."""
@@ -1208,7 +1251,7 @@ class _LogitRecorder:
     """The model, recording the logits of its prefill and decode steps."""
 
     def __init__(self, model):
-        self.model, self.logits = model, []
+        self.model, self.cfg, self.logits = model, model.cfg, []
 
     def prefill(self, p, batch):
         out, cache = self.model.prefill(p, batch)

@@ -15,8 +15,6 @@ same bits as no remat.  A params checkpoint written by either package
 restores in the other.  The entry points run on the card unless asked.
 """
 import dataclasses
-import re
-import types
 
 import jax
 import jax.numpy as jnp
@@ -35,7 +33,6 @@ from repro.models.model import shape_check as jax_shape_check
 from repro.train import init_state as jax_init_state
 from repro.train import make_train_step as jax_make_train_step
 from repro.train import train_state_specs as jax_train_state_specs
-from repro_torch.api import NotPortedError
 from repro_torch.checkpoint.io import restore_checkpoint, save_checkpoint
 from repro_torch.configs import ARCH_IDS, INPUT_SHAPES, RunConfig, get_config
 from repro_torch.convert import lm_params_from_numpy, lm_params_to_tree, train_state_from_numpy
@@ -47,6 +44,18 @@ from repro_torch.train import init_state, make_train_step, train_state_specs
 
 ARCHS = ["smollm-360m", "rwkv6-1.6b"]
 RUN = dict(learning_rate=1e-3, warmup_steps=2, total_steps=10)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def single_thread():
+    """One intra-op thread for this module: its tensors are small, and
+    beside other pytest workers torch's default pool (a thread a core in
+    each worker) only contends for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 
 def _pair(arch, **overrides):
@@ -131,26 +140,21 @@ def test_lm_batches_match_jax(arch):
                 assert np.array_equal(b[key].numpy(), np.asarray(jb[key]))
 
 
-@pytest.mark.parametrize("arch,item", [("qwen2-vl-7b", "A16(e)"), ("whisper-medium", "A16(d)")])
-def test_lm_batches_of_unported_families_raise(arch, item):
-    model = types.SimpleNamespace(cfg=get_config(arch, smoke=True))
-    with pytest.raises(NotPortedError, match=f"ROADMAP {re.escape(item)}"):
-        next(lm_batches(model, seq=16, batch=2, device="cpu"))
-
-
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_input_specs_and_shape_check_match_jax(arch):
     for name, shape in INPUT_SHAPES.items():
         assert shape_check(get_config(arch), shape) == jax_shape_check(
             jax_get_config(arch), JAX_INPUT_SHAPES[name])
-    if get_config(arch).family not in ("dense", "ssm"):
-        return
     model, jmodel = build_model(get_config(arch)), jax_build_model(jax_get_config(arch))
     for name, shape in INPUT_SHAPES.items():
         specs, jspecs = model.input_specs(shape), jmodel.input_specs(JAX_INPUT_SHAPES[name])
         assert sorted(specs) == sorted(jspecs)
         for key, spec in specs.items():
-            assert spec.shape == jspecs[key].shape and spec.dtype == torch.int64
+            assert spec.shape == jspecs[key].shape
+            if jnp.issubdtype(jspecs[key].dtype, jnp.integer):
+                assert spec.dtype == torch.int64, key
+            else:   # frames, vision_embeds: the compute dtype
+                assert str(spec.dtype).removeprefix("torch.") == jspecs[key].dtype.name, key
 
 
 def _spec_leaves(tree):
