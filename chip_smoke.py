@@ -302,7 +302,27 @@ Phases, each fatal on failure (nothing is caught):
               and one step under torch.profiler (busy share, the backward
               kernels' device ms a step);
               smollm's trained parameters written by the loop's checkpoint
-              and restored bit for bit;
+              and restored bit for bit; the B9 backward also at phase 12b's
+              new shapes (whisper-medium's non-causal encoder, 1500 x 1500,
+              and cross-attention, 448 over 1500; qwen2-vl-7b's G = 7 at dh
+              128), each held and timed as above (sub-rows of its kernels
+              line row, their launches read by phase 12b's main paths);
+  12b. train moe/hybrid/encdec/vlm  launch.train's loop on the other four
+              families at their published widths, random bf16 weights, 6
+              steps each (TRAIN_FAMILIES: phi3.5-moe-42b-a6.6b at 4 of 32
+              layers, B=8 x 1024; jamba-v0.1-52b at 2 layers with attention
+              every 2nd, B=4 x 1024 in its 2 microbatches; whisper-medium at
+              every layer, 1500 frames, B=8 x 448; qwen2-vl-7b at 8 of 28
+              layers, B=8 x (1024 vision + 1024 text) in 2 microbatches),
+              every loss, grad norm and lr finite, B9's and B9 backward's
+              launches the config's count a step (train_launches_per_step)
+              times the steps, no SDPA; step ms and tokens/s over the 5
+              steps after the first, peak memory, one more step profiled
+              (busy share, B9 backward's device ms), for Jamba one more with
+              the Mamba scan's backward timed by CUDA events; then each
+              family at full width and 2 layers in fp32 on the card against
+              the CPU (parameters drawn on the card; loss, grad norm and
+              every gradient within TRAIN_TOL, compared on the card);
   13. the kernels line, the nvidia-smi line, and the result line
      {"ok": true, "device": {...}} last.
 
@@ -1045,21 +1065,27 @@ def profile_segments(lead_in, segments, tag: str) -> dict:
     `lead_in`, which is not read; each (label, fn) of `segments` then runs
     after a marker kernel (torch.cuda._sleep's spin kernel, which none of
     the calls launches), and the device operations between one marker and
-    the next are that call's.  Returns {label: count}."""
+    the next are that call's.  A recording that lost a marker too (late in
+    a full run, now and then) is made again, up to three times.  Returns {label: count}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        lead_in()
-        for _, fn in segments:
-            torch.cuda._sleep(1000)
-            fn()
-        torch.cuda._sleep(1000)
+    for attempt in range(3):
         torch.cuda.synchronize()
-    ops = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                 key=lambda e: e.time_range.start)
-    marks = [i for i, e in enumerate(ops) if "spin_kernel" in e.name]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            lead_in()
+            for _, fn in segments:
+                torch.cuda._sleep(1000)
+                fn()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        ops = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(ops) if "spin_kernel" in e.name]
+        if len(marks) == len(segments) + 1:
+            break
+        log(f"[profile] {tag}: recording {attempt + 1} lost a marker kernel ({len(marks)} of "
+            f"{len(segments) + 1}); recording again")
     require(len(marks) == len(segments) + 1,
             f"{tag}: {len(marks)} marker kernels in the profile, not "
             f"{len(segments) + 1} (names {sorted({e.name[:60] for e in ops})[:12]})")
@@ -3887,7 +3913,7 @@ SERVE_MOE = {
 
 
 def timed_parts(targets, run):
-    """run() with each module function in `targets` ((module, name) pairs)
+    """run() with each function in `targets` ((module or class, name) pairs)
     bracketed by CUDA events on the current stream (the functions are put
     back after).  Returns the host-timed wall ms of run() and each name's
     device ms summed over its calls (the span between the events, gaps
@@ -3907,7 +3933,7 @@ def timed_parts(targets, run):
 
     try:
         for mod, name in targets:
-            saved.append((mod, name, getattr(mod, name)))
+            saved.append((mod, name, vars(mod)[name]))     # as it was: a staticmethod stays one
             setattr(mod, name, timed(name, getattr(mod, name)))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -4127,9 +4153,11 @@ def hold_grads(tag, dt, got, plain, want32, errs):
         errs.append((float((g.double() - p.double()).abs().max()), normwise(g, p)))
 
 
-def phase_train_kernels(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
+def phase_train_kernels(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, rows, get_config):
     """The two backward kernels alone against their plain versions on the
-    card, then timed (as phase 9) beside their bounds and library pairs."""
+    card, then timed (as phase 9) beside their bounds and library pairs;
+    B9's backward also at phase 12b's shapes (train_b9_shapes), whose rows'
+    launches phase 12b's main path fills in."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda", 0)
@@ -4152,20 +4180,24 @@ def phase_train_kernels(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
                       delta, dq, dk, dv, 1, b, s, s, hq, k.shape[2], dh, 1, 0, dh ** -0.5)
         return dq, dk, dv
 
-    def b9(b, s, hq, hkv, dh, dt, window=0, timed=False, earlier=False):
+    def b9(b, s, hq, hkv, dh, dt, window=0, timed=False, earlier=False, skv=None,
+           causal=True):
+        skv = s if skv is None else skv
         q, do = rn(b, s, hq, dh, dtype=dt), rn(b, s, hq, dh, dtype=dt)
-        k, v = rn(b, s, hkv, dh, dtype=dt), rn(b, s, hkv, dh, dtype=dt)
-        out, lse = fa_ops.flash_attention_lse(q, k, v, window=window)
-        require(torch.equal(out, fa_ops.flash_attention(q, k, v, window=window)),
+        k, v = rn(b, skv, hkv, dh, dtype=dt), rn(b, skv, hkv, dh, dtype=dt)
+        kw = dict(causal=causal, window=window)
+        out, lse = fa_ops.flash_attention_lse(q, k, v, **kw)
+        require(torch.equal(out, fa_ops.flash_attention(q, k, v, **kw)),
                 "B9: the training forward's output is not the serving forward's")
         route = fa_ops.bwd_route(dt, dh)
-        tag = (f"B9 backward {str(dt).removeprefix('torch.')} {(b, s, hq, hkv, dh, window)} "
-               f"[route {route}]")
+        shape = (b, s, hq, hkv, dh, window) if skv == s else (b, s, skv, hq, hkv, dh, window)
+        tag = (f"B9 backward {str(dt).removeprefix('torch.')} {shape}"
+               f"{'' if causal else ' non-causal'} [route {route}]")
         lse_err = compare(f"{tag} forward's LSE", lse, fa_ref.attention_lse_ref(
-            q, k, v, window=window)[1], LSE_TOL)[1]
+            q, k, v, **kw)[1], LSE_TOL)[1]
 
         def run():
-            return fa_ops.flash_attention_bwd(q, k, v, out, do, lse, window=window)
+            return fa_ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
 
         tc0 = _build.LAUNCHES["flash_attention_bwd_tc"]
         got = run()
@@ -4173,10 +4205,10 @@ def phase_train_kernels(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
                 f"{tag}: the tensor-core counter moved "
                 f"{_build.LAUNCHES['flash_attention_bwd_tc'] - tc0} times")
         require(all(torch.equal(a, b_) for a, b_ in zip(got, run())),
-                f"B9 backward {(b, s, hq, hkv, dh)}: a second call gave other bits")
-        plain = fa_ref.attention_bwd_ref(q, k, v, out, do, lse, window=window)
+                f"{tag}: a second call gave other bits")
+        plain = fa_ref.attention_bwd_ref(q, k, v, out, do, lse, **kw)
         want32 = plain if dt == torch.float32 else fa_ref.attention_bwd_ref(
-            q.float(), k.float(), v.float(), out.float(), do.float(), lse, window=window)
+            q.float(), k.float(), v.float(), out.float(), do.float(), lse, **kw)
         hold_grads(tag, dt, got, plain, want32, errs["flash_attention_bwd"])
         log(f"[train] {tag}: against the plain version {max(e[1] for e in errs['flash_attention_bwd'][-3:]):.3e} normwise, same bits twice; the forward's LSE {lse_err:.3e} normwise")
         if earlier:
@@ -4189,16 +4221,17 @@ def phase_train_kernels(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
         do_t = do.transpose(1, 2)
 
         def sdpa():
-            return F.scaled_dot_product_attention(*leaves, is_causal=True, enable_gqa=True)
+            return F.scaled_dot_product_attention(*leaves, is_causal=causal, enable_gqa=True)
 
         esize = q.element_size()
         case = {"route": route, "ms": time_ms(run),
-                "plain_ms": time_ms(lambda: fa_ref.attention_bwd_ref(q, k, v, out, do, lse),
-                                    reps=2),
+                "plain_ms": time_ms(lambda: fa_ref.attention_bwd_ref(q, k, v, out, do, lse,
+                                                                     **kw), reps=2),
                 "library_ms": (time_ms(lambda: torch.autograd.grad(sdpa(), leaves, do_t))
                                - time_ms(sdpa)),
-                "n_bytes": esize * (5 * b * s * hq * dh + 4 * b * s * hkv * dh) + 4 * b * hq * s,
-                "flops": 10.0 * b * hq * dh * s * (s + 1) / 2}
+                "n_bytes": (esize * (5 * b * s * hq * dh + 4 * b * skv * hkv * dh)
+                            + 4 * b * hq * s),
+                "flops": 10.0 * b * hq * dh * (s * (s + 1) / 2 if causal else s * skv)}
         if earlier:
             case["earlier_ms"] = time_ms(lambda: fma_bwd(q, k, v, out, do, lse))
         log(f"[train] {tag}: {case['ms']:.4f} ms a call")
@@ -4235,9 +4268,19 @@ def phase_train_kernels(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
                     dh128_row=extra_row("bf16, 32/8 heads of 128, B=4, S=2048", dh128,
                                         H100_BF16_FLOPS),
                     fp32_row=extra_row("fp32, B=8, S=1024", fp32, H100_FP32_FLOPS))
+    torch.cuda.empty_cache()
+    for key, (what, args, kw, arch) in train_b9_shapes(get_config).items():
+        b, sq, hq, hkv, dh = args
+        skv = kw.get("skv", sq)
+        case = b9(*args, bf, timed=True, **kw)
+        rows[-1][key] = {**extra_row(
+            f"{what}, bf16, {hq}/{hkv} heads of {dh} (G = {hq // hkv}), B={b}, Sq={sq}, "
+            f"Skv={skv}, {'causal' if kw.get('causal', True) else 'non-causal'}", case,
+            H100_BF16_FLOPS), "launches": None,
+            "launches_of": f"{arch}'s training main path (phase 12b), every B9 backward call"}
+        torch.cuda.empty_cache()
     for key in ("dh128_row", "fp32_row"):
         log(f"[train] flash_attention_bwd {key} {json.dumps(rows[-1][key])}")
-    torch.cuda.empty_cache()
 
     # B11 at rwkv6-1.6b's training shape (weak and moderate decay), at dh 32
     # under strong decay, and with w exactly 0 in places and a ragged tail
@@ -4287,12 +4330,18 @@ def phase_train_kernels(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, rows):
     torch.cuda.empty_cache()
 
 
-def train_two_layers_vs_cpu(lm, arch: str, batch: int = 2, seq: int = 128):
+def train_two_layers_vs_cpu(lm, arch: str, batch: int = 2, seq: int = 128,
+                            full_width_draw: bool = False, **over):
     """The architecture at full width and 2 layers in fp32 (the fma route
-    of B9, B11), from the same parameters and batch on the card and the
-    CPU: the loss, the grad norm and every parameter's gradient within
-    TRAIN_TOL, every card gradient finite and not all zero; then one
-    train_step each way (loss, grad norm, lr within TRAIN_TOL)."""
+    of B9, B11; `over`: more config fields), from the same parameters and
+    batch on the card and the CPU: the loss, the grad norm and every
+    parameter's gradient within TRAIN_TOL, every card gradient finite and
+    not all zero; then, for the dense and ssm configs, one train_step each
+    way (loss, grad norm, lr within TRAIN_TOL).  With `full_width_draw`
+    (the moe, hybrid, encdec and vlm families: up to 3.6 B parameters) the
+    parameters are drawn on the card and copied to the CPU, as
+    two_layers_vs_cpu does, and no train_step runs (AdamW's fp32 state of
+    the MoE stacks would not fit the host)."""
     from repro_torch.configs import RunConfig
     from repro_torch.data.lm import lm_batches
     from repro_torch.optim import AdamWConfig, adamw_init, global_norm
@@ -4301,25 +4350,43 @@ def train_two_layers_vs_cpu(lm, arch: str, batch: int = 2, seq: int = 128):
 
     t0 = time.perf_counter()
     cfg = dataclasses.replace(lm["get_config"](arch), n_layers=2, param_dtype="float32",
-                              compute_dtype="float32")
+                              compute_dtype="float32", **over)
     model = lm["build_model"](cfg)
-    params = model.init(seed=1, device="cpu")
+    params = model.init(seed=1, device="cuda" if full_width_draw else "cpu")
+    on = {"cuda": params if full_width_draw else None,
+          "cpu": to_device(params, "cpu") if full_width_draw else params}
     data = next(lm_batches(model, seq=seq, batch=batch, device="cpu"))
+    secs = {"draw": time.perf_counter() - t0}
     out = {}
     for where in ("cuda", "cpu"):
-        tree = tree_map(lambda t: t.to(where).requires_grad_(True), params)
+        t1 = time.perf_counter()
+        tree = tree_map(lambda t: t.to(where).requires_grad_(True), on[where] or params)
         loss, _ = model.loss(tree, {k_: t.to(where) for k_, t in data.items()})
-        grads = [x.detach().cpu() for x in torch.autograd.grad(loss, list(tree_leaves(tree)))]
-        out[where] = (float(loss.detach()), grads)
-    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+        grads = [x.detach() for x in torch.autograd.grad(loss, list(tree_leaves(tree)))]
+        out[where] = (float(loss.detach()), grads, float(global_norm(grads)))
+        del tree, loss, grads
+        secs[where] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    (lg, gg, ng), (lc, gc, nc) = out.pop("cuda"), out.pop("cpu")
     require(abs(lg - lc) <= TRAIN_TOL * abs(lc), f"{arch} 2-layer: loss {lg} vs {lc}")
     worst = 0.0
-    for i, (a, c) in enumerate(zip(gg, gc)):
+    for i, (a, c) in enumerate(zip(gg, gc)):     # leaf by leaf onto the card (its float64 is fast)
         require(bool(torch.isfinite(a).all()) and bool((a != 0).any()),
                 f"{arch} 2-layer: card gradient leaf {i} not finite or all zero")
-        worst = max(worst, compare(f"{arch} 2-layer gradient leaf {i}", a, c, TRAIN_TOL)[1])
-    norms = [float(global_norm(x)) for x in (gg, gc)]
+        worst = max(worst, compare(f"{arch} 2-layer gradient leaf {i}", a, c.to(a.device),
+                                   TRAIN_TOL)[1])
+    norms = [ng, nc]
     require(abs(norms[0] - norms[1]) <= TRAIN_TOL * norms[1], f"{arch} 2-layer: grad norm {norms}")
+    n_leaves = len(gg)
+    del gg, gc, on
+    torch.cuda.empty_cache()
+    secs["compare"] = time.perf_counter() - t1
+    if full_width_draw:
+        log(f"[train] {arch} 2 layers {cfg.layer_kinds()}, full width, fp32: card vs cpu loss "
+            f"{lg:.6f} / {lc:.6f}, {n_leaves} gradient leaves worst normwise {worst:.3e}, grad "
+            f"norm {norms[0]:.6f} / {norms[1]:.6f} ({time.perf_counter() - t0:.1f} s: "
+            f"{json.dumps({k_: round(v_, 1) for k_, v_ in secs.items()})})")
+        return
     run = RunConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10)
     step = make_train_step(model, run)
     mets = []
@@ -4333,28 +4400,49 @@ def train_two_layers_vs_cpu(lm, arch: str, batch: int = 2, seq: int = 128):
         require(abs(mets[0][key] - mets[1][key]) <= TRAIN_TOL * abs(mets[1][key]),
                 f"{arch} 2-layer train_step {key}: {mets[0][key]} vs {mets[1][key]}")
     log(f"[train] {arch} 2 layers, full width, fp32: card vs cpu loss {lg:.6f} / {lc:.6f}, "
-        f"{len(gg)} gradient leaves worst normwise {worst:.3e}, grad norm {norms[0]:.6f} / "
+        f"{n_leaves} gradient leaves worst normwise {worst:.3e}, grad norm {norms[0]:.6f} / "
         f"{norms[1]:.6f}, one train_step {json.dumps(mets[0])} ({time.perf_counter() - t0:.1f} s)")
 
 
-def train_full(lm, _build, arch: str, smi: str) -> dict:
+def train_launches_per_step(cfg, fa_ops) -> dict:
+    """B9's and B9ᵇ's launches in one training step of `cfg`: each
+    attention call of a microbatch's forward once in the backward, and its
+    forward kernel twice with remat (the recompute); every route the
+    tensor-core one (bf16 at dh 64 and 128), as the routing tables say."""
+    dt, dh = cfg.cdtype(), cfg.resolved_head_dim
+    require(fa_ops.route(dt, dh) == fa_ops.bwd_route(dt, dh) == "tc",
+            f"{cfg.arch_id}: B9 routes {fa_ops.route(dt, dh)} / {fa_ops.bwd_route(dt, dh)}")
+    calls = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.family == "encdec"
+             else cfg.layer_kinds().count("attn")) * max(1, cfg.microbatch)
+    fwd = calls * (2 if cfg.remat else 1)
+    return {"flash_attention": fwd, "flash_attention_tc": fwd,
+            "flash_attention_bwd": calls, "flash_attention_bwd_tc": calls}
+
+
+def train_full(lm, _build, arch: str, smi: str, batch: int, seq: int, steps: int,
+               per_step=None, flags=(), bwd_group: str = "B9b") -> dict:
     """The main path: launch.train's loop (train.make_train_step on
-    data.lm.lm_batches) on the full config, launch counts read just after
-    it; step ms, tokens/s, peak memory, one more step under the profiler;
-    smollm's trained parameters through the checkpoint written by the loop
-    and restored."""
+    data.lm.lm_batches) on the full config (cut by `flags`), launch counts
+    read just after it against `per_step` times the steps (None: B9's and
+    B9ᵇ's from the config, train_launches_per_step); step ms, tokens/s,
+    peak memory, one more step under the profiler (busy share, the
+    `bwd_group` kernels' device ms); for the hybrid family one more step
+    with the Mamba scan's backward timed; smollm's trained parameters
+    through the checkpoint written by the loop and restored."""
     import shutil
 
     from repro_torch.checkpoint.io import restore_checkpoint
     from repro_torch.configs import RunConfig
     from repro_torch.convert import lm_params_from_numpy, lm_params_to_tree
     from repro_torch.data.lm import lm_batches
+    from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.launch import train as launch_train
+    from repro_torch.models import mamba as M
     from repro_torch.optim.clip import tree_leaves
     from repro_torch.train import make_train_step
 
-    batch, seq, steps, per_step = TRAIN_MAIN[arch]
-    argv = ["--arch", arch, "--steps", str(steps), "--seq", str(seq), "--batch", str(batch)]
+    argv = ["--arch", arch, "--steps", str(steps), "--seq", str(seq), "--batch", str(batch),
+            *flags]
     ckpt = os.path.join(HERE, "build", "train_ckpt")
     if arch == "smollm-360m":
         shutil.rmtree(ckpt, ignore_errors=True)
@@ -4369,9 +4457,12 @@ def train_full(lm, _build, arch: str, smi: str) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = {k_: v_ for k_, v_ in _build.LAUNCHES.items() if v_}
+    cfg = model.cfg
+    per_step = per_step or train_launches_per_step(cfg, fa_ops)
     expect = {k_: v_ * steps for k_, v_ in per_step.items()}
-    log(f"[train] {arch} main path: {steps} steps of launch.train at B={batch}, S={seq} in "
-        f"{secs:.1f} s, launches {json.dumps(counts)}, expected {json.dumps(expect)}")
+    log(f"[train] {arch} main path ({' '.join(flags) or 'the full config'}): {steps} steps of "
+        f"launch.train at B={batch}, S={seq} in {secs:.1f} s, launches {json.dumps(counts)}, "
+        f"expected {json.dumps(per_step)} a step")
     require(counts == expect, f"{arch} training: launch counts {counts} != {expect}")
     for rec in steps_log:
         require(all(math.isfinite(rec[k_]) for k_ in ("loss", "grad_norm", "lr")),
@@ -4379,22 +4470,27 @@ def train_full(lm, _build, arch: str, smi: str) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2**30
     window = [rec["ms"] for rec in steps_log[1:]]      # the steps after the first
     step_ms = sum(window) / len(window)
-    cfg = model.cfg
     run = RunConfig(learning_rate=1e-3, warmup_steps=2, total_steps=steps)
     step = make_train_step(model, run)
     extra = next(lm_batches(model, seq=seq, batch=batch, seed=1, device="cuda"))
     busy, bwd_ms = profile_window(f"train_{arch.replace('.', '_')}", "training step",
                                   lambda: step(state, extra), 1, groups=BWD_KERNELS)
-    out = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "dtype": cfg.param_dtype, "remat": cfg.remat, "scan_block": cfg.scan_block,
-           "batch": batch, "seq": seq, "steps": steps,
+    out = {"arch": arch, "flags": list(flags), "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "layer_kinds": cfg.layer_kinds() if cfg.family == "hybrid" else None,
+           "dtype": cfg.param_dtype, "moment_dtype": cfg.moment_dtype,
+           "microbatch": cfg.microbatch, "remat": cfg.remat, "scan_block": cfg.scan_block,
+           "batch": batch, "seq": seq, "steps": steps, "launches_per_step": per_step,
            "losses": [round(r_["loss"], 6) for r_ in steps_log],
+           "grad_norms": [round(r_["grad_norm"], 6) for r_ in steps_log],
            "step_ms": [round(r_["ms"], 2) for r_ in steps_log],
            "timed_steps": len(window), "window_ms": sum(window), "step_ms_mean": step_ms,
            "tokens_per_s": batch * seq * len(window) / sum(window) * 1e3,
            "peak_gib": peak, "device_busy": busy,
-           "bwd_kernel_ms_per_step": bwd_ms[{"smollm-360m": "B9b", "rwkv6-1.6b": "B11b"}[arch]],
+           "bwd_kernel": bwd_group, "bwd_kernel_ms_per_step": bwd_ms[bwd_group],
            "card": smi}
+    if cfg.family == "hybrid":
+        wall, by = timed_parts([(M._SelectiveScan, "backward")], lambda: step(state, extra))
+        out["scan_bwd_ms_per_step"], out["scan_bwd_step_wall_ms"] = by["backward"], wall
     log(f"[train] {arch}: {json.dumps(out)}")
     if arch == "smollm-360m":
         t1 = time.perf_counter()
@@ -4417,16 +4513,95 @@ def phase_train(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, lm, rows, smi) -> dict
     """Phase 12: the backward kernels alone, 2 fp32 layers card vs CPU, the
     full configs' training on the main path."""
     t0 = time.perf_counter()
-    phase_train_kernels(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, rows)
+    phase_train_kernels(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, rows, lm["get_config"])
     log(f"[train] kernels checked and timed at {time.perf_counter() - t0:.1f} s")
     for arch in TRAIN_MAIN:
         train_two_layers_vs_cpu(lm, arch)
     log(f"[train] 2-layer card vs cpu done at {time.perf_counter() - t0:.1f} s")
     launches = {}
-    for arch in TRAIN_MAIN:
-        for k_, v_ in train_full(lm, _build, arch, smi).items():
+    for arch, (batch, seq, steps, per_step) in TRAIN_MAIN.items():
+        for k_, v_ in train_full(lm, _build, arch, smi, batch, seq, steps, per_step,
+                                 bwd_group={"smollm-360m": "B9b", "rwkv6-1.6b": "B11b"}[arch]
+                                 ).items():
             launches[k_] = launches.get(k_, 0) + v_
     log(f"[train] phase 12 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+# ------------------------------------------- 12b. train moe / hybrid / encdec / vlm
+
+
+# the moe, hybrid, encdec and vlm families' main path: arch -> (launch.train
+# flags beyond the shape (the depth cut), batch, seq).  Every width is the
+# published one, and each cell fits one card (PERF.md section 4):
+# phi3.5-moe 4 of 32 layers (one remat group of scan_block 4), Jamba 2
+# layers with attention every 2nd (a Mamba layer with a dense FFN, then
+# attention with the 16-expert MoE), whisper-medium every layer (1500
+# frames, 448 decoder tokens), qwen2-vl-7b 8 of 28 layers (1024 vision +
+# 1024 text positions).  Jamba and qwen2-vl take 2 microbatches (their
+# configs'), the others 1.
+TRAIN_FAMILIES = {
+    "phi3.5-moe-42b-a6.6b": (("--layers", "4"), 8, 1024),
+    "jamba-v0.1-52b": (("--layers", "2", "--attn-period", "2"), 4, 1024),
+    "whisper-medium": ((), 8, 448),
+    "qwen2-vl-7b": (("--layers", "8"), 8, 2048),
+}
+TRAIN_FAMILY_STEPS = 6      # 1 warm + 5 timed
+# the 2-layer fp32 checks: arch -> (batch, seq, config fields); qwen2-vl's
+# vision prefix cut to VLM_CPU_VISION tokens for the CPU's sake
+TRAIN_FAMILY_CHECKS = {
+    "phi3.5-moe-42b-a6.6b": (2, 128, {}),
+    "jamba-v0.1-52b": (2, 128, {"attn_period": 2}),
+    "whisper-medium": (2, 128, {"n_enc_layers": 2}),
+    "qwen2-vl-7b": (1, VLM_CPU_VISION + 64, {"n_vision_tokens": VLM_CPU_VISION}),
+}
+
+
+def train_b9_shapes(get_config) -> dict:
+    """B9ᵇ's shapes on phase 12b's main path that no earlier phase ran:
+    row key -> (what, (B, Sq, Hq, Hkv, dh), keywords (Skv, causal), the arch
+    whose main path runs it): whisper-medium's non-causal encoder (1500 x
+    1500) and cross-attention (448 decoder tokens over 1500 frames; the
+    last key tile holds 28 of 64), qwen2-vl-7b's G = 7 at dh 128 (a
+    microbatch of 4 over 2048 positions)."""
+    w, q = get_config("whisper-medium"), get_config("qwen2-vl-7b")
+    _, wb, wseq = TRAIN_FAMILIES["whisper-medium"]
+    _, qb, qseq = TRAIN_FAMILIES["qwen2-vl-7b"]
+    wh = (w.n_heads, w.n_kv_heads, w.resolved_head_dim)
+    qh = (q.n_heads, q.n_kv_heads, q.resolved_head_dim)
+    return {
+        "whisper_encoder_row": ("whisper-medium encoder", (wb, w.n_frames, *wh),
+                                {"causal": False}, "whisper-medium"),
+        "whisper_cross_row": ("whisper-medium cross-attention", (wb, wseq, *wh),
+                              {"skv": w.n_frames, "causal": False}, "whisper-medium"),
+        "g7_row": ("qwen2-vl-7b", (qb // q.microbatch, qseq, *qh), {}, "qwen2-vl-7b"),
+    }
+
+
+def phase_train_families(_build, lm, rows, smi) -> dict:
+    """Phase 12b: launch.train's loop on phi3.5-moe, Jamba, whisper-medium
+    and qwen2-vl-7b (TRAIN_FAMILIES, train_full), the B9 backward rows of
+    their new shapes given the launches their main paths read, then each
+    family at full width and 2 layers in fp32 on the card against the CPU."""
+    t0 = time.perf_counter()
+    launched = {}
+    for arch, (flags, batch, seq) in TRAIN_FAMILIES.items():
+        launched[arch] = train_full(lm, _build, arch, smi, batch, seq, TRAIN_FAMILY_STEPS,
+                                    flags=flags)
+    log(f"[train families] main paths done at {time.perf_counter() - t0:.1f} s")
+    bwd_row = next(r_ for r_ in rows if r_["name"] == "flash_attention_bwd")
+    for key, (_, _, _, arch) in train_b9_shapes(lm["get_config"]).items():
+        bwd_row[key]["launches"] = launched[arch]["flash_attention_bwd"]
+        require(bwd_row[key]["launches"] > 0, f"{key}: no B9 backward on {arch}'s main path")
+        log(f"[train families] flash_attention_bwd {key} {json.dumps(bwd_row[key])}")
+    with NoSdpa():
+        for arch, (batch, seq, over) in TRAIN_FAMILY_CHECKS.items():
+            train_two_layers_vs_cpu(lm, arch, batch, seq, full_width_draw=True, **over)
+    log(f"[train families] phase 12b took {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for counts in launched.values():
+        for k_, v_ in counts.items():
+            launches[k_] = launches.get(k_, 0) + v_
     return launches
 
 
@@ -4528,6 +4703,9 @@ def main() -> None:
     for k_, v_ in phase_train(_build, fa_ops, fa_ref, wkv_ops, wkv_ref, lm, rows, smi).items():
         launches[k_] += v_
     stamp("train")
+    for k_, v_ in phase_train_families(_build, lm, rows, smi).items():
+        launches[k_] += v_
+    stamp("train moe/hybrid/encdec/vlm")
     phase_audit(audit)
     require(len(rows) == 13, f"{len(rows)} kernel rows")
     for row in rows:

@@ -5,10 +5,14 @@ shape, run eagerly on one device.
         --smoke --steps 50 --seq 128 --batch 8 --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6-1.6b \
         --steps 20 --seq 1024 --batch 4                     # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \
+        --layers 2 --attn-period 2 --steps 6 --seq 1024 --batch 4   # card
 
 The flags and the printed lines are the JAX launcher's; `--device` (the
-card unless asked otherwise) and `--seed` (the parameters' generator; the
-JAX launcher's PRNGKey(seed) gives other numbers) are the port's.  Batches
+card unless asked otherwise), `--seed` (the parameters' generator; the
+JAX launcher's PRNGKey(seed) gives other numbers), and `--layers` and
+`--attn-period` (the config's n_layers and attn_period: a depth that fits
+one card, as the moe and hybrid configs do not) are the port's.  Batches
 are the JAX launcher's tokens (`data.lm.lm_batches`, seed 0).  Checkpoints
 hold the parameters in the JAX package's stacked layout
 (convert.lm_params_to_tree) through checkpoint.io, so either package
@@ -46,6 +50,8 @@ def parse(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--attn-impl", choices=["eager", "chunked"])
     ap.add_argument("--rwkv-chunk", type=int)
+    ap.add_argument("--layers", type=int, help="keep the config's first N layers")
+    ap.add_argument("--attn-period", type=int, help="hybrid: attention every N layers")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--seed", type=int, default=0)
     return ap.parse_args(argv)
@@ -63,6 +69,10 @@ def run(argv=None, echo: bool = False) -> Tuple[object, TrainState, List[dict]]:
         kw["attn_impl"] = args.attn_impl
     if args.rwkv_chunk is not None:
         kw["rwkv_chunk"] = args.rwkv_chunk
+    if args.layers is not None:
+        kw["n_layers"] = args.layers
+    if args.attn_period is not None:
+        kw["attn_period"] = args.attn_period
     if kw:
         cfg = dataclasses.replace(cfg, **kw)
 

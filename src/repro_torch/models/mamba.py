@@ -8,7 +8,11 @@ jax.lax.associative_scan: `scan` is a log-depth (Hillis-Steele) scan on
 tensors, its levels updating the two fp32 operands in place; its tree order
 is not jax's, so the two agree to fp32 rounding, not bit for bit.  With
 cfg.mamba_chunk dividing S the scan runs chunk by chunk, carrying the
-(B, di, n) state, as in the JAX package.  The depthwise causal conv is
+(B, di, n) state, as in the JAX package.  Under autograd (training) the
+scan is `_SelectiveScan`, whose backward is the same scan run in reverse:
+it saves abar and h, where autograd of the log-depth scan would keep two
+(B, S, di, n) tensors a level (the JAX package differentiates its
+associative_scan by autodiff).  The depthwise causal conv is
 d_conv shifted adds.  The selective scan is plain PyTorch on both devices:
 the JAX package computes it outside any Pallas kernel.
 
@@ -91,42 +95,83 @@ def _conv_shifts(p, xin: torch.Tensor, kconv: int) -> torch.Tensor:
     return F.silu(out + p["conv_b"])
 
 
-def scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+def scan(a: torch.Tensor, b: torch.Tensor, dim: int = 1,
+         reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Inclusive scan of h_t = a_t * h_{t-1} + b_t along `dim` from h = 0:
-    returns (the products of a up to t, h_t).  Log depth: at offset o every
-    position t >= o takes the combine of position t - o and itself.  Without
-    autograd `a` and `b` are overwritten (the results are them), one level's
-    temporary at a time; under autograd each level makes new tensors."""
+    returns (the products of a up to t, h_t); with `reverse`, of h_t = a_t *
+    h_{t+1} + b_t from the end (the products of a from t on).  Log depth: at
+    offset o every position takes the combine of itself and the position o
+    before it (o after it, reversed).  Without autograd `a` and `b` are
+    overwritten (the results are them), one level's temporary at a time;
+    under autograd (forward only: _SelectiveScan's backward runs the
+    reverse scan without it) each level makes new tensors."""
     n = a.shape[dim]
     in_place = not L.needs_grad(a, b)
+    if reverse and not in_place:
+        raise ValueError("mamba.scan: the reverse scan runs without autograd")
     o = 1
     while o < n:
-        head_a, tail_a = a.narrow(dim, 0, n - o), a.narrow(dim, o, n - o)
-        head_b, tail_b = b.narrow(dim, 0, n - o), b.narrow(dim, o, n - o)
+        lo_a, hi_a = a.narrow(dim, 0, n - o), a.narrow(dim, o, n - o)
+        lo_b, hi_b = b.narrow(dim, 0, n - o), b.narrow(dim, o, n - o)
+        src_a, dst_a, src_b, dst_b = (hi_a, lo_a, hi_b, lo_b) if reverse else (
+            lo_a, hi_a, lo_b, hi_b)
         if in_place:
-            tail_b += head_b * tail_a
-            tail_a.copy_(head_a * tail_a)
+            dst_b += src_b * dst_a
+            dst_a.copy_(src_a * dst_a)
         else:
-            b = torch.cat([b.narrow(dim, 0, o), head_b * tail_a + tail_b], dim)
-            a = torch.cat([a.narrow(dim, 0, o), head_a * tail_a], dim)
+            b = torch.cat([b.narrow(dim, 0, o), src_b * dst_a + dst_b], dim)
+            a = torch.cat([a.narrow(dim, 0, o), src_a * dst_a], dim)
         o *= 2
     return a, b
 
 
-def _scan_states(abar: torch.Tensor, bx: torch.Tensor, chunk: int) -> torch.Tensor:
-    """h over the sequence (B, S, di, n): one scan, or chunk by chunk with
-    the boundary state carried when `chunk` divides S (and is shorter)."""
+def _scan_states(abar: torch.Tensor, bx: torch.Tensor, chunk: int,
+                 reverse: bool = False) -> torch.Tensor:
+    """h over the sequence (B, S, di, n), in bx's storage (both operands are
+    overwritten; no autograd): one scan, or chunk by chunk with the boundary
+    state carried (from the last chunk back, reversed) when `chunk` divides
+    S (and is shorter)."""
     s = abar.shape[1]
     if not (chunk and s % chunk == 0 and s > chunk):
-        return scan(abar, bx)[1]
-    h0 = torch.zeros_like(abar[:, 0])
-    hs = []
-    for c0 in range(0, s, chunk):
-        af, bf = scan(abar[:, c0:c0 + chunk], bx[:, c0:c0 + chunk])
-        hh = af * h0[:, None] + bf                                  # carry in
-        h0 = hh[:, -1]
-        hs.append(hh)
-    return torch.cat(hs, dim=1)
+        return scan(abar, bx, reverse=reverse)[1]
+    carry = torch.zeros_like(abar[:, 0])
+    starts = range(0, s, chunk)
+    for c0 in (reversed(starts) if reverse else starts):
+        af, bf = scan(abar[:, c0:c0 + chunk], bx[:, c0:c0 + chunk], reverse=reverse)
+        bf.copy_(af * carry[:, None] + bf)                          # carry in
+        carry = bf[:, 0] if reverse else bf[:, -1]
+    return bx
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """h = _scan_states(abar, bx, chunk) under autograd, differentiated by
+    the reverse recurrence: with g = dL/dh, lam_t = g_t + abar_{t+1} lam_{t+1}
+    (lam after the last position 0), dL/dbx = lam and dL/dabar_t = lam_t *
+    h_{t-1} (h_{-1} = 0).  The forward is the in-place scan on copies of its
+    inputs (the same bits as without autograd) and saves abar and h only;
+    the backward is the same scan reversed, in place: besides those two it
+    holds g, lam and one scratch (B, S, di, n) tensor, where autograd of the
+    log-depth scan keeps two new tensors a level."""
+
+    @staticmethod
+    def forward(ctx, abar, bx, chunk: int):
+        h = _scan_states(abar.clone(), bx.clone(), chunk)
+        ctx.save_for_backward(abar, h)
+        ctx.chunk = chunk
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        abar, h = ctx.saved_tensors
+        s = abar.shape[1]
+        lam = g.clone(memory_format=torch.contiguous_format)
+        a = torch.empty_like(abar)                                  # a_t = abar_{t+1}
+        a[:, :s - 1] = abar[:, 1:]
+        a[:, s - 1] = 0.0
+        _scan_states(a, lam, ctx.chunk, reverse=True)
+        torch.mul(lam[:, 1:], h[:, :s - 1], out=a[:, 1:])          # dabar, in a's storage
+        a[:, 0] = 0.0
+        return a, lam, None
 
 
 def mamba_apply(p: dict, x: torch.Tensor, cfg, final_state: bool = False):
@@ -141,8 +186,11 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg, final_state: bool = False):
     # discretise: abar = exp(dt * A) (diagonal), bbar * x = dt * B * x
     abar = torch.exp(dt[..., None] * a)                               # (B,S,di,n)
     bx = (dt * xc.float())[..., None] * b_in[:, :, None, :]           # (B,S,di,n)
-    h = _scan_states(abar, bx, cfg.mamba_chunk)
-    del abar
+    if L.needs_grad(abar, bx):
+        h = _SelectiveScan.apply(abar, bx, cfg.mamba_chunk)
+    else:
+        h = _scan_states(abar, bx, cfg.mamba_chunk)
+    del abar, bx
     y = (h @ c_in[..., None])[..., 0] + p["d_skip"] * xc.float()
     y = y.to(x.dtype) * F.silu(z)
     out = y @ p["out_proj"]

@@ -20,6 +20,10 @@ from repro_torch.optim.clip import tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update"]
 
+# elements of a leaf updated at once: bounds the update's fp32 temporaries
+# (an MoE expert stack of 0.42-0.94 B parameters would take 1.7-3.8 GB each)
+_SLICE = 1 << 26
+
 
 @dataclasses.dataclass(frozen=True)
 class AdamWConfig:
@@ -70,5 +74,19 @@ def adamw_update(grads: Any, state: dict, params: Any, cfg: AdamWConfig,
         new_p = (p.to(torch.float32) - lr * step).to(p.dtype)
         return new_p, m32.to(dt), v32.to(dt)
 
-    flat = tree_map(upd, grads, state["mu"], state["nu"], params)
+    def upd_leaf(g, m, v, p):
+        """upd over slices of p's first axis of at most _SLICE elements: the
+        same bits, with fp32 temporaries of a slice, not of the leaf."""
+        rows = p.shape[0] if p.dim() else 1
+        if p.numel() <= _SLICE or rows == 1:
+            return upd(g, m, v, p)
+        out = (torch.empty_like(p), torch.empty(m.shape, dtype=dt, device=m.device),
+               torch.empty(v.shape, dtype=dt, device=v.device))
+        step_rows = max(1, _SLICE // (p.numel() // rows))
+        for r0 in range(0, rows, step_rows):
+            for dst, part in zip(out, upd(*(x[r0:r0 + step_rows] for x in (g, m, v, p)))):
+                dst[r0:r0 + step_rows] = part
+        return out
+
+    flat = tree_map(upd_leaf, grads, state["mu"], state["nu"], params)
     return _pick(flat, 0), {"mu": _pick(flat, 1), "nu": _pick(flat, 2), "count": count}

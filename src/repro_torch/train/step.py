@@ -102,10 +102,12 @@ def make_train_step(model, run: RunConfig) -> Callable:
             lsum = torch.zeros((), dtype=torch.float32, device=state.step.device)
             for i in range(n):
                 loss, g = grad_fn(state.params, {k: v[i] for k, v in mb.items()})
-                gsum = tree_map(lambda a, b: a + b.to(a.dtype), gsum, g)
+                tree_map(lambda a, b: a.add_(b.to(a.dtype)), gsum, g)
+                del g                   # (in place: one fp32 tree, not three, at a time)
                 lsum = lsum + loss
             count = torch.tensor(float(n), dtype=torch.float32, device=lsum.device)
-            grads = tree_map(lambda g: g / count, gsum)
+            grads = tree_map(lambda g: g.div_(count), gsum)
+            del gsum
             loss = lsum / count
         else:
             loss, grads = grad_fn(state.params, batch)

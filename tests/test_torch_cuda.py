@@ -57,8 +57,11 @@ the rows' log-sum-exp; the B9 and B11 backward kernels give the same bits
 twice and hold to their plain closed forms on the same inputs (fp32 within
 1e-4 normwise; bf16 within twice the plain bf16 version's own distance to
 the fp32 gradient); the smoke configs' loss and every gradient on the card
-(fp32) within 1e-4 of the CPU's, one train_step likewise; init_state and
-launch.train run on the card by default.
+(fp32) within 1e-4 of the CPU's, one train_step likewise; the moe, hybrid,
+encdec and vlm smoke configs' first two train_steps likewise (B9's backward
+also at whisper-medium's encoder and cross-attention shapes and at
+qwen2-vl-7b's G = 7); init_state and launch.train run on the card by
+default.
 """
 import dataclasses
 import math
@@ -1501,6 +1504,9 @@ B9_BWD_CASES = [
     (1, 1, 5, 4, 4, 64, False, 0),          # one query row against 5 keys
     (1, 300, 300, 4, 1, 128, True, 130),    # a window across 128-key tiles
     (1, 1024, 1024, 15, 5, 64, True, 0),    # smollm's heads at S = 1024
+    (1, 1500, 1500, 16, 16, 64, False, 0),  # whisper-medium's encoder
+    (1, 448, 1500, 16, 16, 64, False, 0),   # its cross-attention: 28 keys in the last tile
+    (1, 2048, 2048, 28, 4, 128, True, 0),   # qwen2-vl-7b's G = 7 at dh 128
 ]
 
 
@@ -1636,6 +1642,48 @@ def test_loss_and_gradients_on_card_match_cpu(card, arch):
     n = model.cfg.n_layers
     assert launched["card"] == ({"flash_attention": n, "flash_attention_bwd": n}
                                 if arch.startswith("smollm") else {"wkv": n, "wkv_bwd": n})
+
+
+TRAIN_FAMILY_SMOKES = {"phi3.5-moe-42b-a6.6b": {}, "jamba-v0.1-52b": {},
+                      "whisper-medium": {}, "qwen2-vl-7b": {"microbatch": 2}}
+
+
+@pytest.mark.parametrize("arch", list(TRAIN_FAMILY_SMOKES))
+def test_family_smoke_trains_on_card_like_cpu(card, arch):
+    """The moe, hybrid, encdec and vlm smoke configs (fp32; qwen2-vl in 2
+    microbatches) train 2 steps on the card and on the CPU from the same
+    state and batches: each step's loss, grad norm and lr within 1e-4, and
+    the card's launches B9's forward and backward once for each attention
+    call of a microbatch (the smoke configs run without remat)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.data.lm import lm_batches
+    from repro_torch.train import TrainState, make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    cfg = dataclasses.replace(get_config(arch, smoke=True), **TRAIN_FAMILY_SMOKES[arch])
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    seq = 48 + cfg.n_vision_tokens
+    step = make_train_step(model, RunConfig(learning_rate=1e-3, warmup_steps=2, total_steps=10))
+    mets = {}
+    for where, dev in (("card", card), ("cpu", torch.device("cpu"))):
+        p = _to(params, dev)
+        state = TrainState(p, adamw_init(p, AdamWConfig(moment_dtype=cfg.moment_dtype)),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+        batches = lm_batches(model, seq=seq, batch=4, device=dev)
+        _build.reset_launches()
+        mets[where] = []
+        for _ in range(2):
+            state, met = step(state, next(batches))
+            mets[where].append({k: float(x) for k, x in met.items()})
+        if where == "card":
+            launched = {k: n for k, n in _build.LAUNCHES.items() if n}
+    for got, want in zip(mets["card"], mets["cpu"]):
+        for key in ("loss", "grad_norm", "lr"):
+            assert abs(got[key] - want[key]) <= 1e-4 * abs(want[key]), (key, got, want)
+    calls = (cfg.n_enc_layers + 2 * cfg.n_layers if cfg.family == "encdec"
+             else cfg.layer_kinds().count("attn")) * max(1, cfg.microbatch) * 2
+    assert launched == {"flash_attention": calls, "flash_attention_bwd": calls}
 
 
 def test_training_entry_points_run_on_card(card, tmp_path):
