@@ -105,6 +105,23 @@ Phases, each fatal on failure (nothing is caught):
               dense run in float64, and one fp32 batched sweep timed; a
               card fit saved, loaded back on the card, its
               arrays, history, data and predictions equal bit for bit;
+  8b'. shard_map  `api.fit` with BackendSpec(name="shard_map") at the
+              paper's size (Friedman-1, D=5 agents one attribute each,
+              N=2000 train and 2000 test, degree-4 agents, fp32,
+              use_kernel): five ranks of a gloo group on cuda:0, one agent
+              each, started by fit itself (collectives staged through the
+              host) — icoa incremental at alpha=1, icoa+MM (alpha=100,
+              delta=0.01), the dense schedule, averaging, residual
+              refitting and the incremental run with checks="raise"; each
+              card run against the same spec on the CPU in float64 (the
+              card's data cast, plain products; all six in place on one
+              launched group of five CPU ranks) at phase 4's tolerance
+              (MM_TOL for icoa+MM), bytes equal, the checked run equal to
+              its off twin bit for bit, every rank's final weights and A0
+              the same bits, B1 and B3 launches counted by each rank's
+              _build.LAUNCHES (exactly as the shard_map schedule says),
+              seconds per sweep beside the local backend's on the same
+              spec and the collectives' share of each rank's time;
   8c. transport  the transport layer on the kernels: the paper cell (3
               sweeps, fused and incremental, use_kernel) on every topology
               (full, ring, star, random_graph p=0.8 seed=3) x codec
@@ -2039,6 +2056,172 @@ def phase_data(api, _build, icoa, data_sources):
         f"back on the card: params, weights, f, history, data and predictions "
         f"equal bit for bit (test MSE {res.test_mse!r})")
     log(f"[data] phase 8b took {time.perf_counter() - t_phase:.1f} s")
+    return totals
+
+
+# ------------------------------------------------------- 8b'. shard_map
+
+
+SHARD_SWEEPS = 5            # every shard_map run but icoa+MM (MM_SWEEPS)
+
+
+def expected_shard_launches(engine: str, d: int, sweeps: int) -> dict:
+    """Kernel launches of ONE rank of core/distributed.py's run_distributed
+    with use_kernel: gram at record 0 and, per sweep, the record (and the
+    CovState build in the incremental body); row_gram twice per agent
+    update (probe and commit) in the incremental body.  The dense body
+    builds A0 with plain products; the baselines launch nothing."""
+    if engine == "dense":
+        return {"gram": 1 + sweeps, "row_gram": 0}
+    if engine in ("incremental", "fused"):
+        return {"gram": 1 + 2 * sweeps, "row_gram": 2 * d * sweeps}
+    return {"gram": 0, "row_gram": 0}
+
+
+def shard_runs(api) -> dict:
+    """The phase's specs: name -> ExperimentSpec on the shard_map backend."""
+    shard = api.BackendSpec(name="shard_map")
+    sol = dict(n_sweeps=SHARD_SWEEPS, eps=0.0, use_kernel=True)
+    return {
+        "incremental": api.ExperimentSpec(solver=api.SolverSpec(**sol), backend=shard),
+        "minimax": api.ExperimentSpec(solver=api.SolverSpec(
+            **dict(sol, n_sweeps=MM_SWEEPS), alpha=ALPHA_MM, delta=DELTA_MM),
+            backend=shard),
+        "dense": api.ExperimentSpec(solver=api.SolverSpec(engine="dense", **sol),
+                                    backend=shard),
+        "averaging": api.ExperimentSpec(solver=api.SolverSpec(name="averaging"),
+                                        backend=shard),
+        "residual_refitting": api.ExperimentSpec(solver=api.SolverSpec(
+            name="residual_refitting", n_sweeps=SHARD_SWEEPS), backend=shard),
+        "checked": api.ExperimentSpec(solver=api.SolverSpec(**sol),
+                                      backend=api.BackendSpec(name="shard_map",
+                                                              checks="raise")),
+    }
+
+
+def shard_map_cpu_twins(group, specs: dict, arrays: list, groups) -> dict:
+    """A rank of phase 8b''s CPU group: every spec fitted in place on the
+    group (the shard_map backend's torchrun form) in float64 on the given
+    data; the histories."""
+    from repro_torch import api
+
+    del group                       # api.fit finds the process's group
+    torch.set_default_dtype(torch.float64)
+    data = api.Dataset(*(torch.from_numpy(a) for a in arrays), groups)
+    return {name: api.fit(spec, device="cpu", data=data).history
+            for name, spec in specs.items()}
+
+
+def phase_shard_map(api, _build) -> dict:
+    """Phase 8b': the shard_map backend, one agent a rank of a gloo group
+    on cuda:0, through api.fit at the paper's size; the ranks' B1/B3
+    launches (summed over the ranks) for the kernels line."""
+    from repro_torch.core import distributed
+
+    t_phase = time.perf_counter()
+    totals = {"gram": 0, "row_gram": 0}
+    base = api.ExperimentSpec()
+    data = base.data.build("cuda")
+    d = data.xcols.shape[0]
+    require(d == 5 and data.y.dtype == torch.float32, f"shard_map: data {d} agents")
+    card = {}
+    for name, spec in shard_runs(api).items():
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = api.fit(spec, device="cuda", data=data)
+        wall = time.perf_counter() - t0
+        reports = distributed.last_ranks()
+        require(len(reports) == d and [r["rank"] for r in reports] == list(range(d)),
+                f"shard_map {name}: {len(reports)} rank reports")
+        sweeps = len(res.history.train_mse) - (1 if spec.solver.name == "icoa" else 0)
+        want = expected_shard_launches(
+            spec.solver.engine if spec.solver.name == "icoa" else spec.solver.name,
+            d, sweeps)
+        for r in reports:
+            got = {k: r["launches"][k] for k in want}
+            require(got == want, f"shard_map {name}: rank {r['rank']} launches "
+                                 f"{got} != {want}")
+            require(all(v == 0 for k, v in r["launches"].items() if k not in want),
+                    f"shard_map {name}: rank {r['rank']} launched {r['launches']}")
+            for k in want:
+                totals[k] += r["launches"][k]
+        require(all(v == 0 for v in _build.LAUNCHES.values()),
+                f"shard_map {name}: the caller launched {_build.LAUNCHES}")
+        if spec.solver.name == "icoa":
+            for r in reports[1:]:
+                require(np.array_equal(r["weights"], reports[0]["weights"])
+                        and np.array_equal(r["a0"], reports[0]["a0"]),
+                        f"shard_map {name}: rank {r['rank']}'s final weights or A0 "
+                        f"differ from rank 0's")
+        card[name] = (res, reports, wall)
+        coll = [r["collectives"] for r in reports]
+        log(f"[shard_map] {name}: card fit {wall:.3f} s (5 ranks started by fit); "
+            f"rank seconds {[round(r['seconds'], 4) for r in reports]}; sweep "
+            f"seconds rank 0 {[round(x, 5) for x in reports[0]['sweep_seconds']]}; "
+            f"collectives calls {coll[0]['calls']} seconds "
+            f"{[round(c['seconds'], 4) for c in coll]} staged bytes "
+            f"{coll[0]['staged_bytes']}; launches per rank "
+            f"{json.dumps({k: reports[0]['launches'][k] for k in want})}")
+    log(f"[shard_map] every icoa run's five ranks hold the same final weights and "
+        f"A0 bit for bit; B1/B3 launches over the ranks {json.dumps(totals)}")
+
+    # --- each card run against the same spec on the CPU in float64 (plain
+    # products: the kernels' plain versions would compute fp32), all six in
+    # place on one launched group of five CPU ranks
+    t0 = time.perf_counter()
+    cpu_specs = {name: dataclasses.replace(spec, solver=dataclasses.replace(
+        spec.solver, use_kernel=False)) for name, spec in shard_runs(api).items()}
+    twins = distributed.launch(shard_map_cpu_twins, d, (
+        cpu_specs, [t.to("cpu", torch.float64).numpy() for t in data[:4]],
+        data.groups))[0]
+    log(f"[shard_map] the six float64 CPU runs on five CPU ranks took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in cpu_specs:
+        hg, hc = card[name][0].history, twins[name]
+        require(hg.bytes_transmitted == hc.bytes_transmitted,
+                f"shard_map {name}: bytes {hg.bytes_transmitted} vs cpu "
+                f"{hc.bytes_transmitted}")
+        tol = MM_TOL if name == "minimax" else 1e-4
+        worst = {key: max_rel(getattr(hg, key), getattr(hc, key))
+                 for key in ("train_mse", "test_mse", "eta")}
+        require(max(worst.values()) <= tol,
+                f"shard_map {name}: card vs cpu float64 {worst} > {tol}")
+        log(f"[shard_map] {name}: card (fp32) vs cpu (float64) max rel "
+            f"{json.dumps(worst)} (bound {tol:g}); bytes a sweep "
+            f"{hg.bytes_transmitted[-1]!r}; final test MSE card "
+            f"{hg.test_mse[-1]!r} cpu {hc.test_mse[-1]!r}")
+    on, off = card["checked"][0], card["incremental"][0]
+    require(on.history.as_dict() == off.history.as_dict()
+            and torch.equal(on.weights, off.weights)
+            and all(np.array_equal(a["a0"], b["a0"])
+                    for a, b in zip(card["checked"][1], card["incremental"][1])),
+            "shard_map: the checked run differs from its off twin")
+    log("[shard_map] checks='raise' gave the off run's bits (history, weights, "
+        "every rank's A0)")
+
+    # --- seconds per sweep beside the local backend on the same spec
+    for name in ("incremental", "minimax", "dense"):
+        spec = shard_runs(api)[name]
+        # the local dense engine runs the plain products only
+        local = dataclasses.replace(spec, backend=api.BackendSpec(),
+                                    solver=dataclasses.replace(
+                                        spec.solver, use_kernel=name != "dense"))
+        api.fit(local, device="cuda", data=data)               # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lres = api.fit(local, device="cuda", data=data)
+        torch.cuda.synchronize()
+        lsweep = (time.perf_counter() - t0) / (len(lres.history.eta) - 1)
+        res, reports, _ = card[name]
+        sweeps = len(res.history.eta) - 1
+        per_rank = [r["seconds"] / sweeps for r in reports]
+        sweep_only = [float(np.mean(r["sweep_seconds"])) for r in reports]
+        share = [r["collectives"]["seconds"] / r["seconds"] for r in reports]
+        log(f"[shard_map] {name}: seconds a sweep on the card — local backend "
+            f"{lsweep:.5f} (fit / sweeps), shard_map {max(per_rank):.5f} (rank run "
+            f"/ sweeps, slowest rank; the sweep alone {max(sweep_only):.5f}); "
+            f"collectives' share of each rank's run {[round(x, 3) for x in share]}")
+    log(f"[shard_map] phase 8b' took {time.perf_counter() - t_phase:.1f} s")
     return totals
 
 
@@ -4666,6 +4849,9 @@ def main() -> None:
     for k_, v_ in phase_data(api, _build, icoa, data_sources).items():
         launches[k_] += v_
     stamp("data")
+    for k_, v_ in phase_shard_map(api, _build).items():
+        launches[k_] += v_
+    stamp("shard_map")
     rows += phase_lm_kernels(_build, fa_ops, fa_ref, fd_ops, fd_ref, wkv_ops, wkv_ref,
                              get_config)
     stamp("lm kernels")

@@ -65,6 +65,11 @@ class CheckError(RuntimeError):
         super().__init__(site + where)
         self.site = site
         self.trial = trial
+        self.n_trials = n_trials
+
+    def __reduce__(self):
+        # pickled by its fields (a distributed run's rank sends it back)
+        return CheckError, (self.site, self.trial, self.n_trials)
 
 
 def validate_mode(mode: str, where: str = "checks") -> str:

@@ -18,8 +18,12 @@ difference, as in the JAX package: the batched schedule is static, so
 eps rule would have stopped.  The trials' data are drawn on the device in
 one pass from the stack of their keys (data.sources.make_trial_batch).
 
+On the shard_map backend only the serial form runs (`compiled=False`:
+every trial one `fit`, one agent a rank); the compiled trial loop waits
+for ROADMAP A11b.
+
 BackendSpec's Monte-Carlo knobs: `trial_devices` of None or 1 runs on one
-card (more waits for ROADMAP A11); `compute_dtype` casts the generated data,
+card (more waits for ROADMAP A11b); `compute_dtype` casts the generated data,
 and so the whole solve (the draw is in torch's default float dtype, as
 `fit`'s); `donate` is accepted and has no effect (PyTorch runs
 eagerly: there is no compiled program whose input buffer could be donated).
@@ -75,7 +79,7 @@ def _can_compile(spec: ExperimentSpec) -> bool:
 
 def _check_trial_devices(spec: ExperimentSpec, dev: torch.device) -> None:
     """trial_devices of None or 1: one device.  More is a multi-device
-    trial mesh (ROADMAP A11); more than exist is a SpecError as well."""
+    trial mesh (ROADMAP A11b); more than exist is a SpecError as well."""
     k = spec.backend.trial_devices
     if k is None or k == 1:
         return
@@ -83,7 +87,7 @@ def _check_trial_devices(spec: ExperimentSpec, dev: torch.device) -> None:
     have = (f" (and only {avail} {dev.type} device(s) exist)" if k > avail
             else "")
     raise _not_ported(f"backend.trial_devices={k}, a trial mesh over several "
-                      f"devices{have},", "A11")
+                      f"devices{have},", "A11b")
 
 
 def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
@@ -91,7 +95,9 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
     """Run `n_trials` independent Monte-Carlo trials of one spec on `device`.
 
     `compiled=None` runs every trial as one batched program (every built-in
-    solver); `compiled=False` runs `n_trials` serial `fit` calls instead.
+    solver); `compiled=False` runs `n_trials` serial `fit` calls instead,
+    the one form the shard_map backend runs yet (its compiled trial loop,
+    ROADMAP A11b, raises NotPortedError).
     Trial t equals `fit(trial_spec(spec, t))` on the same device up to the
     order of fp32 sums; the batched icoa path ignores `solver.eps` and
     reports fit's stopping record as History.converged_at.  Each trial
@@ -105,6 +111,10 @@ def batch_fit(spec: ExperimentSpec, n_trials: int, *, device="cuda",
     if n_trials < 1:
         raise SpecError(f"need n_trials >= 1, got {n_trials}")
     _check_trial_devices(spec, dev)
+    if spec.backend.name == "shard_map" and compiled is not False:
+        raise _not_ported("batch_fit's compiled trial loop on the shard_map "
+                          "backend (pass compiled=False for serial fits)",
+                          "A11b")
     if compiled is None:
         compiled = _can_compile(spec)
     if not compiled:

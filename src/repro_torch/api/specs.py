@@ -296,11 +296,15 @@ class BackendSpec:
             raise SpecError(str(e)) from None
         if self.trial_devices is not None and self.trial_devices < 1:
             raise SpecError(f"trial_devices must be >= 1 (got {self.trial_devices})")
+        if self.name == "shard_map" and self.trial_devices is not None:
+            raise SpecError(
+                "trial_devices shards the trial axis of the LOCAL backend; "
+                "the shard_map backend devotes the whole agent group to each "
+                "trial (n_devices sizes it) — the knob would be silently "
+                "ignored")
         if self.compute_dtype is not None and self.compute_dtype not in _COMPUTE_DTYPES:
             raise SpecError(f"unknown compute_dtype {self.compute_dtype!r}; "
                             f"pick one of {list(_COMPUTE_DTYPES)}")
-        if self.name == "shard_map":
-            raise _not_ported("backend='shard_map' (multi-device)", "A11")
 
 
 @dataclasses.dataclass(frozen=True)

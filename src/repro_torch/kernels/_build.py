@@ -19,6 +19,9 @@ stream from `torch.cuda.current_stream()`, and the C function's return code
 prototype of each (symbol, argument types) is set once and kept, so a launch
 costs the host one pass over its arguments.
 
+A process that has called `load_only()` (a rank of a distributed run)
+loads the libraries its launcher built and never runs nvcc.
+
 Each nvcc build and each library load is counted by source for the
 compile and capture auditor (analysis.recompile: "build:<source>",
 "load:<source>").
@@ -50,8 +53,8 @@ import torch
 from repro_torch.analysis import recompile
 
 __all__ = ["LAUNCHES", "KernelBuildError", "arrivals", "as_f32", "build_all",
-           "build_log", "check_cuda_tensor", "launch", "on_cpu", "query",
-           "reset_launches", "sm_count"]
+           "build_log", "check_cuda_tensor", "launch", "load_only", "on_cpu",
+           "query", "reset_launches", "sm_count"]
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -74,6 +77,18 @@ LAUNCHES: Dict[str, int] = {"gram": 0, "row_gram": 0, "probe_sweep": 0,
 
 class KernelBuildError(RuntimeError):
     """nvcc is missing, a kernel failed to build, or the card cannot run it."""
+
+
+_LOAD_ONLY = False
+
+
+def load_only() -> None:
+    """From now on this process loads the libraries and never builds one: a
+    missing library raises.  The ranks of a distributed run call it, so D
+    processes never run nvcc into one build directory at once (their
+    launcher builds every library before it starts them)."""
+    global _LOAD_ONLY
+    _LOAD_ONLY = True
 
 
 def reset_launches() -> None:
@@ -117,6 +132,11 @@ def _libraries() -> Dict[str, ctypes.CDLL]:
             f"compute capability {cap[0]}.{cap[1]}")
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = [(src, _lib_path(src)) for src in _sources()]
+    missing = [out.name for _, out in todo if not out.is_file()]
+    if _LOAD_ONLY and missing:
+        raise KernelBuildError(
+            f"this process only loads kernel libraries, and {missing} are not "
+            f"built in {_BUILD_DIR} (build them first: _build.build_all())")
     procs = []
     for src, out in todo:
         if out.is_file():

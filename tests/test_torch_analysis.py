@@ -452,8 +452,17 @@ def test_stream_raise_matches_reference_off_f64():
 
 
 def test_shard_map_still_waits_for_a11():
-    with pytest.raises(tapi.NotPortedError, match=r"ROADMAP A11\b"):
-        tapi.BackendSpec(name="shard_map", checks="raise").validate()
+    """A checked shard_map spec validates since A11a; what still raises
+    names A11b: its compiled batch and a trial mesh of trial_devices > 1
+    (on the local backend: shard_map with trial_devices is a SpecError)."""
+    backend = tapi.BackendSpec(name="shard_map", checks="raise")
+    backend.validate()
+    with pytest.raises(tapi.NotPortedError, match=r"ROADMAP A11b\b"):
+        tapi.batch_fit(tapi.ExperimentSpec(backend=backend), 2, device="cpu")
+    local = tapi.ExperimentSpec(backend=tapi.BackendSpec(checks="raise",
+                                                         trial_devices=2))
+    with pytest.raises(tapi.NotPortedError, match=r"ROADMAP A11b\b"):
+        tapi.batch_fit(local, 2, device="cpu")
 
 
 # ---------------------------------------------------------------------- lint

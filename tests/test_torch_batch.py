@@ -472,7 +472,8 @@ def test_batch_fit_needs_a_card_unless_asked(single_thread):
 
 
 @pytest.mark.parametrize("spec,item", [
-    (tapi.ExperimentSpec(backend=tapi.BackendSpec(trial_devices=2)), "A11"),
+    pytest.param(tapi.ExperimentSpec(backend=tapi.BackendSpec(trial_devices=2)),
+                 "A11b", id="spec0-A11"),
 ])
 def test_batch_fit_raises_not_ported(spec, item):
     with pytest.raises(tapi.NotPortedError, match=rf"ROADMAP {item}\b"):

@@ -61,7 +61,8 @@ the fp32 gradient); the smoke configs' loss and every gradient on the card
 encdec and vlm smoke configs' first two train_steps likewise (B9's backward
 also at whisper-medium's encoder and cross-attention shapes and at
 qwen2-vl-7b's G = 7); init_state and launch.train run on the card by
-default.
+default.  The shard_map backend: two ranks of a gloo group on cuda:0 each
+launch B1 and B3, counted by their own launch counters.
 """
 import dataclasses
 import math
@@ -1699,3 +1700,27 @@ def test_training_entry_points_run_on_card(card, tmp_path):
             "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"]
     assert launch_train.main(args) == 0
     assert launch_train.main(args[:4] + ["1"] + args[5:]) == 0
+
+
+# ------------------------------------------- the shard_map backend's ranks
+
+
+@pytest.mark.cuda
+def test_two_ranks_on_one_card_launch_b1_and_b3(card):
+    """Two ranks of a gloo group share cuda:0 (the shard_map backend's
+    layout on one card): each launches B1 and B3 once, counted by its own
+    _build.LAUNCHES, each result within 1e-5 of the plain version, and
+    the gather of their CUDA rows (staged through the host) returns each
+    rank's row bit for bit, on the card."""
+    import torch_distributed_helpers as helpers
+    from repro_torch.core import distributed
+
+    outs = distributed.launch(helpers.card_kernels, 2, (5, 2000), device="cuda",
+                              build_kernels=True)
+    for r, out in enumerate(outs):
+        assert out["rank"] == r
+        assert out["launches"] == {"gram": 1, "row_gram": 1}
+        assert out["gram_err"] <= 1e-5 and out["row_gram_err"] <= 1e-5
+        assert out["device"].startswith("cuda") and out["staged"] > 0
+        for k in range(2):
+            assert np.array_equal(out["gathered"][k], outs[k]["row"])

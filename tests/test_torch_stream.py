@@ -420,7 +420,7 @@ def test_stream_spec_validation_and_dicts_match_jax():
     bad = [
         ({"experiment": {"solver": {"name": "averaging"}}}, "no sweep to cadence"),
         ({"experiment": {"solver": {"alpha": 10.0}}}, "alpha=1"),
-        ({"experiment": {"backend": {"name": "shard_map"}}}, "A11"),
+        ({"experiment": {"backend": {"name": "shard_map"}}}, "local backend only"),
         ({"window": 100}, "multiple of chunk"),
         ({"checkpoint_every": 40}, "multiple of chunk"),
         ({"serve_buckets": []}, "serve_buckets"),
@@ -437,8 +437,7 @@ def test_stream_spec_validation_and_dicts_match_jax():
                 dd[k] = v
         with pytest.raises(tapi.SpecError, match=msg):
             tapi.stream_spec_from_dict(dd).validate()
-        if msg != "A11":                     # the JAX package runs shard_map
-            with pytest.raises(japi.SpecError):
-                japi.stream_spec_from_dict(dd).validate()
+        with pytest.raises(japi.SpecError):
+            japi.stream_spec_from_dict(dd).validate()
     with pytest.raises(tapi.SpecError, match="unrecognised"):
         tapi.stream_spec_from_dict({"windw": 3})
